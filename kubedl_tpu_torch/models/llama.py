@@ -7,10 +7,17 @@ Parameters are the JAX package's tree: a dict with ``embed`` [vocab, d],
 embedding is tied, ``lm_head``. Matrices are ``[in, out]`` (``x @ w``),
 norms and biases f32, everything else ``config.dtype``. Functions take
 tensors and run where the tensors lie; attention goes through
-ops/flash_attention.py, so a CUDA forward runs the hand-written kernel.
+ops/flash_attention.py, so a CUDA forward runs the hand-written kernel and,
+under autograd, its backward runs the flash backward kernels.
 
-Not ported yet: MoE layers, context parallelism, the pipelined forward,
-remat and the training loss (ROADMAP.md).
+Training: `loss_fn` is the next-token cross entropy, with the chunked
+variant (`ce_chunks`) that never holds the [b, t, vocab] logits; with
+``config.remat`` each layer runs under torch.utils.checkpoint
+(non-reentrant), recomputing everything (``remat_policy=None``) or saving
+the weight matmuls' outputs (``"dots"``).
+
+Not ported yet: MoE layers, context parallelism and the pipelined forward
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
@@ -43,7 +52,7 @@ class RopeScaling:
 class LlamaConfig:
     """Field for field the JAX package's LlamaConfig (same names, same
     defaults; ``dtype`` is a torch dtype). Fields of paths the port does
-    not run yet (MoE, context parallelism, remat, chunked loss) are kept
+    not run yet (MoE, context parallelism) are kept
     so a JAX config carries across whole."""
 
     vocab_size: int = 32000
@@ -222,19 +231,28 @@ def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _leaves(tree):
+def tree_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     else:
         yield tree
 
 
+def tree_map(fn, tree):
+    """The same nested dict/list tree with fn applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def param_count(params) -> int:
-    return sum(int(p.numel()) for p in _leaves(params))
+    return sum(int(p.numel()) for p in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -373,14 +391,42 @@ def _embed(params, tokens, c: LlamaConfig):
     return x
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (the weight products),
+    recompute the rest, flash forward included: the JAX package's
+    ``dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: Optional[str]):
+    """fn under non-reentrant torch.utils.checkpoint: policy None saves
+    nothing (full recompute), "dots" saves the weight matmuls."""
+    if policy is None:
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy != "dots":
+        raise ValueError(f"unknown remat_policy {policy!r} (None | 'dots')")
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+
+
 def _backbone(params: Dict, tokens, config: LlamaConfig):
-    """Pre-final-norm activations [batch, seq, d]."""
+    """Pre-final-norm activations [batch, seq, d]. With config.remat and
+    grad enabled, each layer's activations are recomputed in backward."""
     b, t = tokens.shape
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None].expand(b, t)
     x = _embed(params, tokens, config)
+    remat = config.remat and torch.is_grad_enabled()
     for i, layer in enumerate(params["layers"]):
-        x = _attention_block(x, layer, config, positions, window=config.window_for(i))
-        x = _mlp_block(x, layer, config)
+        def layer_fn(x, layer=layer, window=config.window_for(i)):
+            x = _attention_block(x, layer, config, positions, window=window)
+            return _mlp_block(x, layer, config)
+
+        x = _remat(layer_fn, config.remat_policy)(x) if remat else layer_fn(x)
     return x
 
 
@@ -404,3 +450,61 @@ def _lm_head(x, params, config: LlamaConfig):
     if config.final_logit_softcap:
         logits = softcap(logits, config.final_logit_softcap)
     return logits
+
+
+def _next_token_ce(logits, targets):
+    """Mean negative log-likelihood of targets [b, t] under f32 logits."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
+
+
+def _next_token_ce_chunked(x, params, config: LlamaConfig, targets, n_chunks: int):
+    """CE without materializing [b, t, V] f32 logits: the vocab runs in
+    n_chunks slices, each slice's logits recomputed in backward
+    (torch.utils.checkpoint) and only [b, t] statistics kept; an online
+    logsumexp merges the chunks exactly."""
+    xn = rms_norm(x, params["final_norm"], config.rms_eps, config.norm_offset)
+    head = _head_matrix(params, config)
+    d, V = head.shape
+    if V % n_chunks:
+        raise ValueError(f"vocab {V} not divisible by ce_chunks {n_chunks}")
+    cs = V // n_chunks
+    targets = targets.long()
+
+    def chunk_stats(h_c, off: int):
+        logits = (xn @ h_c).float()  # [b, t, cs]
+        if config.final_logit_softcap:
+            # elementwise, so capping per chunk == capping the full logits
+            logits = softcap(logits, config.final_logit_softcap)
+        m = logits.amax(dim=-1)
+        l = torch.exp(logits - m[..., None]).sum(dim=-1)
+        in_chunk = (targets >= off) & (targets < off + cs)
+        idx = (targets - off).clamp(0, cs - 1)
+        tl = torch.gather(logits, -1, idx[..., None])[..., 0]
+        return m, l, torch.where(in_chunk, tl, float("-inf"))
+
+    big_m = torch.full(targets.shape, float("-inf"), device=x.device)
+    big_l = torch.zeros(targets.shape, device=x.device)
+    tgt = torch.full(targets.shape, float("-inf"), device=x.device)
+    for c in range(n_chunks):
+        h_c = head[:, c * cs:(c + 1) * cs]
+        if torch.is_grad_enabled():
+            m, l, tl = checkpoint(chunk_stats, h_c, c * cs, use_reentrant=False)
+        else:
+            m, l, tl = chunk_stats(h_c, c * cs)
+        new_m = torch.maximum(big_m, m)
+        big_l = big_l * torch.exp(big_m - new_m) + l * torch.exp(m - new_m)
+        # exactly one chunk holds each target; the rest contribute -inf
+        big_m, tgt = new_m, torch.maximum(tgt, tl)
+    return (big_m + torch.log(big_l) - tgt).mean()
+
+
+def loss_fn(params, tokens, config: LlamaConfig):
+    """Next-token cross entropy over tokens [b, t]: inputs [:, :-1],
+    targets [:, 1:]. With config.ce_chunks > 1 the loss runs chunked (the
+    full logits never exist). Dense layers only: there is no MoE aux term."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if config.ce_chunks > 1:
+        x = _backbone(params, inputs, config)
+        return _next_token_ce_chunked(x, params, config, targets, config.ce_chunks)
+    return _next_token_ce(forward(params, inputs, config), targets)

@@ -25,6 +25,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when it was
 # already on disk); chip_smoke.py reports them
@@ -44,8 +48,8 @@ def nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels are built from source at first use")
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                     "the CUDA kernels are built from source at first use")
 
 
 def library_path(name: str) -> Path:
@@ -54,33 +58,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    out.with_suffix(".so.log").write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out
+def build(*names: str) -> Dict[str, Path]:
+    """Compile each csrc/<name>.cu whose library is not built yet, one nvcc
+    process a source, all started together; returns {name: library}."""
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            build_seconds.setdefault(name, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".so.log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    if failed:
+        raise BuildError("\n".join(failed))
+    return {name: library_path(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built on first call."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)[name]))
         _loaded[name] = lib
     return lib
 

@@ -1,5 +1,5 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper and its
-plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper (forward and
+backward) and their plain PyTorch versions.
 
 Counterpart of kubedl_tpu/ops/flash_attention.py. The semantics are that
 module's: [batch, heads, seq, head_dim] tensors, GQA (k/v may carry fewer
@@ -10,9 +10,12 @@ the scaled scores before masking. The TPU module's dispatch constants
 snapping) describe its VMEM and MXU and are not carried over.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
-kernel (ops/csrc/flash_fwd.cu) or the call raises on a dtype, head dim or
-shape the kernel does not take. There is no fallback between the two.
-Forward only: the backward kernels come with training.
+kernels (ops/csrc/flash_fwd.cu forward, ops/csrc/flash_bwd.cu backward) or
+the call raises on a dtype, head dim or shape they do not take. There is
+no fallback between the two. When an input requires grad, `flash_attention`
+goes through `FlashAttention`, a torch.autograd.Function whose forward
+keeps (q, k, v, out, lse) and whose backward is the dq and dkv kernels (the
+plain backward on CPU tensors).
 """
 from __future__ import annotations
 
@@ -170,6 +173,163 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                              sm_scale: Optional[float] = None,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, written out in f32
+    (not autograd of the forward): (dq, dk, dv) in the dtypes of q, k, v.
+
+    p = exp(s - lse) under the masks, delta = rowsum(out * dout),
+    ds = p * (dp - delta) times 1 - (capped / cap)^2 with a softcap; the
+    query heads of a GQA group sum into their KV head."""
+    _check(q, k, v, causal, window, softcap)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, hkv, rep, s, d)
+    dog = dout.float().reshape(b, hkv, rep, s, d)
+    kf, vf = k.float(), v.float()
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * sm_scale
+    if softcap is not None:
+        sc = torch.tanh(sc / softcap) * softcap
+    p = torch.exp(sc - lse.float().reshape(b, hkv, rep, s, 1))
+    mask = _mask(s, causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    delta = (out.float().reshape(b, hkv, rep, s, d) * dog).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, vf) - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - (sc / softcap) ** 2)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sm_scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * sm_scale
+    return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _lib_bwd():
+    lib = _build.load("flash_bwd")
+    if lib.kubedl_flash_bwd_dq_bf16.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        tail = [ctypes.c_float, I, I, ctypes.c_float, P]
+        lib.kubedl_flash_bwd_dq_bf16.argtypes = [P] * 7 + [I] * 6 + [L] * 15 + tail
+        lib.kubedl_flash_bwd_dkv_bf16.argtypes = [P] * 8 + [I] * 6 + [L] * 18 + tail
+        lib.kubedl_flash_bwd_dq_bf16.restype = I
+        lib.kubedl_flash_bwd_dkv_bf16.restype = I
+        lib.kubedl_flash_bwd_error_string.argtypes = [I]
+        lib.kubedl_flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap):
+    """Check, pad and allocate for the backward kernels: the argument lists
+    of the dq and dkv launches and the (dq, dk, dv) they write."""
+    _check(q, k, v, causal, window, softcap)
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if x.device.type != "cuda":
+            raise ValueError(f"flash_attention_bwd: {name} is on {x.device}, "
+                             f"the kernels need CUDA tensors")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention_bwd: {name} is {x.dtype}; the "
+                            f"kernels take bfloat16")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / dout {tuple(dout.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if (lse.shape != (b, hq, s) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be [b, hq, s] float32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    if len({x.device for x in (q, k, v, out, dout)}) != 1:
+        raise ValueError("q, k, v, out, dout must be on one device")
+    dk_ = next((w for w in HEAD_DIMS if w >= d), None)
+    if dk_ is None:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} > {HEAD_DIMS[-1]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    delta = (out.float() * dout.float()).sum(-1)  # [b, hq, s] f32, contiguous
+    if dk_ != d:
+        q, k, v, dout = (F.pad(x, (0, dk_ - d)) for x in (q, k, v, dout))
+    q, k, v, dout = _aligned(q), _aligned(k), _aligned(v), _aligned(dout)
+    lse = lse.contiguous()
+    grads = (torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2),
+             torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2),
+             torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2))
+    head = [q, k, v, dout, lse, delta]  # tensors: kept alive with the lists
+    dims = (b, hq, hkv, s, dk_, d)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3])
+    tail = (float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    launches = {}
+    for name, outs in (("dq", grads[:1]), ("dkv", grads[1:])):
+        launches[name] = (head + list(outs), [*dims, *strides,
+                          *(st for o in outs for st in o.stride()[:3]), *tail])
+    return launches, grads
+
+
+def _launch_bwd(name: str, args) -> None:
+    """Launch the "dq" or "dkv" kernel with its `_bwd_launch_args` entry;
+    raises on a CUDA error, counts the launch."""
+    lib = _lib_bwd()
+    tensors, rest = args
+    fn = {"dq": lib.kubedl_flash_bwd_dq_bf16, "dkv": lib.kubedl_flash_bwd_dkv_bf16}[name]
+    err = fn(*(t.data_ptr() for t in tensors), *rest)
+    if err:
+        b, hq, hkv, s, _, d = rest[:6]
+        raise RuntimeError(
+            f"flash_bwd_{name} kernel launch failed: CUDA error {err} "
+            f"({lib.kubedl_flash_bwd_error_string(err).decode()}) at "
+            f"b={b} hq={hq} hkv={hkv} s={s} d={d}")
+    if name == "dq":
+        flash_attention.bwd_dq_launches += 1
+    else:
+        flash_attention.bwd_dkv_launches += 1
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dq kernel, then the dkv kernel: (dq, dk, dv) in bf16.
+
+    Takes what `flash_attention_fwd` takes plus its (out, lse) and the
+    output gradient, with the same checks, head-dim padding and stride
+    rules; delta = rowsum(out * dout) is computed here in f32. dq is a
+    [b, hq, s, d] view of a [b, s, hq, d] buffer and dk, dv of
+    [b, s, hkv, d] buffers, the layouts the model's projections produce."""
+    launches, grads = _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale,
+                                       window, softcap)
+    _launch_bwd("dq", launches["dq"])
+    _launch_bwd("dkv", launches["dkv"])
+    return grads
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a flash backward: CPU tensors take the plain forward
+    and the plain backward, CUDA tensors the kernels (or raise)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window, softcap):
+        fwd = flash_attention_plain if q.device.type == "cpu" else flash_attention_fwd
+        out, lse = fwd(q, k, v, causal=causal, sm_scale=sm_scale, window=window,
+                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: Optional[float] = None,
                     window: Optional[int] = None,
@@ -177,8 +337,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention over [batch, q_heads, seq, head_dim] tensors (GQA k/v).
 
     CPU tensors run `flash_attention_plain`; CUDA tensors run the kernel,
-    at every sequence length, or raise. `flash_attention.launches` counts
-    kernel launches."""
+    at every sequence length, or raise. When grad is enabled and an input
+    requires it, the call goes through `FlashAttention`, whose backward is
+    the flash backward. `flash_attention.launches` counts forward kernel
+    launches, `bwd_dq_launches` and `bwd_dkv_launches` the backward's."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, sm_scale, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                      window=window, softcap=softcap)[0]
@@ -187,3 +352,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.bwd_dq_launches = 0
+flash_attention.bwd_dkv_launches = 0

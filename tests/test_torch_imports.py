@@ -1,6 +1,7 @@
 """kubedl_tpu_torch stands alone: no module of it, nor chip_smoke.py,
-imports JAX or anything of kubedl_tpu, and every module imports with JAX
-made unimportable. Entry points never pick the CPU on their own."""
+imports JAX, optax, orbax or anything of kubedl_tpu, and every module (the
+trainer included) imports with those made unimportable. Entry points never
+pick the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -26,8 +27,8 @@ def _imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
-           if m == "jax" or m.startswith(("jax.", "jaxlib", "kubedl_tpu."))
-           or m == "kubedl_tpu"]
+           if m in ("jax", "optax", "orbax", "kubedl_tpu")
+           or m.startswith(("jax.", "jaxlib", "kubedl_tpu.", "optax.", "orbax."))]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -36,13 +37,13 @@ def test_every_module_imports_without_jax():
             for p in PORT_FILES if p.name != "chip_smoke.py"]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'kubedl_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'kubedl_tpu', 'optax', 'orbax'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
-            "bad = [m for m in sys.modules if m.startswith(('jax', 'kubedl_tpu.'))"
-            " and sys.modules[m] is not None]\n"
+            "bad = [m for m in sys.modules if m.startswith(('jax', 'kubedl_tpu.', 'optax',"
+            " 'orbax')) and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok', len([m for m in sys.modules if m.startswith('kubedl_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
