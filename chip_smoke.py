@@ -33,12 +33,33 @@ Phases, each printing its own line of numbers:
      remat, cosine schedule) and its preemption contract: a subprocess
      trainer SIGTERMed after its first checkpoint exits 113, and its rerun
      resumes from that checkpoint and exits 0.
-Then one JSON line of per-kernel numbers and, last, the device line.
+  2c. the grouped matmul kernels (gmm.cu: K5 bf16 and int8, K6 and its
+     transposed-weight use, K8, K7) against their plain versions at
+     Mixtral-8x7B widths on tile maps from the real dispatch plan of
+     seeded routing (training, prefill, decode, 512-row tiles, two experts
+     unrouted), two K7 launches bit-identical, with kernel, plain and
+     library (torch._grouped_mm) times beside the bound;
+  8. MoE gradients at Mixtral width, 2 layers, b=2, S=1024: loss_fn and
+     every gradient through the kernels against the same model with
+     models/moe.py's grouped products pointed at the plain versions, and
+     the launch counts of full remat;
+  9. MoE training at Mixtral width, 4 of 32 layers: 6 steps of
+     make_train_step with AdamW and clip 1.0 at b=4, 1024-token rows;
+     losses, grad norms, step time, tokens/s, active-parameter FLOP share,
+     peak memory, one profiled step;
+  10. MoE serving, Mixtral-8x7B at full width and depth in int8, built
+     layer by layer on the card: a 2-layer prefill through the kernels
+     against the plain versions, then the serving engine (8 slots, 1024
+     positions) answers 8 greedy requests and one prompt sent twice.
+Each phase prints its seconds. Then one JSON line of per-kernel numbers
+and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
 failure raises; the script exits non-zero and prints no result. It needs a
 CUDA device and the repository beside it.
 """
 import argparse
+import contextlib
+import dataclasses
 import gc
 import glob
 import json
@@ -66,7 +87,20 @@ MAIN_SHAPE = "7b_b4_s1024"
 # the training path's attention: --batch 4 --seq-len 1024 feeds tokens[:, :-1]
 MAIN_BWD_SHAPE = "7b_b4_s1023"
 BWD_TOL = 2e-2            # max|kernel - plain| / max|plain|, each of dq, dk, dv
-GRAD_TOL = 5e-2           # phase 5, per gradient leaf (bf16 model, 2 layers)
+GRAD_TOL = 5e-2           # phases 5 and 8, per gradient leaf (bf16 model, 2 layers)
+GMM_TOL, TGMM_TOL = 2e-2, 1e-3  # max|kernel - plain| / max|plain|: bf16 out, f32 out
+# phase 2c: (tokens routed top-2 of 8, experts that may take a row)
+GMM_SHAPES = {
+    "train_R8184": (4092, 8),       # b=4 rows of 1024, S=1023 after the shift
+    "prefill_R8192": (4096, 8),     # the serving prefill cluster: 4 rows of 1024
+    "decode_R16": (8, 8),           # one tick of 8 slots
+    "tile512_R32768": (16384, 8),   # large enough for 512-row tiles
+    "skewed_R8184": (4092, 6),      # two experts own no row
+}
+# the shape each kernel's JSON numbers come from: its main path's
+MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8184",
+            "gmm_scaled": "decode_R16"}
+MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -107,10 +141,10 @@ def phase_device():
           f"{torch.__version__}, cuda {torch.version.cuda})", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     t0 = time.perf_counter()
-    _build.build("flash_fwd", "flash_bwd")
-    print(f"build: both sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
+    _build.build("flash_fwd", "flash_bwd", "gmm")
+    print(f"build: three sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
-    for src in ("flash_fwd", "flash_bwd"):
+    for src in ("flash_fwd", "flash_bwd", "gmm"):
         print(f"build: {src}.cu in {_build.build_seconds[src]:.2f} s -> "
               f"{_build.library_path(src)}", flush=True)
         for line in _build.ptxas_report(src).splitlines():
@@ -582,9 +616,12 @@ def _kernel_profile(trace_json, wall_ms):
     for e in kern:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    groups = {"flash kernels": 0.0, "GEMM (cuBLAS)": 0.0, "elementwise and other": 0.0}
+    groups = {"gmm kernels": 0.0, "flash kernels": 0.0, "GEMM (cuBLAS)": 0.0,
+              "elementwise and other": 0.0}
     for n, us in by_name.items():
-        if "flash_" in n:
+        if "gmm_kernel" in n:  # gmm_kernel<...> (K5, K6, K8) and tgmm_kernel (K7)
+            groups["gmm kernels"] += us / 1e3
+        elif "flash_" in n:
             groups["flash kernels"] += us / 1e3
         elif any(t in n.lower() for t in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
             groups["GEMM (cuBLAS)"] += us / 1e3
@@ -768,6 +805,511 @@ def phase_options():
     return dict(bench_1b=dict(losses=losses, grad_norms=gnorms, launches=list(counts)),
                 preempted_at=at)
 
+# -- the MoE slice: grouped matmul kernels, gradients, training, int8 serving --
+
+
+def _mixtral(n_layers):
+    """Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json:
+    d_model 4096, 32 q / 8 kv heads, d_ff 14336, 8 experts top 2, vocab
+    32000, rope_theta 1e6, rms_eps 1e-5, bf16) at n_layers of its 32."""
+    from kubedl_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab_size=32000, d_model=4096, n_layers=n_layers, n_heads=32,
+                             n_kv_heads=8, d_ff=14336, max_seq_len=32768, rope_theta=1e6,
+                             rms_eps=1e-5, n_experts=8, expert_top_k=2)
+
+
+def _gmm_counts():
+    from kubedl_tpu_torch.ops import gmm as G
+
+    return (G.gmm_swiglu.launches, G.gmm.launches, G.tgmm.launches, G.gmm_scaled.launches)
+
+
+def _reset_gmm_counts():
+    from kubedl_tpu_torch.ops import gmm as G
+
+    G.gmm_swiglu.launches = G.gmm.launches = G.tgmm.launches = G.gmm_scaled.launches = 0
+
+
+@contextlib.contextmanager
+def _moe_through_plain(routing):
+    """For the length of the block, models/moe.py's grouped products are the
+    plain versions (autograd of plain PyTorch) and its routing replays the
+    expert choices of the kernel run (`routing`, recorded by `_recorded`):
+    the reference side of phases 8 and 10. bf16 rounding that differs
+    between the two sides would otherwise flip a near-tie and send a token
+    to another expert, which is a different computation. The package itself
+    has no such switch. Yields the number of replayed choices that the
+    plain side's own routing would have made differently."""
+    from kubedl_tpu_torch.models import moe
+    from kubedl_tpu_torch.ops import gmm as G
+
+    saved = moe.gmm, moe.gmm_scaled, moe.gmm_swiglu, moe._top_k_gating
+    calls = iter(routing)
+    flips = [0]
+
+    def gating(gate_logits, top_k, capacity, need_slots=True):
+        if need_slots:
+            raise AssertionError("routing replay covers the dropless route only")
+        own = saved[3](gate_logits, top_k, capacity, need_slots=False)
+        experts = next(calls)
+        flips[0] += int((own[0] != experts).sum())
+        probs = torch.softmax(gate_logits, dim=-1)
+        gates = probs.gather(1, experts.T.long()).T.float()
+        weights = gates / gates.sum(dim=0, keepdim=True).clamp_min(1e-9)
+        s = gate_logits.shape[0]
+        ce = torch.zeros_like(own[4][1]).index_add_(
+            0, experts[0].long(), torch.full((s,), 1.0 / s, device=gate_logits.device))
+        return experts, own[1], weights, own[3], (probs.mean(dim=0), ce)
+
+    moe.gmm = lambda lhs, rhs, te, row_tile=G.TILE_M: G.gmm_plain(lhs, rhs, te)
+    moe.gmm_scaled = lambda lhs, rhs, te, s, row_tile=G.TILE_M: G.gmm_scaled_plain(
+        lhs, rhs, te, s)
+    moe.gmm_swiglu = lambda lhs, w1, w3, te, s1, s3, row_tile=G.TILE_M: G.gmm_swiglu_plain(
+        lhs, w1, w3, te, s1, s3)
+    moe._top_k_gating = gating
+    try:
+        yield flips
+    finally:
+        moe.gmm, moe.gmm_scaled, moe.gmm_swiglu, moe._top_k_gating = saved
+        if next(calls, None) is not None:
+            raise AssertionError("the plain run routed fewer times than the kernel run")
+
+
+@contextlib.contextmanager
+def _recorded(routing):
+    """Append the expert choices of every routing call in the block to
+    `routing` (the kernel side of phases 8 and 10)."""
+    from kubedl_tpu_torch.models import moe
+
+    real = moe._top_k_gating
+
+    def gating(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routing.append(out[0].detach().clone())
+        return out
+
+    moe._top_k_gating = gating
+    try:
+        yield
+    finally:
+        moe._top_k_gating = real
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _library(fn):
+    """(ms, None) for one PyTorch call, or (None, why) when this torch has
+    no such call for these layouts: the yardstick only, never the port."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return _time_ms(fn), None
+
+
+def phase_gmm_kernels():
+    """K5-K8 against their plain versions at Mixtral widths; returns
+    {shape: {kernel: numbers}}."""
+    from kubedl_tpu_torch.models import moe
+    from kubedl_tpu_torch.ops import gmm as G
+
+    d, ff, e = 4096, 14336, 8
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def scales(n, fan_in):  # ~max|w| / 127 of a trunc-normal / sqrt(fan_in) column
+        return (torch.rand((e, n), generator=gen, device="cuda") * 0.5 + 0.75) * (
+            2 * fan_in ** -0.5 / 127)
+
+    w1, w3, w2 = randn(e, d, ff, scale=d ** -0.5), randn(e, d, ff, scale=d ** -0.5), \
+        randn(e, ff, d, scale=ff ** -0.5)
+    q1, q3, q2 = codes(e, d, ff), codes(e, d, ff), codes(e, ff, d)
+    s1, s3, s2 = scales(ff, d), scales(ff, d), scales(d, ff)
+    ones = torch.ones((e, ff), device="cuda")
+    results = {}
+    for name, (t, live) in GMM_SHAPES.items():
+        logits = torch.randn((t, e), generator=gen, device="cuda")
+        logits[:, live:] = -1e4
+        experts = moe._top_k_gating(logits, 2, t + 1, need_slots=False)[0]
+        eid = experts.reshape(-1)
+        order, dest, _, te, m_pad = moe._dispatch_plan(eid, e)
+        r, tile = eid.numel(), m_pad // te.numel()
+        group = moe._counts(eid, e)
+        owned = int((group > 0).sum())
+        offs = torch.cumsum((group + tile - 1) // tile * tile, 0).to(torch.int32)
+        src_rows = torch.arange(t, device="cuda").repeat(2)
+
+        def routed(width, scale=1.0):  # real rows in the padded layout, zero padding
+            return moe._permute(randn(t, width, scale=scale), src_rows, order, dest, m_pad)
+
+        x = routed(d)
+        h = G.gmm_swiglu_cuda(x, w1, w3, te, ones, ones)
+        dy, dg = routed(d), routed(ff, 0.1)
+        wb, sb = 2 * owned * d * ff, 4 * owned * ff  # one stack's bytes (bf16), scales
+        io = 2 * r * (d + ff)                        # the routed rows in and out
+        cases = {  # name: (kernel, plain, library or None, tolerance, flop, bytes)
+            "gmm_swiglu": (lambda: G.gmm_swiglu_cuda(x, w1, w3, te, ones, ones),
+                           lambda: G.gmm_swiglu_plain(x, w1, w3, te, ones, ones),
+                           None, GMM_TOL, 4 * r * d * ff, 2 * wb + io),
+            "gmm_swiglu_int8": (lambda: G.gmm_swiglu_cuda(x, q1, q3, te, s1, s3),
+                                lambda: G.gmm_swiglu_plain(x, q1, q3, te, s1, s3),
+                                None, GMM_TOL, 4 * r * d * ff, wb + 2 * sb + io),
+            "gmm": (lambda: G.gmm_cuda(h, w2, te), lambda: G.gmm_plain(h, w2, te),
+                    lambda: torch._grouped_mm(h, w2, offs=offs), GMM_TOL,
+                    2 * r * d * ff, wb + io),
+            "gmm_T": (lambda: G.gmm_cuda(dy, w2.transpose(1, 2), te),
+                      lambda: G.gmm_plain(dy, w2.transpose(1, 2), te),
+                      lambda: torch._grouped_mm(dy, w2.transpose(1, 2), offs=offs), GMM_TOL,
+                      2 * r * d * ff, wb + io),
+            "gmm_scaled": (lambda: G.gmm_cuda(h, q2, te, s2),
+                           lambda: G.gmm_scaled_plain(h, q2, te, s2), None, GMM_TOL,
+                           2 * r * d * ff, wb // 2 + 4 * owned * d + io),
+            "tgmm": (lambda: G.tgmm_cuda(x, dg, te, e), lambda: G.tgmm_plain(x, dg, te, e),
+                     lambda: torch._grouped_mm(x.t(), dg, offs=offs), TGMM_TOL,
+                     2 * r * d * ff, io + 4 * e * d * ff),
+        }
+        shape = {}
+        for kname, (kern, plain, lib, tol, flop, nbytes) in cases.items():
+            got = kern()
+            same = True
+            if kname == "tgmm":
+                same = torch.equal(got, kern())
+            torch.cuda.synchronize()
+            ref = plain()
+            err, abs_err = _rel(got, ref), (got.float() - ref.float()).abs().max().item()
+            finite = bool(torch.isfinite(got.float()).all())
+            del got, ref
+            kernel_ms = _time_ms(kern)
+            plain_ms = _time_ms(plain, warmup=1, iters=3)
+            library_ms, why = (None, "no single PyTorch call computes it") if lib is None \
+                else _library(lib)
+            if kname == "tgmm" and library_ms is not None:
+                why = "bf16 output: torch._grouped_mm refuses an f32 out_dtype here"
+            bound_ms, bound_by = _bound(flop, nbytes)
+            n = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     library_note=why, bound_ms=bound_ms, bound_by=bound_by,
+                     share_of_bound=bound_ms / kernel_ms, tflops=flop / kernel_ms / 1e9,
+                     rel_err=err, max_abs_err=abs_err, deterministic=same, routed_rows=r,
+                     m_pad=m_pad, row_tile=tile, executed_share=m_pad / r,
+                     experts_owning_rows=owned)
+            shape[kname] = n
+            lib_s = f"{library_ms:.4f}" if library_ms is not None else f"n/a ({why})"
+            print(f"gmm {name} {kname}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"library_ms={lib_s} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"share={n['share_of_bound']:.3f} tflops={n['tflops']:.1f} rel_err={err:.2e} "
+                  f"R={r} m_pad={m_pad} tile={tile} m_pad/R={m_pad / r:.3f} owned={owned}"
+                  + (f" deterministic={same}" if kname == "tgmm" else ""), flush=True)
+            if not finite or not same or err > tol:
+                raise AssertionError(f"{kname} disagrees with its plain version at {name}: "
+                                     f"finite={finite} deterministic={same} rel_err={err} "
+                                     f"(tol {tol})")
+        results[name] = shape
+        del x, h, dy, dg
+    del w1, w3, w2, q1, q3, q2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names in llama.tree_leaves order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_names(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_names(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1]
+
+
+def phase_moe_grads():
+    """loss_fn and every gradient of a 2-layer Mixtral-width model, b=2,
+    S=1024, through the gmm kernels against the plain versions."""
+    from kubedl_tpu_torch.models import llama
+
+    config = _mixtral(2)
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, config.vocab_size, (2, 1025), device="cuda", dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(9))
+    out, routing, flips = {}, [], [0]
+    for label in ("kernel", "plain"):
+        tree = llama.tree_map(lambda x: x.detach().requires_grad_(True), params)
+        leaves = list(llama.tree_leaves(tree))
+        _reset_gmm_counts()
+        with _recorded(routing) if label == "kernel" else _moe_through_plain(routing) as f:
+            loss = llama.loss_fn(tree, tokens, config)
+            grads = torch.autograd.grad(loss, leaves)
+        flips = f if label == "plain" else flips
+        torch.cuda.synchronize()
+        out[label] = (loss.item(), grads, _gmm_counts())
+        del tree, leaves, loss
+    n = config.n_layers
+    (lk, gk, ck), (lp, gp, cp) = out["kernel"], out["plain"]
+    # per layer under full remat: forward K5 + K6 (w2), again in the
+    # recompute; w2's backward K6 (dlhs) + K7; the SwiGLU's backward 2 K6
+    # recomputing gate and up, 2 K6 for dlhs, 2 K7 for dw1 and dw3
+    want = (2 * n, 7 * n, 3 * n, 0)
+    if ck != want or cp != (0, 0, 0, 0):
+        raise AssertionError(f"MoE gradient launches (K5, K6, K7, K8): kernel path {ck} "
+                             f"(expected {want}), plain path {cp}")
+    errs = {}
+    for nm, a, b in zip(_leaf_names(params), gk, gp):
+        if a.dtype != b.dtype or not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"gradient {nm}: dtype {a.dtype} vs {b.dtype} or not finite")
+        errs[nm] = _rel(a, b)
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    print(f"moe grads: Mixtral width, 2 layers, b=2 S=1024: loss kernel {lk:.6f} plain "
+          f"{lp:.6f} (rel {loss_rel:.2e}); worst gradient {worst} rel {errs[worst]:.3e} over "
+          f"{len(errs)} leaves (tol {GRAD_TOL}; next: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top[1:]) + f"); launches K5/K6/K7/K8 {ck}; "
+          f"{len(routing)} routing calls replayed, {flips[0]} of "
+          f"{sum(r.numel() for r in routing)} choices a near-tie flipped", flush=True)
+    if loss_rel > 1e-2 or errs[worst] > GRAD_TOL:
+        raise AssertionError("MoE gradients through the kernels disagree with the plain path")
+    del params, out, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_kernel=lk, loss_plain=lp, loss_rel=loss_rel, grad_rel_err=errs,
+                launches=list(ck), routing_flips=flips[0])
+
+
+def phase_moe_train():
+    """Mixtral width, 4 of 32 layers: 6 make_train_step steps, b=4, rows of
+    1024 tokens, AdamW with clip 1.0 (the trainer's optimizer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+
+    steps, batch, seq = 6, 4, 1024
+    config = _mixtral(4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = llama.param_count(params)
+    expert = sum(layer["moe"][w].numel() for layer in params["layers"]
+                 for w in ("w1", "w3", "w2"))
+    active = n_params - expert * (1 - config.expert_top_k / config.n_experts)
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(3e-4, weight_decay=0.01))
+    init_state, train_step = make_train_step(lambda p, b: llama.loss_fn(p, b, config), tx)
+    state = init_state(params)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batches = [torch.randint(0, config.vocab_size, (batch, seq), generator=gen, device="cuda",
+                             dtype=torch.int32) for _ in range(steps + 1)]
+    _reset_gmm_counts()
+    _reset_counts()
+    losses, gnorms, times = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i])
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        times.append(time.perf_counter() - t0)
+    counts, flash = _gmm_counts(), _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = config.n_layers
+    want = (2 * n * steps, 7 * n * steps, 3 * n * steps, 0)
+    if counts != want:
+        raise AssertionError(f"MoE train launches (K5, K6, K7, K8) {counts}, expected {want}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"MoE train: non-finite loss or grad_norm {losses} {gnorms}")
+    if abs(losses[0] - math.log(config.vocab_size)) > 1.5:
+        raise AssertionError(f"MoE first loss {losses[0]} not within 1.5 of ln 32000")
+    step_s = statistics.median(times[1:])
+    tokens = batch * (seq - 1)
+    attn_flop = 12 * n * batch * config.n_heads * config.head_dim * \
+        _attended_pairs(seq - 1, True, None)
+    model_flop = 6 * active * tokens + attn_flop
+    mfu = model_flop / (step_s * PEAK_BF16_FLOPS)
+    profile_dir = os.path.join(WORK, "profile-moe")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    os.makedirs(profile_dir)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[steps])
+        metrics["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(profile_dir, "step.json")
+    prof.export_chrome_trace(trace)
+    prof_numbers = _kernel_profile(trace, wall_ms)
+    share = "not measured" if prof_numbers["idle_share"] is None else \
+        f"{prof_numbers['idle_share']:.3f}"
+    print(f"moe train: Mixtral width, {n} layers ({n_params / 1e9:.3f}B params, "
+          f"{active / 1e9:.3f}B active), {steps} steps b={batch} seq={seq}; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}", flush=True)
+    print(f"moe train: step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; first "
+          f"{times[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tok/s, active-parameter FLOP "
+          f"share (6*N_active*T + attention = {model_flop:.3e} over step x 989e12) {mfu:.3f}; "
+          f"peak allocated {peak_gb:.2f} GB; launches K5/K6/K7/K8 {counts}, flash "
+          f"fwd/dq/dkv {flash}", flush=True)
+    print(f"profile moe train step: wall {prof_numbers['wall_ms']:.1f} ms (profiled), device "
+          f"busy {prof_numbers['device_busy_ms']:.1f} ms, idle share {share}, "
+          f"{prof_numbers['kernels']} kernels; top: " + "; ".join(
+              f"{nm} {ms:.2f} ms" for nm, ms in prof_numbers["top"]), flush=True)
+    print("profile moe train step by kind: " + "; ".join(
+        f"{k} {ms:.1f} ms" for k, ms in prof_numbers["groups"].items()), flush=True)
+    del state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, active_params=active, losses=losses, grad_norms=gnorms,
+                step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3, tok_s=tokens / step_s,
+                model_flop_per_step=model_flop, active_flop_share=mfu, peak_gb=peak_gb,
+                launches=list(counts), flash_launches=list(flash), profile=prof_numbers)
+
+
+def _int8_tree(config, gen):
+    """The int8 tree of a fresh init built layer by layer on the card: each
+    layer is drawn in bf16 and quantized before the next is drawn, so the
+    bf16 model never exists whole."""
+    from kubedl_tpu_torch.models import llama, quant
+
+    params = quant.quantize_params(llama.init(dataclasses.replace(config, n_layers=0), gen,
+                                              device="cuda"))
+    for _ in range(config.n_layers):
+        params["layers"].append(quant.quantize_layer(llama.init_layer(config, gen, "cuda")))
+        torch.cuda.empty_cache()
+    return params
+
+
+def phase_moe_serve():
+    """Mixtral-8x7B, int8, full width and depth, on the serving engine."""
+    from kubedl_tpu_torch.models import decode, quant
+    from kubedl_tpu_torch.models.serving import ServingEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # a 2-layer int8 prefill through the kernels against the plain versions
+    cfg2 = _mixtral(2)
+    small = _int8_tree(cfg2, gen)
+    prompt = torch.randint(1, cfg2.vocab_size, (2, 512), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    got, routing = {}, []
+    for label in ("kernel", "plain"):
+        _reset_gmm_counts()
+        cache = decode.init_kv_cache(cfg2, 2, 512, uniform=True, device="cuda")
+        with _recorded(routing) if label == "kernel" else _moe_through_plain(routing):
+            logits, _ = decode.prefill(small, prompt, cache, cfg2)
+        torch.cuda.synchronize()
+        got[label] = (logits.float(), _gmm_counts())
+        del cache
+    (lk, ck), (lp, cp) = got["kernel"], got["plain"]
+    prefill_rel = _rel(lk, lp)
+    print(f"moe serve: 2-layer int8 prefill of 2 x 512 tokens, last-token logits through the "
+          f"kernels vs plain: rel {prefill_rel:.3e} (tol {GRAD_TOL}); launches K5/K6/K7/K8 "
+          f"{ck} vs {cp}", flush=True)
+    if ck != (2, 0, 0, 2) or cp != (0, 0, 0, 0) or prefill_rel > GRAD_TOL \
+            or not bool(torch.isfinite(lk).all()):
+        raise AssertionError("int8 MoE prefill through the kernels disagrees with the plain path")
+    # a decode step of the 2-layer tree with any host sync made an error:
+    # routing, dispatch and the kernels must not stall a tick on the host
+    cache = decode.init_kv_cache(cfg2, 2, 520, device="cuda")
+    _, cache = decode.prefill(small, prompt, cache, cfg2)
+    tok = lk.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_logits, _ = decode.decode_step(small, tok, cache, cfg2, check=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError("non-finite int8 MoE decode-step logits")
+    print("moe serve: a 2-layer int8 decode step ran with host syncs made errors "
+          "(torch.cuda.set_sync_debug_mode): none", flush=True)
+    del small, got, lk, lp, cache, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    config = _mixtral(32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _int8_tree(config, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tree_gb = quant.tree_bytes(params) / 1e9
+    engine = ServingEngine(params, config, slots=8, max_len=1024)
+    rng = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+               for n in MOE_SERVE_LENGTHS]
+    dup = prompts[2]
+    _reset_gmm_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, SERVE_NEW) for p in prompts]
+    while engine.has_pending():
+        engine.step_block()
+    pair = [engine.submit(dup, SERVE_NEW) for _ in range(2)]
+    while engine.has_pending():
+        engine.step_block()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _gmm_counts()
+    stats = engine.stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs + pair:
+        if r.error or len(r.tokens) != SERVE_NEW or not all(0 <= x < 32000 for x in r.tokens):
+            raise AssertionError(f"request of {len(r.prompt)} prompt tokens: error "
+                                 f"{r.error}, {len(r.tokens)} tokens")
+    if pair[0].tokens != pair[1].tokens:
+        raise AssertionError("one prompt sent twice gave different tokens")
+    forwards = stats["prefill_batches"] + stats["ticks"]
+    if counts != (32 * forwards, 0, 0, 32 * forwards):
+        raise AssertionError(f"int8 serving launches (K5, K6, K7, K8) {counts}; expected K5 = "
+                             f"K8 = 32 layers x {forwards} forwards and no K6, K7")
+    n_req = len(reqs) + len(pair)
+    prompt_tokens = sum(MOE_SERVE_LENGTHS) + 2 * len(dup)
+    numbers = dict(
+        layers=config.n_layers, tree_gb=tree_gb, init_s=init_s, requests=n_req,
+        wall_s=wall_s, prompt_tokens=prompt_tokens, tokens_out=stats["tokens_out"],
+        prefill_batches=stats["prefill_batches"], ticks=stats["ticks"],
+        prefill_time_s=stats["prefill_time_s"], decode_time_s=stats["decode_time_s"],
+        prefill_tok_s=prompt_tokens / stats["prefill_time_s"],
+        decode_tok_s=(stats["tokens_out"] - n_req) / stats["decode_time_s"],
+        peak_gb=peak_gb, launches=list(counts), prefill_rel_err=prefill_rel)
+    print(f"moe serve: Mixtral-8x7B int8, 32 layers, tree {tree_gb:.2f} GB built in "
+          f"{init_s:.1f} s; {n_req} requests ok in {wall_s:.2f} s; prefill "
+          f"{stats['prefill_batches']} dispatches {stats['prefill_time_s']:.3f} s "
+          f"({numbers['prefill_tok_s']:.0f} prompt tok/s); decode {stats['decode_time_s']:.3f} s "
+          f"over {stats['ticks']} ticks ({stats['decode_time_s'] / max(stats['ticks'], 1) * 1e3:.1f}"
+          f" ms/tick, {numbers['decode_tok_s']:.1f} tok/s); launches K5/K6/K7/K8 {counts}; "
+          f"peak allocated {peak_gb:.2f} GB", flush=True)
+    numbers["profile"] = _profile_engine(engine)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _phase(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _free(after):
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"memory: {left / 1e9:.3f} GB allocated after {after}", flush=True)
+    if left >= 1e9:
+        raise AssertionError(f"{left / 1e9:.2f} GB still allocated after {after}")
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -779,22 +1321,24 @@ def main(argv=None) -> int:
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    name, smi = phase_device()
-    kernels = phase_kernels()
-    bwd = phase_bwd_kernels()
-    model = phase_model()
-    serving, launches = phase_serve()
-    gc.collect()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated()
-    print(f"memory: {left / 1e9:.3f} GB allocated after serving", flush=True)
-    if left >= 1e9:
-        raise AssertionError(f"{left / 1e9:.2f} GB still allocated after serving")
-    grads = phase_grads()
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(model["n_params"])
-    options = phase_options()
+    name, smi = _phase("1 device and build", phase_device)
+    kernels = _phase("2 flash forward kernel", phase_kernels)
+    bwd = _phase("2b flash backward kernels", phase_bwd_kernels)
+    gmm = _phase("2c grouped matmul kernels", phase_gmm_kernels)
+    model = _phase("3 7B prefill", phase_model)
+    serving, launches = _phase("4 7B serving over HTTP", phase_serve)
+    _free("serving")
+    grads = _phase("5 7B-width gradients", phase_grads)
+    _free("gradients")
+    train = _phase("6 7B trainer", phase_train, model["n_params"])
+    options = _phase("7 trainer options and preemption", phase_options)
+    _free("training")
+    moe_grads = _phase("8 MoE gradients", phase_moe_grads)
+    _free("MoE gradients")
+    moe_train = _phase("9 MoE training", phase_moe_train)
+    _free("MoE training")
+    moe_serve = _phase("10 MoE int8 serving", phase_moe_serve)
+    _free("MoE serving")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -811,6 +1355,28 @@ def main(argv=None) -> int:
             "bound_by": main_b[f"{part}_bound_by"],
             "library_ms": main_b["library_ms"],
         })
+    # K5, K6, K7 from the MoE training run; K8 from int8 serving
+    gmm_launches = {"gmm_swiglu": moe_train["launches"][0], "gmm": moe_train["launches"][1],
+                    "tgmm": moe_train["launches"][2], "gmm_scaled": moe_serve["launches"][3]}
+    gmm_rows = []
+    for kname, line in (("gmm", 130), ("gmm_scaled", 147), ("gmm_swiglu", 170),
+                        ("tgmm", 276)):
+        main_g = gmm[MAIN_GMM[kname]][kname]
+        gmm_rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "kubedl_tpu_torch/ops/csrc/gmm.cu",
+            "replaces": f"kubedl_tpu/ops/gmm.py:{line}",
+            "launches": gmm_launches[kname],
+            "max_abs_err": max(v["max_abs_err"] for sh in gmm.values()
+                               for k, v in sh.items() if k.startswith(kname)
+                               and (kname != "gmm" or k in ("gmm", "gmm_T"))),
+            "ms": main_g["kernel_ms"],
+            "plain_ms": main_g["plain_ms"],
+            "bound_ms": main_g["bound_ms"],
+            "bound_by": main_g["bound_by"],
+            "library_ms": main_g["library_ms"],
+        })
     report = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -823,13 +1389,15 @@ def main(argv=None) -> int:
         "bound_ms": main_k["bound_ms"],
         "bound_by": main_k["bound_by"],
         "library_ms": main_k["library_ms"],
-    }] + bwd_rows}
+    }] + bwd_rows + gmm_rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(device=name, nvidia_smi=smi, kernels=kernels, bwd_kernels=bwd,
-                           model=model, serving=serving, grads=grads, train=train,
-                           options=options, seconds=time.perf_counter() - t_start),
+                           gmm_kernels=gmm, model=model, serving=serving, grads=grads,
+                           train=train, options=options, moe_grads=moe_grads,
+                           moe_train=moe_train, moe_serve=moe_serve,
+                           seconds=time.perf_counter() - t_start),
                       f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -6,7 +6,9 @@ is one scalar (a uniform batch) or [b] (ragged, right-padded rows). The
 one-pass `prefill` runs the whole prompt through one forward whose
 attention is the flash kernel; decode steps attend over the cache with the
 plain masked product of `_attend_cached`, as the JAX package does (it has
-no kernel there either).
+no kernel there either). MoE layers route each step's tokens through the
+grouped matmul kernels (models/moe.py); int8 weight trees (models/quant.py)
+run through every entry point.
 
 Unlike the JAX functions, which return new arrays, these write K/V into the
 given cache's buffers in place (a copy per token would double the cache
@@ -141,7 +143,7 @@ def decode_step(params: Dict, token, cache: Dict, config: LlamaConfig,
                               softcap=c.attn_logit_softcap or None)
         attn = attn.transpose(1, 2).reshape(x.shape[0], 1, c.n_heads * c.head_dim)
         x = _attn_out(x, attn, layer, c)
-        x = _mlp_block(x, layer, c)
+        x, _ = _mlp_block(x, layer, c)
     out = {"k": cache["k"], "v": cache["v"], "lengths": pos + 1}
     return _lm_head(x, params, c)[:, 0], out
 
@@ -180,7 +182,7 @@ def decode_block_step(params: Dict, tokens, cache: Dict, config: LlamaConfig,
                               softcap=c.attn_logit_softcap or None)
         attn = attn.transpose(1, 2).reshape(b, T, c.n_heads * c.head_dim)
         x = _attn_out(x, attn, layer, c)
-        x = _mlp_block(x, layer, c)
+        x, _ = _mlp_block(x, layer, c)
     return _lm_head(x, params, c), {"k": cache["k"], "v": cache["v"],
                                     "lengths": pos + T}
 
@@ -215,7 +217,7 @@ def prefill(params: Dict, tokens, cache: Dict, config: LlamaConfig,
                       softcap=c.attn_logit_softcap or None)
         attn = attn.transpose(1, 2).reshape(b, t, c.n_heads * c.head_dim)
         x = _attn_out(x, attn, layer, c)
-        x = _mlp_block(x, layer, c)
+        x, _ = _mlp_block(x, layer, c)
     if uniform:
         last = x[:, t - 1]
         new_len = torch.full((), t, dtype=torch.int32, device=tokens.device)

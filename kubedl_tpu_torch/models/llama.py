@@ -10,14 +10,19 @@ tensors and run where the tensors lie; attention goes through
 ops/flash_attention.py, so a CUDA forward runs the hand-written kernel and,
 under autograd, its backward runs the flash backward kernels.
 
-Training: `loss_fn` is the next-token cross entropy, with the chunked
-variant (`ce_chunks`) that never holds the [b, t, vocab] logits; with
-``config.remat`` each layer runs under torch.utils.checkpoint
-(non-reentrant), recomputing everything (``remat_policy=None``) or saving
-the weight matmuls' outputs (``"dots"``).
+With ``config.n_experts > 0`` every layer's FFN is a top-k-routed MoE
+layer (``layer["moe"]``: router and [E, in, out] expert stacks,
+models/moe.py) whose expert products run the grouped matmul kernels of
+ops/gmm.py; the layers' load-balance aux losses are summed.
 
-Not ported yet: MoE layers, context parallelism and the pipelined forward
-(ROADMAP.md).
+Training: `loss_fn` is the next-token cross entropy plus ``moe_aux_coef``
+times the aux loss, with the chunked variant (`ce_chunks`) that never holds
+the [b, t, vocab] logits; with ``config.remat`` each layer runs under
+torch.utils.checkpoint (non-reentrant), recomputing everything
+(``remat_policy=None``) or saving the weight matmuls' outputs (``"dots"``).
+
+Not ported yet: context parallelism, the expert-parallel MoE routes and the
+pipelined forward (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from kubedl_tpu_torch.models.moe import moe_init, moe_mlp
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 from kubedl_tpu_torch.utils.device import resolve_device
@@ -52,8 +58,8 @@ class RopeScaling:
 class LlamaConfig:
     """Field for field the JAX package's LlamaConfig (same names, same
     defaults; ``dtype`` is a torch dtype). Fields of paths the port does
-    not run yet (MoE, context parallelism) are kept
-    so a JAX config carries across whole."""
+    not run yet (context parallelism, the expert-parallel MoE knob
+    ``moe_a2a_chunks``) are kept so a JAX config carries across whole."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -183,52 +189,66 @@ def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
     JAX's generators do). `generator` must live on `device`; None seeds
     one with 0. Each matrix is drawn in f32 on the device and cast, so a
     7B init never holds the whole model in f32 or touches host memory."""
-    if config.n_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    d = config.d_model
+    layers = [init_layer(config, generator, dev) for _ in range(config.n_layers)]
+    params = {
+        "embed": _dense((config.vocab_size, d), d, config.dtype, generator, dev),
+        "layers": layers,
+        "final_norm": _norm(config, dev),
+    }
+    if not config.tie_embeddings:
+        params["lm_head"] = _dense((d, config.vocab_size), d, config.dtype, generator, dev)
+    return params
+
+
+def _dense(shape, fan_in, dtype, generator, dev):
+    w = torch.empty(shape, dtype=torch.float32, device=dev)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+def _norm(config: LlamaConfig, dev):
+    return torch.full((config.d_model,), 1.0 - config.norm_offset,
+                      dtype=torch.float32, device=dev)
+
+
+def init_layer(config: LlamaConfig, generator: torch.Generator, device) -> Dict:
+    """One decoder layer's parameters, drawn as `init` draws them: the dense
+    FFN (w1, w3, w2) or, with n_experts > 0, an MoE FFN under "moe"
+    (models/moe.py `moe_init`). A caller can build a model layer by layer,
+    e.g. quantizing each layer before drawing the next."""
+    dev = resolve_device(device)
     d, dff, hd = config.d_model, config.d_ff, config.head_dim
     nq, nkv = config.n_heads, config.n_kv_heads
-    dt = config.dtype
 
     def dense(shape, fan_in):
-        w = torch.empty(shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        return (w * (1.0 / math.sqrt(fan_in))).to(dt)
+        return _dense(shape, fan_in, config.dtype, generator, dev)
 
-    def norm():
-        return torch.full((d,), 1.0 - config.norm_offset, dtype=torch.float32,
-                          device=dev)
-
-    layers = []
-    for _ in range(config.n_layers):
-        layer = {
-            "attn_norm": norm(),
-            "wq": dense((d, nq * hd), d),
-            "wk": dense((d, nkv * hd), d),
-            "wv": dense((d, nkv * hd), d),
-            "wo": dense((nq * hd, d), nq * hd),
-            "mlp_norm": norm(),
-        }
-        if config.attn_qkv_bias:
-            for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
-                layer[name] = torch.zeros((n * hd,), dtype=torch.float32, device=dev)
-        if config.post_block_norms:
-            layer["post_attn_norm"] = norm()
-            layer["post_mlp_norm"] = norm()
+    layer = {
+        "attn_norm": _norm(config, dev),
+        "wq": dense((d, nq * hd), d),
+        "wk": dense((d, nkv * hd), d),
+        "wv": dense((d, nkv * hd), d),
+        "wo": dense((nq * hd, d), nq * hd),
+        "mlp_norm": _norm(config, dev),
+    }
+    if config.attn_qkv_bias:
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            layer[name] = torch.zeros((n * hd,), dtype=torch.float32, device=dev)
+    if config.post_block_norms:
+        layer["post_attn_norm"] = _norm(config, dev)
+        layer["post_mlp_norm"] = _norm(config, dev)
+    if config.n_experts > 0:
+        layer["moe"] = moe_init(d, dff, config.n_experts, dtype=config.dtype,
+                                generator=generator, device=dev)
+    else:
         layer["w1"] = dense((d, dff), d)
         layer["w3"] = dense((d, dff), d)
         layer["w2"] = dense((dff, d), dff)
-        layers.append(layer)
-    params = {
-        "embed": dense((config.vocab_size, d), d),
-        "layers": layers,
-        "final_norm": norm(),
-    }
-    if not config.tie_embeddings:
-        params["lm_head"] = dense((d, config.vocab_size), d)
-    return params
+    return layer
 
 
 def tree_leaves(tree):
@@ -372,16 +392,22 @@ def _attention_block(x, layer, config: LlamaConfig, positions, window=None):
 
 
 def _mlp_block(x, layer, config: LlamaConfig):
-    """Dense FFN with the residual add."""
-    if "moe" in layer:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md)")
+    """Dense or MoE FFN with the residual add: (x, aux), aux the MoE
+    load-balance loss (a 0-d f32 tensor) or 0.0 for a dense layer."""
     h = rms_norm(x, layer["mlp_norm"], config.rms_eps, config.norm_offset)
-    gate = _act(_proj(h, layer, "1").float(), config.act).to(h.dtype)
-    up = _proj(h, layer, "3")
-    y = _proj(gate * up, layer, "2").to(x.dtype)
+    if "moe" in layer:
+        y, aux = moe_mlp(h, layer["moe"], top_k=config.expert_top_k,
+                         capacity_factor=config.expert_capacity_factor,
+                         dropless=config.moe_dropless, fused=config.moe_fused)
+        y = y.to(x.dtype)
+    else:
+        gate = _act(_proj(h, layer, "1").float(), config.act).to(h.dtype)
+        up = _proj(h, layer, "3")
+        y = _proj(gate * up, layer, "2").to(x.dtype)
+        aux = 0.0
     if "post_mlp_norm" in layer:
         y = rms_norm(y, layer["post_mlp_norm"], config.rms_eps, config.norm_offset)
-    return x + y
+    return x + y, aux
 
 
 def _embed(params, tokens, c: LlamaConfig):
@@ -415,24 +441,36 @@ def _remat(fn, policy: Optional[str]):
 
 
 def _backbone(params: Dict, tokens, config: LlamaConfig):
-    """Pre-final-norm activations [batch, seq, d]. With config.remat and
-    grad enabled, each layer's activations are recomputed in backward."""
+    """(pre-final-norm activations [batch, seq, d], summed MoE aux loss:
+    0.0 for a dense model). With config.remat and grad enabled, each
+    layer's activations are recomputed in backward."""
     b, t = tokens.shape
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None].expand(b, t)
     x = _embed(params, tokens, config)
     remat = config.remat and torch.is_grad_enabled()
+    aux = 0.0
     for i, layer in enumerate(params["layers"]):
         def layer_fn(x, layer=layer, window=config.window_for(i)):
             x = _attention_block(x, layer, config, positions, window=window)
             return _mlp_block(x, layer, config)
 
-        x = _remat(layer_fn, config.remat_policy)(x) if remat else layer_fn(x)
-    return x
+        x, a = _remat(layer_fn, config.remat_policy)(x) if remat else layer_fn(x)
+        aux = aux + a
+    return x, aux
+
+
+def forward_and_aux(params, tokens, config: LlamaConfig):
+    """(logits [batch, seq, vocab] f32, summed MoE aux loss as a 0-d f32
+    tensor: 0 for a dense model)."""
+    x, aux = _backbone(params, tokens, config)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _lm_head(x, params, config), aux
 
 
 def forward(params, tokens, config: LlamaConfig):
     """Logits [batch, seq, vocab] (f32) for tokens [batch, seq]."""
-    return _lm_head(_backbone(params, tokens, config), params, config)
+    return _lm_head(_backbone(params, tokens, config)[0], params, config)
 
 
 def _head_matrix(params, config: LlamaConfig):
@@ -500,11 +538,14 @@ def _next_token_ce_chunked(x, params, config: LlamaConfig, targets, n_chunks: in
 
 
 def loss_fn(params, tokens, config: LlamaConfig):
-    """Next-token cross entropy over tokens [b, t]: inputs [:, :-1],
-    targets [:, 1:]. With config.ce_chunks > 1 the loss runs chunked (the
-    full logits never exist). Dense layers only: there is no MoE aux term."""
+    """Next-token cross entropy over tokens [b, t] (inputs [:, :-1],
+    targets [:, 1:]) plus moe_aux_coef times the summed MoE aux loss. With
+    config.ce_chunks > 1 the loss runs chunked (the full logits never
+    exist)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x, aux = _backbone(params, inputs, config)
     if config.ce_chunks > 1:
-        x = _backbone(params, inputs, config)
-        return _next_token_ce_chunked(x, params, config, targets, config.ce_chunks)
-    return _next_token_ce(forward(params, inputs, config), targets)
+        ce = _next_token_ce_chunked(x, params, config, targets, config.ce_chunks)
+    else:
+        ce = _next_token_ce(_lm_head(x, params, config), targets)
+    return ce + config.moe_aux_coef * aux

@@ -1,0 +1,517 @@
+// Grouped matrix products for the dropless MoE FFN on Hopper (sm_90a): bf16
+// activations, bf16 or int8 weight stacks, f32 accumulation, plain C
+// interface bound with ctypes by kubedl_tpu_torch/ops/gmm.py.
+//
+// Replaces the TPU kernels
+//   kubedl_tpu/ops/gmm.py:130 _gmm_kernel         (K6)  gmm_kernel<EPI_NONE>
+//   kubedl_tpu/ops/gmm.py:147 _gmm_scaled_kernel  (K8)  gmm_kernel<EPI_SCALE>
+//   kubedl_tpu/ops/gmm.py:170 _gmm_swiglu_kernel  (K5)  gmm_kernel<EPI_SWIGLU>
+//   kubedl_tpu/ops/gmm.py:276 _tgmm_kernel        (K7)  tgmm_kernel
+//
+// What they compute. lhs [M, K] is cut into row tiles of row_tile rows
+// (M / len(tile_expert), a multiple of 128); tile i multiplies the weights
+// of expert te[i] (clamped to [0, E)):
+//   K6  out[i] = bf16(lhs[i] @ rhs[te[i]])
+//   K8  out[i] = bf16((lhs[i] @ rhs[te[i]]) * scale[te[i], :])
+//   K5  out[i] = bf16(silu(lhs[i] @ w1[e] * s1[e]) * (lhs[i] @ w3[e] * s3[e]))
+//   K7  out[e] = sum over the row tiles i with te[i] == e of lhs[i]^T @ dout[i],
+//       f32 [E, K, N]; an expert that owns no tile gets zeros.
+// The TPU grid runs K7's m axis in order and zeroes the block at each
+// expert's first tile; here one block owns (expert, 128 rows of K, 128
+// columns of N) and loops over that expert's tiles itself, so no atomics are
+// needed and two runs give the same bits. For the non-decreasing tile map the
+// dispatch plan produces this is the TPU kernel's sum.
+//
+// Weights are read in place through strides. TRANS=false reads a K-major
+// [K, N] block per expert (N contiguous); TRANS=true reads the backward's
+// rhs.transpose(1, 2) view (K contiguous) without a copy, with ldmatrix
+// without .trans. int8 weights are copied into shared memory as bytes with
+// cp.async and widened to bf16 there (|q| <= 127 is exact in bf16), so no
+// bf16 copy of an int8 stack ever exists in device memory.
+//
+// Bound on an H100 SXM: 2 * R * K * N FLOP per product over the routed rows
+// R at 989 TFLOP/s against the weights of the experts that own a row plus
+// the activations at 3.35 TB/s. Training and prefill shapes (R ~ 8k rows,
+// K, N = 4096 x 14336) are bound by tensor-core operations; decode (R = 16)
+// by the weight bytes. What the design does about it: every product runs on
+// the tensor cores (mma.sync m16n8k16 bf16 -> f32, fragments from ldmatrix),
+// 128 x 128 output tiles with a 64 x 32 tile per warp, cp.async double
+// buffering of 32-deep K slices, blocks rastered in groups of 8 row tiles so
+// a weight slice is reused from L2 by the row tiles of one expert. It uses
+// neither wgmma nor TMA, and it computes every padded row of the layout
+// (m_pad, not R); both are later work.
+//
+// Layout: lhs/dout rows with any row stride that is a whole 16-byte vector;
+// K and N multiples of 16 (8 for K7); out [M, N] with row stride ldo.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BM = 128;           // output rows a block (divides every row tile)
+constexpr int BN = 128;           // output columns a block
+constexpr int BK = 32;            // contraction slice a pipeline stage
+constexpr int NTHREADS = 256;     // 8 warps: 2 along M x 4 along N
+constexpr int GROUP_M = 8;        // row blocks rastered together
+constexpr int A_STRIDE = BK + 8;  // +16 bytes a row: ldmatrix rows hit distinct banks
+constexpr int A_ELEMS = BM * A_STRIDE;
+constexpr int BN_STRIDE = BN + 8;  // K-major weight tile [BK][BN + 8]
+constexpr int BT_STRIDE = BK + 8;  // transposed weight tile [BN][BK + 8]
+constexpr int B_ELEMS = (BK * BN_STRIDE > BN * BT_STRIDE) ? BK * BN_STRIDE : BN * BT_STRIDE;
+constexpr int RAW_BYTES = BK * BN;  // one int8 weight slice, unpadded
+
+enum { EPI_NONE = 0, EPI_SCALE = 1, EPI_SWIGLU = 2 };
+
+struct GmmParams {
+  int M, N, K, row_tile, E;
+  int64_t lda, ldb, sbe, ldo;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;  // 0 source bytes: the 16 shared bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// K5, K6, K8: one templated kernel, the epilogue a template parameter
+// ---------------------------------------------------------------------------
+
+template <bool INT8, bool TRANS>
+struct WeightTile {
+  // 16-byte copies of one [BK x BN] weight slice and where each lands
+  static constexpr int EL = INT8 ? 16 : 8;                 // elements a copy
+  static constexpr int PER_ROW = (TRANS ? BK : BN) / EL;   // copies a tile row
+  static constexpr int COPIES = BK * BN / EL;
+  static constexpr int STRIDE = TRANS ? BT_STRIDE : BN_STRIDE;
+};
+
+// Start the cp.asyncs of k slice k0 of expert e's weights: bf16 straight into
+// the stage's tile, int8 into the raw byte buffer (widened after the wait).
+template <bool INT8, bool TRANS>
+__device__ __forceinline__ void load_weight(bf16* tile, unsigned char* raw, const void* B, int e,
+                                            int n0, int k0, const GmmParams& p, int tid) {
+  typedef WeightTile<INT8, TRANS> W;
+#pragma unroll
+  for (int i = tid; i < W::COPIES; i += NTHREADS) {
+    const int r = i / W::PER_ROW, c = (i % W::PER_ROW) * W::EL;
+    // K-major: r is a k row and c an n column; transposed: r is n, c is k
+    const int kk = TRANS ? k0 + c : k0 + r;
+    const int nn = TRANS ? n0 + r : n0 + c;
+    const bool ok = kk < p.K && nn < p.N;
+    const int64_t off = static_cast<int64_t>(e) * p.sbe +
+                        (TRANS ? static_cast<int64_t>(nn) * p.ldb + kk
+                               : static_cast<int64_t>(kk) * p.ldb + nn);
+    if (INT8) {
+      const int8_t* src = ok ? static_cast<const int8_t*>(B) + off : static_cast<const int8_t*>(B);
+      cp_async16(raw + r * (TRANS ? BK : BN) + c, src, ok);
+    } else {
+      const bf16* src = ok ? static_cast<const bf16*>(B) + off : static_cast<const bf16*>(B);
+      cp_async16(tile + r * W::STRIDE + c, src, ok);
+    }
+  }
+}
+
+// Widen this thread's own int8 copies (visible to it after its wait) to bf16.
+template <bool TRANS>
+__device__ __forceinline__ void widen_weight(bf16* tile, const unsigned char* raw, int tid) {
+  typedef WeightTile<true, TRANS> W;
+#pragma unroll
+  for (int i = tid; i < W::COPIES; i += NTHREADS) {
+    const int r = i / W::PER_ROW, c = (i % W::PER_ROW) * 16;
+    const int4 v = *reinterpret_cast<const int4*>(raw + r * (TRANS ? BK : BN) + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    __align__(16) bf16 h[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) h[j] = __float2bfloat16_rn(static_cast<float>(b[j]));
+    int4* dst = reinterpret_cast<int4*>(tile + r * W::STRIDE + c);
+    dst[0] = reinterpret_cast<const int4*>(h)[0];
+    dst[1] = reinterpret_cast<const int4*>(h)[1];
+  }
+}
+
+template <int EPI, bool INT8, bool TRANS>
+struct GmmSmem {
+  static constexpr int NB = EPI == EPI_SWIGLU ? 2 : 1;  // weight stacks
+  static constexpr int STAGE = (A_ELEMS + NB * B_ELEMS) * 2 + (INT8 ? NB * RAW_BYTES : 0);
+  static constexpr int BYTES = 2 * STAGE;
+};
+
+template <int EPI, bool INT8, bool TRANS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    gmm_kernel(const bf16* __restrict__ A, const void* __restrict__ B1,
+               const void* __restrict__ B3, const float* __restrict__ s1,
+               const float* __restrict__ s3, bf16* __restrict__ out,
+               const int* __restrict__ te, const GmmParams p) {
+  typedef GmmSmem<EPI, INT8, TRANS> SM;
+  constexpr int NB = SM::NB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  // grouped raster: GROUP_M row blocks sweep the column blocks together
+  const int m_blocks = p.M / BM, n_blocks = (p.N + BN - 1) / BN;
+  const int pid = blockIdx.x;
+  const int in_group = GROUP_M * n_blocks;
+  const int first_m = (pid / in_group) * GROUP_M;
+  const int gm = min(m_blocks - first_m, GROUP_M);
+  const int mb = first_m + (pid % in_group) % gm;
+  const int nb = (pid % in_group) / gm;
+  const int m0 = mb * BM, n0 = nb * BN;
+  const int e = min(max(te[m0 / p.row_tile], 0), p.E - 1);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;  // this warp's 64 x 32 output tile
+  const int g = lane >> 2, tig = lane & 3;
+
+  auto a_tile = [&](int st) {
+    return reinterpret_cast<bf16*>(smem_raw + st * SM::STAGE);
+  };
+  auto b_tile = [&](int st, int w) { return a_tile(st) + A_ELEMS + w * B_ELEMS; };
+  auto raw_tile = [&](int st, int w) {
+    return smem_raw + st * SM::STAGE + (A_ELEMS + NB * B_ELEMS) * 2 + w * RAW_BYTES;
+  };
+
+  auto load_stage = [&](int st, int k0) {
+    // activations: 128 rows x 32 columns, four 16-byte copies a row
+#pragma unroll
+    for (int i = tid; i < BM * BK / 8; i += NTHREADS) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      const bool ok = k0 + c < p.K;
+      const bf16* src = ok ? A + static_cast<int64_t>(m0 + r) * p.lda + k0 + c : A;
+      cp_async16(a_tile(st) + r * A_STRIDE + c, src, ok);
+    }
+    load_weight<INT8, TRANS>(b_tile(st, 0), raw_tile(st, 0), B1, e, n0, k0, p, tid);
+    if (NB == 2) load_weight<INT8, TRANS>(b_tile(st, 1), raw_tile(st, 1), B3, e, n0, k0, p, tid);
+  };
+
+  float acc[NB][4][4][4];
+#pragma unroll
+  for (int w = 0; w < NB; ++w)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.f;
+
+  const int nk = (p.K + BK - 1) / BK;
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {  // prefetch the next slice into the other stage
+      load_stage(st ^ 1, (kt + 1) * BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (INT8) {
+      widen_weight<TRANS>(b_tile(st, 0), raw_tile(st, 0), tid);
+      if (NB == 2) widen_weight<TRANS>(b_tile(st, 1), raw_tile(st, 1), tid);
+    }
+    __syncthreads();
+    const bf16* sA = a_tile(st);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4(a[mi], sA + (wm * 64 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * A_STRIDE +
+                           kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int w = 0; w < NB; ++w) {
+        const bf16* sB = b_tile(st, w);
+        unsigned b[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {  // columns wn*32 + np*16 .. +15
+          if (TRANS)
+            ldsm_x4(b[np], sB + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * BT_STRIDE +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+          else
+            ldsm_x4_trans(b[np], sB + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * BN_STRIDE +
+                                     wn * 32 + np * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            mma_bf16(acc[w][mi][2 * np], a[mi], b[np][0], b[np][1]);
+            mma_bf16(acc[w][mi][2 * np + 1], a[mi], b[np][2], b[np][3]);
+          }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+  }
+
+  // epilogue on the f32 accumulators, then one bf16 write
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = n0 + wn * 32 + ni * 8 + tig * 2;
+    if (col >= p.N) continue;  // N % 16 == 0: col + 1 < N too
+    float sa0 = 1.f, sa1 = 1.f, sb0 = 1.f, sb1 = 1.f;
+    if (EPI != EPI_NONE) {
+      const float* sr = s1 + static_cast<int64_t>(e) * p.N + col;
+      sa0 = sr[0];
+      sa1 = sr[1];
+    }
+    if (EPI == EPI_SWIGLU) {
+      const float* sr = s3 + static_cast<int64_t>(e) * p.N + col;
+      sb0 = sr[0];
+      sb1 = sr[1];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + wm * 64 + mi * 16 + g + r * 8;
+        float v0 = acc[0][mi][ni][2 * r], v1 = acc[0][mi][ni][2 * r + 1];
+        if (EPI == EPI_SCALE) {
+          v0 *= sa0;
+          v1 *= sa1;
+        } else if (EPI == EPI_SWIGLU) {
+          const float g0 = v0 * sa0, g1 = v1 * sa1;
+          const float u0 = acc[NB - 1][mi][ni][2 * r] * sb0;
+          const float u1 = acc[NB - 1][mi][ni][2 * r + 1] * sb1;
+          v0 = g0 / (1.f + __expf(-g0)) * u0;  // silu(g) * u
+          v1 = g1 / (1.f + __expf(-g1)) * u1;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(row) * p.ldo + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+template <int EPI, bool INT8, bool TRANS>
+cudaError_t launch_gmm(const void* A, const void* B1, const void* B3, const float* s1,
+                       const float* s3, void* out, const int* te, const GmmParams& p,
+                       cudaStream_t stream) {
+  constexpr int smem = GmmSmem<EPI, INT8, TRANS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<EPI, INT8, TRANS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.M / BM) * ((p.N + BN - 1) / BN);
+  gmm_kernel<EPI, INT8, TRANS><<<blocks, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(A), B1, B3, s1, s3, static_cast<bf16*>(out), te, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7: the weight gradient
+// ---------------------------------------------------------------------------
+
+constexpr int TR = 32;             // rows of the reduction a stage
+constexpr int T_STRIDE = 128 + 8;  // [TR][128 + 8] tiles of lhs and dout
+constexpr int T_ELEMS = TR * T_STRIDE;
+constexpr int TGMM_SMEM = 2 * 2 * T_ELEMS * 2;  // 2 stages of (lhs, dout)
+
+struct TgmmParams {
+  int M, K, N, row_tile, n_tiles, E;
+  int64_t lda, ldd;
+};
+
+// first 32-row chunk at or after chunk c whose tile belongs to expert e
+__device__ __forceinline__ int next_chunk(int c, int e, const int* te, const TgmmParams& p) {
+  const int per_tile = p.row_tile / TR;
+  const int n_chunks = p.n_tiles * per_tile;
+  while (c < n_chunks) {
+    const int t = c / per_tile;
+    if (min(max(te[t], 0), p.E - 1) == e) return c;
+    c = (t + 1) * per_tile;
+  }
+  return n_chunks;
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
+                float* __restrict__ out, const int* __restrict__ te, const TgmmParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);  // stage s: lhs at 2s, dout at 2s + 1
+
+  const int n0 = blockIdx.x * 128, k0 = blockIdx.y * 128, e = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;  // 64 rows of K x 32 columns of N a warp
+  const int g = lane >> 2, tig = lane & 3;
+  const int n_chunks = p.n_tiles * (p.row_tile / TR);
+
+  auto load_chunk = [&](int st, int c) {
+#pragma unroll
+    for (int i = tid; i < TR * 16; i += NTHREADS) {  // 32 rows x 16 copies, each operand
+      const int r = i / 16, col = (i % 16) * 8;
+      const int64_t row = static_cast<int64_t>(c) * TR + r;
+      const bool okl = k0 + col < p.K, okd = n0 + col < p.N;
+      cp_async16(sm + (2 * st) * T_ELEMS + r * T_STRIDE + col,
+                 okl ? lhs + row * p.lda + k0 + col : lhs, okl);
+      cp_async16(sm + (2 * st + 1) * T_ELEMS + r * T_STRIDE + col,
+                 okd ? dout + row * p.ldd + n0 + col : dout, okd);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  int c = next_chunk(0, e, te, p);
+  if (c < n_chunks) load_chunk(0, c);
+  cp_async_commit();
+  int st = 0;
+  while (c < n_chunks) {
+    const int cn = next_chunk(c + 1, e, te, p);
+    if (cn < n_chunks) {
+      load_chunk(st ^ 1, cn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sL = sm + (2 * st) * T_ELEMS;
+    const bf16* sD = sm + (2 * st + 1) * T_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < TR / 16; ++kk) {
+      // A = lhs^T: GEMM row i is a K index, the reduction j a row of lhs;
+      // ldmatrix.trans of the row-major lhs tile gives the A fragments
+      unsigned a[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4_trans(a[mi], sL + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * T_STRIDE + wm * 64 +
+                                 mi * 16 + ((lane >> 3) & 1) * 8);
+      unsigned b[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_x4_trans(b[np], sD + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T_STRIDE +
+                                 wn * 32 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[np][0], b[np][1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[np][2], b[np][3]);
+        }
+    }
+    __syncthreads();
+    c = cn;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+
+  float* ob = out + static_cast<int64_t>(e) * p.K * p.N;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + tig * 2;
+      if (col >= p.N) continue;  // N % 8 == 0: col + 1 < N too
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = k0 + wm * 64 + mi * 16 + g + r * 8;
+        if (row < p.K)
+          *reinterpret_cast<float2*>(ob + static_cast<int64_t>(row) * p.N + col) =
+              make_float2(acc[mi][ni][2 * r], acc[mi][ni][2 * r + 1]);
+      }
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for shapes
+// or a variant the kernel does not take. epi: 0 gmm, 1 scaled, 2 swiglu
+// (scaled and swiglu take K-major weights only).
+int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, const float* s3,
+               void* out, const int* te, int M, int N, int K, int row_tile, int E, int64_t lda,
+               int64_t ldb, int64_t sbe, int64_t ldo, int b_int8, int b_trans, int epi,
+               void* stream) {
+  GmmParams p;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.row_tile = row_tile;
+  p.E = E;
+  p.lda = lda;
+  p.ldb = ldb;
+  p.sbe = sbe;
+  p.ldo = ldo;
+  if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || row_tile <= 0 || row_tile % BM || M % row_tile ||
+      N % 16 || K % 16 || ldo % 2)
+    return cudaErrorInvalidValue;
+  if (epi != EPI_NONE && b_trans) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int code = epi * 4 + (b_int8 ? 2 : 0) + (b_trans ? 1 : 0);
+  switch (code) {
+    case 0: return launch_gmm<EPI_NONE, false, false>(A, B1, B3, s1, s3, out, te, p, st);
+    case 1: return launch_gmm<EPI_NONE, false, true>(A, B1, B3, s1, s3, out, te, p, st);
+    case 2: return launch_gmm<EPI_NONE, true, false>(A, B1, B3, s1, s3, out, te, p, st);
+    case 3: return launch_gmm<EPI_NONE, true, true>(A, B1, B3, s1, s3, out, te, p, st);
+    case 4: return launch_gmm<EPI_SCALE, false, false>(A, B1, B3, s1, s3, out, te, p, st);
+    case 6: return launch_gmm<EPI_SCALE, true, false>(A, B1, B3, s1, s3, out, te, p, st);
+    case 8: return launch_gmm<EPI_SWIGLU, false, false>(A, B1, B3, s1, s3, out, te, p, st);
+    case 10: return launch_gmm<EPI_SWIGLU, true, false>(A, B1, B3, s1, s3, out, te, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int kubedl_tgmm(const void* lhs, const void* dout, float* out, const int* te, int M, int K, int N,
+                int row_tile, int n_tiles, int E, int64_t lda, int64_t ldd, void* stream) {
+  TgmmParams p;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.row_tile = row_tile;
+  p.n_tiles = n_tiles;
+  p.E = E;
+  p.lda = lda;
+  p.ldd = ldd;
+  if (M <= 0 || K <= 0 || N <= 0 || E <= 0 || E > 65535 || row_tile <= 0 || row_tile % TR ||
+      n_tiles * row_tile != M || K % 8 || N % 8)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tgmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TGMM_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + 127) / 128, (K + 127) / 128, E);
+  tgmm_kernel<<<grid, NTHREADS, TGMM_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout), out, te, p);
+  return cudaGetLastError();
+}
+
+const char* kubedl_gmm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

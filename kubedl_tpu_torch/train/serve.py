@@ -15,9 +15,10 @@ ticks. Run it with
 
     python -m kubedl_tpu_torch.train.serve --model llama-7b --allow-fresh-init
 
-It runs on the card unless --device cpu is given. Text prompts (they need
-a tokenizer), streaming, prefixes, adapters, int8, speculative decoding,
-checkpoints and --hf-model are not ported yet and are refused.
+It runs on the card unless --device cpu is given; --int8 serves the
+weight-only int8 tree (models/quant.py). Text prompts (they need a
+tokenizer), streaming, prefixes, adapters, int8 KV caches, speculative
+decoding, checkpoints and --hf-model are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -68,7 +69,6 @@ def parse_args(argv=None):
 _UNPORTED_FLAGS = (
     ("lora_checkpoint_path", "--lora-checkpoint-path"),
     ("adapter", "--adapter"),
-    ("int8", "--int8"),
     ("kv_int8", "--kv-int8"),
     ("draft_model", "--draft-model"),
     ("draft_checkpoint_path", "--draft-checkpoint-path"),
@@ -264,6 +264,10 @@ def build_server(args):
     params, config = resolve_params(
         args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
         device=args.device)
+    if args.int8:
+        from kubedl_tpu_torch.models import quant
+
+        params = quant.quantize_params(params)
     engine = ServingEngine(params, config, slots=args.slots,
                            max_len=args.max_len, temperature=args.temperature)
     svc = _Service(engine, decode_block=args.decode_block)

@@ -84,3 +84,27 @@ def llama_param_count(jcfg):
 def test_torch_dtype_rejects_unknown():
     with pytest.raises(ValueError):
         convert.torch_dtype(np.complex64)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_moe_and_int8_trees_cross_bit_exact(int8):
+    """A MoE tree (router f32, [E, in, out] expert stacks) and its int8
+    tree ({"q": int8, "s": bf16} leaves) cross to torch and back bit for
+    bit, nested dicts and all."""
+    from kubedl_tpu.models import quant as jquant
+
+    cfg = jllama.LlamaConfig.tiny(dtype=jnp.bfloat16, n_experts=4, expert_top_k=2)
+    jparams = jllama.init(cfg, jax.random.PRNGKey(6))
+    if int8:
+        jparams = jquant.quantize_params(jparams)
+    jparams = jax.device_get(jparams)
+    tparams = convert.params_from_numpy(jparams, device="cpu")
+    back = convert.params_to_numpy(tparams)
+    jflat, tflat, bflat = (dict(_flat(t)) for t in (jparams, tparams, back))
+    assert jflat.keys() == tflat.keys() == bflat.keys()
+    assert "layers.0.moe.router" in jflat
+    assert ("layers.0.moe.w1.q" in jflat) == int8
+    for name, a in jflat.items():
+        a = np.asarray(a)
+        assert tflat[name].dtype == convert.torch_dtype(a.dtype), name
+        np.testing.assert_array_equal(bflat[name].view(np.uint8), a.view(np.uint8), name)

@@ -233,3 +233,203 @@ def test_flash_fwd_rejects_what_it_does_not_take(dev):
     big = torch.zeros(1, 1, 8, 320, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(big, big, big)
+
+
+# -- grouped matmul kernels (ops/csrc/gmm.cu) ----------------------------------
+
+def _gmm_operands(dev, kind, int8, trans, row_tile, m_tiles=3, k=272, n=400, e=4, seed=0):
+    """bf16 lhs; bf16 or int8 weights [E, K, N], or the transpose(1, 2) view
+    of an [E, N, K] stack; K and N not multiples of the 128-wide tiles."""
+    from kubedl_tpu_torch.ops import gmm as G
+
+    rng = np.random.default_rng(seed)
+    lhs = torch.from_numpy(rng.standard_normal((m_tiles * row_tile, k), np.float32)).to(
+        dev, torch.bfloat16)
+
+    def stack():
+        shape = (e, n, k) if trans else (e, k, n)
+        if int8:
+            w = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+        else:
+            w = torch.from_numpy(rng.standard_normal(shape, np.float32) * 0.1).to(
+                dev, torch.bfloat16)
+        return w.transpose(1, 2) if trans else w
+
+    w1, w3 = stack(), stack()
+    scale = (1 / 127.0 if int8 else 1.0) * 0.5
+    s1, s3 = (torch.from_numpy(rng.uniform(0.5, 1.5, (e, n)).astype(np.float32)).to(dev) * scale
+              for _ in range(2))
+    # expert 1 owns no tile; the last tile is a clamped padding tile
+    te = torch.tensor(([0] + [2] * (m_tiles - 2) + [3])[:m_tiles], dtype=torch.int32, device=dev)
+    return G, lhs, w1, w3, s1, s3, te
+
+
+# (kind, int8 weights, transposed weights, row tile)
+GMM_CASES = [
+    ("gmm", False, False, 128), ("gmm", False, True, 128), ("gmm", True, False, 256),
+    ("gmm", True, True, 128), ("gmm", False, False, 512),
+    ("scaled", False, False, 128), ("scaled", True, False, 256),
+    ("swiglu", False, False, 128), ("swiglu", True, False, 128), ("swiglu", False, False, 256),
+]
+
+
+@pytest.mark.parametrize("kind,int8,trans,row_tile", GMM_CASES)
+def test_gmm_kernels_match_plain(dev, kind, int8, trans, row_tile):
+    """K6 (both weight layouts), K8 and K5 against their plain versions on
+    the same bf16/int8 inputs: max|kernel - plain| <= 2e-2 max|plain| (one
+    bf16 rounding of the output); each call launches its kernel once."""
+    G, lhs, w1, w3, s1, s3, te = _gmm_operands(dev, kind, int8, trans, row_tile)
+    counter = {"gmm": G.gmm, "scaled": G.gmm_scaled, "swiglu": G.gmm_swiglu}[kind]
+    n0 = counter.launches
+    if kind == "gmm":
+        got, ref = G.gmm_cuda(lhs, w1, te), G.gmm_plain(lhs, w1, te)
+    elif kind == "scaled":
+        got, ref = G.gmm_cuda(lhs, w1, te, s1), G.gmm_scaled_plain(lhs, w1, te, s1)
+    else:
+        got = G.gmm_swiglu_cuda(lhs, w1, w3, te, s1, s3)
+        ref = G.gmm_swiglu_plain(lhs, w1, w3, te, s1, s3)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, ref) <= 2e-2, _rel_err(got, ref)
+
+
+@pytest.mark.parametrize("row_tile", [128, 256])
+def test_tgmm_kernel_matches_plain_and_is_deterministic(dev, row_tile):
+    """K7: f32 [E, K, N] within 1e-3 of max|plain|, the unrouted expert
+    exactly zero, two launches bit-identical (no atomics)."""
+    G, lhs, _, _, _, _, te = _gmm_operands(dev, "gmm", False, False, row_tile, m_tiles=4)
+    rng = np.random.default_rng(9)
+    dout = torch.from_numpy(rng.standard_normal((lhs.shape[0], 400), np.float32)).to(
+        dev, torch.bfloat16)
+    n0 = G.tgmm.launches
+    got = G.tgmm_cuda(lhs, dout, te, 4)
+    again = G.tgmm_cuda(lhs, dout, te, 4)
+    torch.cuda.synchronize()
+    assert G.tgmm.launches == n0 + 2
+    ref = G.tgmm_plain(lhs, dout, te, 4)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel_err(got, ref) <= 1e-3
+    assert got[1].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+
+
+def test_gmm_autograd_through_the_kernels(dev):
+    """gmm_swiglu then gmm on CUDA tensors: forward and backward through
+    the kernels (K5, K6, K7), gradients within 2e-2 of the plain
+    versions' autograd in f32 on the same inputs."""
+    G, lhs, w1, w3, _, _, te = _gmm_operands(dev, "gmm", False, False, 128, k=256, n=256)
+    w2 = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 256, 256), np.float32)
+                          * 0.1).to(dev, torch.bfloat16)
+    ones = torch.ones((4, 256), device=dev)
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal((lhs.shape[0], 256),
+                                                                    np.float32)).to(dev)
+
+    def run(fn_swiglu, fn_gmm, dtype):
+        leaves = [x.detach().to(dtype).requires_grad_(True) for x in (lhs, w1, w3, w2)]
+        h = fn_swiglu(leaves[0], leaves[1], leaves[2], te, ones, ones)
+        out = fn_gmm(h, leaves[3], te)
+        return torch.autograd.grad(out, leaves, dout.to(dtype))
+
+    n0 = (G.gmm_swiglu.launches, G.gmm.launches, G.tgmm.launches)
+    got = run(G.gmm_swiglu, G.gmm, torch.bfloat16)
+    # forward K5 + K6; backward of gmm: K6 + K7; of swiglu: 2 K6 recompute,
+    # 2 K6 for dlhs, 2 K7
+    assert (G.gmm_swiglu.launches - n0[0], G.gmm.launches - n0[1],
+            G.tgmm.launches - n0[2]) == (1, 6, 3)
+    ref = run(G.gmm_swiglu_plain, G.gmm_plain, torch.float32)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        assert _rel_err(g, r) <= 2e-2
+
+
+def test_gmm_rejects_what_it_does_not_take(dev):
+    G, lhs, w1, _, _, _, te = _gmm_operands(dev, "gmm", False, False, 128, k=256, n=256)
+    with pytest.raises(TypeError):
+        G.gmm(lhs.float(), w1.float(), te)
+    with pytest.raises(ValueError):
+        G.gmm_cuda(lhs[:, :200], w1[:, :200], te)  # K % 16
+    with pytest.raises(ValueError):
+        G.gmm_cuda(lhs.cpu(), w1, te)
+    with pytest.raises(TypeError):
+        G.tgmm_cuda(lhs.float(), lhs.float(), te, 4)
+
+
+@pytest.fixture(scope="module")
+def tiny_moe(dev):
+    from kubedl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(d_model=256, n_heads=2, n_kv_heads=1, d_ff=512,
+                                 n_experts=4, expert_top_k=2)
+    return cfg, llama.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def test_moe_train_step_on_the_card(dev, tiny_moe):
+    """One make_train_step step of a bf16 MoE llama with AdamW and clip:
+    finite loss and grad norm, parameters moved, and per layer under full
+    remat K5 2, K6 7 and K7 3 launches."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import gmm as G
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+
+    cfg, params = tiny_moe
+    params = llama.tree_map(lambda x: x.detach().clone(), params)
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-3, weight_decay=0.01))
+    init_state, train_step = make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), tx)
+    state = init_state(params)
+    before = state.params["layers"][0]["moe"]["w1"].detach().clone()
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    n0 = (G.gmm_swiglu.launches, G.gmm.launches, G.tgmm.launches)
+    state, metrics = train_step(state, toks)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert (G.gmm_swiglu.launches - n0[0], G.gmm.launches - n0[1],
+            G.tgmm.launches - n0[2]) == (2 * n, 7 * n, 3 * n)
+    assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())
+    assert not torch.equal(before, state.params["layers"][0]["moe"]["w1"])
+
+
+def test_moe_int8_engine_on_the_card(dev, tiny_moe):
+    """The serving engine on the int8 MoE tree: prefill and decode run
+    K5 and K8, ticks and admission drain the same tokens."""
+    from kubedl_tpu_torch.models import quant
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.ops import gmm as G
+
+    cfg, params = tiny_moe
+    qp = quant.quantize_params(params)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 100)]
+    n0 = (G.gmm_swiglu.launches, G.gmm_scaled.launches, G.gmm.launches)
+    outs = ServingEngine(qp, cfg, slots=4, max_len=128).serve_all(prompts, 6)
+    assert G.gmm_swiglu.launches > n0[0] and G.gmm_scaled.launches > n0[1]
+    assert G.gmm.launches == n0[2]  # int8 stacks never take the bf16 product
+    again = ServingEngine(qp, cfg, slots=4, max_len=128)
+    reqs = [again.submit(p, 6) for p in prompts]
+    while again.has_pending():
+        again.step()
+    assert [r.tokens for r in reqs] == outs
+
+
+def test_moe_decode_step_never_syncs_with_the_host(dev, tiny_moe):
+    """Routing, dispatch and the int8 grouped products of a decode step stay
+    on the device: under sync debug mode "error" a host sync would raise."""
+    from kubedl_tpu_torch.models import decode, quant
+
+    cfg, params = tiny_moe
+    qp = quant.quantize_params(params)
+    cache = decode.init_kv_cache(cfg, 4, 64, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (4, 9), device=dev, dtype=torch.int32)
+    logits, cache = decode.prefill(qp, toks, cache, cfg)
+    nxt = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = decode.decode_step(qp, nxt, cache, cfg, check=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()

@@ -1,0 +1,210 @@
+"""kubedl_tpu_torch/ops/gmm.py against the JAX package's grouped matmul
+kernels (Pallas, interpret mode on the CPU) on the same numpy inputs: the
+three forward products at row tiles 128, 256 and 512, bf16 and int8
+weights; the gradients of every argument against jax.vjp; the unrouted
+experts' zero gradients; and the row-tile refusals, message for message.
+
+Tolerances: f32 within 1e-4 of max|JAX| (one f32 product per expert here,
+per-tile accumulation there); bf16 within 2e-2 (one bf16 rounding of the
+output, taken from f32 sums in another order)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubedl_tpu.ops import gmm as jg
+from kubedl_tpu_torch.ops import gmm as tg
+
+E, K, N = 3, 128, 128
+DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _tile_map(row_tile):
+    # two tiles with expert 1 unrouted; a single 512-row tile on expert 1
+    return np.array([1] if row_tile == 512 else [0, 2], np.int32)
+
+
+def _operands(seed, row_tile, int8):
+    rng = np.random.default_rng(seed)
+    te = _tile_map(row_tile)
+    lhs = rng.standard_normal((len(te) * row_tile, K)).astype(np.float32)
+    if int8:
+        w1, w3 = (rng.integers(-127, 128, (E, K, N)).astype(np.int8) for _ in range(2))
+    else:
+        w1, w3 = (rng.standard_normal((E, K, N)).astype(np.float32) * 0.1 for _ in range(2))
+    s1, s3 = (rng.uniform(0.5, 1.5, (E, N)).astype(np.float32) for _ in range(2))
+    if int8:  # keep int8 products O(1): scale the codes down
+        s1, s3 = s1 / 127.0, s3 / 127.0
+    return lhs, w1, w3, te, s1, s3
+
+
+def _both(a, jdt, tdt):
+    """One numpy array as (JAX, torch) operands: float arrays in the working
+    dtype, int8 weights as int8 for the port and as the lhs dtype for JAX
+    (models/moe.py converts the codes before its kernels)."""
+    if a.dtype == np.int8:
+        return jnp.asarray(a.astype(np.float32), jdt), torch.from_numpy(a)
+    if a.dtype == np.int32:
+        return jnp.asarray(a), torch.from_numpy(a)
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _close(t, j, tol):
+    j = np.asarray(j, np.float32)
+    np.testing.assert_allclose(t.float().numpy(), j, rtol=tol, atol=tol * np.abs(j).max())
+
+
+# (kind, dtype, row_tile, int8 weights)
+FWD_CASES = [
+    ("gmm", "f32", 128, False), ("gmm", "f32", 256, False), ("gmm", "f32", 512, False),
+    ("gmm", "bf16", 128, False), ("gmm", "f32", 256, True),
+    ("scaled", "f32", 128, False), ("scaled", "f32", 256, True),
+    ("scaled", "bf16", 512, True),
+    ("swiglu", "f32", 128, False), ("swiglu", "f32", 512, False),
+    ("swiglu", "bf16", 256, False), ("swiglu", "f32", 128, True),
+    ("swiglu", "bf16", 128, True),
+]
+
+
+@pytest.mark.parametrize("kind,dtype,row_tile,int8", FWD_CASES)
+def test_forward_matches_jax(kind, dtype, row_tile, int8):
+    jdt, tdt, tol = DTYPES[dtype]
+    lhs, w1, w3, te, s1, s3 = _operands(len(FWD_CASES) + row_tile, row_tile, int8)
+    (jl, tl), (j1, t1), (j3, t3), (jte, tte) = (_both(a, jdt, tdt) for a in (lhs, w1, w3, te))
+    js1, js3 = jnp.asarray(s1), jnp.asarray(s3)
+    ts1, ts3 = torch.from_numpy(s1), torch.from_numpy(s3)
+    if kind == "gmm":
+        j = jg.gmm(jl, j1, jte, row_tile=row_tile)
+        t = tg.gmm(tl, t1, tte, row_tile=row_tile)
+    elif kind == "scaled":
+        j = jg.gmm_scaled(jl, j1, jte, js1, row_tile=row_tile)
+        t = tg.gmm_scaled(tl, t1, tte, ts1, row_tile=row_tile)
+    else:
+        j = jg.gmm_swiglu(jl, j1, j3, jte, js1, js3, row_tile=row_tile)
+        t = tg.gmm_swiglu(tl, t1, t3, tte, ts1, ts3, row_tile=row_tile)
+    assert t.dtype == tdt and tuple(t.shape) == j.shape
+    _close(t, j, tol)
+
+
+def _grads(jfn, tfn, jargs, targs, dout):
+    """(JAX vjp, port autograd) gradients of every argument for one
+    output cotangent."""
+    out, vjp = jax.vjp(jfn, *jargs)
+    jgrads = vjp(jnp.asarray(dout))
+    tleaves = [a.detach().clone().requires_grad_(True) for a in targs]
+    tout = tfn(*tleaves)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(out)).max())
+    tgrads = torch.autograd.grad(tout, tleaves, torch.from_numpy(dout))
+    return jgrads, tgrads
+
+
+@pytest.mark.parametrize("kind,row_tile", [("gmm", 128), ("gmm", 512), ("scaled", 256),
+                                           ("swiglu", 128)])
+def test_gradients_match_jax_vjp(kind, row_tile):
+    """Every argument's gradient (scales included) within 1e-4 of max|JAX|
+    in f32; the unrouted expert's weight gradient is exactly zero in both."""
+    lhs, w1, w3, te, s1, s3 = _operands(7 + row_tile, row_tile, False)
+    rng = np.random.default_rng(row_tile)
+    dout = rng.standard_normal((lhs.shape[0], N)).astype(np.float32)
+    jte, tte = jnp.asarray(te), torch.from_numpy(te)
+    if kind == "gmm":
+        args = (lhs, w1)
+        jfn = lambda a, b: jg.gmm(a, b, jte, row_tile=row_tile)  # noqa: E731
+        tfn = lambda a, b: tg.gmm(a, b, tte, row_tile=row_tile)  # noqa: E731
+        weights = (1,)
+    elif kind == "scaled":
+        args = (lhs, w1, s1)
+        jfn = lambda a, b, s: jg.gmm_scaled(a, b, jte, s, row_tile=row_tile)  # noqa: E731
+        tfn = lambda a, b, s: tg.gmm_scaled(a, b, tte, s, row_tile=row_tile)  # noqa: E731
+        weights = (1,)
+    else:
+        args = (lhs, w1, w3, s1, s3)
+        jfn = lambda a, b, c, sa, sb: jg.gmm_swiglu(  # noqa: E731
+            a, b, c, jte, sa, sb, row_tile=row_tile)
+        tfn = lambda a, b, c, sa, sb: tg.gmm_swiglu(  # noqa: E731
+            a, b, c, tte, sa, sb, row_tile=row_tile)
+        weights = (1, 2)
+    jgrads, tgrads = _grads(jfn, tfn, [jnp.asarray(a) for a in args],
+                            [torch.from_numpy(a) for a in args], dout)
+    for i, (j, t) in enumerate(zip(jgrads, tgrads)):
+        assert tuple(t.shape) == j.shape and t.dtype == torch.float32
+        _close(t, j, 1e-4)
+    unrouted = sorted(set(range(E)) - set(te.tolist()))
+    for i in weights:
+        for e in unrouted:
+            assert float(jnp.abs(jgrads[i][e]).max()) == 0.0
+            assert tgrads[i][e].abs().max().item() == 0.0
+        assert tgrads[i][int(te[0])].abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("row_tile", [128, 256])
+def test_tgmm_plain_matches_jax_drhs(row_tile):
+    """K7's plain version against the JAX kernel behind `_drhs` (tiles of
+    one expert summed, unrouted experts zeroed)."""
+    rng = np.random.default_rng(row_tile)
+    te = np.array([0, 0, 2], np.int32)
+    lhs = rng.standard_normal((3 * row_tile, K)).astype(np.float32)
+    dout = rng.standard_normal((3 * row_tile, N)).astype(np.float32)
+    j = jg._drhs(jnp.asarray(lhs), jnp.asarray(dout), jnp.asarray(te), E)
+    t = tg.tgmm(torch.from_numpy(lhs), torch.from_numpy(dout), torch.from_numpy(te), E)
+    assert t.dtype == torch.float32 and tuple(t.shape) == (E, K, N)
+    _close(t, j, 1e-4)
+    assert t[1].abs().max().item() == 0.0
+
+
+def _raises_like_jax(jcall, tcall):
+    with pytest.raises(ValueError) as je:
+        jcall()
+    with pytest.raises(ValueError) as te:
+        tcall()
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("kind", ["gmm", "gmm_scaled", "gmm_swiglu"])
+def test_row_tile_refusals_match_jax(kind):
+    """_check_row_tile: a row tile that is not a multiple of 128, rows that
+    are not whole row tiles, and a tile map of the wrong length all refuse
+    with the JAX package's messages."""
+    lhs = np.zeros((256, K), np.float32)
+    w = np.zeros((E, K, N), np.float32)
+    s = np.ones((E, N), np.float32)
+    bad = [(lhs, np.zeros(2, np.int32), 64),            # row_tile % 128
+           (lhs[:200], np.zeros(1, np.int32), 128),     # ragged rows
+           (lhs, np.zeros(1, np.int32), 128)]           # truncated tile map
+    for a, te, rt in bad:
+        ja, jw, js, jte = (jnp.asarray(x) for x in (a, w, s, te))
+        ta, tw, ts, tte = (torch.from_numpy(x) for x in (a, w, s, te))
+        if kind == "gmm":
+            _raises_like_jax(lambda: jg.gmm(ja, jw, jte, row_tile=rt),
+                             lambda: tg.gmm(ta, tw, tte, row_tile=rt))
+        elif kind == "gmm_scaled":
+            _raises_like_jax(lambda: jg.gmm_scaled(ja, jw, jte, js, row_tile=rt),
+                             lambda: tg.gmm_scaled(ta, tw, tte, ts, row_tile=rt))
+        else:
+            _raises_like_jax(lambda: jg.gmm_swiglu(ja, jw, jw, jte, js, js, row_tile=rt),
+                             lambda: tg.gmm_swiglu(ta, tw, tw, tte, ts, ts, row_tile=rt))
+
+
+def test_row_tile_of_refusals_match_jax():
+    for m, n_tiles in ((300, 2), (192, 3)):  # ragged tail; tile of 64 rows
+        te = np.zeros(n_tiles, np.int32)
+        _raises_like_jax(lambda: jg._row_tile_of(m, te, "gmm"),
+                         lambda: tg._row_tile_of(m, te, "gmm"))
+    assert tg._row_tile_of(1024, np.zeros(2, np.int32), "gmm") == 512
+
+
+def test_plain_versions_need_no_card_and_count_no_launch():
+    """CPU tensors take the plain versions: the launch counters do not move."""
+    lhs, w1, w3, te, s1, s3 = _operands(3, 128, False)
+    before = (tg.gmm.launches, tg.gmm_scaled.launches, tg.gmm_swiglu.launches,
+              tg.tgmm.launches)
+    args = [torch.from_numpy(a) for a in (lhs, w1, w3, te, s1, s3)]
+    x = args[0].requires_grad_(True)
+    out = tg.gmm_swiglu(x, *args[1:])
+    tg.gmm(out, args[1], args[3]).sum().backward()
+    tg.gmm_scaled(x, args[1], args[3], args[4])
+    assert (tg.gmm.launches, tg.gmm_scaled.launches, tg.gmm_swiglu.launches,
+            tg.tgmm.launches) == before

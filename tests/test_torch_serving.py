@@ -236,11 +236,52 @@ def test_http_round_trip_on_cpu(server):
 def test_serve_refuses_unported_flags_and_missing_card(monkeypatch):
     from kubedl_tpu_torch.train import serve
 
-    with pytest.raises(NotImplementedError):
-        serve.build_server(serve.parse_args(["--device", "cpu", "--int8"]))
+    with pytest.raises(NotImplementedError, match="--kv-int8"):
+        serve.build_server(serve.parse_args(["--device", "cpu", "--kv-int8"]))
     with pytest.raises(NotImplementedError):
         serve.build_server(serve.parse_args(["--device", "cpu",
                                              "--checkpoint-path", "/nonexistent"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.build_server(serve.parse_args(["--port", "0"]))
+
+
+def test_moe_engine_matches_jax_engine():
+    """A tiny MoE llama (4 experts, top 2, f32): the port's engine gives the
+    JAX engine's greedy tokens over two bucket clusters and slot reuse."""
+    jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, use_flash=True, n_experts=4,
+                                   expert_top_k=2)
+    jp = jllama.init(jcfg, jax.random.PRNGKey(5))
+    tcfg = config_from_fields(**dataclasses.asdict(jcfg))
+    tp = params_from_numpy(jax.device_get(jp))
+    prompts = _prompts((3, 12, 40, 70), 7)
+    j = JaxEngine(jp, jcfg, slots=2, max_len=128).serve_all(prompts, 5)
+    t = ServingEngine(tp, tcfg, slots=2, max_len=128).serve_all(prompts, 5)
+    assert t == [list(map(int, x)) for x in j]
+
+
+def test_http_round_trip_int8_on_cpu():
+    """--int8: the server quantizes the fresh-init tree and answers with the
+    greedy tokens of quant.quantize_params of the same weights."""
+    from kubedl_tpu_torch.models import quant
+    from kubedl_tpu_torch.train import serve
+    from kubedl_tpu_torch.train.generate import resolve_params
+
+    args = serve.parse_args(["--model", "tiny", "--device", "cpu", "--port", "0",
+                             "--bind", "127.0.0.1", "--max-len", "64", "--int8"])
+    httpd, svc = serve.build_server(args)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        assert quant.is_quantized(svc.engine.params["layers"][0]["wq"])
+        tp, tcfg = resolve_params("tiny", device="cpu")
+        qp = quant.quantize_params(tp)
+        prompt = _prompts((9,), 8)[0]
+        got = _post(base, {"tokens": prompt.tolist(), "max_new_tokens": 5})
+        assert got["tokens"] == _generate(qp, tcfg, prompt, 5)
+    finally:
+        httpd.shutdown()
+        t.join(timeout=30)
+        httpd.server_close()
+        svc.stop()

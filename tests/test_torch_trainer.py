@@ -254,6 +254,10 @@ def test_operator_preempts_and_resumes_the_port_trainer(tmp_path):
                             "--checkpoint-interval", str(interval),
                             "--log-every", "1000",
                         ],
+                        # one OpenMP thread: the tiny model gains nothing from
+                        # more, and a thread per core makes the pod crawl (7x
+                        # measured) when other test workers load every core
+                        "env": {"OMP_NUM_THREADS": "1"},
                     }]}},
                 }},
             },
