@@ -5,7 +5,8 @@ and check them.
 
 Phases, each printing its own line of numbers:
   1. device and build: the card's name and power limit, the CUDA kernels
-     built from ops/csrc/ in parallel (seconds, registers, spills);
+     built from ops/csrc/ in parallel, one nvcc a source (seconds,
+     registers, spills);
   2. each kernel against its plain PyTorch version on the card, at the
      7B prefill shapes and the variants the model can ask for (GQA,
      window, softcap, d=64, a long sequence), with kernel, plain and
@@ -33,12 +34,13 @@ Phases, each printing its own line of numbers:
      remat, cosine schedule) and its preemption contract: a subprocess
      trainer SIGTERMed after its first checkpoint exits 113, and its rerun
      resumes from that checkpoint and exits 0.
-  2c. the grouped matmul kernels (gmm.cu: K5 bf16 and int8, K6 and its
-     transposed-weight use, K8, K7) against their plain versions at
-     Mixtral-8x7B widths on tile maps from the real dispatch plan of
-     seeded routing (training, prefill, decode, 512-row tiles, two experts
-     unrouted), two K7 launches bit-identical, with kernel, plain and
-     library (torch._grouped_mm) times beside the bound;
+  2c. the grouped matmul kernels (gmm_sm90.cu: K6 and its transposed-weight
+     use, K7 with f32 and bf16 output; gmm.cu: K5 bf16 and int8, K8)
+     against their plain versions at Mixtral-8x7B widths on tile maps from
+     the real dispatch plan of seeded routing (training, prefill, decode,
+     512-row tiles, two experts unrouted), two K7 launches bit-identical and
+     unrouted experts exactly zero, with kernel, plain and library
+     (torch._grouped_mm) times beside the bound;
   8. MoE gradients at Mixtral width, 2 layers, b=2, S=1024: loss_fn and
      every gradient through the kernels against the same model with
      models/moe.py's grouped products pointed at the plain versions, and
@@ -100,6 +102,11 @@ GMM_SHAPES = {
 # the shape each kernel's JSON numbers come from: its main path's
 MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8184",
             "gmm_scaled": "decode_R16"}
+# the case each kernel's JSON numbers come from: the training step's K7
+# writes bf16 (the weights' dtype)
+MAIN_CASE = {"gmm_swiglu": "gmm_swiglu", "gmm": "gmm", "tgmm": "tgmm_bf16",
+             "gmm_scaled": "gmm_scaled"}
+SOURCES = ("flash_fwd", "flash_bwd", "gmm", "gmm_sm90")
 MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
@@ -141,10 +148,10 @@ def phase_device():
           f"{torch.__version__}, cuda {torch.version.cuda})", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     t0 = time.perf_counter()
-    _build.build("flash_fwd", "flash_bwd", "gmm")
-    print(f"build: three sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
+    _build.build(*SOURCES)
+    print(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
-    for src in ("flash_fwd", "flash_bwd", "gmm"):
+    for src in SOURCES:
         print(f"build: {src}.cu in {_build.build_seconds[src]:.2f} s -> "
               f"{_build.library_path(src)}", flush=True)
         for line in _build.ptxas_report(src).splitlines():
@@ -619,7 +626,7 @@ def _kernel_profile(trace_json, wall_ms):
     groups = {"gmm kernels": 0.0, "flash kernels": 0.0, "GEMM (cuBLAS)": 0.0,
               "elementwise and other": 0.0}
     for n, us in by_name.items():
-        if "gmm_kernel" in n:  # gmm_kernel<...> (K5, K6, K8) and tgmm_kernel (K7)
+        if "gmm_kernel" in n:  # gmm_kernel<...>, gmm_sm90_gmm_kernel, tgmm_sm90_gmm_kernel
             groups["gmm kernels"] += us / 1e3
         elif "flash_" in n:
             groups["flash kernels"] += us / 1e3
@@ -913,7 +920,7 @@ def _library(fn):
 
 def phase_gmm_kernels():
     """K5-K8 against their plain versions at Mixtral widths; returns
-    {shape: {kernel: numbers}}."""
+    {shape: {kernel case: numbers}}."""
     from kubedl_tpu_torch.models import moe
     from kubedl_tpu_torch.ops import gmm as G
 
@@ -956,6 +963,7 @@ def phase_gmm_kernels():
         dy, dg = routed(d), routed(ff, 0.1)
         wb, sb = 2 * owned * d * ff, 4 * owned * ff  # one stack's bytes (bf16), scales
         io = 2 * r * (d + ff)                        # the routed rows in and out
+        bf16 = torch.bfloat16
         cases = {  # name: (kernel, plain, library or None, tolerance, flop, bytes)
             "gmm_swiglu": (lambda: G.gmm_swiglu_cuda(x, w1, w3, te, ones, ones),
                            lambda: G.gmm_swiglu_plain(x, w1, w3, te, ones, ones),
@@ -976,13 +984,20 @@ def phase_gmm_kernels():
             "tgmm": (lambda: G.tgmm_cuda(x, dg, te, e), lambda: G.tgmm_plain(x, dg, te, e),
                      lambda: torch._grouped_mm(x.t(), dg, offs=offs), TGMM_TOL,
                      2 * r * d * ff, io + 4 * e * d * ff),
+            # the training step's K7: the weights' dtype, one rounding of the f32 sum
+            "tgmm_bf16": (lambda: G.tgmm_cuda(x, dg, te, e, out_dtype=bf16),
+                          lambda: G.tgmm_plain(x, dg, te, e, out_dtype=bf16),
+                          lambda: torch._grouped_mm(x.t(), dg, offs=offs), GMM_TOL,
+                          2 * r * d * ff, io + 2 * e * d * ff),
         }
+        unrouted = [i for i in range(e) if int(group[i]) == 0]
         shape = {}
         for kname, (kern, plain, lib, tol, flop, nbytes) in cases.items():
             got = kern()
-            same = True
-            if kname == "tgmm":
+            same, zero = True, True
+            if kname.startswith("tgmm"):
                 same = torch.equal(got, kern())
+                zero = all(got[i].abs().max().item() == 0.0 for i in unrouted)
             torch.cuda.synchronize()
             ref = plain()
             err, abs_err = _rel(got, ref), (got.float() - ref.float()).abs().max().item()
@@ -994,11 +1009,14 @@ def phase_gmm_kernels():
                 else _library(lib)
             if kname == "tgmm" and library_ms is not None:
                 why = "bf16 output: torch._grouped_mm refuses an f32 out_dtype here"
+            elif kname == "tgmm_bf16" and library_ms is not None:
+                why = "like for like: bf16 output"
             bound_ms, bound_by = _bound(flop, nbytes)
             n = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                      library_note=why, bound_ms=bound_ms, bound_by=bound_by,
                      share_of_bound=bound_ms / kernel_ms, tflops=flop / kernel_ms / 1e9,
-                     rel_err=err, max_abs_err=abs_err, deterministic=same, routed_rows=r,
+                     rel_err=err, max_abs_err=abs_err, deterministic=same,
+                     unrouted_zero=zero, routed_rows=r,
                      m_pad=m_pad, row_tile=tile, executed_share=m_pad / r,
                      experts_owning_rows=owned)
             shape[kname] = n
@@ -1007,11 +1025,12 @@ def phase_gmm_kernels():
                   f"library_ms={lib_s} bound_ms={bound_ms:.4f} ({bound_by}) "
                   f"share={n['share_of_bound']:.3f} tflops={n['tflops']:.1f} rel_err={err:.2e} "
                   f"R={r} m_pad={m_pad} tile={tile} m_pad/R={m_pad / r:.3f} owned={owned}"
-                  + (f" deterministic={same}" if kname == "tgmm" else ""), flush=True)
-            if not finite or not same or err > tol:
+                  + (f" deterministic={same} unrouted_zero={zero} ({len(unrouted)} unrouted)"
+                     if kname.startswith("tgmm") else ""), flush=True)
+            if not finite or not same or not zero or err > tol:
                 raise AssertionError(f"{kname} disagrees with its plain version at {name}: "
-                                     f"finite={finite} deterministic={same} rel_err={err} "
-                                     f"(tol {tol})")
+                                     f"finite={finite} deterministic={same} "
+                                     f"unrouted_zero={zero} rel_err={err} (tol {tol})")
         results[name] = shape
         del x, h, dy, dg
     del w1, w3, w2, q1, q3, q2
@@ -1166,6 +1185,10 @@ def phase_moe_train():
               f"{nm} {ms:.2f} ms" for nm, ms in prof_numbers["top"]), flush=True)
     print("profile moe train step by kind: " + "; ".join(
         f"{k} {ms:.1f} ms" for k, ms in prof_numbers["groups"].items()), flush=True)
+    print(f"moe train summary: step {step_s * 1e3:.1f} ms, gmm kernels "
+          f"{prof_numbers['groups']['gmm kernels']:.1f} ms of "
+          f"{prof_numbers['device_busy_ms']:.1f} ms device time in the profiled step",
+          flush=True)
     del state, batches, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -1361,11 +1384,12 @@ def main(argv=None) -> int:
     gmm_rows = []
     for kname, line in (("gmm", 130), ("gmm_scaled", 147), ("gmm_swiglu", 170),
                         ("tgmm", 276)):
-        main_g = gmm[MAIN_GMM[kname]][kname]
+        main_g = gmm[MAIN_GMM[kname]][MAIN_CASE[kname]]
+        src = "gmm_sm90.cu" if kname in ("gmm", "tgmm") else "gmm.cu"
         gmm_rows.append({
             "name": kname,
             "route": "cuda",
-            "source": "kubedl_tpu_torch/ops/csrc/gmm.cu",
+            "source": f"kubedl_tpu_torch/ops/csrc/{src}",
             "replaces": f"kubedl_tpu/ops/gmm.py:{line}",
             "launches": gmm_launches[kname],
             "max_abs_err": max(v["max_abs_err"] for sh in gmm.values()

@@ -98,10 +98,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> str:
-    """Registers / shared memory / spill lines nvcc printed for `name`."""
+    """Registers / spill lines nvcc printed for `name`, and any wait that
+    ptxas injected between wgmma instructions."""
     log = library_path(name).with_suffix(".so.log")
     if not log.exists():
         return ""
-    keep = ("registers", "spill", "Compiling entry")
+    keep = ("registers", "spill", "Compiling entry", "injected")
     return "\n".join(ln.strip() for ln in log.read_text().splitlines()
                      if any(k in ln for k in keep))

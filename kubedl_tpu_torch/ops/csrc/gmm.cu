@@ -1,12 +1,13 @@
 // Grouped matrix products for the dropless MoE FFN on Hopper (sm_90a): bf16
 // activations, bf16 or int8 weight stacks, f32 accumulation, plain C
-// interface bound with ctypes by kubedl_tpu_torch/ops/gmm.py.
+// interface bound with ctypes by kubedl_tpu_torch/ops/gmm.py. This file
+// serves K5, K8 and K6 on int8 weights; K6 on bf16 weights and K7 run the
+// TMA/wgmma kernels of gmm_sm90.cu.
 //
 // Replaces the TPU kernels
-//   kubedl_tpu/ops/gmm.py:130 _gmm_kernel         (K6)  gmm_kernel<EPI_NONE>
+//   kubedl_tpu/ops/gmm.py:130 _gmm_kernel         (K6, int8 rhs)  gmm_kernel<EPI_NONE, true, *>
 //   kubedl_tpu/ops/gmm.py:147 _gmm_scaled_kernel  (K8)  gmm_kernel<EPI_SCALE>
 //   kubedl_tpu/ops/gmm.py:170 _gmm_swiglu_kernel  (K5)  gmm_kernel<EPI_SWIGLU>
-//   kubedl_tpu/ops/gmm.py:276 _tgmm_kernel        (K7)  tgmm_kernel
 //
 // What they compute. lhs [M, K] is cut into row tiles of row_tile rows
 // (M / len(tile_expert), a multiple of 128); tile i multiplies the weights
@@ -14,13 +15,6 @@
 //   K6  out[i] = bf16(lhs[i] @ rhs[te[i]])
 //   K8  out[i] = bf16((lhs[i] @ rhs[te[i]]) * scale[te[i], :])
 //   K5  out[i] = bf16(silu(lhs[i] @ w1[e] * s1[e]) * (lhs[i] @ w3[e] * s3[e]))
-//   K7  out[e] = sum over the row tiles i with te[i] == e of lhs[i]^T @ dout[i],
-//       f32 [E, K, N]; an expert that owns no tile gets zeros.
-// The TPU grid runs K7's m axis in order and zeroes the block at each
-// expert's first tile; here one block owns (expert, 128 rows of K, 128
-// columns of N) and loops over that expert's tiles itself, so no atomics are
-// needed and two runs give the same bits. For the non-decreasing tile map the
-// dispatch plan produces this is the TPU kernel's sum.
 //
 // Weights are read in place through strides. TRANS=false reads a K-major
 // [K, N] block per expert (N contiguous); TRANS=true reads the backward's
@@ -41,8 +35,8 @@
 // neither wgmma nor TMA, and it computes every padded row of the layout
 // (m_pad, not R); both are later work.
 //
-// Layout: lhs/dout rows with any row stride that is a whole 16-byte vector;
-// K and N multiples of 16 (8 for K7); out [M, N] with row stride ldo.
+// Layout: lhs rows with any row stride that is a whole 16-byte vector; K
+// and N multiples of 16; out [M, N] with row stride ldo.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -329,131 +323,14 @@ cudaError_t launch_gmm(const void* A, const void* B1, const void* B3, const floa
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K7: the weight gradient
-// ---------------------------------------------------------------------------
-
-constexpr int TR = 32;             // rows of the reduction a stage
-constexpr int T_STRIDE = 128 + 8;  // [TR][128 + 8] tiles of lhs and dout
-constexpr int T_ELEMS = TR * T_STRIDE;
-constexpr int TGMM_SMEM = 2 * 2 * T_ELEMS * 2;  // 2 stages of (lhs, dout)
-
-struct TgmmParams {
-  int M, K, N, row_tile, n_tiles, E;
-  int64_t lda, ldd;
-};
-
-// first 32-row chunk at or after chunk c whose tile belongs to expert e
-__device__ __forceinline__ int next_chunk(int c, int e, const int* te, const TgmmParams& p) {
-  const int per_tile = p.row_tile / TR;
-  const int n_chunks = p.n_tiles * per_tile;
-  while (c < n_chunks) {
-    const int t = c / per_tile;
-    if (min(max(te[t], 0), p.E - 1) == e) return c;
-    c = (t + 1) * per_tile;
-  }
-  return n_chunks;
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-    tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-                float* __restrict__ out, const int* __restrict__ te, const TgmmParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);  // stage s: lhs at 2s, dout at 2s + 1
-
-  const int n0 = blockIdx.x * 128, k0 = blockIdx.y * 128, e = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 64 rows of K x 32 columns of N a warp
-  const int g = lane >> 2, tig = lane & 3;
-  const int n_chunks = p.n_tiles * (p.row_tile / TR);
-
-  auto load_chunk = [&](int st, int c) {
-#pragma unroll
-    for (int i = tid; i < TR * 16; i += NTHREADS) {  // 32 rows x 16 copies, each operand
-      const int r = i / 16, col = (i % 16) * 8;
-      const int64_t row = static_cast<int64_t>(c) * TR + r;
-      const bool okl = k0 + col < p.K, okd = n0 + col < p.N;
-      cp_async16(sm + (2 * st) * T_ELEMS + r * T_STRIDE + col,
-                 okl ? lhs + row * p.lda + k0 + col : lhs, okl);
-      cp_async16(sm + (2 * st + 1) * T_ELEMS + r * T_STRIDE + col,
-                 okd ? dout + row * p.ldd + n0 + col : dout, okd);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  int c = next_chunk(0, e, te, p);
-  if (c < n_chunks) load_chunk(0, c);
-  cp_async_commit();
-  int st = 0;
-  while (c < n_chunks) {
-    const int cn = next_chunk(c + 1, e, te, p);
-    if (cn < n_chunks) {
-      load_chunk(st ^ 1, cn);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sL = sm + (2 * st) * T_ELEMS;
-    const bf16* sD = sm + (2 * st + 1) * T_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < TR / 16; ++kk) {
-      // A = lhs^T: GEMM row i is a K index, the reduction j a row of lhs;
-      // ldmatrix.trans of the row-major lhs tile gives the A fragments
-      unsigned a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4_trans(a[mi], sL + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * T_STRIDE + wm * 64 +
-                                 mi * 16 + ((lane >> 3) & 1) * 8);
-      unsigned b[2][4];
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_trans(b[np], sD + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T_STRIDE +
-                                 wn * 32 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          mma_bf16(acc[mi][2 * np], a[mi], b[np][0], b[np][1]);
-          mma_bf16(acc[mi][2 * np + 1], a[mi], b[np][2], b[np][3]);
-        }
-    }
-    __syncthreads();
-    c = cn;
-    st ^= 1;
-  }
-  cp_async_wait<0>();
-
-  float* ob = out + static_cast<int64_t>(e) * p.K * p.N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + tig * 2;
-      if (col >= p.N) continue;  // N % 8 == 0: col + 1 < N too
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = k0 + wm * 64 + mi * 16 + g + r * 8;
-        if (row < p.K)
-          *reinterpret_cast<float2*>(ob + static_cast<int64_t>(row) * p.N + col) =
-              make_float2(acc[mi][ni][2 * r], acc[mi][ni][2 * r + 1]);
-      }
-    }
-}
-
 }  // namespace
 
 extern "C" {
 
 // Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for shapes
-// or a variant the kernel does not take. epi: 0 gmm, 1 scaled, 2 swiglu
-// (scaled and swiglu take K-major weights only).
+// or a variant the kernel does not take. epi: 0 gmm (int8 weights only:
+// bf16 ones go to gmm_sm90.cu), 1 scaled, 2 swiglu (scaled and swiglu take
+// K-major weights only).
 int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, const float* s3,
                void* out, const int* te, int M, int N, int K, int row_tile, int E, int64_t lda,
                int64_t ldb, int64_t sbe, int64_t ldo, int b_int8, int b_trans, int epi,
@@ -475,8 +352,6 @@ int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int code = epi * 4 + (b_int8 ? 2 : 0) + (b_trans ? 1 : 0);
   switch (code) {
-    case 0: return launch_gmm<EPI_NONE, false, false>(A, B1, B3, s1, s3, out, te, p, st);
-    case 1: return launch_gmm<EPI_NONE, false, true>(A, B1, B3, s1, s3, out, te, p, st);
     case 2: return launch_gmm<EPI_NONE, true, false>(A, B1, B3, s1, s3, out, te, p, st);
     case 3: return launch_gmm<EPI_NONE, true, true>(A, B1, B3, s1, s3, out, te, p, st);
     case 4: return launch_gmm<EPI_SCALE, false, false>(A, B1, B3, s1, s3, out, te, p, st);
@@ -485,29 +360,6 @@ int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, c
     case 10: return launch_gmm<EPI_SWIGLU, true, false>(A, B1, B3, s1, s3, out, te, p, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-int kubedl_tgmm(const void* lhs, const void* dout, float* out, const int* te, int M, int K, int N,
-                int row_tile, int n_tiles, int E, int64_t lda, int64_t ldd, void* stream) {
-  TgmmParams p;
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.row_tile = row_tile;
-  p.n_tiles = n_tiles;
-  p.E = E;
-  p.lda = lda;
-  p.ldd = ldd;
-  if (M <= 0 || K <= 0 || N <= 0 || E <= 0 || E > 65535 || row_tile <= 0 || row_tile % TR ||
-      n_tiles * row_tile != M || K % 8 || N % 8)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tgmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         TGMM_SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + 127) / 128, (K + 127) / 128, E);
-  tgmm_kernel<<<grid, NTHREADS, TGMM_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout), out, te, p);
-  return cudaGetLastError();
 }
 
 const char* kubedl_gmm_error_string(int err) {

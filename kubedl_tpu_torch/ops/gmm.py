@@ -8,12 +8,17 @@ share that shape: `gmm` (K6), `gmm_scaled` (K8: times a per-expert [E, N]
 output scale, the int8 dequantisation) and `gmm_swiglu` (K5:
 ``silu(lhs @ w1[e] * s1[e]) * (lhs @ w3[e] * s3[e])`` in one pass). Their
 backward runs `tgmm` (K7): ``drhs[e] = sum over e's row tiles of
-lhs_tile^T @ dout_tile`` in f32, zero for an expert that owns no tile.
+lhs_tile^T @ dout_tile`` summed in f32 and written in f32 or, where the
+caller casts to bf16 weights anyway, in bf16; zero for an expert that owns
+no tile.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
-kernels of ops/csrc/gmm.cu (bf16 lhs, bf16 or int8 rhs, converted to bf16
-inside the kernel, so no bf16 copy of an int8 stack is made) or the call
-raises. There is no fallback between the two. The public functions go
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes a
+kernel or the call raises. There is no fallback between the two.
+`kernel_source` names the kernel source of each product: K6 on bf16
+weights (either layout) and K7 run the TMA/wgmma kernels of
+ops/csrc/gmm_sm90.cu; K5, K8 and K6 on int8 weights the mma.sync template
+of ops/csrc/gmm.cu (bf16 lhs, int8 rhs converted to bf16 inside the
+kernel, so no bf16 copy of an int8 stack is made). The public functions go
 through torch.autograd.Functions whose backward is the JAX module's
 (`_gmm_bwd`, `_gmm_scaled_bwd`, `_gmm_swiglu_bwd`): dlhs by the gmm kernel
 against rhs transposed (a strided view, never a copy), drhs by `tgmm`, the
@@ -134,9 +139,10 @@ def gmm_swiglu_plain(lhs, w1, w3, tile_expert, scale1, scale3):
                   lambda e, p: F.silu(p[0] * scale1[e].float()) * (p[1] * scale3[e].float()))
 
 
-def tgmm_plain(lhs, dout, tile_expert, n_experts: int):
-    """K7's function: [E, K, N] f32 with drhs[e] = lhs_e^T @ dout_e over the
-    rows of e's tiles; an expert that owns no tile is exactly zero."""
+def tgmm_plain(lhs, dout, tile_expert, n_experts: int, out_dtype=torch.float32):
+    """K7's function: [E, K, N] with drhs[e] = lhs_e^T @ dout_e over the
+    rows of e's tiles, summed in f32 and cast to `out_dtype` at the end; an
+    expert that owns no tile is exactly zero."""
     m, k = lhs.shape
     n = dout.shape[1]
     nt = tile_expert.shape[0]
@@ -146,22 +152,52 @@ def tgmm_plain(lhs, dout, tile_expert, n_experts: int):
     out = torch.zeros((n_experts, k, n), dtype=torch.float32, device=lhs.device)
     for e, tiles in _expert_tiles(tile_expert, n_experts):
         out[e] = x[tiles].reshape(-1, k).T @ d[tiles].reshape(-1, n)
-    return out
+    return out.to(out_dtype)
 
 
 # -- the CUDA kernels ----------------------------------------------------------
 
 
+SM90, MMA_SYNC = "gmm_sm90", "gmm"  # the two kernel sources under ops/csrc/
+
+
+def kernel_source(rhs_dtype, transposed: bool, epi: int) -> str:
+    """The csrc/ source whose kernel a CUDA grouped product takes, from the
+    weights' dtype, their layout (the transpose(1, 2) view or not) and the
+    epilogue: bf16 weights with no epilogue go to gmm_sm90.cu (TMA, wgmma),
+    everything else to gmm.cu (mma.sync), which reads the transposed layout
+    only with no epilogue. Raises on what neither kernel takes."""
+    if rhs_dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"grouped product weights are {rhs_dtype}; the kernels take "
+                        "torch.bfloat16 or torch.int8")
+    if epi not in (EPI_NONE, EPI_SCALE, EPI_SWIGLU):
+        raise ValueError(f"unknown grouped product epilogue {epi}")
+    if transposed and epi != EPI_NONE:
+        raise ValueError("the scaled and SwiGLU products take K-major weights only")
+    return SM90 if rhs_dtype == torch.bfloat16 and epi == EPI_NONE else MMA_SYNC
+
+
 def _lib():
-    lib = _build.load("gmm")
+    lib = _build.load(MMA_SYNC)
     if lib.kubedl_gmm.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.kubedl_gmm.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [I] * 3 + [P]
         lib.kubedl_gmm.restype = I
-        lib.kubedl_tgmm.argtypes = [P] * 4 + [I] * 6 + [L] * 2 + [P]
-        lib.kubedl_tgmm.restype = I
         lib.kubedl_gmm_error_string.argtypes = [I]
         lib.kubedl_gmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib_sm90():
+    lib = _build.load(SM90)
+    if lib.kubedl_gmm_sm90.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.kubedl_gmm_sm90.argtypes = [P] * 4 + [I] * 5 + [L] * 4 + [I, P]
+        lib.kubedl_gmm_sm90.restype = I
+        lib.kubedl_tgmm_sm90.argtypes = [P] * 4 + [I] * 6 + [L] * 2 + [I, P]
+        lib.kubedl_tgmm_sm90.restype = I
+        lib.kubedl_gmm_sm90_error_string.argtypes = [I]
+        lib.kubedl_gmm_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -221,18 +257,26 @@ def _launch(fn_name, lhs, ws, scales, tile_expert, epi):
             raise ValueError(f"{fn_name}: scale {tuple(s.shape)} is not [E, N] = {(e, n)}")
     _, trans, ldb, sbe = stacks[0]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    ptrs = [s[0].data_ptr() for s in stacks] + [0] * (2 - len(stacks))
-    sptrs = [s.data_ptr() for s in scales] + [0] * (2 - len(scales))
-    lib = _lib()
-    err = lib.kubedl_gmm(
-        lhs.data_ptr(), ptrs[0], ptrs[1], sptrs[0], sptrs[1], out.data_ptr(),
-        te.data_ptr(), m, n, k, tm, e, lhs.stride(0), ldb, sbe, out.stride(0),
-        int(ws[0].dtype == torch.int8), int(trans), epi,
-        torch.cuda.current_stream(lhs.device).cuda_stream)
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    if kernel_source(ws[0].dtype, trans, epi) == SM90:
+        lib = _lib_sm90()
+        err = lib.kubedl_gmm_sm90(
+            lhs.data_ptr(), stacks[0][0].data_ptr(), out.data_ptr(), te.data_ptr(), m, n, k,
+            tm, e, lhs.stride(0), ldb, sbe, out.stride(0), int(trans), stream)
+        message = lib.kubedl_gmm_sm90_error_string
+    else:
+        ptrs = [s[0].data_ptr() for s in stacks] + [0] * (2 - len(stacks))
+        sptrs = [s.data_ptr() for s in scales] + [0] * (2 - len(scales))
+        lib = _lib()
+        err = lib.kubedl_gmm(
+            lhs.data_ptr(), ptrs[0], ptrs[1], sptrs[0], sptrs[1], out.data_ptr(),
+            te.data_ptr(), m, n, k, tm, e, lhs.stride(0), ldb, sbe, out.stride(0),
+            int(ws[0].dtype == torch.int8), int(trans), epi, stream)
+        message = lib.kubedl_gmm_error_string
     if err:
         raise RuntimeError(
             f"{fn_name} kernel launch failed: CUDA error {err} "
-            f"({lib.kubedl_gmm_error_string(err).decode()}) at M={m} K={k} N={n} "
+            f"({message(err).decode()}) at M={m} K={k} N={n} "
             f"E={e} row_tile={tm} int8={ws[0].dtype == torch.int8} trans={trans}")
     return out
 
@@ -257,32 +301,38 @@ def gmm_swiglu_cuda(lhs, w1, w3, tile_expert, scale1, scale3):
     return out
 
 
-def tgmm_cuda(lhs, dout, tile_expert, n_experts: int):
-    """Launch K7: [E, K, N] f32 weight gradient from bf16 lhs [M, K] and
-    dout [M, N]; each block sums its expert's row tiles in order, so the
-    result has no atomics and is the same bits on every run."""
+def tgmm_cuda(lhs, dout, tile_expert, n_experts: int, out_dtype=torch.float32):
+    """Launch K7: [E, K, N] weight gradient from bf16 lhs [M, K] and dout
+    [M, N], summed in f32 and written as `out_dtype` (f32 or bf16); each
+    output tile sums its expert's row tiles in order, so the result has no
+    atomics and is the same bits on every run."""
     for name, x in (("lhs", lhs), ("dout", dout)):
         _cuda_check(name, "tgmm", x, (torch.bfloat16,))
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tgmm: out_dtype {out_dtype}; the kernel writes torch.float32 "
+                        "or torch.bfloat16")
     m, k = lhs.shape
     if dout.dim() != 2 or dout.shape[0] != m:
         raise ValueError(f"tgmm: dout {tuple(dout.shape)} does not match lhs {tuple(lhs.shape)}")
     n = dout.shape[1]
     if k % 8 or n % 8:
         raise ValueError(f"tgmm: K={k} and N={n} must be multiples of 8")
+    if not 0 < n_experts <= 1024:
+        raise ValueError(f"tgmm: {n_experts} experts; the kernel takes 1 to 1024")
     tm = _row_tile_of(m, tile_expert, "tgmm")
     lhs, dout = _rows(lhs), _rows(dout)
     te = tile_expert.to(torch.int32).contiguous()
-    out = torch.empty((n_experts, k, n), dtype=torch.float32, device=lhs.device)
-    lib = _lib()
-    err = lib.kubedl_tgmm(
+    out = torch.empty((n_experts, k, n), dtype=out_dtype, device=lhs.device)
+    lib = _lib_sm90()
+    err = lib.kubedl_tgmm_sm90(
         lhs.data_ptr(), dout.data_ptr(), out.data_ptr(), te.data_ptr(),
         m, k, n, tm, te.shape[0], n_experts, lhs.stride(0), dout.stride(0),
-        torch.cuda.current_stream(lhs.device).cuda_stream)
+        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(lhs.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"tgmm kernel launch failed: CUDA error {err} "
-            f"({lib.kubedl_gmm_error_string(err).decode()}) at M={m} K={k} N={n} "
-            f"E={n_experts} row_tile={tm}")
+            f"({lib.kubedl_gmm_sm90_error_string(err).decode()}) at M={m} K={k} N={n} "
+            f"E={n_experts} row_tile={tm} out_dtype={out_dtype}")
     tgmm.launches += 1
     return out
 
@@ -304,12 +354,13 @@ def _gmm_swiglu_raw(lhs, w1, w3, tile_expert, scale1, scale3):
     return gmm_swiglu_cuda(lhs, w1, w3, tile_expert, scale1, scale3)
 
 
-def tgmm(lhs, dout, tile_expert, n_experts: int):
-    """drhs [E, K, N] f32: the weight gradient of a grouped product (K7);
-    the plain version for CPU tensors, the kernel for CUDA ones."""
+def tgmm(lhs, dout, tile_expert, n_experts: int, out_dtype=torch.float32):
+    """drhs [E, K, N]: the weight gradient of a grouped product (K7), summed
+    in f32 and written as `out_dtype`; the plain version for CPU tensors,
+    the kernel for CUDA ones."""
     if lhs.device.type == "cpu":
-        return tgmm_plain(lhs, dout, tile_expert, n_experts)
-    return tgmm_cuda(lhs, dout, tile_expert, n_experts)
+        return tgmm_plain(lhs, dout, tile_expert, n_experts, out_dtype)
+    return tgmm_cuda(lhs, dout, tile_expert, n_experts, out_dtype)
 
 
 def _bcast_tile_scale(x, scale, tile_expert):
@@ -349,7 +400,7 @@ class _Gmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dlhs = _gmm_raw(dout, _t(rhs), te).to(lhs.dtype)
         if ctx.needs_input_grad[1]:
-            drhs = tgmm(lhs, dout, te, rhs.shape[0]).to(rhs.dtype)
+            drhs = tgmm(lhs, dout, te, rhs.shape[0], out_dtype=rhs.dtype)
         return dlhs, drhs, None
 
 
@@ -370,7 +421,7 @@ class _GmmScaled(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dlhs = _gmm_raw(dpre, _t(rhs), te).to(lhs.dtype)
         if ctx.needs_input_grad[1]:
-            drhs = tgmm(lhs, dpre, te, e).to(rhs.dtype)
+            drhs = tgmm(lhs, dpre, te, e, out_dtype=rhs.dtype)
         if ctx.needs_input_grad[3]:
             # raw = out / s and s is constant over (e, n), so the division
             # moves outside the segment sum (s > 0 by construction, quant.py)
@@ -408,9 +459,9 @@ class _GmmSwiglu(torch.autograd.Function):
             dlhs = (_gmm_raw(dgate_pre, _t(w1), te)
                     + _gmm_raw(dup_pre, _t(w3), te)).to(lhs.dtype)
         if need[1]:
-            dw1 = tgmm(lhs, dgate_pre, te, e).to(w1.dtype)
+            dw1 = tgmm(lhs, dgate_pre, te, e, out_dtype=w1.dtype)
         if need[2]:
-            dw3 = tgmm(lhs, dup_pre, te, e).to(w3.dtype)
+            dw3 = tgmm(lhs, dup_pre, te, e, out_dtype=w3.dtype)
         if need[4]:
             ds1 = _tile_segsum(g_raw.float() * dgate, te, e).to(s1.dtype)
         if need[5]:

@@ -315,6 +315,93 @@ def test_tgmm_kernel_matches_plain_and_is_deterministic(dev, row_tile):
     assert torch.equal(got, again)
 
 
+def _strided(x, extra=48):
+    """x as a column slice of a wider matrix: row stride K + extra, not K."""
+    wide = torch.zeros((x.shape[0], x.shape[1] + extra), dtype=x.dtype, device=x.device)
+    wide[:, :x.shape[1]] = x
+    return wide[:, :x.shape[1]]
+
+
+# (transposed weights, row tile, row tiles, strided lhs): K = 272 and N = 400
+# leave ragged TMA boxes; one row tile is fewer output tiles than SMs, 150
+# row tiles (300 output tiles) many more
+SM90_GMM_CASES = [
+    (False, 128, 3, False), (True, 128, 3, False), (False, 256, 3, False),
+    (False, 512, 2, False), (True, 512, 2, False), (False, 128, 1, False),
+    (True, 128, 150, False), (False, 128, 150, False), (False, 128, 3, True),
+    (True, 256, 3, True),
+]
+
+
+@pytest.mark.parametrize("trans,row_tile,m_tiles,strided", SM90_GMM_CASES)
+def test_gmm_sm90_kernel_matches_plain(dev, trans, row_tile, m_tiles, strided):
+    """K6 on bf16 weights through gmm_sm90.cu (TMA, wgmma, persistent grid)
+    against gmm_plain: within 2e-2 of max|plain|, one launch, and the same
+    bits from a second launch."""
+    G, lhs, w1, _, _, _, te = _gmm_operands(dev, "gmm", False, trans, row_tile, m_tiles=m_tiles)
+    assert G.kernel_source(w1.dtype, trans, G.EPI_NONE) == G.SM90
+    if strided:
+        lhs = _strided(lhs)
+        assert lhs.stride(0) != lhs.shape[1]
+    n0 = G.gmm.launches
+    got = G.gmm_cuda(lhs, w1, te)
+    again = G.gmm_cuda(lhs, w1, te)
+    torch.cuda.synchronize()
+    assert G.gmm.launches == n0 + 2
+    ref = G.gmm_plain(lhs, w1, te)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, ref) <= 2e-2, _rel_err(got, ref)
+    assert torch.equal(got, again)
+
+
+# (out dtype, row tile, row tiles, strided lhs and dout)
+SM90_TGMM_CASES = [
+    (torch.float32, 128, 4, False), (torch.bfloat16, 128, 4, False),
+    (torch.float32, 256, 4, False), (torch.bfloat16, 256, 4, False),
+    (torch.float32, 512, 3, False), (torch.bfloat16, 512, 3, False),
+    (torch.float32, 128, 1, False), (torch.float32, 128, 150, False),
+    (torch.bfloat16, 128, 150, False), (torch.float32, 128, 4, True),
+    (torch.bfloat16, 256, 4, True),
+]
+
+
+@pytest.mark.parametrize("out_dtype,row_tile,m_tiles,strided", SM90_TGMM_CASES)
+def test_tgmm_sm90_kernel_matches_plain(dev, out_dtype, row_tile, m_tiles, strided):
+    """K7 through gmm_sm90.cu at K = 272, N = 400: within 1e-3 (f32) or
+    2e-2 (bf16) of max|plain|; the unrouted expert exactly zero; two
+    launches bit-identical; the bf16 output is the f32 output rounded once."""
+    G, lhs, _, _, _, _, te = _gmm_operands(dev, "gmm", False, False, row_tile, m_tiles=m_tiles)
+    rng = np.random.default_rng(10)
+    dout = torch.from_numpy(rng.standard_normal((lhs.shape[0], 400), np.float32)).to(
+        dev, torch.bfloat16)
+    if strided:
+        lhs, dout = _strided(lhs), _strided(dout, 16)
+    n0 = G.tgmm.launches
+    got = G.tgmm_cuda(lhs, dout, te, 4, out_dtype=out_dtype)
+    again = G.tgmm_cuda(lhs, dout, te, 4, out_dtype=out_dtype)
+    f32 = G.tgmm_cuda(lhs, dout, te, 4)
+    torch.cuda.synchronize()
+    assert G.tgmm.launches == n0 + 3
+    ref = G.tgmm_plain(lhs, dout, te, 4, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == ref.shape == (4, 272, 400)
+    assert _rel_err(got, ref) <= (1e-3 if out_dtype == torch.float32 else 2e-2)
+    assert got[1].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+    assert torch.equal(got, f32.to(out_dtype))
+
+
+def test_gmm_sm90_refuses_what_it_does_not_take(dev):
+    G, lhs, w1, _, _, _, te = _gmm_operands(dev, "gmm", False, False, 128, k=256, n=256)
+    dout = torch.zeros((lhs.shape[0], 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        G.tgmm_cuda(lhs, dout, te, 4, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        G.tgmm_cuda(lhs[:, :100], dout, te, 4)  # K % 8
+    with pytest.raises(ValueError):
+        G.gmm_cuda(lhs, w1[:, :, :200], te)  # N % 16
+
+
 def test_gmm_autograd_through_the_kernels(dev):
     """gmm_swiglu then gmm on CUDA tensors: forward and backward through
     the kernels (K5, K6, K7), gradients within 2e-2 of the plain

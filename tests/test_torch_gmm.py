@@ -208,3 +208,84 @@ def test_plain_versions_need_no_card_and_count_no_launch():
     tg.gmm_scaled(x, args[1], args[3], args[4])
     assert (tg.gmm.launches, tg.gmm_scaled.launches, tg.gmm_swiglu.launches,
             tg.tgmm.launches) == before
+
+
+def test_tgmm_plain_bf16_out_is_one_cast_of_the_f32_sum():
+    """out_dtype=bf16 is the f32 sum rounded once: bit for bit the separate
+    cast the backward used to make (JAX's drhs.astype(rhs.dtype)); CPU
+    tensors take it through `tgmm` too."""
+    rng = np.random.default_rng(11)
+    te = torch.from_numpy(np.array([2, 0, 2], np.int32))
+    lhs = torch.from_numpy(rng.standard_normal((3 * 128, K)).astype(np.float32)).to(torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((3 * 128, N)).astype(np.float32)).to(torch.bfloat16)
+    f32 = tg.tgmm_plain(lhs, dout, te, E)
+    got = tg.tgmm_plain(lhs, dout, te, E, out_dtype=torch.bfloat16)
+    assert f32.dtype == torch.float32 and got.dtype == torch.bfloat16
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    assert torch.equal(tg.tgmm(lhs, dout, te, E, out_dtype=torch.bfloat16), got)
+    assert got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("kind", ["gmm", "scaled", "swiglu"])
+def test_gradients_match_jax_vjp_bf16(kind):
+    """The three autograd Functions with bf16 operands against jax.vjp in
+    bf16: the weight gradients come out of K7 as bf16 (out_dtype=rhs.dtype)
+    where JAX casts the f32 drhs; every gradient within 2e-2 of max|JAX|
+    (one bf16 rounding, sums in another order)."""
+    row_tile = 128
+    lhs, w1, w3, te, s1, s3 = _operands(31, row_tile, False)
+    dout = np.random.default_rng(32).standard_normal((lhs.shape[0], N)).astype(np.float32)
+    jte, tte = jnp.asarray(te), torch.from_numpy(te)
+    if kind == "gmm":
+        args, weights = (lhs, w1), (1,)
+        jfn = lambda a, b: jg.gmm(a, b, jte, row_tile=row_tile)  # noqa: E731
+        tfn = lambda a, b: tg.gmm(a, b, tte, row_tile=row_tile)  # noqa: E731
+    elif kind == "scaled":
+        args, weights = (lhs, w1), (1,)
+        js, ts = jnp.asarray(s1), torch.from_numpy(s1)
+        jfn = lambda a, b: jg.gmm_scaled(a, b, jte, js, row_tile=row_tile)  # noqa: E731
+        tfn = lambda a, b: tg.gmm_scaled(a, b, tte, ts, row_tile=row_tile)  # noqa: E731
+    else:
+        args, weights = (lhs, w1, w3), (1, 2)
+        js1, js3 = jnp.asarray(s1), jnp.asarray(s3)
+        ts1, ts3 = torch.from_numpy(s1), torch.from_numpy(s3)
+        jfn = lambda a, b, c: jg.gmm_swiglu(  # noqa: E731
+            a, b, c, jte, js1, js3, row_tile=row_tile)
+        tfn = lambda a, b, c: tg.gmm_swiglu(  # noqa: E731
+            a, b, c, tte, ts1, ts3, row_tile=row_tile)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    tleaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True) for a in args]
+    jout, vjp = jax.vjp(jfn, *jargs)
+    jgrads = vjp(jnp.asarray(dout, jnp.bfloat16))
+    tout = tfn(*tleaves)
+    _close(tout.detach(), jout, 2e-2)
+    tgrads = torch.autograd.grad(tout, tleaves, torch.from_numpy(dout).to(torch.bfloat16))
+    for j, t in zip(jgrads, tgrads):
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == j.shape
+        _close(t, j, 2e-2)
+    for i in weights:
+        assert tgrads[i][1].abs().max().item() == 0.0  # expert 1 owns no tile
+
+
+ROUTES = [(dt, trans, epi) for dt in (torch.bfloat16, torch.int8) for trans in (False, True)
+          for epi in (tg.EPI_NONE, tg.EPI_SCALE, tg.EPI_SWIGLU)]
+
+
+@pytest.mark.parametrize("dtype,trans,epi", ROUTES)
+def test_kernel_source_names_each_route(dtype, trans, epi):
+    """bf16 weights with no epilogue, in either layout, go to the TMA/wgmma
+    source; int8 weights and the scaled and SwiGLU epilogues to the mma.sync
+    source, which refuses the transposed layout under an epilogue."""
+    if trans and epi != tg.EPI_NONE:
+        with pytest.raises(ValueError):
+            tg.kernel_source(dtype, trans, epi)
+        return
+    want = tg.SM90 if dtype == torch.bfloat16 and epi == tg.EPI_NONE else tg.MMA_SYNC
+    assert tg.kernel_source(dtype, trans, epi) == want
+
+
+def test_kernel_source_refuses_other_weight_dtypes():
+    with pytest.raises(TypeError):
+        tg.kernel_source(torch.float32, False, tg.EPI_NONE)
+    with pytest.raises(ValueError):
+        tg.kernel_source(torch.bfloat16, False, 7)
