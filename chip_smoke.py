@@ -6,12 +6,17 @@ and check them.
 Phases, each printing its own line of numbers:
   1. device and build: the card's name and power limit, the CUDA kernels
      built from ops/csrc/ in parallel, one nvcc a source (seconds,
-     registers, spills);
-  2. each kernel against its plain PyTorch version on the card, at the
-     7B prefill shapes and the variants the model can ask for (GQA,
-     window, softcap, d=64, a long sequence), with kernel, plain and
-     library times (CUDA events, median of 7 after 2 warm-ups) beside the
-     least time the card could take;
+     registers, spills; flash_fwd_sm90.cu must show no spill and no wgmma
+     wait that ptxas injected);
+  2. the flash forward against its plain PyTorch version on the card, at
+     the 7B prefill shapes, serving's short buckets and the variants the
+     model can ask for (GQA, window, softcap, d=64, a long sequence): the
+     kernel kernel_source routes to (flash_fwd_sm90.cu at d <= 128), the
+     mma.sync kernel of flash_fwd.cu at the same shape, and
+     scaled_dot_product_attention, each timed as device time (10 launches
+     in a CUDA graph, median of 7 replays), the plain version and one
+     whole wrapper call (CUDA events, median of 7 after 2 warm-ups), beside
+     the least time the card could take;
   3. full-width, full-depth Llama-7B, fresh init on the card: one
      1000-token prefill through the kernel and through plain attention,
      last-token logits compared;
@@ -67,6 +72,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -106,7 +112,7 @@ MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8
 # writes bf16 (the weights' dtype)
 MAIN_CASE = {"gmm_swiglu": "gmm_swiglu", "gmm": "gmm", "tgmm": "tgmm_bf16",
              "gmm_scaled": "gmm_scaled"}
-SOURCES = ("flash_fwd", "flash_bwd", "gmm", "gmm_sm90")
+SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "gmm", "gmm_sm90")
 MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
@@ -124,6 +130,32 @@ def _time_ms(fn, warmup=2, iters=7):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps=10, iters=7):
+    """Device time of one call of fn: reps calls captured in a CUDA graph,
+    replayed between CUDA events (median of iters); the host's cost of each
+    call, which _time_ms includes when it exceeds the kernel's, is not."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -156,17 +188,27 @@ def phase_device():
               f"{_build.library_path(src)}", flush=True)
         for line in _build.ptxas_report(src).splitlines():
             print(f"build:   {line}", flush=True)
-    return name, smi
+    report = _build.ptxas_report("flash_fwd_sm90")
+    spills = [ln for ln in report.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills or "warpgroup.wait is injected" in report:
+        raise AssertionError("flash_fwd_sm90.cu: ptxas spilled or serialized wgmma:\n" + report)
+    build = {src: dict(seconds=_build.build_seconds[src], ptxas=_build.ptxas_report(src))
+             for src in SOURCES}
+    return name, smi, build
 
 
 def phase_kernels():
-    """Kernel vs plain on the card; returns {shape name: numbers}."""
+    """The flash forward vs its plain version on the card; returns {shape
+    name: numbers}."""
     import torch.nn.functional as F
 
     from kubedl_tpu_torch.ops import flash_attention as fa
 
     # name: (b, hq, hkv, s, d, causal, window, softcap)
     shapes = {
+        "7b_b8_s128": (8, 32, 32, 128, 128, True, None, None),    # serving's short buckets
+        "7b_b8_s256": (8, 32, 32, 256, 128, True, None, None),
         "7b_b4_s512": (4, 32, 32, 512, 128, True, None, None),
         "7b_b4_s1000": (4, 32, 32, 1000, 128, True, None, None),
         MAIN_SHAPE: (4, 32, 32, 1024, 128, True, None, None),
@@ -184,21 +226,32 @@ def phase_kernels():
                                dtype=torch.float32).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
         kw = dict(causal=causal, window=window, softcap=softcap)
+        source = fa.kernel_source(d)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         out_err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
+        mma_sync_ms = mma_sync_err = mma_sync_lse_err = None
+        if source != fa.MMA_SYNC:  # the PR 1 kernel at the same shape, in the same run
+            old, old_lse = fa.flash_attention_fwd(q, k, v, source=fa.MMA_SYNC, **kw)
+            torch.cuda.synchronize()
+            mma_sync_err = (old.float() - ref).abs().max().item()
+            mma_sync_lse_err = (old_lse - ref_lse).abs().max().item()
+            del old, old_lse
+            mma_sync_ms = _graph_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, source=fa.MMA_SYNC, **kw))
         del ref, ref_lse
-        kernel_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        kernel_ms = _graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        wrapper_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
         library_ms = None
         if softcap is None:  # scaled_dot_product_attention has no softcap
             mask = None
             if window is not None:
                 mask = fa._mask(s, causal, window, q.device)
-            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            library_ms = _graph_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=hq != hkv))
         flops = 4 * b * hq * d * _attended_pairs(s, causal, window)
@@ -206,15 +259,21 @@ def phase_kernels():
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
         r = dict(shape=[b, hq, hkv, s, d], causal=causal, window=window,
-                 softcap=softcap, out_max_abs_err=out_err, lse_max_abs_err=lse_err,
-                 kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=bound_ms,
+                 softcap=softcap, source=f"{source}.cu", out_max_abs_err=out_err,
+                 lse_max_abs_err=lse_err, kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
+                 mma_sync_ms=mma_sync_ms, mma_sync_err=mma_sync_err,
+                 mma_sync_lse_err=mma_sync_lse_err,
+                 speedup_vs_mma_sync=None if mma_sync_ms is None else mma_sync_ms / kernel_ms,
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                  share_of_bound=bound_ms / kernel_ms,
                  tflops=flops / kernel_ms / 1e9)
         results[name] = r
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"kernel {name}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        old = "n/a" if mma_sync_ms is None else \
+            f"{mma_sync_ms:.4f} (x{r['speedup_vs_mma_sync']:.2f}, err {mma_sync_err:.2e})"
+        print(f"kernel {name} [{source}.cu]: kernel_ms={kernel_ms:.4f} "
+              f"wrapper_ms={wrapper_ms:.4f} mma_sync_ms={old} plain_ms={plain_ms:.4f} "
               f"library_ms={lib} bound_ms={bound_ms:.4f} ({r['bound_by']}) "
               f"share={r['share_of_bound']:.3f} tflops={r['tflops']:.1f} "
               f"out_err={out_err:.3e} lse_err={lse_err:.3e}", flush=True)
@@ -223,6 +282,9 @@ def phase_kernels():
                 f"flash_fwd disagrees with its plain version at {name}: "
                 f"finite={finite} out_err={out_err} (tol {OUT_TOL}) "
                 f"lse_err={lse_err} (tol {LSE_TOL})")
+        if mma_sync_err is not None and (mma_sync_err > OUT_TOL or mma_sync_lse_err > LSE_TOL):
+            raise AssertionError(f"the mma.sync forward disagrees at {name}: out "
+                                 f"{mma_sync_err} lse {mma_sync_lse_err}")
         del q, k, v, out, lse
     return results
 
@@ -1272,6 +1334,7 @@ def phase_moe_serve():
                for n in MOE_SERVE_LENGTHS]
     dup = prompts[2]
     _reset_gmm_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, SERVE_NEW) for p in prompts]
     while engine.has_pending():
@@ -1281,7 +1344,7 @@ def phase_moe_serve():
         engine.step_block()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    counts = _gmm_counts()
+    counts, flash = _gmm_counts(), _counts()
     stats = engine.stats()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for r in reqs + pair:
@@ -1294,6 +1357,9 @@ def phase_moe_serve():
     if counts != (32 * forwards, 0, 0, 32 * forwards):
         raise AssertionError(f"int8 serving launches (K5, K6, K7, K8) {counts}; expected K5 = "
                              f"K8 = 32 layers x {forwards} forwards and no K6, K7")
+    if flash[0] < 32 * stats["prefill_batches"] or flash[1:] != (0, 0):
+        raise AssertionError(f"int8 serving flash launches (fwd, dq, dkv) {flash} for "
+                             f"{stats['prefill_batches']} prefill dispatches x 32 layers")
     n_req = len(reqs) + len(pair)
     prompt_tokens = sum(MOE_SERVE_LENGTHS) + 2 * len(dup)
     numbers = dict(
@@ -1303,13 +1369,15 @@ def phase_moe_serve():
         prefill_time_s=stats["prefill_time_s"], decode_time_s=stats["decode_time_s"],
         prefill_tok_s=prompt_tokens / stats["prefill_time_s"],
         decode_tok_s=(stats["tokens_out"] - n_req) / stats["decode_time_s"],
-        peak_gb=peak_gb, launches=list(counts), prefill_rel_err=prefill_rel)
+        peak_gb=peak_gb, launches=list(counts), flash_launches=flash[0],
+        prefill_rel_err=prefill_rel)
     print(f"moe serve: Mixtral-8x7B int8, 32 layers, tree {tree_gb:.2f} GB built in "
           f"{init_s:.1f} s; {n_req} requests ok in {wall_s:.2f} s; prefill "
           f"{stats['prefill_batches']} dispatches {stats['prefill_time_s']:.3f} s "
           f"({numbers['prefill_tok_s']:.0f} prompt tok/s); decode {stats['decode_time_s']:.3f} s "
           f"over {stats['ticks']} ticks ({stats['decode_time_s'] / max(stats['ticks'], 1) * 1e3:.1f}"
-          f" ms/tick, {numbers['decode_tok_s']:.1f} tok/s); launches K5/K6/K7/K8 {counts}; "
+          f" ms/tick, {numbers['decode_tok_s']:.1f} tok/s); launches K5/K6/K7/K8 {counts}, "
+          f"flash fwd {flash[0]}; "
           f"peak allocated {peak_gb:.2f} GB", flush=True)
     numbers["profile"] = _profile_engine(engine)
     del engine, params
@@ -1344,7 +1412,7 @@ def main(argv=None) -> int:
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    name, smi = _phase("1 device and build", phase_device)
+    name, smi, build = _phase("1 device and build", phase_device)
     kernels = _phase("2 flash forward kernel", phase_kernels)
     bwd = _phase("2b flash backward kernels", phase_bwd_kernels)
     gmm = _phase("2c grouped matmul kernels", phase_gmm_kernels)
@@ -1404,9 +1472,13 @@ def main(argv=None) -> int:
     report = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "kubedl_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": f"kubedl_tpu_torch/ops/csrc/{main_k['source']}",
         "replaces": "kubedl_tpu/ops/flash_attention.py:107",
         "launches": launches,
+        # the same kernel on every path that runs attention at d = 128
+        "launches_by_path": {"7b_serving": launches, "7b_train": train["launches"][0],
+                             "moe_train": moe_train["flash_launches"][0],
+                             "moe_int8_serving": moe_serve["flash_launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()),
         "ms": main_k["kernel_ms"],
         "plain_ms": main_k["plain_ms"],
@@ -1417,9 +1489,9 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=name, nvidia_smi=smi, kernels=kernels, bwd_kernels=bwd,
-                           gmm_kernels=gmm, model=model, serving=serving, grads=grads,
-                           train=train, options=options, moe_grads=moe_grads,
+            json.dump(dict(device=name, nvidia_smi=smi, build=build, kernels=kernels,
+                           bwd_kernels=bwd, gmm_kernels=gmm, model=model, serving=serving,
+                           grads=grads, train=train, options=options, moe_grads=moe_grads,
                            moe_train=moe_train, moe_serve=moe_serve,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)

@@ -3,7 +3,8 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface. It is compiled
 with nvcc for sm_90a into ``build/kubedl_tpu_torch/`` at the root of the
 checkout, under a file name that carries a hash of the source and flags,
-so an edited source rebuilds and an unchanged one loads from disk. The
+so an edited source rebuilds and an unchanged one loads from disk; the
+hash covers the csrc/ headers a source includes too. The
 compiler's register and spill report (``-Xptxas -v``) is kept beside the
 library as ``<lib>.log``.
 """
@@ -12,11 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubedl_tpu_torch"
@@ -52,9 +54,29 @@ def nvcc() -> str:
                      "the CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def includes(path: Path) -> List[Path]:
+    """The csrc/ headers that `path` includes with #include "...", directly
+    or through another header, in a fixed order."""
+    found: List[Path] = []
+    todo = [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            header = CSRC / name.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in includes(src):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

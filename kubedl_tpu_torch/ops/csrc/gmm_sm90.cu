@@ -49,10 +49,7 @@
 // Layout rules: K and N multiples of 16 (K6) or 8 (K7); lhs/dout row
 // strides whole 16-byte vectors, base addresses 16-byte aligned.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -75,11 +72,6 @@ constexpr int EPI_WARP = 16 * EPI_PITCH;
 constexpr int OWNED_OFF = EPI_OFF + 8 * EPI_WARP;  // K7: row tiles each expert owns
 constexpr int MAX_E = 1024;
 constexpr int SMEM_BYTES = OWNED_OFF + 4 * MAX_E + 1024;  // + slack to align to 1024
-constexpr long long WAIT_LIMIT = 1ll << 33;   // ~4 s of clocks: trap instead of hanging
-
-// host-side error codes beside cudaError_t
-constexpr int ERR_NO_ENCODE = 1001;           // cuTensorMapEncodeTiled not found
-constexpr int ERR_ENCODE = 2000;              // + the CUresult of a refused tensor map
 
 struct GmmArgs {
   int M, N, K, row_tile, E, n_items;
@@ -89,94 +81,6 @@ struct GmmArgs {
 struct TgmmArgs {
   int M, K, N, row_tile, n_tiles, E, n_items;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of `parity` completes; a pipeline that can never
-// complete (a fault in this file) traps after WAIT_LIMIT clocks rather than
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > WAIT_LIMIT) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// wgmma shared-memory descriptor under the 128-byte swizzle. K-major: rows
-// of 128 bytes, 8-row groups `sbo` = 1024 apart (lbo unused, 16). MN-major:
-// 64-element atoms along M/N `lbo` apart, 8-row groups along K `sbo` apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator registers across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d[64 x 256] += A[64 x 16] . B[16 x 256]; TA/TB: operand MN-major (1) or
 // K-major (0). Thread t of the warpgroup holds row 16 (t / 32) + (t % 32) / 4
@@ -281,17 +185,17 @@ __device__ __forceinline__ void consume(float (&acc)[128], const Ring& ring, int
     const int s = it % STAGES;
     mbar_wait(ring.full + 8 * s, (it / STAGES) & 1);
     __syncwarp();  // the warp meets again before the .aligned wgmma instructions
-    fence_acc(acc);
+    fence_regs(acc);
     wg_fence();
     slice_products<TA, TB>(acc, ring.a(s) + a_off, ring.b(s));
     wg_commit();
-    fence_acc(acc);
+    fence_regs(acc);
     wg_wait<1>();
-    fence_acc(acc);
+    fence_regs(acc);
     if (i > 0 && lane == 0) mbar_arrive(ring.empty + 8 * ((it - 1) % STAGES));
   }
   wg_wait<0>();  // also with n == 0: the epilogue then reads the zeros
-  fence_acc(acc);
+  fence_regs(acc);
   if (n > 0 && lane == 0) mbar_arrive(ring.empty + 8 * ((it - 1) % STAGES));
 }
 
@@ -479,52 +383,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up at run time through the CUDA runtime's
-// entry-point query, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map under the 128-byte swizzle; dims innermost first,
-// strides in bytes for dims 1.. . Zero-fills what lies past the edges.
-int make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-             const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(r);
-}
-
-int grid_for(int items) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-    sms = 132;
-  return items < sms ? items : sms;
-}
-
 template <typename Kernel, typename Args>
 int launch(Kernel kernel, const CUtensorMap& m0, const CUtensorMap& m1, void* out, const int* te,
            const Args& p, cudaStream_t stream) {
@@ -616,10 +474,6 @@ int kubedl_tgmm_sm90(const void* lhs, const void* dout, void* out, const int* te
   return launch(tgmm_sm90_gmm_kernel<false>, ml, md, out, te, p, st);
 }
 
-const char* kubedl_gmm_sm90_error_string(int err) {
-  if (err == ERR_NO_ENCODE) return "cuTensorMapEncodeTiled: no entry point found";
-  if (err >= ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map (code - 2000 is the CUresult)";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* kubedl_gmm_sm90_error_string(int err) { return sm90_error_string(err); }
 
 }  // extern "C"

@@ -10,9 +10,11 @@ the scaled scores before masking. The TPU module's dispatch constants
 snapping) describe its VMEM and MXU and are not carried over.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
-kernels (ops/csrc/flash_fwd.cu forward, ops/csrc/flash_bwd.cu backward) or
-the call raises on a dtype, head dim or shape they do not take. There is
-no fallback between the two. When an input requires grad, `flash_attention`
+kernels or the call raises on a dtype, head dim or shape they do not take.
+There is no fallback between the two. The forward's source is fixed by the
+head dim (`kernel_source`): padded to 64 or 128, ops/csrc/flash_fwd_sm90.cu
+(TMA, wgmma, warp-specialized); 256, ops/csrc/flash_fwd.cu (mma.sync). The
+backward is ops/csrc/flash_bwd.cu. When an input requires grad, `flash_attention`
 goes through `FlashAttention`, a torch.autograd.Function whose forward
 keeps (q, k, v, out, lse) and whose backward is the dq and dkv kernels (the
 plain backward on CPU tensors).
@@ -20,8 +22,12 @@ plain backward on CPU tensors).
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +35,9 @@ import torch.nn.functional as F
 from kubedl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # the kernel's template widths
+HEAD_DIMS = (64, 128, 256)  # the mma.sync kernels' template widths
+SM90, MMA_SYNC = "flash_fwd_sm90", "flash_fwd"  # the forward's kernel sources under ops/csrc/
+SM90_HEAD_DIMS = (64, 128)
 
 
 def _check(q, k, v, causal, window, softcap) -> None:
@@ -102,39 +110,136 @@ def attention_reference(q, k, v, *, causal: bool = True,
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """A view the kernel can read: unit last stride, other strides whole
-    16-byte vectors, 16-byte aligned base. The strided q/k/v that the model
+    """A view the kernels can read (and a TMA tensor map can describe):
+    unit last stride, other strides whole 16-byte vectors, 16-byte aligned
+    base. The strided q/k/v that the model
     passes already are; anything else is copied once here."""
-    ok = (x.stride(-1) == 1 and all(st % 8 == 0 for st in x.stride()[:-1])
+    ok = (x.stride(-1) == 1 and all(st > 0 and st % 8 == 0 for st in x.stride()[:-1])
           and x.data_ptr() % 16 == 0)
     return x if ok else x.contiguous()
 
 
-def _lib():
-    lib = _build.load("flash_fwd")
-    fn = lib.kubedl_flash_fwd_bf16
+def kernel_source(head_dim: int) -> str:
+    """The csrc/ source whose kernel the CUDA forward takes at this head
+    dim: padded to 64 or 128, flash_fwd_sm90.cu; 256, flash_fwd.cu. Raises
+    past 256."""
+    if head_dim <= SM90_HEAD_DIMS[-1]:
+        return SM90
+    if head_dim <= HEAD_DIMS[-1]:
+        return MMA_SYNC
+    raise ValueError(f"flash_attention_fwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
+
+
+SM90_BLOCK = 128              # query rows an item and key rows a tile of flash_fwd_sm90.cu
+SM90_L2_GROUP_BYTES = 24 << 20  # K/V bytes a group of (b, h) pairs may take: half the L2
+
+
+def _tiles(qt: int, s: int, causal: bool, window: Optional[int]) -> int:
+    """K/V tiles flash_fwd_sm90.cu loads for q-tile qt (its item_of)."""
+    q0, ke = qt * SM90_BLOCK, -(-s // SM90_BLOCK)
+    if causal:
+        ke = min(ke, (q0 + SM90_BLOCK - 1) // SM90_BLOCK + 1)
+    lo = q0 - window + 1 if window else 0
+    return ke - (lo // SM90_BLOCK if lo > 0 else 0)
+
+
+def sm90_group(b: int, hq: int, hkv: int, s: int, d: int) -> int:
+    """(b, h) pairs in one L2 group of flash_fwd_sm90.cu's schedule: whole
+    GQA groups of query heads, as many as have their K/V (S * d * 4 bytes a
+    KV head) in SM90_L2_GROUP_BYTES and at least one, then evened out so the
+    last group is not a small remainder."""
+    bh_n, rep = b * hq, hq // hkv
+    group = min(max(SM90_L2_GROUP_BYTES // (s * d * 4), 1) * rep, bh_n)
+    even = -(-bh_n // -(-bh_n // group))  # the same number of groups, sizes within one
+    return even + -even % rep
+
+
+def sm90_items(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
+               window: Optional[int]):
+    """flash_fwd_sm90.cu's items in order, as (code, cost): code is
+    q_tile * b * hq + (batch * hq + head), cost its K/V tiles plus one for
+    its prologue and epilogue. (b, h) pairs go in `sm90_group`s, so the K/V
+    the CTAs running at once read stays in L2; inside a group, all its
+    pairs of the longest causal q-tile first."""
+    n_qt, bh_n = -(-s // SM90_BLOCK), b * hq
+    group = sm90_group(b, hq, hkv, s, d)
+    for first in range(0, bh_n, group):
+        for rank in range(n_qt):
+            qt = n_qt - 1 - rank if causal else rank
+            cost = _tiles(qt, s, causal, window) + 1
+            for bh in range(first, min(first + group, bh_n)):
+                yield qt * bh_n + bh, cost
+
+
+@functools.lru_cache(maxsize=256)
+def sm90_schedule(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
+                  window: Optional[int], n_ctas: int) -> Tuple[np.ndarray, np.ndarray]:
+    """flash_fwd_sm90.cu's persistent schedule: (order, starts), CTA c
+    taking the items order[starts[c]:starts[c + 1]]. Each item of
+    `sm90_items` in turn goes to the CTA that frees first, so the CTAs end
+    together, and the ones running at once work on one group's K/V from
+    L2."""
+    free = [(0, c) for c in range(n_ctas)]
+    lists = [[] for _ in range(n_ctas)]
+    for code, cost in sm90_items(b, hq, hkv, s, d, causal, window):
+        t, c = heapq.heappop(free)
+        lists[c].append(code)
+        heapq.heappush(free, (t + cost, c))
+    starts = np.zeros(n_ctas + 1, np.int32)
+    starts[1:] = np.cumsum([len(x) for x in lists])
+    return np.concatenate([np.asarray(x, np.int32) for x in lists]), starts
+
+
+_schedules: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sm90_schedule_on(device, *key) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """sm90_schedule for one CTA an SM of `device`, as int32 device tensors
+    kept per shape (a launch copies nothing)."""
+    n_ctas = torch.cuda.get_device_properties(device).multi_processor_count
+    full = (str(device), *key, n_ctas)
+    got = _schedules.get(full)
+    if got is None:
+        if len(_schedules) >= 256:  # serving's buckets are few; bound it all the same
+            _schedules.clear()
+        order, starts = sm90_schedule(*key, n_ctas)
+        got = (torch.from_numpy(order).to(device), torch.from_numpy(starts).to(device))
+        _schedules[full] = got
+    return (*got, n_ctas)
+
+
+def _lib(source: str):
+    lib = _build.load(source)
+    fn, message = {SM90: ("kubedl_flash_fwd_sm90_bf16", "kubedl_flash_fwd_sm90_error_string"),
+                   MMA_SYNC: ("kubedl_flash_fwd_bf16", "kubedl_cuda_error_string")}[source]
+    fn, message = getattr(lib, fn), getattr(lib, message)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        sched = [P, P, I] if source == SM90 else []  # order, starts, CTAs
         fn.argtypes = ([P] * 5 + [I] * 6 + [L] * 12
-                       + [ctypes.c_float, I, I, ctypes.c_float, P])
+                       + [ctypes.c_float, I, I, ctypes.c_float] + sched + [P])
         fn.restype = I
-        lib.kubedl_cuda_error_string.argtypes = [I]
-        lib.kubedl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        message.argtypes = [I]
+        message.restype = ctypes.c_char_p
+    return fn, message
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         sm_scale: Optional[float] = None,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None
+                        softcap: Optional[float] = None,
+                        source: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel: (out [b, hq, s, d] bf16, lse [b, hq, s] f32).
 
-    Takes bf16 CUDA tensors with head_dim <= 256; a head dim outside
-    {64, 128, 256} is zero-padded up to the next of them (zero K columns add
-    nothing to q.k, zero V columns give zero output columns, which are not
-    written). `out` is returned as a [b, hq, s, d] view of a [b, s, hq, d]
-    buffer, so the model's transpose back to [b, s, hq*d] is free."""
+    Takes bf16 CUDA tensors with head_dim <= 256; the kernel is the one
+    `kernel_source(head_dim)` names, or `source` (SM90 or MMA_SYNC) where a
+    caller compares the two; nothing on the model's path passes it. A head
+    dim that is not one of the kernel's widths is zero-padded up to the next
+    of them (zero K columns add nothing to q.k, zero V columns give zero
+    output columns, which are not written). `out` is returned as a
+    [b, hq, s, d] view of a [b, s, hq, d] buffer, so the model's transpose
+    back to [b, s, hq*d] is free."""
     _check(q, k, v, causal, window, softcap)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
@@ -147,9 +252,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise ValueError("q, k, v must be on one device")
     b, hq, s, d = q.shape
     hkv = k.shape[1]
-    dk = next((w for w in HEAD_DIMS if w >= d), None)
+    if source is None:
+        source = kernel_source(d)
+    widths = {SM90: SM90_HEAD_DIMS, MMA_SYNC: HEAD_DIMS}.get(source)
+    if widths is None:
+        raise ValueError(f"flash_attention_fwd: unknown kernel source {source!r}")
+    dk = next((w for w in widths if w >= d), None)
     if dk is None:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} > {HEAD_DIMS[-1]}")
+        raise ValueError(f"flash_attention_fwd: head_dim {d} > {widths[-1]} ({source}.cu)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if dk != d:
@@ -157,17 +267,22 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.kubedl_flash_fwd_bf16(
+    fn, message = _lib(source)
+    sched = ()
+    if source == SM90:
+        order, starts, n_ctas = _sm90_schedule_on(q.device, b, hq, hkv, s, dk, bool(causal),
+                                                  window)
+        sched = (order.data_ptr(), starts.data_ptr(), n_ctas)
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, hq, hkv, s, dk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *sched, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(
-            f"flash_fwd kernel launch failed: CUDA error {err} "
-            f"({lib.kubedl_cuda_error_string(err).decode()}) at "
+            f"flash_fwd kernel launch failed ({source}.cu): CUDA error {err} "
+            f"({message(err).decode()}) at "
             f"b={b} hq={hq} hkv={hkv} s={s} d={d}")
     flash_attention.launches += 1
     return out, lse

@@ -145,6 +145,67 @@ def test_flash_fwd_strided_input_needs_no_copy(dev):
     assert out.transpose(1, 2).is_contiguous()
 
 
+# flash_fwd_sm90.cu (TMA, wgmma) beyond KERNEL_CASES, which it takes too:
+# (b, hq, hkv, s, d, causal, window, softcap)
+SM90_CASES = [
+    (1, 4, 4, 1000, 128, True, None, None),     # S not a multiple of 128
+    (1, 2, 2, 70, 128, True, None, None),       # S < 128: one zero-filled tile
+    (4, 32, 32, 1024, 128, True, None, None),   # more items than 132 CTAs: persistent loop
+    (2, 32, 8, 300, 128, True, None, None),     # GQA 32/8
+    (1, 4, 4, 333, 128, True, 100, None),       # window across tiles: rows whose first tile is
+                                                # all masked
+    (1, 4, 4, 777, 128, True, 1, None),         # window 1: all keys but one masked in every row
+    (1, 4, 2, 300, 128, True, None, 30.0),      # softcap
+    (1, 2, 2, 200, 40, True, None, None),       # d 40 padded to 64
+    (2, 4, 4, 260, 64, False, None, None),      # not causal
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,softcap", SM90_CASES)
+def test_flash_fwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal, window,
+                                                   softcap):
+    """The TMA/wgmma forward against the plain version (out 2e-2, LSE 1e-3,
+    finite everywhere), two launches bit-identical, and the mma.sync kernel
+    at the same shape within twice those (each is within them of plain)."""
+    assert fa.kernel_source(d) == fa.SM90
+    q, k, v = _qkv(dev, b, hq, hkv, s, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    again, again_lse = fa.flash_attention_fwd(q, k, v, **kw)
+    old, old_lse = fa.flash_attention_fwd(q, k, v, source=fa.MMA_SYNC, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    assert (out.float() - old.float()).abs().max().item() <= 4e-2
+    assert (lse - old_lse).abs().max().item() <= 2e-3
+
+
+def test_flash_fwd_sm90_reads_strided_views_in_place(dev):
+    """The model's q/k/v, transpose(1, 2) views of [b, s, h, d] buffers, go
+    to the tensor maps as they are (no copy), GQA included."""
+    b, s, hq, hkv, d = 2, 300, 8, 2, 128
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+               .to(dev, torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv))
+    for x in (q, k, v):
+        assert not x.is_contiguous() and fa._aligned(x).data_ptr() == x.data_ptr()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_flash_fwd_sm90_refuses_what_it_does_not_take(dev):
+    big = torch.zeros(1, 1, 8, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(big, big, big, source=fa.SM90)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(big, big, big, source="flash_fwd_sm80")
+
+
 @pytest.fixture(scope="module")
 def tiny_bf16(dev):
     from kubedl_tpu_torch.models import llama

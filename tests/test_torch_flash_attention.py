@@ -133,3 +133,139 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(ValueError):
         monkeypatch.undo()
         tfa.flash_attention(q, q, q)  # meta tensors are not CUDA tensors
+
+
+@pytest.mark.parametrize("head_dim,source", [
+    (1, tfa.SM90), (40, tfa.SM90), (64, tfa.SM90), (100, tfa.SM90), (128, tfa.SM90),
+    (129, tfa.MMA_SYNC), (256, tfa.MMA_SYNC)])
+def test_kernel_source_routes_by_head_dim(head_dim, source):
+    """Head dims padded to 64 or 128 take the TMA/wgmma kernel, 256 the
+    mma.sync kernel: fixed by shape, no fallback between them."""
+    assert tfa.kernel_source(head_dim) == source
+
+
+def test_kernel_source_refuses_past_256():
+    with pytest.raises(ValueError):
+        tfa.kernel_source(257)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_on_either_route():
+    """flash_attention_fwd never computes on the CPU, whichever source is
+    asked for: the check comes before any build or launch."""
+    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16)
+    for source in (None, tfa.SM90, tfa.MMA_SYNC):
+        with pytest.raises(ValueError):
+            tfa.flash_attention_fwd(q, q, q, source=source)
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """A source's library name covers every csrc/ header it includes,
+    directly or through another header: editing one rebuilds."""
+    from kubedl_tpu_torch.ops import _build
+
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\nint k;\n')
+    (tmp_path / "plain.cu").write_text("int p;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.includes(tmp_path / "k.cu") == [tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    assert _build.includes(tmp_path / "plain.cu") == []
+    before, plain = _build.library_path("k"), _build.library_path("plain")
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    assert _build.library_path("k") != before
+    assert _build.library_path("plain") == plain
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    assert _build.library_path("k") == before
+
+
+def test_sm90_sources_share_the_header():
+    """flash_fwd_sm90.cu and gmm_sm90.cu include sm90_common.cuh, so each
+    library's name moves with it."""
+    from kubedl_tpu_torch.ops import _build
+
+    header = _build.CSRC / "sm90_common.cuh"
+    for name in ("flash_fwd_sm90", "gmm_sm90"):
+        assert _build.includes(_build.CSRC / f"{name}.cu") == [header]
+    for name in ("flash_fwd", "flash_bwd", "gmm"):
+        assert _build.includes(_build.CSRC / f"{name}.cu") == []
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 32, 32, 1024, 128, True, None),   # the 7B prefill cluster
+    (4, 32, 8, 1023, 128, True, None),    # GQA 32/8, ragged
+    (1, 8, 8, 8320, 128, True, None),     # one long row
+    (2, 4, 4, 333, 128, True, 100),       # window
+    (3, 5, 5, 300, 64, False, None),      # not causal
+    (1, 1, 1, 1, 128, True, None),        # fewer items than CTAs
+])
+def test_sm90_schedule_takes_every_item_once(shape):
+    """flash_fwd_sm90.cu's persistent schedule: every (q-tile, b, h) item
+    in exactly one CTA's list, and the CTAs' work (K/V tiles + 1 an item)
+    within 12 % of the mean wherever there are several items a CTA."""
+    b, hq, hkv, s, d, causal, window = shape
+    n_ctas = 132
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas)
+    n_qt = -(-s // tfa.SM90_BLOCK)
+    assert order.dtype == np.int32 and starts.dtype == np.int32
+    assert starts[0] == 0 and starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
+    assert sorted(order.tolist()) == list(range(b * hq * n_qt))
+    work = [sum(tfa._tiles(int(c) // (b * hq), s, causal, window) + 1
+                for c in order[starts[i]:starts[i + 1]]) for i in range(n_ctas)]
+    if len(order) >= 4 * n_ctas:
+        assert max(work) <= 1.12 * (sum(work) / n_ctas)
+    assert tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas)[0] is order
+
+
+def test_sm90_schedule_orders_each_cta_longest_first_by_group():
+    """Inside one L2 group a CTA's causal items never get longer, and the
+    query heads of a GQA group are never split across L2 groups."""
+    b, hq, hkv, s, d = 4, 32, 8, 1024, 128
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, True, None, 16)
+    group = tfa.sm90_group(b, hq, hkv, s, d)
+    assert group % (hq // hkv) == 0
+    for i in range(16):
+        codes = order[starts[i]:starts[i + 1]]
+        qt, bh = codes // (b * hq), codes % (b * hq)
+        for g in np.unique(bh // group):
+            assert np.all(np.diff(qt[bh // group == g]) <= 0)
+
+
+@pytest.mark.parametrize("qt,s,causal,window,want", [
+    (0, 1024, True, None, 1), (7, 1024, True, None, 8), (3, 1024, False, None, 8),
+    (2, 333, True, 100, 2), (0, 333, True, 100, 1), (7, 1024, True, 1, 1)])
+def test_sm90_tiles_match_the_kernels_live_range(qt, s, causal, window, want):
+    """The K/V tiles a q-tile loads: up to its diagonal when causal, none
+    wholly below the window's first key."""
+    assert tfa._tiles(qt, s, causal, window) == want
+
+
+def test_flash_probe_variants_still_apply():
+    """ops/flash_probe.py patches flash_fwd_sm90.cu's softmax dispatch and
+    deals sm90_items out round robin: both must keep matching the code."""
+    from kubedl_tpu_torch.ops import flash_probe
+
+    src = flash_probe.variants()["nosoftmax"]
+    assert flash_probe._NO_SOFTMAX in src and flash_probe._SOFTMAX not in src
+    order, starts = flash_probe.round_robin(2, 8, 2, 300, 128, True, None, 7)
+    assert sorted(order.tolist()) == list(range(2 * 8 * 3))
+    assert starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 32, 32, 1024, 128), 43),   # 48 pairs fit: three groups of 43, 43, 42
+    ((1, 8, 8, 8320, 128), 4),      # 5 fit: two groups of 4, not 5 and 3
+    ((4, 32, 8, 1024, 128), 128),   # GQA 32/8: all 128 fit
+    ((2, 8, 2, 65536, 128), 4),     # one KV head's K/V past the budget: its 4 query heads
+    ((1, 2, 2, 1 << 20, 128), 1),   # one query head's past it
+    ((1, 3, 3, 1024, 128), 3),      # fewer pairs than fit
+])
+def test_sm90_group_fits_l2_evenly(shape, want):
+    """The L2 groups: whole GQA groups of query heads, their K/V within
+    SM90_L2_GROUP_BYTES where one KV head's fits, and of even size."""
+    b, hq, hkv, s, d = shape
+    group = tfa.sm90_group(b, hq, hkv, s, d)
+    assert group == want
+    rep = hq // hkv
+    assert group % rep == 0
+    if s * d * 4 <= tfa.SM90_L2_GROUP_BYTES:
+        assert group // rep * s * d * 4 <= tfa.SM90_L2_GROUP_BYTES
