@@ -6,8 +6,8 @@ and check them.
 Phases, each printing its own line of numbers:
   1. device and build: the card's name and power limit, the CUDA kernels
      built from ops/csrc/ in parallel, one nvcc a source (seconds,
-     registers, spills; flash_fwd_sm90.cu must show no spill and no wgmma
-     wait that ptxas injected);
+     registers, spills; flash_fwd_sm90.cu and flash_bwd_sm90.cu must show
+     no spill and no wgmma wait that ptxas injected);
   2. the flash forward against its plain PyTorch version on the card, at
      the 7B prefill shapes, serving's short buckets and the variants the
      model can ask for (GQA, window, softcap, d=64, a long sequence): the
@@ -26,8 +26,12 @@ Phases, each printing its own line of numbers:
      counts checked against the prefill dispatches.
   2b. the backward kernels (dq, dkv) against the f32 plain backward at the
      7B training shapes and the variants (GQA, window, softcap, d=64,
-     d=256, a long sequence), two launches bit-identical, with kernel,
-     plain and library (scaled_dot_product_attention backward) times;
+     d=256, a long sequence): the source bwd_kernel_source routes to
+     (flash_bwd_sm90.cu at d <= 128) and, at d <= 128, flash_bwd.cu's
+     mma.sync kernels at the same shape, each two launches bit-identical
+     and timed as device time (CUDA graphs), beside one whole wrapper
+     call, the plain version and the library (scaled_dot_product_attention
+     backward: forward and backward less forward, device time);
   5. gradients through the model at full width, 2 layers: loss_fn and
      every gradient through the kernels against plain attention, with the
      launch counts of full remat;
@@ -112,7 +116,8 @@ MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8
 # writes bf16 (the weights' dtype)
 MAIN_CASE = {"gmm_swiglu": "gmm_swiglu", "gmm": "gmm", "tgmm": "tgmm_bf16",
              "gmm_scaled": "gmm_scaled"}
-SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "gmm", "gmm_sm90")
+SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd", "gmm", "gmm_sm90")
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")  # held to no spill, no injected wait
 MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
@@ -188,11 +193,12 @@ def phase_device():
               f"{_build.library_path(src)}", flush=True)
         for line in _build.ptxas_report(src).splitlines():
             print(f"build:   {line}", flush=True)
-    report = _build.ptxas_report("flash_fwd_sm90")
-    spills = [ln for ln in report.splitlines()
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    if spills or "warpgroup.wait is injected" in report:
-        raise AssertionError("flash_fwd_sm90.cu: ptxas spilled or serialized wgmma:\n" + report)
+    for src in WGMMA_SOURCES:
+        report = _build.ptxas_report(src)
+        spills = [ln for ln in report.splitlines()
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spills or "warpgroup.wait is injected" in report:
+            raise AssertionError(f"{src}.cu: ptxas spilled or serialized wgmma:\n" + report)
     build = {src: dict(seconds=_build.build_seconds[src], ptxas=_build.ptxas_report(src))
              for src in SOURCES}
     return name, smi, build
@@ -511,9 +517,44 @@ def _bound(flop, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+# the backward kernels' tiles: source -> ((q rows, key rows) of a dq
+# item's tile, (key rows, q rows) of a dkv item's tile)
+BWD_TILES = {"flash_bwd_sm90": ((128, 64), (128, 64)), "flash_bwd": ((64, 64), (64, 32))}
+
+
+def _loaded_pairs(s, causal, window, rows, cols, by_key):
+    """(query, key) pairs of the tiles a kernel loads for one head: items
+    of `rows` query rows (key rows when by_key) over streamed tiles of
+    `cols` rows, from the diagonal and within the window, as the kernels'
+    live ranges run; masked pairs included."""
+    tiles = 0
+    for t in range(-(-s // rows)):
+        r0, n = t * rows, -(-s // cols)
+        if by_key:
+            if window:
+                n = min(n, (min(r0 + rows, s) - 1 + window - 1) // cols + 1)
+            tiles += max(n - (r0 // cols if causal else 0), 0)
+        else:
+            if causal:
+                n = min(n, (r0 + rows - 1) // cols + 1)
+            lo = r0 - window + 1 if window else 0
+            tiles += n - (lo // cols if lo > 0 else 0)
+    return tiles * rows * cols
+
+
+def _executed_share(source, b, hq, s, d, causal, window):
+    """The least backward work (5 products a kept pair) over what the two
+    kernels run: 3 products a loaded pair in dq, 4 in dkv."""
+    (qr, kc), (kr, qc) = BWD_TILES[source]
+    run = 6 * d * _loaded_pairs(s, causal, window, qr, kc, False) \
+        + 8 * d * _loaded_pairs(s, causal, window, kr, qc, True)
+    return 10 * d * _attended_pairs(s, causal, window) / run
+
+
 def phase_bwd_kernels():
     """The dq and dkv kernels against the f32 plain backward; returns
-    {shape name: numbers}."""
+    {shape name: numbers}: the routed source's at the top level, flash_bwd.cu's
+    under "mma_sync" where the route is flash_bwd_sm90.cu."""
     import torch.nn.functional as F
 
     from kubedl_tpu_torch.ops import flash_attention as fa
@@ -539,25 +580,36 @@ def phase_bwd_kernels():
         dout = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
         kw = dict(causal=causal, window=window, softcap=softcap)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, g) for a, g in zip(again, got))
-        del again
         ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
                                            lse, dout.float(), **kw)
-        errs, finite = {}, True
-        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-            finite = finite and bool(torch.isfinite(g.float()).all())
-            errs[gname] = ((g.float() - r).abs().max() / r.abs().max()).item()
-            errs[gname + "_abs"] = (g.float() - r).abs().max().item()
-        del ref, got
-        launch_args, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, causal, None,
-                                             window, softcap)
-        dq_ms = _time_ms(lambda: fa._launch_bwd("dq", launch_args["dq"]))
-        dkv_ms = _time_ms(lambda: fa._launch_bwd("dkv", launch_args["dkv"]))
+        routed = fa.bwd_kernel_source(d)
+        runs = {}
+        for source in (routed, fa.BWD_MMA_SYNC) if routed != fa.BWD_MMA_SYNC else (routed,):
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=source, **kw)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=source, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            errs, finite = {}, True
+            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+                finite = finite and bool(torch.isfinite(g.float()).all())
+                errs[gname] = ((g.float() - r).abs().max() / r.abs().max()).item()
+                errs[gname + "_abs"] = (g.float() - r).abs().max().item()
+            del got, again
+            launch_args, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, causal, None,
+                                                 window, softcap, source)
+            dq_ms = _graph_ms(lambda: fa._launch_bwd("dq", launch_args["dq"]))
+            dkv_ms = _graph_ms(lambda: fa._launch_bwd("dkv", launch_args["dkv"]))
+            del launch_args
+            runs[source] = dict(source=f"{source}.cu", errors=errs, finite=finite,
+                                deterministic=same, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                                executed_work_share=_executed_share(source, b, hq, s, d, causal,
+                                                                    window))
+            if not finite or not same or max(errs[g] for g in ("dq", "dk", "dv")) > BWD_TOL:
+                raise AssertionError(
+                    f"{source}.cu disagrees with the plain backward at {name}: finite={finite} "
+                    f"deterministic={same} errors={errs} (tol {BWD_TOL})")
+        del ref
         wrapper_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
-        del launch_args
         plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
                             iters=3)
         library_ms = None
@@ -568,32 +620,40 @@ def phase_bwd_kernels():
                 return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                                       enable_gqa=hq != hkv)
 
-            fwd_bwd = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), dout))
+            # device time, as the kernels': timed by events, the host's cost of
+            # autograd shows through
+            fwd_bwd = _graph_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), dout))
             with torch.no_grad():
-                fwd_only = _time_ms(sdpa)
+                fwd_only = _graph_ms(sdpa)
             library_ms = fwd_bwd - fwd_only
         work = _bwd_bounds(b, hq, hkv, s, d, causal, window)
         r = dict(shape=[b, hq, hkv, s, d], causal=causal, window=window, softcap=softcap,
-                 errors=errs, finite=finite, deterministic=same,
-                 dq_ms=dq_ms, dkv_ms=dkv_ms, wrapper_ms=wrapper_ms,
-                 plain_ms=plain_ms, library_ms=library_ms)
+                 **runs[routed], wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                 library_ms=library_ms)
         for part in ("dq", "dkv", "bwd"):
             r[f"{part}_bound_ms"], r[f"{part}_bound_by"] = _bound(*work[part])
-        r["share_of_bound"] = r["bwd_bound_ms"] / (dq_ms + dkv_ms)
-        r["executed_work_share"] = 10 / 14  # 5 products a score needed, 7 run
+        kernel_ms = r["dq_ms"] + r["dkv_ms"]
+        r["share_of_bound"] = r["bwd_bound_ms"] / kernel_ms
+        r["tflops"] = work["bwd"][0] / kernel_ms / 1e9
+        old = runs.get(fa.BWD_MMA_SYNC) if routed != fa.BWD_MMA_SYNC else None
+        r["mma_sync"] = old
+        r["speedup_vs_mma_sync"] = None if old is None else \
+            (old["dq_ms"] + old["dkv_ms"]) / kernel_ms
         results[name] = r
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"bwd {name}: dq_ms={dq_ms:.4f} (bound {r['dq_bound_ms']:.4f} "
-              f"{r['dq_bound_by']}) dkv_ms={dkv_ms:.4f} (bound {r['dkv_bound_ms']:.4f} "
-              f"{r['dkv_bound_by']}) wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib} bwd_bound_ms={r['bwd_bound_ms']:.4f} "
+        errs = r["errors"]
+        vs = "n/a" if old is None else \
+            (f"{old['dq_ms']:.4f}+{old['dkv_ms']:.4f} (x{r['speedup_vs_mma_sync']:.2f}, "
+             f"rel_err dq={old['errors']['dq']:.2e} dk={old['errors']['dk']:.2e} "
+             f"dv={old['errors']['dv']:.2e})")
+        print(f"bwd {name} [{routed}.cu]: dq_ms={r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f} "
+              f"{r['dq_bound_by']}) dkv_ms={r['dkv_ms']:.4f} (bound {r['dkv_bound_ms']:.4f} "
+              f"{r['dkv_bound_by']}) mma_sync={vs} wrapper_ms={wrapper_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib} bwd_bound_ms={r['bwd_bound_ms']:.4f} "
               f"({r['bwd_bound_by']}) share={r['share_of_bound']:.3f} "
+              f"executed_work_share={r['executed_work_share']:.3f} tflops={r['tflops']:.1f} "
               f"rel_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
-              f"deterministic={same}", flush=True)
-        if not finite or not same or max(errs[g] for g in ("dq", "dk", "dv")) > BWD_TOL:
-            raise AssertionError(
-                f"flash_bwd disagrees with its plain version at {name}: finite={finite} "
-                f"deterministic={same} errors={errs} (tol {BWD_TOL})")
+              f"deterministic={r['deterministic']}", flush=True)
         del q, k, v, out, lse, dout
     return results
 
@@ -1436,10 +1496,11 @@ def main(argv=None) -> int:
         bwd_rows.append({
             "name": f"flash_bwd_{part}",
             "route": "cuda",
-            "source": "kubedl_tpu_torch/ops/csrc/flash_bwd.cu",
+            "source": f"kubedl_tpu_torch/ops/csrc/{main_b['source']}",
             "replaces": f"kubedl_tpu/ops/flash_attention.py:{line}",
             "launches": train["launches"][1 if part == "dq" else 2],
-            "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values() for g in gname),
+            "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
+                               if r["source"] == main_b["source"] for g in gname),
             "ms": main_b[f"{part}_ms"],
             "plain_ms": main_b["plain_ms"],
             "bound_ms": main_b[f"{part}_bound_ms"],

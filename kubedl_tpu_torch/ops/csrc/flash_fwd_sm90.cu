@@ -76,7 +76,6 @@ constexpr int BN = 128;                // key rows a K/V tile
 constexpr int STAGES = 3;
 constexpr int NTHREADS = 384;          // producer warpgroup + two consumer warpgroups
 constexpr int BOX_BYTES = 128 * 128;   // 128 rows x 64 bf16 (128 bytes, the swizzle span)
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Smem {
@@ -136,17 +135,6 @@ __device__ __forceinline__ bool tile_masked(int kt, const Item& w, const FwdArgs
          (p.window > 0 && k0 <= w.q0 + BM - 1 - p.window);
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // s[64 x 128] (+)= A[64 x 16] . B[16 x 128], both operands K-major in
 // shared memory; scale_d 0 overwrites s.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
@@ -168,48 +156,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[64 x 128] += P[64 x 16] . B[16 x 128]: P as bf16 fragments in registers
-// (the mma.sync m16n8k16 A layout of each warp's 16 rows), B MN-major in
-// shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d[64 x 64] += P[64 x 16] . B[16 x 64]: P as bf16 fragments in registers
-// (the mma.sync m16n8k16 A layout of each warp's 16 rows), B MN-major in
-// shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 // s = Q[64 rows of this warpgroup] . K_tile^T over D: D / 16 products. Q and
@@ -534,36 +480,12 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, 
            float* lse, const int* order, const int* starts, int n_ctas, const FwdArgs& p,
            cudaStream_t stream) {
   constexpr int smem = Smem<D>::BYTES;
-  static uint64_t attribute_set = 0;  // a bit a device: the call costs host time every launch
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static uint64_t set = 0;
+  const cudaError_t err = allow_smem(flash_fwd_sm90_kernel<D, SOFTCAP>, smem, set);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !(attribute_set >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, SOFTCAP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) attribute_set |= 1ull << dev;
-  }
   flash_fwd_sm90_kernel<D, SOFTCAP><<<n_ctas, NTHREADS, smem, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), lse, order, starts, p);
   return cudaGetLastError();
-}
-
-// A 4-D map over (d, s, h, b) with the caller's element strides, boxes of
-// 64 columns x 128 rows of one (b, h).
-int map_4d(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, int64_t sb, int64_t sh,
-           int64_t ss) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, BN, 1, 1};
-  return make_map(map, ptr, 4, dims, strides, box);
-}
-
-bool vec_ok(const void* ptr, int64_t a, int64_t b, int64_t c) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && a % 8 == 0 && b % 8 == 0 && c % 8 == 0 &&
-         a > 0 && b > 0 && c > 0;
 }
 
 }  // namespace
@@ -608,9 +530,9 @@ int kubedl_flash_fwd_sm90_bf16(const void* q, const void* k, const void* v, void
   p.window = window;
   p.vec_out = Dv % 8 == 0 && vec_ok(o, o_sb, o_sh, o_ss);
   CUtensorMap mq, mk, mv;
-  int err = map_4d(&mq, q, D, S, Hq, B, q_sb, q_sh, q_ss);
-  if (!err) err = map_4d(&mk, k, D, S, Hkv, B, k_sb, k_sh, k_ss);
-  if (!err) err = map_4d(&mv, v, D, S, Hkv, B, v_sb, v_sh, v_ss);
+  int err = map_4d(&mq, q, D, S, Hq, B, q_sb, q_sh, q_ss, BN);
+  if (!err) err = map_4d(&mk, k, D, S, Hkv, B, k_sb, k_sh, k_ss, BN);
+  if (!err) err = map_4d(&mv, v, D, S, Hkv, B, v_sb, v_sh, v_ss, BN);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)

@@ -14,10 +14,11 @@ kernels or the call raises on a dtype, head dim or shape they do not take.
 There is no fallback between the two. The forward's source is fixed by the
 head dim (`kernel_source`): padded to 64 or 128, ops/csrc/flash_fwd_sm90.cu
 (TMA, wgmma, warp-specialized); 256, ops/csrc/flash_fwd.cu (mma.sync). The
-backward is ops/csrc/flash_bwd.cu. When an input requires grad, `flash_attention`
-goes through `FlashAttention`, a torch.autograd.Function whose forward
-keeps (q, k, v, out, lse) and whose backward is the dq and dkv kernels (the
-plain backward on CPU tensors).
+backward's likewise (`bwd_kernel_source`): ops/csrc/flash_bwd_sm90.cu at
+64 or 128, ops/csrc/flash_bwd.cu at 256. When an input requires grad,
+`flash_attention` goes through `FlashAttention`, a torch.autograd.Function
+whose forward keeps (q, k, v, out, lse) and whose backward is the dq and
+dkv kernels (the plain backward on CPU tensors).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from kubedl_tpu_torch.ops import _build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the mma.sync kernels' template widths
 SM90, MMA_SYNC = "flash_fwd_sm90", "flash_fwd"  # the forward's kernel sources under ops/csrc/
+BWD_SM90, BWD_MMA_SYNC = "flash_bwd_sm90", "flash_bwd"  # the backward's
 SM90_HEAD_DIMS = (64, 128)
 
 
@@ -130,58 +132,92 @@ def kernel_source(head_dim: int) -> str:
     raise ValueError(f"flash_attention_fwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
 
 
+def bwd_kernel_source(head_dim: int) -> str:
+    """The csrc/ source whose dq and dkv kernels the CUDA backward takes at
+    this head dim: padded to 64 or 128, flash_bwd_sm90.cu; 256,
+    flash_bwd.cu. Raises past 256."""
+    if head_dim <= SM90_HEAD_DIMS[-1]:
+        return BWD_SM90
+    if head_dim <= HEAD_DIMS[-1]:
+        return BWD_MMA_SYNC
+    raise ValueError(f"flash_attention_bwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
+
+
 SM90_BLOCK = 128              # query rows an item and key rows a tile of flash_fwd_sm90.cu
-SM90_L2_GROUP_BYTES = 24 << 20  # K/V bytes a group of (b, h) pairs may take: half the L2
+SM90_L2_GROUP_BYTES = 24 << 20  # streamed bytes a group of items may take: half the L2
+# the persistent kernels' items: kind -> (rows an item, rows a streamed tile).
+# "fwd" and "dq" items are query rows of one (b, q head) streaming K/V tiles;
+# "dkv" items are key rows of one (b, KV head) streaming the Q/dO tiles of
+# every query head of its GQA group
+SM90_TILES = {"fwd": (SM90_BLOCK, SM90_BLOCK), "dq": (128, 64), "dkv": (128, 64)}
 
 
-def _tiles(qt: int, s: int, causal: bool, window: Optional[int]) -> int:
-    """K/V tiles flash_fwd_sm90.cu loads for q-tile qt (its item_of)."""
-    q0, ke = qt * SM90_BLOCK, -(-s // SM90_BLOCK)
+def _tiles(t: int, s: int, causal: bool, window: Optional[int], kind: str = "fwd") -> int:
+    """Tiles the `kind` kernel streams for its item row block t, for one
+    query head (its item_of / dq_item / dkv_item)."""
+    bm, bn = SM90_TILES[kind]
+    r0, n = t * bm, -(-s // bn)
+    if kind == "dkv":  # query tiles from the diagonal on, to the window's last row
+        if window:
+            n = min(n, (min(r0 + bm, s) - 1 + window - 1) // bn + 1)
+        return max(n - (r0 // bn if causal else 0), 0)
     if causal:
-        ke = min(ke, (q0 + SM90_BLOCK - 1) // SM90_BLOCK + 1)
-    lo = q0 - window + 1 if window else 0
-    return ke - (lo // SM90_BLOCK if lo > 0 else 0)
+        n = min(n, (r0 + bm - 1) // bn + 1)
+    lo = r0 - window + 1 if window else 0
+    return n - (lo // bn if lo > 0 else 0)
 
 
-def sm90_group(b: int, hq: int, hkv: int, s: int, d: int) -> int:
-    """(b, h) pairs in one L2 group of flash_fwd_sm90.cu's schedule: whole
-    GQA groups of query heads, as many as have their K/V (S * d * 4 bytes a
-    KV head) in SM90_L2_GROUP_BYTES and at least one, then evened out so the
+def sm90_group(b: int, hq: int, hkv: int, s: int, d: int, kind: str = "fwd") -> int:
+    """Heads in one L2 group of the `kind` kernel's schedule. "fwd", "dq":
+    (b, q head) pairs, whole GQA groups, as many as have their K/V (S * d
+    * 4 bytes a KV head) in SM90_L2_GROUP_BYTES; "dkv": (b, KV head) pairs
+    whose query heads' Q and dO fit. At least one, then evened out so the
     last group is not a small remainder."""
-    bh_n, rep = b * hq, hq // hkv
-    group = min(max(SM90_L2_GROUP_BYTES // (s * d * 4), 1) * rep, bh_n)
-    even = -(-bh_n // -(-bh_n // group))  # the same number of groups, sizes within one
-    return even + -even % rep
+    rep = hq // hkv
+    if kind == "dkv":
+        pairs, unit, nbytes = b * hkv, 1, rep * s * d * 4
+    else:
+        pairs, unit, nbytes = b * hq, rep, s * d * 4
+    group = min(max(SM90_L2_GROUP_BYTES // nbytes, 1) * unit, pairs)
+    even = -(-pairs // -(-pairs // group))  # the same number of groups, sizes within one
+    return even + -even % unit
 
 
 def sm90_items(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
-               window: Optional[int]):
-    """flash_fwd_sm90.cu's items in order, as (code, cost): code is
-    q_tile * b * hq + (batch * hq + head), cost its K/V tiles plus one for
-    its prologue and epilogue. (b, h) pairs go in `sm90_group`s, so the K/V
-    the CTAs running at once read stays in L2; inside a group, all its
-    pairs of the longest causal q-tile first."""
-    n_qt, bh_n = -(-s // SM90_BLOCK), b * hq
-    group = sm90_group(b, hq, hkv, s, d)
-    for first in range(0, bh_n, group):
-        for rank in range(n_qt):
-            qt = n_qt - 1 - rank if causal else rank
-            cost = _tiles(qt, s, causal, window) + 1
-            for bh in range(first, min(first + group, bh_n)):
-                yield qt * bh_n + bh, cost
+               window: Optional[int], kind: str = "fwd"):
+    """The `kind` kernel's items in order, as (code, cost): code is
+    row_block * pairs + pair (pair = batch * hq + head, or batch * hkv + KV
+    head for "dkv"), cost its streamed tiles (over the GQA group's query
+    heads for "dkv") plus one for its prologue and epilogue. Pairs go in
+    `sm90_group`s, so what the CTAs running at once stream stays in L2;
+    inside a group, all its pairs of the longest causal row block first:
+    the last query block, or the first key block."""
+    n_t, rep = -(-s // SM90_TILES[kind][0]), hq // hkv
+    pairs, per = (b * hkv, rep) if kind == "dkv" else (b * hq, 1)
+    group = sm90_group(b, hq, hkv, s, d, kind)
+    blocks = list(range(n_t))
+    if causal and kind != "dkv":
+        blocks.reverse()
+    for first in range(0, pairs, group):
+        for t in blocks:
+            cost = _tiles(t, s, causal, window, kind) * per + 1
+            for pair in range(first, min(first + group, pairs)):
+                yield t * pairs + pair, cost
 
 
 @functools.lru_cache(maxsize=256)
 def sm90_schedule(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
-                  window: Optional[int], n_ctas: int) -> Tuple[np.ndarray, np.ndarray]:
-    """flash_fwd_sm90.cu's persistent schedule: (order, starts), CTA c
+                  window: Optional[int], n_ctas: int, kind: str = "fwd"
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The persistent schedule of flash_fwd_sm90.cu ("fwd") or of
+    flash_bwd_sm90.cu's two kernels ("dq", "dkv"): (order, starts), CTA c
     taking the items order[starts[c]:starts[c + 1]]. Each item of
     `sm90_items` in turn goes to the CTA that frees first, so the CTAs end
-    together, and the ones running at once work on one group's K/V from
+    together, and the ones running at once work on one group's tiles from
     L2."""
     free = [(0, c) for c in range(n_ctas)]
     lists = [[] for _ in range(n_ctas)]
-    for code, cost in sm90_items(b, hq, hkv, s, d, causal, window):
+    for code, cost in sm90_items(b, hq, hkv, s, d, causal, window, kind):
         t, c = heapq.heappop(free)
         lists[c].append(code)
         heapq.heappush(free, (t + cost, c))
@@ -193,16 +229,17 @@ def sm90_schedule(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
 _schedules: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _sm90_schedule_on(device, *key) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def _sm90_schedule_on(device, *key, kind: str = "fwd"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """sm90_schedule for one CTA an SM of `device`, as int32 device tensors
-    kept per shape (a launch copies nothing)."""
+    kept per shape and kind (a launch copies nothing)."""
     n_ctas = torch.cuda.get_device_properties(device).multi_processor_count
-    full = (str(device), *key, n_ctas)
+    full = (str(device), *key, n_ctas, kind)
     got = _schedules.get(full)
     if got is None:
         if len(_schedules) >= 256:  # serving's buckets are few; bound it all the same
             _schedules.clear()
-        order, starts = sm90_schedule(*key, n_ctas)
+        order, starts = sm90_schedule(*key, n_ctas, kind)
         got = (torch.from_numpy(order).to(device), torch.from_numpy(starts).to(device))
         _schedules[full] = got
     return (*got, n_ctas)
@@ -325,23 +362,44 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _lib_bwd():
-    lib = _build.load("flash_bwd")
-    if lib.kubedl_flash_bwd_dq_bf16.argtypes is None:
+# source -> (dq entry point, dkv entry point, error string)
+_BWD_ENTRIES = {
+    BWD_SM90: ("kubedl_flash_bwd_dq_sm90_bf16", "kubedl_flash_bwd_dkv_sm90_bf16",
+               "kubedl_flash_bwd_sm90_error_string"),
+    BWD_MMA_SYNC: ("kubedl_flash_bwd_dq_bf16", "kubedl_flash_bwd_dkv_bf16",
+                   "kubedl_flash_bwd_error_string"),
+}
+
+
+def _lib_bwd(source: str):
+    """{"dq": fn, "dkv": fn, "message": fn} of the source's library."""
+    lib = _build.load(source)
+    fns = dict(zip(("dq", "dkv", "message"), (getattr(lib, n) for n in _BWD_ENTRIES[source])))
+    if fns["dq"].argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        tail = [ctypes.c_float, I, I, ctypes.c_float, P]
-        lib.kubedl_flash_bwd_dq_bf16.argtypes = [P] * 7 + [I] * 6 + [L] * 15 + tail
-        lib.kubedl_flash_bwd_dkv_bf16.argtypes = [P] * 8 + [I] * 6 + [L] * 18 + tail
-        lib.kubedl_flash_bwd_dq_bf16.restype = I
-        lib.kubedl_flash_bwd_dkv_bf16.restype = I
-        lib.kubedl_flash_bwd_error_string.argtypes = [I]
-        lib.kubedl_flash_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+        sched = [P, P, I] if source == BWD_SM90 else []  # order, starts, CTAs
+        tail = [ctypes.c_float, I, I, ctypes.c_float] + sched + [P]
+        # pointers (bf16 tensors, then f32 rows), then (b, h, s) strides of
+        # each bf16 tensor: sm90 reads o in dq, and hands lse and delta to
+        # dkv in one buffer
+        n_dq, n_dkv = (8, 7) if source == BWD_SM90 else (7, 8)
+        fns["dq"].argtypes = [P] * n_dq + [I] * 6 + [L] * 3 * (n_dq - 2) + tail
+        fns["dkv"].argtypes = [P] * n_dkv + [I] * 6 + [L] * 18 + tail
+        fns["dq"].restype = fns["dkv"].restype = I
+        fns["message"].argtypes = [I]
+        fns["message"].restype = ctypes.c_char_p
+    return fns
 
 
-def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap):
-    """Check, pad and allocate for the backward kernels: the argument lists
-    of the dq and dkv launches and the (dq, dk, dv) they write."""
+def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap,
+                     source: Optional[str] = None):
+    """Check, pad and allocate for the backward kernels: {"dq": args, "dkv":
+    args} of the two launches and the (dq, dk, dv) they write. args =
+    (source, tensors, the other arguments but the stream). On
+    flash_bwd_sm90.cu the dq kernel computes delta = rowsum(out * dout) and
+    writes it, with LSE * log2 e, to a [2, b, hq, S rounded up to 64] f32
+    buffer that the dkv kernel reads; on flash_bwd.cu delta is computed
+    here."""
     _check(q, k, v, causal, window, softcap)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if x.device.type != "cuda":
@@ -361,43 +419,59 @@ def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap)
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     if len({x.device for x in (q, k, v, out, dout)}) != 1:
         raise ValueError("q, k, v, out, dout must be on one device")
-    dk_ = next((w for w in HEAD_DIMS if w >= d), None)
+    if source is None:
+        source = bwd_kernel_source(d)
+    widths = {BWD_SM90: SM90_HEAD_DIMS, BWD_MMA_SYNC: HEAD_DIMS}.get(source)
+    if widths is None:
+        raise ValueError(f"flash_attention_bwd: unknown kernel source {source!r}")
+    dk_ = next((w for w in widths if w >= d), None)
     if dk_ is None:
-        raise ValueError(f"flash_attention_bwd: head_dim {d} > {HEAD_DIMS[-1]}")
+        raise ValueError(f"flash_attention_bwd: head_dim {d} > {widths[-1]} ({source}.cu)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    delta = (out.float() * dout.float()).sum(-1)  # [b, hq, s] f32, contiguous
-    if dk_ != d:
-        q, k, v, dout = (F.pad(x, (0, dk_ - d)) for x in (q, k, v, dout))
-    q, k, v, dout = _aligned(q), _aligned(k), _aligned(v), _aligned(dout)
+    sm90 = source == BWD_SM90
     lse = lse.contiguous()
+    if sm90:  # the dq kernel's rows: LSE * log2 e, then delta
+        rows = torch.empty((2, b, hq, -(-s // 64) * 64), dtype=torch.float32, device=q.device)
+        f32 = {"dq": [lse, rows], "dkv": [rows]}
+    else:
+        delta = (out.float() * dout.float()).sum(-1)  # [b, hq, s] f32, contiguous
+        f32 = {"dq": [lse, delta], "dkv": [lse, delta]}
+    if dk_ != d:
+        q, k, v, out, dout = (F.pad(x, (0, dk_ - d)) for x in (q, k, v, out, dout))
+    q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout))
     grads = (torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2),
              torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2),
              torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2))
-    head = [q, k, v, dout, lse, delta]  # tensors: kept alive with the lists
     dims = (b, hq, hkv, s, dk_, d)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3])
-    tail = (float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    tail = (float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0))
     launches = {}
-    for name, outs in (("dq", grads[:1]), ("dkv", grads[1:])):
-        launches[name] = (head + list(outs), [*dims, *strides,
-                          *(st for o in outs for st in o.stride()[:3]), *tail])
+    for name, ins, outs in (("dq", [q, k, v, out, dout] if sm90 else [q, k, v, dout], grads[:1]),
+                            ("dkv", [q, k, v, dout], grads[1:])):
+        ptrs = ins + f32[name] + list(outs)  # tensors: kept alive with the lists
+        strides = [st for x in ins + list(outs) for st in x.stride()[:3]]
+        sched = ()
+        if sm90:
+            order, starts, n_ctas = _sm90_schedule_on(q.device, b, hq, hkv, s, dk_, bool(causal),
+                                                      window, kind=name)
+            sched = (order.data_ptr(), starts.data_ptr(), n_ctas)
+        launches[name] = (source, ptrs, [*dims, *strides, *tail, *sched])
     return launches, grads
 
 
 def _launch_bwd(name: str, args) -> None:
-    """Launch the "dq" or "dkv" kernel with its `_bwd_launch_args` entry;
-    raises on a CUDA error, counts the launch."""
-    lib = _lib_bwd()
-    tensors, rest = args
-    fn = {"dq": lib.kubedl_flash_bwd_dq_bf16, "dkv": lib.kubedl_flash_bwd_dkv_bf16}[name]
-    err = fn(*(t.data_ptr() for t in tensors), *rest)
+    """Launch the "dq" or "dkv" kernel with its `_bwd_launch_args` entry on
+    the current stream (a CUDA graph's while one is captured); raises on a
+    CUDA error, counts the launch."""
+    source, tensors, rest = args
+    fns = _lib_bwd(source)
+    err = fns[name](*(t.data_ptr() for t in tensors), *rest,
+                    torch.cuda.current_stream(tensors[0].device).cuda_stream)
     if err:
         b, hq, hkv, s, _, d = rest[:6]
         raise RuntimeError(
-            f"flash_bwd_{name} kernel launch failed: CUDA error {err} "
-            f"({lib.kubedl_flash_bwd_error_string(err).decode()}) at "
+            f"flash_bwd_{name} kernel launch failed ({source}.cu): CUDA error {err} "
+            f"({fns['message'](err).decode()}) at "
             f"b={b} hq={hq} hkv={hkv} s={s} d={d}")
     if name == "dq":
         flash_attention.bwd_dq_launches += 1
@@ -408,17 +482,20 @@ def _launch_bwd(name: str, args) -> None:
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         sm_scale: Optional[float] = None,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None
+                        softcap: Optional[float] = None,
+                        source: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the dq kernel, then the dkv kernel: (dq, dk, dv) in bf16.
 
     Takes what `flash_attention_fwd` takes plus its (out, lse) and the
     output gradient, with the same checks, head-dim padding and stride
-    rules; delta = rowsum(out * dout) is computed here in f32. dq is a
-    [b, hq, s, d] view of a [b, s, hq, d] buffer and dk, dv of
-    [b, s, hkv, d] buffers, the layouts the model's projections produce."""
+    rules. The kernels are the ones `bwd_kernel_source(head_dim)` names,
+    or `source` (BWD_SM90 or BWD_MMA_SYNC) where a caller compares the two;
+    nothing on the model's path passes it. dq is a [b, hq, s, d] view of a
+    [b, s, hq, d] buffer and dk, dv of [b, s, hkv, d] buffers, the layouts
+    the model's projections produce."""
     launches, grads = _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale,
-                                       window, softcap)
+                                       window, softcap, source)
     _launch_bwd("dq", launches["dq"])
     _launch_bwd("dkv", launches["dkv"])
     return grads

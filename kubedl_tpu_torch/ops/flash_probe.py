@@ -1,10 +1,11 @@
 """Time variants of ops/csrc/flash_fwd_sm90.cu (K1/K4) at chip_smoke.py's
-phase-2 shapes, to see what holds the kernel back. Needs an NVIDIA GPU and
+phase-2 shapes, or with --bwd of ops/csrc/flash_bwd_sm90.cu (K2/K3) at
+phase 2b's, to see what holds the kernels back. Needs an NVIDIA GPU and
 nvcc:
 
-    python -m kubedl_tpu_torch.ops.flash_probe [--reps 3]
+    python -m kubedl_tpu_torch.ops.flash_probe [--reps 3] [--bwd]
 
-Each variant is launched through ops/flash_attention.py's wrapper:
+Each forward variant is launched through ops/flash_attention.py's wrapper:
   base        the kernel and its host schedule as they are;
   roundrobin  the same kernel on a static schedule: the items in the same
               order (`sm90_items`), CTA c taking items c, c + n, c + 2n, ...
@@ -13,9 +14,16 @@ Each variant is launched through ops/flash_attention.py's wrapper:
               raw scores to bf16: the products, the loads and the epilogue
               alone (its output is wrong; only its time is read);
   mma_sync    flash_fwd.cu, the mma.sync kernel, at the same shapes.
+The backward's variants, each the dq and the dkv launch timed apart:
+  base        the two kernels as they are;
+  noelem      the source with the elementwise work between the products
+              (p, ds, the masks) taken out: each tile's raw S and dP feed
+              the next products (its output is wrong; only its time is read);
+  mma_sync    flash_bwd.cu, the mma.sync kernels, at the same shapes.
 Device time of 10 launches captured in a CUDA graph, median of 7 replays.
 Prints the card's name and power limit, then one line per variant and
-repetition, in ms and TFLOP/s over the (query, key) pairs the masks keep.
+repetition, in ms and TFLOP/s over the (query, key) pairs the masks keep
+(4 products a pair forward, 5 backward).
 """
 from __future__ import annotations
 
@@ -35,9 +43,29 @@ _SOFTMAX = """  if (masked)
   else
     tile_exp<SOFTCAP, false>(s, m, l, corr, p, qrow, k0, tq);"""
 _NO_SOFTMAX = "  corr[0] = corr[1] = 1.f; l[0] = l[1] = 1.f; m[0] = m[1] = 0.f;"
+# flash_bwd_sm90.cu's elementwise work between the products, and what
+# takes its place in the noelem variant: the raw scores packed as they are
+_BWD_ELEM = {
+    """  if (masked)
+    dq_grads<SOFTCAP, true>(s, dp, lse2, dl, p, qrow, k0, tq);
+  else
+    dq_grads<SOFTCAP, false>(s, dp, lse2, dl, p, qrow, k0, tq);""": "  (void)masked;",
+    """  if (masked)
+    dkv_probs<SOFTCAP, true>(s, pf, lse, p, krow, q0, tq);
+  else
+    dkv_probs<SOFTCAP, false>(s, pf, lse, p, krow, q0, tq);""": "  (void)masked;\n  pack(pf, s);",
+    """    df[2 * j] = pack_bf16(g[4 * j] * (dp[4 * j] - d2.x), g[4 * j + 1] * (dp[4 * j + 1] - d2.y));
+    df[2 * j + 1] =
+        pack_bf16(g[4 * j + 2] * (dp[4 * j + 2] - d2.x), g[4 * j + 3] * (dp[4 * j + 3] - d2.y));""":
+        """    (void)d2;
+    df[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+    df[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);""",
+}
 # name: (b, hq, hkv, s); causal, d = 128
 SHAPES = {"b4_h32_s1024": (4, 32, 32, 1024), "gqa_s1024": (4, 32, 8, 1024),
           "b8_h32_s256": (8, 32, 32, 256), "b1_h8_s8320": (1, 8, 8, 8320)}
+BWD_SHAPES = {"b4_h32_s1023": (4, 32, 32, 1023), "gqa_s1024": (4, 32, 8, 1024),
+              "b1_h8_s8192": (1, 8, 8, 8192)}
 
 
 def variants() -> dict:
@@ -48,18 +76,28 @@ def variants() -> dict:
     return {"nosoftmax": src.replace(_SOFTMAX, _NO_SOFTMAX)}
 
 
-def build(sources: dict) -> dict:
-    """nvcc each variant beside the port's libraries (the header too);
-    returns {name: ctypes library}."""
+def bwd_variants() -> dict:
+    """{name: source} of the backward's variants built from a patched copy."""
+    src = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
+    for work, stub in _BWD_ELEM.items():
+        if work not in src:
+            raise RuntimeError("flash_probe: the elementwise work in flash_bwd_sm90.cu moved")
+        src = src.replace(work, stub)
+    return {"noelem": src}
+
+
+def build(sources: dict, base: str = "flash_fwd_sm90") -> dict:
+    """nvcc each variant of csrc/<base>.cu beside the port's libraries (the
+    header too); returns {name: ctypes library}."""
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for header in _build.includes(_build.CSRC / "flash_fwd_sm90.cu"):
+    for header in _build.includes(_build.CSRC / f"{base}.cu"):
         (out_dir / header.name).write_bytes(header.read_bytes())
     procs = {}
     for name, src in sources.items():
-        cu = out_dir / f"flash_fwd_sm90_{name}.cu"
+        cu = out_dir / f"{base}_{name}.cu"
         cu.write_text(src)
-        so = out_dir / f"libflash_fwd_sm90_{name}.so"
+        so = out_dir / f"lib{base}_{name}.so"
         procs[name] = (so, subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                                              str(cu)], stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
@@ -103,16 +141,54 @@ def _graph_ms(fn, reps: int = 10, iters: int = 7) -> float:
     return statistics.median(times)
 
 
+def bwd_main(reps: int) -> int:
+    """The backward's variants at BWD_SHAPES (causal, d = 128)."""
+    libs = build(bwd_variants(), base=fa.BWD_SM90)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base_lib = _build.load(fa.BWD_SM90)
+    runs = [("base", base_lib, fa.BWD_SM90)]
+    runs += [(name, lib, fa.BWD_SM90) for name, lib in libs.items()]
+    runs += [("mma_sync", None, fa.BWD_MMA_SYNC)]
+    inputs = {}
+    for shape, (b, hq, hkv, s) in BWD_SHAPES.items():
+        q, k, v = (torch.randn((b, h, s, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        inputs[shape] = (q, k, v, out, lse, torch.randn_like(out))
+    try:
+        for rep in range(reps):
+            for name, lib, source in runs:
+                if lib is not None:
+                    _build._loaded[fa.BWD_SM90] = lib
+                line = []
+                for shape, (q, k, v, out, lse, dout) in inputs.items():
+                    args, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None,
+                                                  None, source)
+                    dq = _graph_ms(lambda: fa._launch_bwd("dq", args["dq"]))
+                    dkv = _graph_ms(lambda: fa._launch_bwd("dkv", args["dkv"]))
+                    b, hq, s = q.shape[0], q.shape[1], q.shape[2]
+                    flop = 10 * b * hq * 128 * s * (s + 1) // 2
+                    line.append(f"{shape} dq {dq:.4f} dkv {dkv:.4f} ms "
+                                f"({flop / (dq + dkv) / 1e9:.0f} TFLOP/s)")
+                print(f"rep {rep} bwd {name}: " + " ".join(line), flush=True)
+    finally:
+        _build._loaded[fa.BWD_SM90] = base_lib
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--bwd", action="store_true", help="the backward's variants")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_probe: needs a CUDA device")
-    libs = build(variants())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
+    if args.bwd:
+        return bwd_main(args.reps)
+    libs = build(variants())
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {name: tuple(torch.randn((b, h, s, 128), generator=gen, device="cuda")
                           .to(torch.bfloat16) for h in (hq, hkv, hkv))

@@ -206,6 +206,78 @@ def test_flash_fwd_sm90_refuses_what_it_does_not_take(dev):
         fa.flash_attention_fwd(big, big, big, source="flash_fwd_sm80")
 
 
+# flash_bwd_sm90.cu (TMA, wgmma) on every KERNEL_CASES row it takes, and
+# beyond them: the main training shape's tail and GQA 32/8 over many items
+SM90_BWD_CASES = [c for c in KERNEL_CASES if c[4] <= 128] + [
+    (4, 32, 32, 1023, 128, True, None, None),   # S 1023: a ragged q tile and a masked S tail
+    (2, 32, 8, 300, 128, True, None, None),     # GQA 32/8: dK, dV summed over 4 query heads
+    (1, 4, 4, 777, 128, True, 2, None),         # window 2: two keys a row, tiles mostly masked
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,softcap", SM90_BWD_CASES)
+def test_flash_bwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal, window,
+                                                   softcap):
+    """The TMA/wgmma backward against the f32 plain backward (max|kernel -
+    plain| / max|plain| <= 2e-2 for dq, dk, dv, finite), two launches
+    bit-identical, and flash_bwd.cu's mma.sync kernels at the same shape
+    within twice that (each is within it of plain)."""
+    assert fa.bwd_kernel_source(d) == fa.BWD_SM90
+    q, k, v = _qkv(dev, b, hq, hkv, s, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dout = _qkv(dev, b, hq, hq, s, d, seed=1)[0]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_SM90, **kw)
+    old = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_MMA_SYNC, **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), **kw)
+    for name, g, a, o, r in zip(("dq", "dk", "dv"), got, again, old, ref):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, r) <= 2e-2, (name, _rel_err(g, r))
+        assert torch.equal(g, a), name
+        assert _rel_err(g, o) <= 4e-2, (name, _rel_err(g, o))
+
+
+def test_flash_bwd_sm90_reads_strided_views_in_place(dev):
+    """The model's q/k/v/out/dout, transpose(1, 2) views of [b, s, h, d]
+    buffers, go to the tensor maps as they are (no copy), GQA included."""
+    b, s, hq, hkv, d = 2, 300, 8, 2, 128
+    rng = np.random.default_rng(6)
+
+    def view(h):
+        return (torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+                .to(dev, torch.bfloat16).transpose(1, 2))
+
+    q, k, v, dout = view(hq), view(hkv), view(hkv), view(hq)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, None)
+    assert launches["dq"][0] == fa.BWD_SM90
+    for x, y in zip((q, k, v, out, dout), launches["dq"][1]):
+        assert not x.is_contiguous() and y.data_ptr() == x.data_ptr()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), causal=True)
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= 2e-2
+
+
+def test_flash_bwd_sm90_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, 1, 2, 2, 64, 128)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q, k, v, out, lse, out.float(), source=fa.BWD_SM90)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, out, lse[:, :1], out, source=fa.BWD_SM90)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, out, lse, out, source="flash_bwd_sm80")
+    big = torch.zeros(1, 1, 8, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(big, big, big, big, torch.zeros(1, 1, 8, device=dev), big,
+                               source=fa.BWD_SM90)
+
+
 @pytest.fixture(scope="module")
 def tiny_bf16(dev):
     from kubedl_tpu_torch.models import llama

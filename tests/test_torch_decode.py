@@ -107,6 +107,60 @@ def test_greedy_generate_matches_jax_token_for_token(model, ragged):
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
+# the family configs of test_torch_llama.py's VARIANTS and one KV head; the
+# JAX side runs its attention_reference (use_flash=False), which the flash
+# tests hold equal to its kernel
+DECODE_VARIANTS = {
+    "gemma2": dict(attn_logit_softcap=20.0, final_logit_softcap=15.0,
+                   post_block_norms=True, norm_offset=1.0, embed_scale=11.3,
+                   query_pre_attn_scalar=24.0, act="gelu_tanh",
+                   head_dim_override=24, tie_embeddings=True),
+    "qwen2": dict(attn_qkv_bias=True, layer_windows=(None, 5)),
+    "sliding": dict(sliding_window=6),
+    "rope_llama3": dict(rope_scaling=jllama.RopeScaling(
+        "llama3", 8.0, original_max_position_embeddings=32)),
+    "kv1": dict(n_kv_heads=1),
+}
+
+
+@pytest.fixture(scope="module", params=list(DECODE_VARIANTS))
+def variant_model(request):
+    jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, use_flash=False,
+                                   **DECODE_VARIANTS[request.param])
+    jparams = jllama.init(jcfg, jax.random.PRNGKey(1))
+    if jcfg.attn_qkv_bias:  # init zeroes the biases; make them matter
+        rng = np.random.default_rng(1)
+        for layer in jparams["layers"]:
+            for name in ("bq", "bk", "bv"):
+                layer[name] = jnp.asarray(rng.standard_normal(layer[name].shape, np.float32) * 0.5)
+    tcfg = config_from_fields(**dataclasses.asdict(jcfg))
+    return jcfg, jparams, tcfg, params_from_numpy(jax.device_get(jparams))
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+def test_variant_decode_matches_jax(variant_model, uniform):
+    """Prefill, then 8 greedy decode steps, on each family config: logits
+    within 1e-4 of max|JAX| at every step and the same tokens."""
+    jcfg, jp, tcfg, tp = variant_model
+    toks = _prompts(2, 11, 6)
+    lengths = None if uniform else np.array([11, 6], np.int32)
+    jc = jdecode.init_kv_cache(jcfg, 2, 24, uniform=uniform)
+    tc = tdecode.init_kv_cache(tcfg, 2, 24, uniform=uniform, device="cpu")
+    jl, jc = _jprefill(jcfg)(jp, jnp.asarray(toks), jc,
+                             None if uniform else jnp.asarray(lengths))
+    tl, tc = tdecode.prefill(tp, torch.from_numpy(toks), tc, tcfg,
+                             lengths=None if uniform else torch.from_numpy(lengths))
+    _close(tl, jl)
+    step = jax.jit(lambda p, x, c: jdecode.decode_step(p, x, c, jcfg))
+    for _ in range(8):
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(), nxt)
+        jl, jc = step(jp, jnp.asarray(nxt), jc)
+        tl, tc = tdecode.decode_step(tp, torch.from_numpy(nxt), tc, tcfg)
+        _close(tl, jl)
+    np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc["lengths"]))
+
+
 def test_sampled_generate_is_seeded_and_in_range(model):
     _, _, tcfg, tp = model
     toks = torch.from_numpy(_prompts(2, 5, 5))

@@ -149,6 +149,30 @@ def test_kernel_source_refuses_past_256():
         tfa.kernel_source(257)
 
 
+@pytest.mark.parametrize("head_dim,source", [
+    (1, tfa.BWD_SM90), (40, tfa.BWD_SM90), (64, tfa.BWD_SM90), (100, tfa.BWD_SM90),
+    (128, tfa.BWD_SM90), (129, tfa.BWD_MMA_SYNC), (256, tfa.BWD_MMA_SYNC)])
+def test_bwd_kernel_source_routes_by_head_dim(head_dim, source):
+    """The backward's route table: padded to 64 or 128, flash_bwd_sm90.cu;
+    256, flash_bwd.cu."""
+    assert tfa.bwd_kernel_source(head_dim) == source
+
+
+def test_bwd_kernel_source_refuses_past_256():
+    with pytest.raises(ValueError):
+        tfa.bwd_kernel_source(257)
+
+
+def test_bwd_wrapper_refuses_cpu_tensors_on_either_route():
+    """flash_attention_bwd never computes on the CPU, whichever source is
+    asked for, and refuses a source it does not know."""
+    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 4)
+    for source in (None, tfa.BWD_SM90, tfa.BWD_MMA_SYNC, "flash_bwd_nonesuch"):
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd(q, q, q, q, lse, q, source=source)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_on_either_route():
     """flash_attention_fwd never computes on the CPU, whichever source is
     asked for: the check comes before any build or launch."""
@@ -179,12 +203,12 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 
 def test_sm90_sources_share_the_header():
-    """flash_fwd_sm90.cu and gmm_sm90.cu include sm90_common.cuh, so each
-    library's name moves with it."""
+    """flash_fwd_sm90.cu, flash_bwd_sm90.cu and gmm_sm90.cu include
+    sm90_common.cuh, so each library's name moves with it."""
     from kubedl_tpu_torch.ops import _build
 
     header = _build.CSRC / "sm90_common.cuh"
-    for name in ("flash_fwd_sm90", "gmm_sm90"):
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90", "gmm_sm90"):
         assert _build.includes(_build.CSRC / f"{name}.cu") == [header]
     for name in ("flash_fwd", "flash_bwd", "gmm"):
         assert _build.includes(_build.CSRC / f"{name}.cu") == []
@@ -230,6 +254,77 @@ def test_sm90_schedule_orders_each_cta_longest_first_by_group():
             assert np.all(np.diff(qt[bh // group == g]) <= 0)
 
 
+BWD_SCHEDULE_SHAPES = [
+    (4, 32, 32, 1023, 128, True, None),   # the 7B training shape
+    (4, 32, 8, 1024, 128, True, None),    # GQA 32/8
+    (1, 8, 8, 8192, 128, True, None),     # one long row
+    (2, 4, 4, 333, 128, True, 100),       # window
+    (3, 5, 5, 300, 64, False, None),      # not causal
+    (1, 1, 1, 1, 128, True, None),        # fewer items than CTAs
+]
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("shape", BWD_SCHEDULE_SHAPES)
+def test_bwd_schedule_takes_every_item_once(shape, kind):
+    """flash_bwd_sm90.cu's schedules: every item (a 128-row block of one
+    (b, q head) for dq, of one (b, KV head) for dkv) in exactly one CTA's
+    list, and the CTAs' work (streamed tiles over the GQA group + 1 an
+    item) within 12 % of the mean wherever there are several items a CTA."""
+    b, hq, hkv, s, d, causal, window = shape
+    n_ctas, rep = 132, hq // hkv
+    pairs, per = (b * hkv, rep) if kind == "dkv" else (b * hq, 1)
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)
+    assert order.dtype == np.int32 and starts.dtype == np.int32
+    assert starts[0] == 0 and starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
+    assert sorted(order.tolist()) == list(range(pairs * -(-s // 128)))
+    work = [sum(tfa._tiles(int(c) // pairs, s, causal, window, kind) * per + 1
+                for c in order[starts[i]:starts[i + 1]]) for i in range(n_ctas)]
+    if len(order) >= 4 * n_ctas:
+        assert max(work) <= 1.12 * (sum(work) / n_ctas)
+    # a schedule a kind: the forward's of the same shape is another list
+    assert tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)[0] is order
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_bwd_schedule_takes_the_longest_items_first(kind):
+    """Inside one L2 group a CTA's causal items never get cheaper to more
+    expensive: dq's last query blocks and dkv's first key blocks first."""
+    b, hq, hkv, s, d = 4, 32, 8, 1024, 128
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, True, None, 16, kind)
+    pairs = b * hkv if kind == "dkv" else b * hq
+    group = tfa.sm90_group(b, hq, hkv, s, d, kind)
+    for i in range(16):
+        codes = order[starts[i]:starts[i + 1]]
+        cost = np.array([tfa._tiles(int(c) // pairs, s, True, None, kind) for c in codes])
+        grp = (codes % pairs) // group
+        for g in np.unique(grp):
+            assert np.all(np.diff(cost[grp == g]) <= 0)
+
+
+@pytest.mark.parametrize("kind,t,s,causal,window,want", [
+    ("dq", 0, 1023, True, None, 2), ("dq", 7, 1023, True, None, 16),
+    ("dq", 3, 1024, False, None, 16), ("dq", 2, 333, True, 100, 4),
+    ("dkv", 0, 1023, True, None, 16), ("dkv", 7, 1023, True, None, 2),
+    ("dkv", 3, 1024, False, None, 16), ("dkv", 0, 333, True, 100, 4),
+    ("dkv", 2, 333, True, 100, 2), ("dkv", 1, 777, True, 1, 2)])
+def test_bwd_tiles_match_the_kernels_live_range(kind, t, s, causal, window, want):
+    """The 64-row tiles a 128-row item streams: dq's K/V tiles up to its
+    diagonal and from its window's first key; dkv's q tiles from its
+    diagonal to the window's last query."""
+    assert tfa._tiles(t, s, causal, window, kind) == want
+
+
+@pytest.mark.parametrize("kind,shape,want", [
+    ("dq", (4, 32, 32, 1024, 128), 43),    # the forward's groups: the same K/V per head
+    ("dkv", (4, 32, 32, 1024, 128), 43),   # a KV head's Q and dO: 48 fit
+    ("dkv", (4, 32, 8, 1024, 128), 11),    # 4 query heads a KV head: 12 fit, 3 groups
+    ("dkv", (1, 2, 2, 1 << 20, 128), 1),   # one head's past the budget
+])
+def test_bwd_groups_fit_l2(kind, shape, want):
+    assert tfa.sm90_group(*shape, kind) == want
+
+
 @pytest.mark.parametrize("qt,s,causal,window,want", [
     (0, 1024, True, None, 1), (7, 1024, True, None, 8), (3, 1024, False, None, 8),
     (2, 333, True, 100, 2), (0, 333, True, 100, 1), (7, 1024, True, 1, 1)])
@@ -241,11 +336,15 @@ def test_sm90_tiles_match_the_kernels_live_range(qt, s, causal, window, want):
 
 def test_flash_probe_variants_still_apply():
     """ops/flash_probe.py patches flash_fwd_sm90.cu's softmax dispatch and
-    deals sm90_items out round robin: both must keep matching the code."""
+    flash_bwd_sm90.cu's elementwise work, and deals sm90_items out round
+    robin: all must keep matching the code."""
     from kubedl_tpu_torch.ops import flash_probe
 
     src = flash_probe.variants()["nosoftmax"]
     assert flash_probe._NO_SOFTMAX in src and flash_probe._SOFTMAX not in src
+    src = flash_probe.bwd_variants()["noelem"]
+    assert all(stub in src for stub in flash_probe._BWD_ELEM.values())
+    assert not any(work in src for work in flash_probe._BWD_ELEM)
     order, starts = flash_probe.round_robin(2, 8, 2, 300, 128, True, None, 7)
     assert sorted(order.tolist()) == list(range(2 * 8 * 3))
     assert starts[-1] == len(order) and np.all(np.diff(starts) >= 0)

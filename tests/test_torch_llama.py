@@ -134,12 +134,11 @@ def _leaf(tree, path):
     return tree
 
 
-@pytest.fixture(scope="module")
-def moe_pair():
+def _moe_case(**knobs):
     """A tiny f32 MoE llama in both packages, its loss, every gradient
     (JAX's value_and_grad, computed once: the gmm kernels run in interpret
     mode) and its logits and aux."""
-    jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, use_flash=False, **MOE)
+    jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, use_flash=False, **{**MOE, **knobs})
     jparams = jllama.init(jcfg, jax.random.PRNGKey(3))
     tcfg = config_from_fields(**dataclasses.asdict(jcfg))
     tparams = params_from_numpy(jax.device_get(jparams))
@@ -157,6 +156,36 @@ def moe_pair():
                 tgrads=dict(zip(MOE_LEAVES, grads)), jlogits=np.asarray(jlogits),
                 jaux=float(jaux), tlogits=tlogits, taux=taux, tparams=tparams,
                 jparams=jparams)
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return _moe_case()
+
+
+# the routes beside the default (dropless, fused SwiGLU, top 2)
+MOE_ROUTES = {"dropless_unfused": dict(moe_dropless=True, moe_fused=False),
+              "top1_ce_chunks4": dict(expert_top_k=1, ce_chunks=4)}
+
+
+@pytest.fixture(scope="module", params=list(MOE_ROUTES))
+def moe_route_pair(request):
+    return _moe_case(**MOE_ROUTES[request.param])
+
+
+def test_moe_route_loss_matches_jax(moe_route_pair):
+    assert abs(moe_route_pair["tloss"] - moe_route_pair["jloss"]) <= \
+        1e-4 * abs(moe_route_pair["jloss"])
+
+
+@pytest.mark.parametrize("name", MOE_LEAVES)
+def test_moe_route_gradient_leaf_matches_jax(moe_route_pair, name):
+    """Every gradient leaf on the unfused dropless route and on top-1 with
+    the chunked CE, within 1e-4 of max|JAX| in f32."""
+    j = np.asarray(_leaf(moe_route_pair["jgrads"], name))
+    t = moe_route_pair["tgrads"][name]
+    assert tuple(t.shape) == j.shape and t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), j, rtol=1e-4, atol=1e-4 * np.abs(j).max())
 
 
 def test_moe_forward_and_aux_match_jax(moe_pair):
