@@ -6,8 +6,8 @@ and check them.
 Phases, each printing its own line of numbers:
   1. device and build: the card's name and power limit, the CUDA kernels
      built from ops/csrc/ in parallel, one nvcc a source (seconds,
-     registers, spills; flash_fwd_sm90.cu and flash_bwd_sm90.cu must show
-     no spill and no wgmma wait that ptxas injected);
+     registers, spills; flash_fwd_sm90.cu, flash_bwd_sm90.cu and
+     gmm_sm90.cu must show no spill and no wgmma wait that ptxas injected);
   2. the flash forward against its plain PyTorch version on the card, at
      the 7B prefill shapes, serving's short buckets and the variants the
      model can ask for (GQA, window, softcap, d=64, a long sequence): the
@@ -43,13 +43,13 @@ Phases, each printing its own line of numbers:
      remat, cosine schedule) and its preemption contract: a subprocess
      trainer SIGTERMed after its first checkpoint exits 113, and its rerun
      resumes from that checkpoint and exits 0.
-  2c. the grouped matmul kernels (gmm_sm90.cu: K6 and its transposed-weight
-     use, K7 with f32 and bf16 output; gmm.cu: K5 bf16 and int8, K8)
-     against their plain versions at Mixtral-8x7B widths on tile maps from
-     the real dispatch plan of seeded routing (training, prefill, decode,
-     512-row tiles, two experts unrouted), two K7 launches bit-identical and
-     unrouted experts exactly zero, with kernel, plain and library
-     (torch._grouped_mm) times beside the bound;
+  2c. the grouped matmul kernels of gmm_sm90.cu (K6 and its
+     transposed-weight use, K7 with f32 and bf16 output, K5 and K8 on bf16
+     and int8 weights) against their plain versions at Mixtral-8x7B widths
+     on tile maps from the real dispatch plan of seeded routing (training,
+     prefill, decode, 512-row tiles, two experts unrouted), two launches of
+     each bit-identical and K7's unrouted experts exactly zero, with
+     kernel, plain and library (torch._grouped_mm) times beside the bound;
   8. MoE gradients at Mixtral width, 2 layers, b=2, S=1024: loss_fn and
      every gradient through the kernels against the same model with
      models/moe.py's grouped products pointed at the plain versions, and
@@ -117,7 +117,8 @@ MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8
 MAIN_CASE = {"gmm_swiglu": "gmm_swiglu", "gmm": "gmm", "tgmm": "tgmm_bf16",
              "gmm_scaled": "gmm_scaled"}
 SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd", "gmm", "gmm_sm90")
-WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")  # held to no spill, no injected wait
+# held to no spill and no injected wait
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "gmm_sm90")
 MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
@@ -1103,6 +1104,9 @@ def phase_gmm_kernels():
             "gmm_scaled": (lambda: G.gmm_cuda(h, q2, te, s2),
                            lambda: G.gmm_scaled_plain(h, q2, te, s2), None, GMM_TOL,
                            2 * r * d * ff, wb // 2 + 4 * owned * d + io),
+            "gmm_scaled_bf16": (lambda: G.gmm_cuda(h, w2, te, s2),
+                                lambda: G.gmm_scaled_plain(h, w2, te, s2), None, GMM_TOL,
+                                2 * r * d * ff, wb + 4 * owned * d + io),
             "tgmm": (lambda: G.tgmm_cuda(x, dg, te, e), lambda: G.tgmm_plain(x, dg, te, e),
                      lambda: torch._grouped_mm(x.t(), dg, offs=offs), TGMM_TOL,
                      2 * r * d * ff, io + 4 * e * d * ff),
@@ -1116,9 +1120,8 @@ def phase_gmm_kernels():
         shape = {}
         for kname, (kern, plain, lib, tol, flop, nbytes) in cases.items():
             got = kern()
-            same, zero = True, True
+            same, zero = torch.equal(got, kern()), True
             if kname.startswith("tgmm"):
-                same = torch.equal(got, kern())
                 zero = all(got[i].abs().max().item() == 0.0 for i in unrouted)
             torch.cuda.synchronize()
             ref = plain()
@@ -1146,9 +1149,12 @@ def phase_gmm_kernels():
             print(f"gmm {name} {kname}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
                   f"library_ms={lib_s} bound_ms={bound_ms:.4f} ({bound_by}) "
                   f"share={n['share_of_bound']:.3f} tflops={n['tflops']:.1f} rel_err={err:.2e} "
-                  f"R={r} m_pad={m_pad} tile={tile} m_pad/R={m_pad / r:.3f} owned={owned}"
-                  + (f" deterministic={same} unrouted_zero={zero} ({len(unrouted)} unrouted)"
-                     if kname.startswith("tgmm") else ""), flush=True)
+                  f"R={r} m_pad={m_pad} tile={tile} m_pad/R={m_pad / r:.3f} owned={owned} "
+                  f"deterministic={same}"
+                  + (f" unrouted_zero={zero} ({len(unrouted)} unrouted)"
+                     if kname.startswith("tgmm") else "")
+                  + (f" tile_n={G.sm90_tile_n(m_pad, d, G.EPI_SCALE, G._sms(x.device))}"
+                     if kname.startswith("gmm_scaled") else ""), flush=True)
             if not finite or not same or not zero or err > tol:
                 raise AssertionError(f"{kname} disagrees with its plain version at {name}: "
                                      f"finite={finite} deterministic={same} "
@@ -1514,11 +1520,10 @@ def main(argv=None) -> int:
     for kname, line in (("gmm", 130), ("gmm_scaled", 147), ("gmm_swiglu", 170),
                         ("tgmm", 276)):
         main_g = gmm[MAIN_GMM[kname]][MAIN_CASE[kname]]
-        src = "gmm_sm90.cu" if kname in ("gmm", "tgmm") else "gmm.cu"
         gmm_rows.append({
             "name": kname,
             "route": "cuda",
-            "source": f"kubedl_tpu_torch/ops/csrc/{src}",
+            "source": "kubedl_tpu_torch/ops/csrc/gmm_sm90.cu",
             "replaces": f"kubedl_tpu/ops/gmm.py:{line}",
             "launches": gmm_launches[kname],
             "max_abs_err": max(v["max_abs_err"] for sh in gmm.values()

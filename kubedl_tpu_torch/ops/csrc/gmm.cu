@@ -1,39 +1,35 @@
-// Grouped matrix products for the dropless MoE FFN on Hopper (sm_90a): bf16
-// activations, bf16 or int8 weight stacks, f32 accumulation, plain C
-// interface bound with ctypes by kubedl_tpu_torch/ops/gmm.py. This file
-// serves K5, K8 and K6 on int8 weights; K6 on bf16 weights and K7 run the
-// TMA/wgmma kernels of gmm_sm90.cu.
+// K6 of the dropless MoE FFN on int8 weights, for Hopper (sm_90a): bf16
+// activations, an int8 weight stack widened to bf16 inside the kernel, f32
+// accumulation, plain C interface bound with ctypes by
+// kubedl_tpu_torch/ops/gmm.py. Every other grouped product (K5, K8 on bf16
+// and int8 weights, K6 on bf16 weights, K7) runs the TMA/wgmma kernels of
+// gmm_sm90.cu. K6 on int8 weights runs only in the backward through an
+// int8 stack, which no path of the port takes (training never sees a
+// quantized tree), so this first mma.sync design stays as it is.
 //
-// Replaces the TPU kernels
-//   kubedl_tpu/ops/gmm.py:130 _gmm_kernel         (K6, int8 rhs)  gmm_kernel<EPI_NONE, true, *>
-//   kubedl_tpu/ops/gmm.py:147 _gmm_scaled_kernel  (K8)  gmm_kernel<EPI_SCALE>
-//   kubedl_tpu/ops/gmm.py:170 _gmm_swiglu_kernel  (K5)  gmm_kernel<EPI_SWIGLU>
+// Replaces the TPU kernel
+//   kubedl_tpu/ops/gmm.py:130 _gmm_kernel  (K6, int8 rhs)  gmm_kernel<TRANS>
 //
-// What they compute. lhs [M, K] is cut into row tiles of row_tile rows
+// What it computes. lhs [M, K] is cut into row tiles of row_tile rows
 // (M / len(tile_expert), a multiple of 128); tile i multiplies the weights
-// of expert te[i] (clamped to [0, E)):
-//   K6  out[i] = bf16(lhs[i] @ rhs[te[i]])
-//   K8  out[i] = bf16((lhs[i] @ rhs[te[i]]) * scale[te[i], :])
-//   K5  out[i] = bf16(silu(lhs[i] @ w1[e] * s1[e]) * (lhs[i] @ w3[e] * s3[e]))
+// of expert te[i] (clamped to [0, E)): out[i] = bf16(lhs[i] @ rhs[te[i]]).
 //
 // Weights are read in place through strides. TRANS=false reads a K-major
 // [K, N] block per expert (N contiguous); TRANS=true reads the backward's
 // rhs.transpose(1, 2) view (K contiguous) without a copy, with ldmatrix
-// without .trans. int8 weights are copied into shared memory as bytes with
-// cp.async and widened to bf16 there (|q| <= 127 is exact in bf16), so no
-// bf16 copy of an int8 stack ever exists in device memory.
+// without .trans. The int8 weights are copied into shared memory as bytes
+// with cp.async and widened to bf16 there (|q| <= 127 is exact in bf16), so
+// no bf16 copy of an int8 stack ever exists in device memory.
 //
-// Bound on an H100 SXM: 2 * R * K * N FLOP per product over the routed rows
-// R at 989 TFLOP/s against the weights of the experts that own a row plus
-// the activations at 3.35 TB/s. Training and prefill shapes (R ~ 8k rows,
-// K, N = 4096 x 14336) are bound by tensor-core operations; decode (R = 16)
-// by the weight bytes. What the design does about it: every product runs on
-// the tensor cores (mma.sync m16n8k16 bf16 -> f32, fragments from ldmatrix),
-// 128 x 128 output tiles with a 64 x 32 tile per warp, cp.async double
-// buffering of 32-deep K slices, blocks rastered in groups of 8 row tiles so
-// a weight slice is reused from L2 by the row tiles of one expert. It uses
-// neither wgmma nor TMA, and it computes every padded row of the layout
-// (m_pad, not R); both are later work.
+// Bound on an H100 SXM: 2 * R * K * N FLOP over the routed rows R at 989
+// TFLOP/s against the weights of the experts that own a row plus the
+// activations at 3.35 TB/s. What the design does about it: every product
+// runs on the tensor cores (mma.sync m16n8k16 bf16 -> f32, fragments from
+// ldmatrix), 128 x 128 output tiles with a 64 x 32 tile per warp, cp.async
+// double buffering of 32-deep K slices, blocks rastered in groups of 8 row
+// tiles so a weight slice is reused from L2 by the row tiles of one expert.
+// It uses neither wgmma nor TMA, and it computes every padded row of the
+// layout (m_pad, not R).
 //
 // Layout: lhs rows with any row stride that is a whole 16-byte vector; K
 // and N multiples of 16; out [M, N] with row stride ldo.
@@ -57,8 +53,6 @@ constexpr int BN_STRIDE = BN + 8;  // K-major weight tile [BK][BN + 8]
 constexpr int BT_STRIDE = BK + 8;  // transposed weight tile [BN][BK + 8]
 constexpr int B_ELEMS = (BK * BN_STRIDE > BN * BT_STRIDE) ? BK * BN_STRIDE : BN * BT_STRIDE;
 constexpr int RAW_BYTES = BK * BN;  // one int8 weight slice, unpadded
-
-enum { EPI_NONE = 0, EPI_SCALE = 1, EPI_SWIGLU = 2 };
 
 struct GmmParams {
   int M, N, K, row_tile, E;
@@ -103,27 +97,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 }
 
 // ---------------------------------------------------------------------------
-// K5, K6, K8: one templated kernel, the epilogue a template parameter
+// K6 on int8 weights
 // ---------------------------------------------------------------------------
 
-template <bool INT8, bool TRANS>
+template <bool TRANS>
 struct WeightTile {
-  // 16-byte copies of one [BK x BN] weight slice and where each lands
-  static constexpr int EL = INT8 ? 16 : 8;                 // elements a copy
-  static constexpr int PER_ROW = (TRANS ? BK : BN) / EL;   // copies a tile row
-  static constexpr int COPIES = BK * BN / EL;
+  // 16-byte copies of one [BK x BN] int8 weight slice and where each lands
+  static constexpr int PER_ROW = (TRANS ? BK : BN) / 16;  // copies a tile row
+  static constexpr int COPIES = BK * BN / 16;
   static constexpr int STRIDE = TRANS ? BT_STRIDE : BN_STRIDE;
 };
 
-// Start the cp.asyncs of k slice k0 of expert e's weights: bf16 straight into
-// the stage's tile, int8 into the raw byte buffer (widened after the wait).
-template <bool INT8, bool TRANS>
-__device__ __forceinline__ void load_weight(bf16* tile, unsigned char* raw, const void* B, int e,
-                                            int n0, int k0, const GmmParams& p, int tid) {
-  typedef WeightTile<INT8, TRANS> W;
+// Start the cp.asyncs of k slice k0 of expert e's weights into the raw byte
+// buffer (widened after the wait).
+template <bool TRANS>
+__device__ __forceinline__ void load_weight(unsigned char* raw, const int8_t* B, int e, int n0,
+                                            int k0, const GmmParams& p, int tid) {
+  typedef WeightTile<TRANS> W;
 #pragma unroll
   for (int i = tid; i < W::COPIES; i += NTHREADS) {
-    const int r = i / W::PER_ROW, c = (i % W::PER_ROW) * W::EL;
+    const int r = i / W::PER_ROW, c = (i % W::PER_ROW) * 16;
     // K-major: r is a k row and c an n column; transposed: r is n, c is k
     const int kk = TRANS ? k0 + c : k0 + r;
     const int nn = TRANS ? n0 + r : n0 + c;
@@ -131,20 +124,14 @@ __device__ __forceinline__ void load_weight(bf16* tile, unsigned char* raw, cons
     const int64_t off = static_cast<int64_t>(e) * p.sbe +
                         (TRANS ? static_cast<int64_t>(nn) * p.ldb + kk
                                : static_cast<int64_t>(kk) * p.ldb + nn);
-    if (INT8) {
-      const int8_t* src = ok ? static_cast<const int8_t*>(B) + off : static_cast<const int8_t*>(B);
-      cp_async16(raw + r * (TRANS ? BK : BN) + c, src, ok);
-    } else {
-      const bf16* src = ok ? static_cast<const bf16*>(B) + off : static_cast<const bf16*>(B);
-      cp_async16(tile + r * W::STRIDE + c, src, ok);
-    }
+    cp_async16(raw + r * (TRANS ? BK : BN) + c, ok ? B + off : B, ok);
   }
 }
 
 // Widen this thread's own int8 copies (visible to it after its wait) to bf16.
 template <bool TRANS>
 __device__ __forceinline__ void widen_weight(bf16* tile, const unsigned char* raw, int tid) {
-  typedef WeightTile<true, TRANS> W;
+  typedef WeightTile<TRANS> W;
 #pragma unroll
   for (int i = tid; i < W::COPIES; i += NTHREADS) {
     const int r = i / W::PER_ROW, c = (i % W::PER_ROW) * 16;
@@ -159,21 +146,13 @@ __device__ __forceinline__ void widen_weight(bf16* tile, const unsigned char* ra
   }
 }
 
-template <int EPI, bool INT8, bool TRANS>
-struct GmmSmem {
-  static constexpr int NB = EPI == EPI_SWIGLU ? 2 : 1;  // weight stacks
-  static constexpr int STAGE = (A_ELEMS + NB * B_ELEMS) * 2 + (INT8 ? NB * RAW_BYTES : 0);
-  static constexpr int BYTES = 2 * STAGE;
-};
+constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * 2 + RAW_BYTES;
+constexpr int SMEM_BYTES = 2 * STAGE_BYTES;
 
-template <int EPI, bool INT8, bool TRANS>
+template <bool TRANS>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    gmm_kernel(const bf16* __restrict__ A, const void* __restrict__ B1,
-               const void* __restrict__ B3, const float* __restrict__ s1,
-               const float* __restrict__ s3, bf16* __restrict__ out,
-               const int* __restrict__ te, const GmmParams p) {
-  typedef GmmSmem<EPI, INT8, TRANS> SM;
-  constexpr int NB = SM::NB;
+    gmm_kernel(const bf16* __restrict__ A, const int8_t* __restrict__ B,
+               bf16* __restrict__ out, const int* __restrict__ te, const GmmParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   // grouped raster: GROUP_M row blocks sweep the column blocks together
@@ -191,12 +170,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wm = warp / 4, wn = warp % 4;  // this warp's 64 x 32 output tile
   const int g = lane >> 2, tig = lane & 3;
 
-  auto a_tile = [&](int st) {
-    return reinterpret_cast<bf16*>(smem_raw + st * SM::STAGE);
-  };
-  auto b_tile = [&](int st, int w) { return a_tile(st) + A_ELEMS + w * B_ELEMS; };
-  auto raw_tile = [&](int st, int w) {
-    return smem_raw + st * SM::STAGE + (A_ELEMS + NB * B_ELEMS) * 2 + w * RAW_BYTES;
+  auto a_tile = [&](int st) { return reinterpret_cast<bf16*>(smem_raw + st * STAGE_BYTES); };
+  auto b_tile = [&](int st) { return a_tile(st) + A_ELEMS; };
+  auto raw_tile = [&](int st) {
+    return smem_raw + st * STAGE_BYTES + (A_ELEMS + B_ELEMS) * 2;
   };
 
   auto load_stage = [&](int st, int k0) {
@@ -208,17 +185,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const bf16* src = ok ? A + static_cast<int64_t>(m0 + r) * p.lda + k0 + c : A;
       cp_async16(a_tile(st) + r * A_STRIDE + c, src, ok);
     }
-    load_weight<INT8, TRANS>(b_tile(st, 0), raw_tile(st, 0), B1, e, n0, k0, p, tid);
-    if (NB == 2) load_weight<INT8, TRANS>(b_tile(st, 1), raw_tile(st, 1), B3, e, n0, k0, p, tid);
+    load_weight<TRANS>(raw_tile(st), B, e, n0, k0, p, tid);
   };
 
-  float acc[NB][4][4][4];
+  float acc[4][4][4];
 #pragma unroll
-  for (int w = 0; w < NB; ++w)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
   const int nk = (p.K + BK - 1) / BK;
   load_stage(0, 0);
@@ -232,12 +206,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     } else {
       cp_async_wait<0>();
     }
-    if (INT8) {
-      widen_weight<TRANS>(b_tile(st, 0), raw_tile(st, 0), tid);
-      if (NB == 2) widen_weight<TRANS>(b_tile(st, 1), raw_tile(st, 1), tid);
-    }
+    widen_weight<TRANS>(b_tile(st), raw_tile(st), tid);
     __syncthreads();
     const bf16* sA = a_tile(st);
+    const bf16* sB = b_tile(st);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       unsigned a[4][4];
@@ -245,81 +217,53 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int mi = 0; mi < 4; ++mi)
         ldsm_x4(a[mi], sA + (wm * 64 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * A_STRIDE +
                            kk * 16 + (lane >> 4) * 8);
+      unsigned b[2][4];
 #pragma unroll
-      for (int w = 0; w < NB; ++w) {
-        const bf16* sB = b_tile(st, w);
-        unsigned b[2][4];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {  // columns wn*32 + np*16 .. +15
-          if (TRANS)
-            ldsm_x4(b[np], sB + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * BT_STRIDE +
-                               kk * 16 + ((lane >> 3) & 1) * 8);
-          else
-            ldsm_x4_trans(b[np], sB + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * BN_STRIDE +
-                                     wn * 32 + np * 16 + (lane >> 4) * 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            mma_bf16(acc[w][mi][2 * np], a[mi], b[np][0], b[np][1]);
-            mma_bf16(acc[w][mi][2 * np + 1], a[mi], b[np][2], b[np][3]);
-          }
+      for (int np = 0; np < 2; ++np) {  // columns wn*32 + np*16 .. +15
+        if (TRANS)
+          ldsm_x4(b[np], sB + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * BT_STRIDE +
+                             kk * 16 + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_trans(b[np], sB + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * BN_STRIDE +
+                                   wn * 32 + np * 16 + (lane >> 4) * 8);
       }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[np][0], b[np][1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[np][2], b[np][3]);
+        }
     }
     __syncthreads();  // this stage is refilled by the next iteration's prefetch
   }
 
-  // epilogue on the f32 accumulators, then one bf16 write
+  // one bf16 write of the f32 accumulators
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + tig * 2;
     if (col >= p.N) continue;  // N % 16 == 0: col + 1 < N too
-    float sa0 = 1.f, sa1 = 1.f, sb0 = 1.f, sb1 = 1.f;
-    if (EPI != EPI_NONE) {
-      const float* sr = s1 + static_cast<int64_t>(e) * p.N + col;
-      sa0 = sr[0];
-      sa1 = sr[1];
-    }
-    if (EPI == EPI_SWIGLU) {
-      const float* sr = s3 + static_cast<int64_t>(e) * p.N + col;
-      sb0 = sr[0];
-      sb1 = sr[1];
-    }
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = m0 + wm * 64 + mi * 16 + g + r * 8;
-        float v0 = acc[0][mi][ni][2 * r], v1 = acc[0][mi][ni][2 * r + 1];
-        if (EPI == EPI_SCALE) {
-          v0 *= sa0;
-          v1 *= sa1;
-        } else if (EPI == EPI_SWIGLU) {
-          const float g0 = v0 * sa0, g1 = v1 * sa1;
-          const float u0 = acc[NB - 1][mi][ni][2 * r] * sb0;
-          const float u1 = acc[NB - 1][mi][ni][2 * r + 1] * sb1;
-          v0 = g0 / (1.f + __expf(-g0)) * u0;  // silu(g) * u
-          v1 = g1 / (1.f + __expf(-g1)) * u1;
-        }
         *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(row) * p.ldo + col) =
-            __floats2bfloat162_rn(v0, v1);
+            __floats2bfloat162_rn(acc[mi][ni][2 * r], acc[mi][ni][2 * r + 1]);
       }
-    }
   }
 }
 
-template <int EPI, bool INT8, bool TRANS>
-cudaError_t launch_gmm(const void* A, const void* B1, const void* B3, const float* s1,
-                       const float* s3, void* out, const int* te, const GmmParams& p,
-                       cudaStream_t stream) {
-  constexpr int smem = GmmSmem<EPI, INT8, TRANS>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<EPI, INT8, TRANS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <bool TRANS>
+cudaError_t launch_gmm(const void* A, const void* B, void* out, const int* te,
+                       const GmmParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TRANS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const int blocks = (p.M / BM) * ((p.N + BN - 1) / BN);
-  gmm_kernel<EPI, INT8, TRANS><<<blocks, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(A), B1, B3, s1, s3, static_cast<bf16*>(out), te, p);
+  gmm_kernel<TRANS><<<blocks, NTHREADS, SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(A), static_cast<const int8_t*>(B), static_cast<bf16*>(out), te,
+      p);
   return cudaGetLastError();
 }
 
@@ -327,14 +271,14 @@ cudaError_t launch_gmm(const void* A, const void* B1, const void* B3, const floa
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for shapes
-// or a variant the kernel does not take. epi: 0 gmm (int8 weights only:
-// bf16 ones go to gmm_sm90.cu), 1 scaled, 2 swiglu (scaled and swiglu take
-// K-major weights only).
-int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, const float* s3,
-               void* out, const int* te, int M, int N, int K, int row_tile, int E, int64_t lda,
-               int64_t ldb, int64_t sbe, int64_t ldo, int b_int8, int b_trans, int epi,
-               void* stream) {
+// K6 on int8 weights. Returns a cudaError_t (0 on success); 1
+// (cudaErrorInvalidValue) for shapes the kernel does not take. b_trans: B
+// is the transpose(1, 2) view of an [E, N, K] stack (ldb its N stride),
+// else [E, K, N] with ldb its K stride; sbe is the expert stride; all
+// strides in elements.
+int kubedl_gmm(const void* A, const void* B, void* out, const int* te, int M, int N, int K,
+               int row_tile, int E, int64_t lda, int64_t ldb, int64_t sbe, int64_t ldo,
+               int b_trans, void* stream) {
   GmmParams p;
   p.M = M;
   p.N = N;
@@ -348,18 +292,9 @@ int kubedl_gmm(const void* A, const void* B1, const void* B3, const float* s1, c
   if (M <= 0 || N <= 0 || K <= 0 || E <= 0 || row_tile <= 0 || row_tile % BM || M % row_tile ||
       N % 16 || K % 16 || ldo % 2)
     return cudaErrorInvalidValue;
-  if (epi != EPI_NONE && b_trans) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int code = epi * 4 + (b_int8 ? 2 : 0) + (b_trans ? 1 : 0);
-  switch (code) {
-    case 2: return launch_gmm<EPI_NONE, true, false>(A, B1, B3, s1, s3, out, te, p, st);
-    case 3: return launch_gmm<EPI_NONE, true, true>(A, B1, B3, s1, s3, out, te, p, st);
-    case 4: return launch_gmm<EPI_SCALE, false, false>(A, B1, B3, s1, s3, out, te, p, st);
-    case 6: return launch_gmm<EPI_SCALE, true, false>(A, B1, B3, s1, s3, out, te, p, st);
-    case 8: return launch_gmm<EPI_SWIGLU, false, false>(A, B1, B3, s1, s3, out, te, p, st);
-    case 10: return launch_gmm<EPI_SWIGLU, true, false>(A, B1, B3, s1, s3, out, te, p, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (b_trans) return launch_gmm<true>(A, B, out, te, p, st);
+  return launch_gmm<false>(A, B, out, te, p, st);
 }
 
 const char* kubedl_gmm_error_string(int err) {

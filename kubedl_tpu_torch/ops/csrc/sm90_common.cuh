@@ -205,18 +205,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map under the 128-byte swizzle; dims innermost first,
-// strides in bytes for dims 1.., rank <= 5. Zero-fills what lies past the
-// edges.
+// A tensor map, by default bf16 under the 128-byte swizzle; dims innermost
+// first, strides in bytes for dims 1.., rank <= 5. Zero-fills what lies
+// past the edges.
 int make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-             const cuuint64_t* strides, const cuuint32_t* box) {
+             const cuuint64_t* strides, const cuuint32_t* box,
+             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
+  // cuTensorMapEncodeTiled needs the device's context current on this thread.
+  // The runtime makes it current only at a call that needs it, which a
+  // thread such as autograd's backward worker may not have made yet.
+  static thread_local int current = -1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev != current && cudaSetDevice(dev) == cudaSuccess)
+    current = dev;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, dtype, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(r);
 }
 

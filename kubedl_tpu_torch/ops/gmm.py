@@ -14,11 +14,12 @@ no tile.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes a
 kernel or the call raises. There is no fallback between the two.
-`kernel_source` names the kernel source of each product: K6 on bf16
-weights (either layout) and K7 run the TMA/wgmma kernels of
-ops/csrc/gmm_sm90.cu; K5, K8 and K6 on int8 weights the mma.sync template
-of ops/csrc/gmm.cu (bf16 lhs, int8 rhs converted to bf16 inside the
-kernel, so no bf16 copy of an int8 stack is made). The public functions go
+`kernel_source` names the kernel source of each product: K5, K8 (bf16 or
+int8 weights), K6 on bf16 weights (either layout) and K7 run the TMA/wgmma
+kernels of ops/csrc/gmm_sm90.cu; only K6 on int8 weights, which no path
+runs (training never sees a quantized tree), stays on the mma.sync
+template of ops/csrc/gmm.cu. Both widen int8 weights to bf16 inside the
+kernel, so no bf16 copy of an int8 stack is made. The public functions go
 through torch.autograd.Functions whose backward is the JAX module's
 (`_gmm_bwd`, `_gmm_scaled_bwd`, `_gmm_swiglu_bwd`): dlhs by the gmm kernel
 against rhs transposed (a strided view, never a copy), drhs by `tgmm`, the
@@ -164,9 +165,10 @@ SM90, MMA_SYNC = "gmm_sm90", "gmm"  # the two kernel sources under ops/csrc/
 def kernel_source(rhs_dtype, transposed: bool, epi: int) -> str:
     """The csrc/ source whose kernel a CUDA grouped product takes, from the
     weights' dtype, their layout (the transpose(1, 2) view or not) and the
-    epilogue: bf16 weights with no epilogue go to gmm_sm90.cu (TMA, wgmma),
-    everything else to gmm.cu (mma.sync), which reads the transposed layout
-    only with no epilogue. Raises on what neither kernel takes."""
+    epilogue: everything goes to gmm_sm90.cu (TMA, wgmma) but K6 on int8
+    weights, which goes to gmm.cu (mma.sync). The scaled and SwiGLU
+    products read K-major weights only. Raises on what neither kernel
+    takes."""
     if rhs_dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"grouped product weights are {rhs_dtype}; the kernels take "
                         "torch.bfloat16 or torch.int8")
@@ -174,14 +176,41 @@ def kernel_source(rhs_dtype, transposed: bool, epi: int) -> str:
         raise ValueError(f"unknown grouped product epilogue {epi}")
     if transposed and epi != EPI_NONE:
         raise ValueError("the scaled and SwiGLU products take K-major weights only")
-    return SM90 if rhs_dtype == torch.bfloat16 and epi == EPI_NONE else MMA_SYNC
+    return MMA_SYNC if rhs_dtype == torch.int8 and epi == EPI_NONE else SM90
+
+
+SM90_SMS = 132  # an H100 SXM's SMs, for callers that name no device
+
+
+def sm90_tile_n(m: int, n: int, epi: int, sms: int = SM90_SMS) -> int:
+    """The output tile width of gmm_sm90.cu's epilogue kernel for an
+    [m, n] product on a card of `sms` SMs: SwiGLU 128 (w1's and w3's
+    128-wide panels side by side); scaled 256, unless 128 x 256 tiles would
+    be fewer than two waves of the SMs (decode: m_pad 1152 x 4096 makes
+    144 tiles on 132 SMs, the second wave nearly empty), then 128."""
+    if epi == EPI_SWIGLU:
+        return 128
+    if epi != EPI_SCALE:
+        raise ValueError(f"sm90_tile_n: epilogue {epi} is not scaled or SwiGLU")
+    return 256 if (m // TILE_M) * -(-n // 256) >= 2 * sms else 128
+
+
+_SMS = {}
+
+
+def _sms(device) -> int:
+    """SMs of a CUDA device, read once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _lib():
     lib = _build.load(MMA_SYNC)
     if lib.kubedl_gmm.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.kubedl_gmm.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [I] * 3 + [P]
+        lib.kubedl_gmm.argtypes = [P] * 4 + [I] * 5 + [L] * 4 + [I, P]
         lib.kubedl_gmm.restype = I
         lib.kubedl_gmm_error_string.argtypes = [I]
         lib.kubedl_gmm_error_string.restype = ctypes.c_char_p
@@ -191,13 +220,21 @@ def _lib():
 def _lib_sm90():
     lib = _build.load(SM90)
     if lib.kubedl_gmm_sm90.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.kubedl_gmm_sm90.argtypes = [P] * 4 + [I] * 5 + [L] * 4 + [I, P]
-        lib.kubedl_gmm_sm90.restype = I
-        lib.kubedl_tgmm_sm90.argtypes = [P] * 4 + [I] * 6 + [L] * 2 + [I, P]
-        lib.kubedl_tgmm_sm90.restype = I
-        lib.kubedl_gmm_sm90_error_string.argtypes = [I]
-        lib.kubedl_gmm_sm90_error_string.restype = ctypes.c_char_p
+        bind_sm90(lib)
+    return lib
+
+
+def bind_sm90(lib):
+    """Set the ctypes signatures of a gmm_sm90.cu library's entry points."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.kubedl_gmm_sm90.argtypes = [P] * 4 + [I] * 5 + [L] * 4 + [I, P]
+    lib.kubedl_gmm_sm90.restype = I
+    lib.kubedl_tgmm_sm90.argtypes = [P] * 4 + [I] * 6 + [L] * 2 + [I, P]
+    lib.kubedl_tgmm_sm90.restype = I
+    lib.kubedl_gmm_sm90_epi.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [I] * 3 + [P]
+    lib.kubedl_gmm_sm90_epi.restype = I
+    lib.kubedl_gmm_sm90_error_string.argtypes = [I]
+    lib.kubedl_gmm_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -256,28 +293,35 @@ def _launch(fn_name, lhs, ws, scales, tile_expert, epi):
         if s.shape != (e, n):
             raise ValueError(f"{fn_name}: scale {tuple(s.shape)} is not [E, N] = {(e, n)}")
     _, trans, ldb, sbe = stacks[0]
+    int8 = ws[0].dtype == torch.int8
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
-    if kernel_source(ws[0].dtype, trans, epi) == SM90:
+    args = (m, n, k, tm, e, lhs.stride(0), ldb, sbe, out.stride(0))
+    tile_n = None
+    if kernel_source(ws[0].dtype, trans, epi) == MMA_SYNC:
+        lib = _lib()
+        err = lib.kubedl_gmm(lhs.data_ptr(), stacks[0][0].data_ptr(), out.data_ptr(),
+                             te.data_ptr(), *args, int(trans), stream)
+        message = lib.kubedl_gmm_error_string
+    elif epi == EPI_NONE:
         lib = _lib_sm90()
-        err = lib.kubedl_gmm_sm90(
-            lhs.data_ptr(), stacks[0][0].data_ptr(), out.data_ptr(), te.data_ptr(), m, n, k,
-            tm, e, lhs.stride(0), ldb, sbe, out.stride(0), int(trans), stream)
+        err = lib.kubedl_gmm_sm90(lhs.data_ptr(), stacks[0][0].data_ptr(), out.data_ptr(),
+                                  te.data_ptr(), *args, int(trans), stream)
         message = lib.kubedl_gmm_sm90_error_string
     else:
+        lib = _lib_sm90()
+        tile_n = sm90_tile_n(m, n, epi, _sms(lhs.device))
         ptrs = [s[0].data_ptr() for s in stacks] + [0] * (2 - len(stacks))
         sptrs = [s.data_ptr() for s in scales] + [0] * (2 - len(scales))
-        lib = _lib()
-        err = lib.kubedl_gmm(
-            lhs.data_ptr(), ptrs[0], ptrs[1], sptrs[0], sptrs[1], out.data_ptr(),
-            te.data_ptr(), m, n, k, tm, e, lhs.stride(0), ldb, sbe, out.stride(0),
-            int(ws[0].dtype == torch.int8), int(trans), epi, stream)
-        message = lib.kubedl_gmm_error_string
+        err = lib.kubedl_gmm_sm90_epi(lhs.data_ptr(), ptrs[0], ptrs[1], sptrs[0], sptrs[1],
+                                      out.data_ptr(), te.data_ptr(), *args, epi, int(int8),
+                                      tile_n, stream)
+        message = lib.kubedl_gmm_sm90_error_string
     if err:
         raise RuntimeError(
             f"{fn_name} kernel launch failed: CUDA error {err} "
             f"({message(err).decode()}) at M={m} K={k} N={n} "
-            f"E={e} row_tile={tm} int8={ws[0].dtype == torch.int8} trans={trans}")
+            f"E={e} row_tile={tm} int8={int8} trans={trans} tile_n={tile_n}")
     return out
 
 

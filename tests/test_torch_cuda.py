@@ -368,7 +368,7 @@ def test_flash_fwd_rejects_what_it_does_not_take(dev):
         fa.flash_attention(big, big, big)
 
 
-# -- grouped matmul kernels (ops/csrc/gmm.cu) ----------------------------------
+# -- grouped matmul kernels (ops/csrc/gmm_sm90.cu, gmm.cu) ----------------------
 
 def _gmm_operands(dev, kind, int8, trans, row_tile, m_tiles=3, k=272, n=400, e=4, seed=0):
     """bf16 lhs; bf16 or int8 weights [E, K, N], or the transpose(1, 2) view
@@ -533,6 +533,85 @@ def test_gmm_sm90_refuses_what_it_does_not_take(dev):
         G.tgmm_cuda(lhs[:, :100], dout, te, 4)  # K % 8
     with pytest.raises(ValueError):
         G.gmm_cuda(lhs, w1[:, :, :200], te)  # N % 16
+    # the epilogue kernel: K-major weights only, K % 16, aligned operands
+    _, lhs_t, w_t, w3_t, s1, s3, te_t = _gmm_operands(dev, "scaled", True, True, 128)
+    with pytest.raises(ValueError):
+        G.gmm_cuda(lhs_t, w_t, te_t, s1)  # transposed int8 weights under a scale
+    with pytest.raises(ValueError):
+        G.gmm_swiglu_cuda(lhs_t, w_t, w3_t, te_t, s1, s3)
+    _, lhs, w1, w3, s1, s3, te = _gmm_operands(dev, "swiglu", True, False, 128)
+    with pytest.raises(ValueError):
+        G.gmm_swiglu_cuda(lhs[:, :200], w1[:, :200], w3[:, :200], te, s1, s3)  # K % 16
+    lib, out = G._lib_sm90(), torch.empty((lhs.shape[0], 400), dtype=torch.bfloat16, device=dev)
+    te32 = te.to(torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(a=lhs.data_ptr(), b1=w1.data_ptr(), b3=w3.data_ptr(), o=out.data_ptr(), epi=2,
+             tile_n=128):
+        return lib.kubedl_gmm_sm90_epi(a, b1, b3, s1.data_ptr(), s3.data_ptr(), o,
+                                       te32.data_ptr(), lhs.shape[0], 400, 272, 128, 4,
+                                       lhs.stride(0), 400, 272 * 400, 400, epi, 1, tile_n, stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(a=lhs.data_ptr() + 2), dict(b1=w1.data_ptr() + 8), dict(b3=w3.data_ptr() + 4),
+                dict(o=out.data_ptr() + 2), dict(tile_n=256), dict(tile_n=64), dict(epi=0)):
+        assert call(**bad) != 0, bad
+
+
+# K8 and K5 through gmm_sm90.cu's epilogue kernel: (kind, int8 weights, row
+# tile, row tiles, strided lhs). K = 272 and N = 400 leave ragged TMA boxes;
+# 150 row tiles make enough 256-wide tiles that K8 takes them (fewer take
+# 128-wide ones, as at decode).
+SM90_EPI_CASES = [
+    (kind, int8, row_tile, m_tiles, False)
+    for kind in ("scaled", "swiglu") for int8 in (False, True)
+    for row_tile, m_tiles in ((128, 3), (256, 3), (512, 2), (128, 1), (128, 150))
+] + [(kind, int8, 128, 3, True) for kind in ("scaled", "swiglu") for int8 in (False, True)]
+
+
+def _epi_call(G, kind, lhs, w1, w3, te, s1, s3):
+    if kind == "scaled":
+        return G.gmm_cuda(lhs, w1, te, s1), G.gmm_scaled_plain(lhs, w1, te, s1)
+    return (G.gmm_swiglu_cuda(lhs, w1, w3, te, s1, s3),
+            G.gmm_swiglu_plain(lhs, w1, w3, te, s1, s3))
+
+
+@pytest.mark.parametrize("kind,int8,row_tile,m_tiles,strided", SM90_EPI_CASES)
+def test_gmm_sm90_epi_kernel_matches_plain(dev, kind, int8, row_tile, m_tiles, strided):
+    """K8 and K5 on bf16 and int8 weights through gmm_sm90.cu (TMA, int8
+    widened in the kernel, wgmma): within 2e-2 of max|plain|, one launch a
+    call, the same bits from a second launch."""
+    G, lhs, w1, w3, s1, s3, te = _gmm_operands(dev, kind, int8, False, row_tile,
+                                               m_tiles=m_tiles)
+    epi = G.EPI_SCALE if kind == "scaled" else G.EPI_SWIGLU
+    assert G.kernel_source(w1.dtype, False, epi) == G.SM90
+    if strided:
+        lhs = _strided(lhs)
+        assert lhs.stride(0) != lhs.shape[1]
+    counter = G.gmm_scaled if kind == "scaled" else G.gmm_swiglu
+    n0 = counter.launches
+    got, ref = _epi_call(G, kind, lhs, w1, w3, te, s1, s3)
+    again = _epi_call(G, kind, lhs, w1, w3, te, s1, s3)[0]
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, ref) <= 2e-2, _rel_err(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind", ["scaled", "swiglu"])
+def test_gmm_sm90_epi_clamps_expert_indices(dev, kind):
+    """An expert that owns no tile contributes nothing, and te entries
+    outside [0, E) are clamped as the plain version clamps them."""
+    G, lhs, w1, w3, s1, s3, _ = _gmm_operands(dev, kind, True, False, 128, m_tiles=4)
+    te = torch.tensor([-3, 2, 2, 9], dtype=torch.int32, device=dev)  # -> 0, 2, 2, 3
+    got, ref = _epi_call(G, kind, lhs, w1, w3, te, s1, s3)
+    clamped = _epi_call(G, kind, lhs, w1, w3, te.clamp(0, 3), s1, s3)[0]
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 2e-2, _rel_err(got, ref)
+    assert torch.equal(got, clamped)
 
 
 def test_gmm_autograd_through_the_kernels(dev):

@@ -273,14 +273,15 @@ ROUTES = [(dt, trans, epi) for dt in (torch.bfloat16, torch.int8) for trans in (
 
 @pytest.mark.parametrize("dtype,trans,epi", ROUTES)
 def test_kernel_source_names_each_route(dtype, trans, epi):
-    """bf16 weights with no epilogue, in either layout, go to the TMA/wgmma
-    source; int8 weights and the scaled and SwiGLU epilogues to the mma.sync
-    source, which refuses the transposed layout under an epilogue."""
+    """K5 and K8 (bf16 and int8 weights) and K6 on bf16 weights, in either
+    layout, go to the TMA/wgmma source; K6 on int8 weights, in either
+    layout, to the mma.sync source; the scaled and SwiGLU products refuse
+    the transposed layout."""
     if trans and epi != tg.EPI_NONE:
         with pytest.raises(ValueError):
             tg.kernel_source(dtype, trans, epi)
         return
-    want = tg.SM90 if dtype == torch.bfloat16 and epi == tg.EPI_NONE else tg.MMA_SYNC
+    want = tg.MMA_SYNC if dtype == torch.int8 and epi == tg.EPI_NONE else tg.SM90
     assert tg.kernel_source(dtype, trans, epi) == want
 
 
@@ -289,3 +290,30 @@ def test_kernel_source_refuses_other_weight_dtypes():
         tg.kernel_source(torch.float32, False, tg.EPI_NONE)
     with pytest.raises(ValueError):
         tg.kernel_source(torch.bfloat16, False, 7)
+
+
+# routed rows R of chip_smoke.py's phase-2c shapes (top 2 of 8 experts)
+PHASE_2C = {"train_R8184": 8184, "prefill_R8192": 8192, "decode_R16": 16,
+            "tile512_R32768": 32768, "skewed_R8184": 8184}
+
+
+@pytest.mark.parametrize("shape", sorted(PHASE_2C))
+def test_sm90_tile_n_at_the_phase_2c_shapes(shape):
+    """The epilogue kernel's tile width: K5 always 128 (w1's and w3's
+    128-wide panels); K8 (N = 4096) 256 unless that gives fewer than two
+    waves of 132 SMs, which only decode's m_pad 1152 does (144 tiles, 288
+    at 128 wide)."""
+    from kubedl_tpu_torch.models import moe
+
+    r = PHASE_2C[shape]
+    tile = moe._row_tile(r, 8)
+    m_pad = (r + tile - 1) // tile * tile + 8 * tile  # as moe._dispatch_plan pads
+    assert tg.sm90_tile_n(m_pad, 14336, tg.EPI_SWIGLU) == 128
+    tiles256 = (m_pad // 128) * 16
+    want = 128 if shape == "decode_R16" else 256
+    assert (tiles256 < 2 * 132) == (want == 128)
+    assert tg.sm90_tile_n(m_pad, 4096, tg.EPI_SCALE) == want
+    # a card with fewer SMs takes the wide tile sooner
+    assert tg.sm90_tile_n(m_pad, 4096, tg.EPI_SCALE, sms=64) == 256
+    with pytest.raises(ValueError):
+        tg.sm90_tile_n(m_pad, 4096, tg.EPI_NONE)
