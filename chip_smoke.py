@@ -62,6 +62,23 @@ Phases, each printing its own line of numbers:
      layer by layer on the card: a 2-layer prefill through the kernels
      against the plain versions, then the serving engine (8 slots, 1024
      positions) answers 8 greedy requests and one prompt sent twice.
+  11. the sharded slice, on a one-rank NCCL group formed by
+     train/coordinator.py's rendezvous: (a) full-width, full-depth
+     Llama-7B through make_train_step on a one-device DeviceMesh (the
+     sharded code: DTensor leaves, local views, the sharded optimizer), 6
+     steps at b=4 and 1024-token rows, in turns with the one-device step on
+     the same init and batches (one device, sharded, sharded, one device);
+     its first loss against the one-device loss, the flash launch counts
+     against phase 6's, step time and peak memory beside the one-device
+     step's and phase 6's; (b)
+     the expert-parallel dropless body (models/moe.py
+     `_dropless_mlp_sharded`) at Mixtral widths on a one-rank expert group,
+     2 layers, b=2, S=1024, forward and backward against `_dropless_mlp`
+     on the same inputs: routing exact, nothing dropped, outputs and
+     gradients within phase 8's tolerance, K5, K6 and K7 launched; (c) the
+     gang's preemption contract at bench-1b: a subprocess trainer in a
+     one-rank group SIGTERMed after its first sharded checkpoint exits 113,
+     and its rerun resumes from it and exits 0.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -116,6 +133,8 @@ MAIN_GMM = {"gmm_swiglu": "train_R8184", "gmm": "train_R8184", "tgmm": "train_R8
 # writes bf16 (the weights' dtype)
 MAIN_CASE = {"gmm_swiglu": "gmm_swiglu", "gmm": "gmm", "tgmm": "tgmm_bf16",
              "gmm_scaled": "gmm_scaled"}
+# each gmm kernel's place in a (K5, K6, K7, K8) launch count
+MAIN_INDEX = {"gmm_swiglu": 0, "gmm": 1, "tgmm": 2, "gmm_scaled": 3}
 SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd", "gmm", "gmm_sm90")
 # held to no spill and no injected wait
 WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "gmm_sm90")
@@ -935,6 +954,248 @@ def phase_options():
     return dict(bench_1b=dict(losses=losses, grad_norms=gnorms, launches=list(counts)),
                 preempted_at=at)
 
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _one_rank_group():
+    """This process as a group of one over NCCL, formed by the port's own
+    rendezvous from an address, as a pod of one would form it."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.train import coordinator
+
+    if not dist.is_initialized():
+        torch.cuda.set_device(0)
+        coordinator.initialize(coordinator.ProcessInfo(
+            coordinator_address=f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0),
+            backend="nccl")
+
+
+def _run_7b_steps(config, batches, mesh=None):
+    """make_train_step on a fresh 7B init (seed 0) over `batches`, on one
+    device (mesh None) or through the sharded code on `mesh`: (losses,
+    grad norms, step times in s, flash launches (fwd, dq, dkv), peak GB,
+    the one-device loss of the first batch before any step)."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+
+    rules = ShardingRules()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    with torch.no_grad():
+        plain_loss = llama.loss_fn(params, batches[0], config).item()
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(3e-4, weight_decay=0.01))
+    if mesh is None:
+        init_state, train_step = make_train_step(lambda p, b: llama.loss_fn(p, b, config), tx)
+    else:
+        init_state, train_step = make_train_step(
+            lambda p, b: llama.loss_fn(p, b, config, mesh=mesh, rules=rules), tx, mesh,
+            llama.param_specs(config, rules), rules.spec("batch", None), rules)
+    state = init_state(params)
+    del params
+    kind = type(next(iter(llama.tree_leaves(state.params)))).__name__
+    if (kind == "DTensor") != (mesh is not None):
+        raise AssertionError(f"7B step on mesh {mesh}: leaves are {kind}")
+    _reset_counts()
+    losses, gnorms, times = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        times.append(time.perf_counter() - t0)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, gnorms, times, counts, peak_gb, plain_loss
+
+
+def phase_sharded_step(train):
+    """11a: the 7B step through the sharded code on a one-device mesh, in
+    turns with the one-device step on the same init and batches (one
+    device, sharded, sharded, one device), beside phase 6 (`train`, the
+    trainer's numbers on the same card)."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel.mesh import build_mesh
+
+    _one_rank_group()
+    steps, batch, seq = 6, 4, 1024
+    config = llama.LlamaConfig.llama_7b()
+    mesh = build_mesh({"data": 1}, device_type="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [torch.randint(0, config.vocab_size, (batch, seq), generator=gen, device="cuda",
+                             dtype=torch.int32) for _ in range(steps)]
+    turns = {}
+    for label in ("one_device", "sharded", "sharded", "one_device"):
+        turns.setdefault(label, []).append(
+            _run_7b_steps(config, batches, mesh if label == "sharded" else None))
+    for losses, gnorms, _, counts, _, plain_loss in turns["sharded"]:
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"sharded 7B step: non-finite loss or grad_norm {losses} "
+                                 f"{gnorms}")
+        loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+        if loss_rel > 1e-2:  # phase 5's bf16 loss tolerance
+            raise AssertionError(f"sharded 7B first loss {losses[0]} vs one-device "
+                                 f"{plain_loss}")
+        if list(counts) != train["launches"]:
+            raise AssertionError(f"sharded 7B launches (fwd, dq, dkv) {counts}, phase 6 "
+                                 f"{train['launches']}")
+    med = {k: [statistics.median(t[2][1:]) * 1e3 for t in v] for k, v in turns.items()}
+    losses, gnorms, times, counts, peak_gb, plain_loss = turns["sharded"][0]
+    loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    one_losses = turns["one_device"][0][0]
+    step_ms = statistics.mean(med["sharded"])
+    ratio6 = step_ms / train["step_ms"]
+    ratio1 = step_ms / statistics.mean(med["one_device"])
+    print(f"sharded step: llama-7b on a one-device DeviceMesh (one-rank NCCL group), "
+          f"{steps} steps b={batch} seq={seq}; first loss {losses[0]:.6f} vs one-device "
+          f"{plain_loss:.6f} (rel {loss_rel:.2e}); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (one-device step: "
+          f"{', '.join(f'{x:.4f}' for x in one_losses)}); grad_norm "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}", flush=True)
+    print(f"sharded step: step {step_ms:.1f} ms (median of steps 2-{steps}, turns "
+          f"{', '.join(f'{x:.1f}' for x in med['sharded'])}) vs the one-device step "
+          f"{', '.join(f'{x:.1f}' for x in med['one_device'])} in turns (ratio {ratio1:.4f}) "
+          f"and phase 6's {train['step_ms']:.1f} ms (ratio {ratio6:.4f}); peak allocated "
+          f"{peak_gb:.2f} GB vs phase 6's {train['peak_gb']:.2f} GB; launches fwd/dq/dkv "
+          f"{counts}", flush=True)
+    return dict(losses=losses, grad_norms=gnorms, plain_loss=plain_loss, loss_rel=loss_rel,
+                one_device_losses=one_losses, step_ms=step_ms, turns_ms=med,
+                first_step_ms=times[0] * 1e3, ratio_to_one_device=ratio1,
+                ratio_to_phase6=ratio6, peak_gb=peak_gb, launches=list(counts))
+
+
+def phase_ep_body():
+    """11b: the expert-parallel dropless body on a one-rank expert group at
+    Mixtral widths, 2 layers, against the one-device dropless route."""
+    from kubedl_tpu_torch.models import moe
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh
+
+    _one_rank_group()
+    mesh = build_mesh({"expert": 1}, device_type="cuda")
+    rules = ShardingRules()
+    config = _mixtral(2)
+    e, k, d = config.n_experts, config.expert_top_k, config.d_model
+    s = 2 * 1024
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    layers, worst, counts, want_counts = [], {}, (0, 0, 0, 0), (0, 0, 0, 0)
+    names = ("router", "w1", "w3", "w2")
+    for li in range(config.n_layers):
+        params = moe.moe_init(d, config.d_ff, e, dtype=torch.bfloat16, generator=gen,
+                              device="cuda")
+        h = (torch.randn(s, d, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        dy = torch.randn(s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        out = {}
+        for route in ("one_device", "sharded"):
+            leaves = [h.detach().requires_grad_(True)] + [
+                params[n].detach().requires_grad_(True) for n in names]
+            p = dict(zip(names, leaves[1:]))
+            _reset_gmm_counts()
+            if route == "sharded":
+                stats = {}
+                y, aux = moe._dropless_mlp_sharded(
+                    leaves[0], p, top_k=k, quota_factor=1.0, mesh=mesh, rules=rules, e=e,
+                    stats=stats)
+            else:
+                experts, _, gates, _, (me, ce) = moe._top_k_gating(
+                    leaves[0].float() @ p["router"], k, s + 1, need_slots=False)
+                y = moe._dropless_mlp(leaves[0], p, experts, gates, e)
+                aux = e * (me * ce).sum()
+                stats = dict(experts=experts)
+            grads = torch.autograd.grad((y.float() * dy.float()).sum() + aux, leaves)
+            torch.cuda.synchronize()
+            out[route] = (y.detach(), aux.item(), grads, stats, _gmm_counts())
+        (yp, ap, gp, sp, cp), (ys, as_, gs, ss, cs) = out["one_device"], out["sharded"]
+        if not torch.equal(ss["experts"], sp["experts"]) or not bool(ss["kept"].all()):
+            raise AssertionError(f"EP body layer {li}: routing differs or an entry dropped")
+        groups_p = moe._counts(sp["experts"].reshape(-1), e)
+        groups_s = moe._counts(ss["experts"].reshape(-1)[ss["kept"].reshape(-1)], e)
+        if not torch.equal(groups_p, groups_s):
+            raise AssertionError(f"EP body layer {li}: expert group sizes differ")
+        errs = {"y": _rel(ys, yp), "aux": abs(as_ - ap) / abs(ap)}
+        for nm, a, b in zip(("h",) + names, gs, gp):
+            errs["d" + nm] = _rel(a, b)
+        if max(errs.values()) > GRAD_TOL or not all(c > 0 for c in cs[:3]) or cs != cp:
+            raise AssertionError(f"EP body layer {li}: errors {errs}, launches K5/K6/K7/K8 "
+                                 f"sharded {cs} vs the one-device route {cp}")
+        counts = tuple(a + b for a, b in zip(counts, cs))
+        want_counts = tuple(a + b for a, b in zip(want_counts, cp))
+        layers.append(dict(errors=errs, launches=list(cs), group_sizes=groups_s.tolist()))
+        for nm, v in errs.items():
+            worst[nm] = max(worst.get(nm, 0.0), v)
+        del params, h, dy, out, gp, gs
+    print(f"ep body: _dropless_mlp_sharded on a one-rank expert group, Mixtral widths, "
+          f"{config.n_layers} layers of S={s}: routing and group sizes exact, nothing "
+          f"dropped; worst rel errors " + ", ".join(f"{n} {v:.2e}" for n, v in worst.items())
+          + f" (tol {GRAD_TOL}); launches K5/K6/K7/K8 {counts} (one-device route "
+          f"{want_counts})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=layers, worst=worst, launches=list(counts))
+
+
+def phase_gang_preemption():
+    """11c: a subprocess trainer in a one-rank group (bench-1b, sharded
+    checkpoints) SIGTERMed after its first checkpoint, then resumed."""
+    ckpt = os.path.join(WORK, "ckpt-gang-1b")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.trainer", "--model", "bench-1b",
+            "--batch", "4", "--seq-len", "512", "--log-every", "1000",
+            "--checkpoint-path", ckpt, "--checkpoint-interval", "5", "--checkpoint-keep", "1"]
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def env():
+        return dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                    KUBEDL_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+                    KUBEDL_NUM_PROCESSES="1", KUBEDL_PROCESS_ID="0", KUBEDL_MESH="data=1")
+
+    proc = subprocess.Popen(argv + ["--steps", "1000"], cwd=root, env=env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while _latest_ckpt(ckpt) is None and proc.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if proc.poll() is not None or _latest_ckpt(ckpt) is None:
+            raise AssertionError(f"bench-1b gang trainer ended or stalled before its first "
+                                 f"checkpoint: rc={proc.poll()}")
+        proc.send_signal(signal.SIGTERM)
+        first_out = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    at = _latest_ckpt(ckpt)
+    sharded = at is not None and os.path.isfile(os.path.join(ckpt, str(at), ".metadata"))
+    if proc.returncode != 113 or not sharded or "preempted: checkpoint saved" not in first_out \
+            or "devices=1" not in first_out:
+        raise AssertionError(f"gang SIGTERM: rc={proc.returncode} (expected 113), sharded "
+                             f"checkpoint {at} {sharded}:\n{first_out[-2000:]}")
+    rerun = subprocess.run(argv + ["--steps", str(at + 2)], cwd=root, env=env(),
+                           capture_output=True, text=True, timeout=600)
+    if rerun.returncode != 0 or f"restored checkpoint at step {at}" not in rerun.stdout \
+            or _latest_ckpt(ckpt) != at + 2:
+        raise AssertionError(f"gang resume: rc={rerun.returncode}, latest "
+                             f"{_latest_ckpt(ckpt)}:\n{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
+    print(f"gang preemption: bench-1b trainer in a one-rank NCCL group SIGTERMed, exit 113 "
+          f"with a sharded checkpoint at step {at}; rerun restored step {at}, exit 0, "
+          f"final checkpoint at step {at + 2}", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(preempted_at=at)
+
 # -- the MoE slice: grouped matmul kernels, gradients, training, int8 serving --
 
 
@@ -1496,6 +1757,14 @@ def main(argv=None) -> int:
     _free("MoE training")
     moe_serve = _phase("10 MoE int8 serving", phase_moe_serve)
     _free("MoE serving")
+    sharded = _phase("11a sharded 7B step", phase_sharded_step, train)
+    _free("the sharded step")
+    ep = _phase("11b expert-parallel body", phase_ep_body)
+    _free("the expert-parallel body")
+    gang = _phase("11c gang preemption", phase_gang_preemption)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -1522,6 +1791,9 @@ def main(argv=None) -> int:
         main_g = gmm[MAIN_GMM[kname]][MAIN_CASE[kname]]
         gmm_rows.append({
             "name": kname,
+            "launches_by_path": {"moe_train": moe_train["launches"][MAIN_INDEX[kname]],
+                                 "ep_dropless_body": ep["launches"][MAIN_INDEX[kname]],
+                                 "moe_int8_serving": moe_serve["launches"][MAIN_INDEX[kname]]},
             "route": "cuda",
             "source": "kubedl_tpu_torch/ops/csrc/gmm_sm90.cu",
             "replaces": f"kubedl_tpu/ops/gmm.py:{line}",
@@ -1544,6 +1816,7 @@ def main(argv=None) -> int:
         # the same kernel on every path that runs attention at d = 128
         "launches_by_path": {"7b_serving": launches, "7b_train": train["launches"][0],
                              "moe_train": moe_train["flash_launches"][0],
+                             "7b_sharded_step": sharded["launches"][0],
                              "moe_int8_serving": moe_serve["flash_launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()),
         "ms": main_k["kernel_ms"],
@@ -1558,7 +1831,8 @@ def main(argv=None) -> int:
             json.dump(dict(device=name, nvidia_smi=smi, build=build, kernels=kernels,
                            bwd_kernels=bwd, gmm_kernels=gmm, model=model, serving=serving,
                            grads=grads, train=train, options=options, moe_grads=moe_grads,
-                           moe_train=moe_train, moe_serve=moe_serve,
+                           moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
+                           ep_body=ep, gang_preemption=gang,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

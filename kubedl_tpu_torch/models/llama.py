@@ -21,8 +21,16 @@ the [b, t, vocab] logits; with ``config.remat`` each layer runs under
 torch.utils.checkpoint (non-reentrant), recomputing everything
 (``remat_policy=None``) or saving the weight matmuls' outputs (``"dots"``).
 
-Not ported yet: context parallelism, the expert-parallel MoE routes and the
-pipelined forward (ROADMAP.md).
+Sharded (`mesh`, `rules`): the tree's leaves are DTensors laid out by
+`param_specs` on a DeviceMesh (parallel/mesh.py) and `tokens` are this
+rank's rows of the global batch. Each layer gathers its leaves' fsdp shards
+and computes on its local heads, `mlp` columns and experts as plain
+tensors, so the kernels run on the local shards; one sum over the tensor
+axis follows `wo` and `w2`. The embedding and the LM head are sharded over
+the vocabulary, with the cross-entropy computed over the sharded logits.
+MoE layers take the expert-parallel routes of models/moe.py.
+
+Not ported yet: context parallelism and the pipelined forward (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,9 +45,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from kubedl_tpu_torch.models.moe import moe_init, moe_mlp
+from kubedl_tpu_torch.models.moe import moe_init, moe_mlp, moe_param_specs
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from kubedl_tpu_torch.parallel import collectives
+from kubedl_tpu_torch.parallel.mesh import (ShardingRules, axes_index, axes_size,
+                                            live_axes, local_view, token_axes,
+                                            token_index, view_placements)
 from kubedl_tpu_torch.utils.device import resolve_device
 
 
@@ -58,8 +70,8 @@ class RopeScaling:
 class LlamaConfig:
     """Field for field the JAX package's LlamaConfig (same names, same
     defaults; ``dtype`` is a torch dtype). Fields of paths the port does
-    not run yet (context parallelism, the expert-parallel MoE knob
-    ``moe_a2a_chunks``) are kept so a JAX config carries across whole."""
+    not run yet (context parallelism) are kept so a JAX config carries
+    across whole."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -180,6 +192,38 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
+
+
+def param_specs(config: LlamaConfig, rules: Optional[ShardingRules] = None) -> Dict:
+    """PartitionSpec tree matching init(): the sharding contract, the JAX
+    package's specs leaf for leaf."""
+    r = rules or ShardingRules()
+    layer = {
+        "attn_norm": r.spec("embed"),
+        "wq": r.spec("embed", "heads"),
+        "wk": r.spec("embed", "heads"),
+        "wv": r.spec("embed", "heads"),
+        "wo": r.spec("heads", "embed"),
+        "mlp_norm": r.spec("embed"),
+    }
+    if config.attn_qkv_bias:
+        # biases follow their projection's output axis
+        layer.update({"bq": r.spec("heads"), "bk": r.spec("heads"), "bv": r.spec("heads")})
+    if config.post_block_norms:
+        layer.update({"post_attn_norm": r.spec("embed"), "post_mlp_norm": r.spec("embed")})
+    if config.n_experts > 0:
+        layer["moe"] = moe_param_specs(r)
+    else:
+        layer.update({"w1": r.spec("embed", "mlp"), "w3": r.spec("embed", "mlp"),
+                      "w2": r.spec("mlp", "embed")})
+    specs = {
+        "embed": r.spec("vocab", "embed"),
+        "layers": [dict(layer) for _ in range(config.n_layers)],
+        "final_norm": r.spec("embed"),
+    }
+    if not config.tie_embeddings:
+        specs["lm_head"] = r.spec("embed", "vocab")
+    return specs
 
 
 def init(config: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -360,11 +404,12 @@ def _proj(h, layer, name):
 
 
 def _qkv(h, layer, c: LlamaConfig, positions):
-    """Projected, rotated q [b, hq, t, hd] and k, v [b, hkv, t, hd]."""
+    """Projected, rotated q [b, hq, t, hd] and k, v [b, hkv, t, hd] (the
+    local heads, when the projections are a tensor shard)."""
     b, t, _ = h.shape
-    q = _proj(h, layer, "q").reshape(b, t, c.n_heads, c.head_dim).transpose(1, 2)
-    k = _proj(h, layer, "k").reshape(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
-    v = _proj(h, layer, "v").reshape(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
+    q = _proj(h, layer, "q").reshape(b, t, -1, c.head_dim).transpose(1, 2)
+    k = _proj(h, layer, "k").reshape(b, t, -1, c.head_dim).transpose(1, 2)
+    v = _proj(h, layer, "v").reshape(b, t, -1, c.head_dim).transpose(1, 2)
     q = _rope(q, positions, c.rope_theta, c.rope_scaling)
     k = _rope(k, positions, c.rope_theta, c.rope_scaling)
     if c.q_prescale != 1.0:
@@ -372,46 +417,68 @@ def _qkv(h, layer, c: LlamaConfig, positions):
     return q, k, v
 
 
-def _attn_out(x, attn, layer, c: LlamaConfig):
-    """Residual add of the output projection of attn [b, t, hq*hd]."""
+def _attn_out(x, attn, layer, c: LlamaConfig, par: Optional["_Par"] = None):
+    """Residual add of the output projection of attn [b, t, hq*hd]; with
+    local heads the partial products are summed over the tensor axis."""
     out = _mm(attn.to(c.dtype), layer["wo"]).to(x.dtype)
+    if par is not None:
+        out = par.psum(out)
     if "post_attn_norm" in layer:
         out = rms_norm(out, layer["post_attn_norm"], c.rms_eps, c.norm_offset)
     return x + out
 
 
-def _attention_block(x, layer, config: LlamaConfig, positions, window=None):
+def _attention_block(x, layer, config: LlamaConfig, positions, window=None,
+                     par: Optional["_Par"] = None):
     b, t, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], config.rms_eps, config.norm_offset)
+    if par is not None:
+        h = par.enter(h)
     q, k, v = _qkv(h, layer, config, positions)
     attend = flash_attention if config.use_flash else attention_reference
     attn = attend(q, k, v, causal=True, window=window,
                   softcap=config.attn_logit_softcap or None)
-    attn = attn.transpose(1, 2).reshape(b, t, config.n_heads * config.head_dim)
-    return _attn_out(x, attn, layer, config)
+    attn = attn.transpose(1, 2).reshape(b, t, -1)
+    return _attn_out(x, attn, layer, config, par)
 
 
-def _mlp_block(x, layer, config: LlamaConfig):
+def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None):
     """Dense or MoE FFN with the residual add: (x, aux), aux the MoE
     load-balance loss (a 0-d f32 tensor) or 0.0 for a dense layer."""
     h = rms_norm(x, layer["mlp_norm"], config.rms_eps, config.norm_offset)
     if "moe" in layer:
         y, aux = moe_mlp(h, layer["moe"], top_k=config.expert_top_k,
                          capacity_factor=config.expert_capacity_factor,
-                         dropless=config.moe_dropless, fused=config.moe_fused)
+                         mesh=par.mesh if par is not None else None,
+                         rules=par.rules if par is not None else None,
+                         dropless=config.moe_dropless, fused=config.moe_fused,
+                         a2a_chunks=config.moe_a2a_chunks)
         y = y.to(x.dtype)
     else:
+        if par is not None:
+            h = par.enter(h)
         gate = _act(_proj(h, layer, "1").float(), config.act).to(h.dtype)
         up = _proj(h, layer, "3")
         y = _proj(gate * up, layer, "2").to(x.dtype)
+        if par is not None:
+            y = par.psum(y)
         aux = 0.0
     if "post_mlp_norm" in layer:
         y = rms_norm(y, layer["post_mlp_norm"], config.rms_eps, config.norm_offset)
     return x + y, aux
 
 
-def _embed(params, tokens, c: LlamaConfig):
-    x = params["embed"][tokens.long()].to(c.dtype)
+def _embed(params, tokens, c: LlamaConfig, par: Optional["_Par"] = None):
+    if par is None or par.n_tp == 1:
+        tbl = params["embed"] if par is None else par.view(params["embed"], "vocab", None)
+        x = tbl[tokens.long()].to(c.dtype)
+    else:  # this rank's vocab rows; the other rows' peers add theirs
+        tbl = par.view(params["embed"], "vocab", None)
+        ids = tokens.long() - par.tp_index * tbl.shape[0]
+        inside = (ids >= 0) & (ids < tbl.shape[0])
+        x = torch.where(inside[..., None], tbl[ids.clamp(0, tbl.shape[0] - 1)],
+                        tbl.new_zeros(())).to(c.dtype)
+        x = par.psum(x)
     if c.embed_scale != 1.0:
         x = _scale(x, c.embed_scale)
     return x
@@ -440,37 +507,126 @@ def _remat(fn, policy: Optional[str]):
         context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
 
 
-def _backbone(params: Dict, tokens, config: LlamaConfig):
+class _Par:
+    """The collectives of a sharded forward on `mesh` (parallel/
+    collectives.py): `view` gives a leaf's local compute tensor, `enter`
+    and `psum` open and close a tensor-parallel region, and the token
+    axes sum each rank's part of the loss."""
+
+    def __init__(self, mesh, rules: ShardingRules, config: LlamaConfig):
+        self.mesh, self.rules = mesh, rules
+        if live_axes(mesh, rules.axes("seq")):
+            raise NotImplementedError(
+                "context parallelism (a mesh context axis > 1) is not ported to "
+                "kubedl_tpu_torch yet (ROADMAP.md)")
+        self.tp = live_axes(mesh, rules.axes("heads"))
+        for dim in ("mlp", "vocab"):
+            if live_axes(mesh, rules.axes(dim)) != self.tp:
+                raise NotImplementedError(
+                    f"rules shard {dim!r} over {rules.axes(dim)} but 'heads' over "
+                    f"{rules.axes('heads')}: the port's tensor parallelism needs one axis set")
+        self.n_tp = axes_size(mesh, self.tp)
+        self.tp_index = axes_index(mesh, self.tp)
+        nkv, nq = config.n_kv_heads, config.n_heads
+        if nkv % self.n_tp or nq % self.n_tp:
+            raise ValueError(
+                f"tensor parallelism over {self.n_tp} ranks needs n_heads ({nq}) and "
+                f"n_kv_heads ({nkv}) divisible by it")
+        for name, n in (("d_ff", config.d_ff), ("vocab_size", config.vocab_size)):
+            if n % self.n_tp:
+                raise ValueError(f"{name} {n} not divisible by the tensor axis {self.n_tp}")
+        self.tok_index, self.n_tok = token_index(mesh, rules)
+        self._layouts = {}
+
+    def view(self, p, *dims):
+        layout = self._layouts.get(dims)
+        if layout is None:
+            layout = self._layouts[dims] = view_placements(self.mesh, self.rules, dims)
+        return local_view(p, self.mesh, self.rules, *dims, layout=layout)
+
+    def enter(self, x):
+        return collectives.enter(x, self.mesh, self.tp)
+
+    def psum(self, x):
+        return collectives.psum(x, self.mesh, self.tp)
+
+
+# each leaf's compute layout: the embed dim gathered (ZeRO-3), heads, mlp
+# columns and experts kept local; the router is gathered whole
+_LAYER_VIEW = {
+    "attn_norm": (None,), "mlp_norm": (None,),
+    "post_attn_norm": (None,), "post_mlp_norm": (None,),
+    "wq": (None, "heads"), "wk": (None, "heads"), "wv": (None, "heads"),
+    "wo": ("heads", None), "bq": ("heads",), "bk": ("heads",), "bv": ("heads",),
+    "w1": (None, "mlp"), "w3": (None, "mlp"), "w2": ("mlp", None),
+}
+_MOE_VIEW = {"router": (None, None), "w1": ("expert", None, "mlp"),
+             "w3": ("expert", None, "mlp"), "w2": ("expert", "mlp", None)}
+
+
+def _local_layer(layer: Dict, par: Optional[_Par]) -> Dict:
+    if par is None:
+        return layer
+    out = {}
+    for name, p in layer.items():
+        if name == "moe":
+            out[name] = {n: par.view(w, *_MOE_VIEW[n]) for n, w in p.items()}
+        else:
+            out[name] = par.view(p, *_LAYER_VIEW[name])
+    return out
+
+
+def _local_head(params: Dict, par: Optional[_Par]) -> Dict:
+    """final_norm and the [d, vocab-shard] head (separate or tied)."""
+    if par is None:
+        return params
+    out = {"final_norm": par.view(params["final_norm"], None)}
+    if "lm_head" in params:
+        out["lm_head"] = par.view(params["lm_head"], None, "vocab")
+    else:
+        out["embed"] = par.view(params["embed"], "vocab", None)
+    return out
+
+
+def _backbone(params: Dict, tokens, config: LlamaConfig, par: Optional[_Par] = None):
     """(pre-final-norm activations [batch, seq, d], summed MoE aux loss:
     0.0 for a dense model). With config.remat and grad enabled, each
-    layer's activations are recomputed in backward."""
+    layer's activations are recomputed in backward (a sharded layer
+    gathers its leaves again there)."""
     b, t = tokens.shape
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None].expand(b, t)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, par)
     remat = config.remat and torch.is_grad_enabled()
     aux = 0.0
     for i, layer in enumerate(params["layers"]):
         def layer_fn(x, layer=layer, window=config.window_for(i)):
-            x = _attention_block(x, layer, config, positions, window=window)
-            return _mlp_block(x, layer, config)
+            local = _local_layer(layer, par)
+            x = _attention_block(x, local, config, positions, window=window, par=par)
+            return _mlp_block(x, local, config, par)
 
         x, a = _remat(layer_fn, config.remat_policy)(x) if remat else layer_fn(x)
         aux = aux + a
     return x, aux
 
 
-def forward_and_aux(params, tokens, config: LlamaConfig):
+def _par(mesh, rules, config) -> Optional[_Par]:
+    return None if mesh is None else _Par(mesh, rules or ShardingRules(), config)
+
+
+def forward_and_aux(params, tokens, config: LlamaConfig, mesh=None, rules=None):
     """(logits [batch, seq, vocab] f32, summed MoE aux loss as a 0-d f32
-    tensor: 0 for a dense model)."""
-    x, aux = _backbone(params, tokens, config)
+    tensor: 0 for a dense model). With a mesh: this rank's rows, and its
+    shard of the vocabulary when the tensor axis shards it."""
+    par = _par(mesh, rules, config)
+    x, aux = _backbone(params, tokens, config, par)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _lm_head(x, params, config), aux
+    return _lm_head(x, _local_head(params, par), config, par), aux
 
 
-def forward(params, tokens, config: LlamaConfig):
+def forward(params, tokens, config: LlamaConfig, mesh=None, rules=None):
     """Logits [batch, seq, vocab] (f32) for tokens [batch, seq]."""
-    return _lm_head(_backbone(params, tokens, config)[0], params, config)
+    return forward_and_aux(params, tokens, config, mesh=mesh, rules=rules)[0]
 
 
 def _head_matrix(params, config: LlamaConfig):
@@ -481,9 +637,11 @@ def _head_matrix(params, config: LlamaConfig):
     return head
 
 
-def _lm_head(x, params, config: LlamaConfig):
+def _lm_head(x, params, config: LlamaConfig, par: Optional[_Par] = None):
     """Final norm + LM head -> f32 logits (final softcap when set)."""
     x = rms_norm(x, params["final_norm"], config.rms_eps, config.norm_offset)
+    if par is not None:
+        x = par.enter(x)
     logits = _mm(x, _head_matrix(params, config)).float()
     if config.final_logit_softcap:
         logits = softcap(logits, config.final_logit_softcap)
@@ -537,15 +695,61 @@ def _next_token_ce_chunked(x, params, config: LlamaConfig, targets, n_chunks: in
     return (big_m + torch.log(big_l) - tgt).mean()
 
 
-def loss_fn(params, tokens, config: LlamaConfig):
+def _sharded_ce(logits, targets, par: _Par):
+    """_next_token_ce over logits whose vocabulary is sharded over the
+    tensor axis: the max, the sum of exponentials and the target's logit
+    are combined across the shards."""
+    vl = logits.shape[-1]
+    m = collectives.pmax(logits.amax(dim=-1), par.mesh, par.tp)
+    se = par.psum(torch.exp(logits - m[..., None]).sum(dim=-1))
+    ids = targets.long() - par.tp_index * vl
+    inside = (ids >= 0) & (ids < vl)
+    tl = torch.gather(logits, -1, ids.clamp(0, vl - 1)[..., None])[..., 0]
+    tl = par.psum(torch.where(inside, tl, tl.new_zeros(())))
+    return (torch.log(se) + m - tl).mean()
+
+
+def loss_fn(params, tokens, config: LlamaConfig, mesh=None, rules=None):
     """Next-token cross entropy over tokens [b, t] (inputs [:, :-1],
     targets [:, 1:]) plus moe_aux_coef times the summed MoE aux loss. With
     config.ce_chunks > 1 the loss runs chunked (the full logits never
-    exist)."""
+    exist), unless the tensor axis shards the vocabulary (a warning, then
+    the full-logits path, as in the JAX package).
+
+    With a mesh, `tokens` are this rank's rows: the loss is the global
+    batch's, the same on every rank, and each rank's gradients are its
+    part of the sum (parallel/mesh.py `local_view` reduces them)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x, aux = _backbone(params, inputs, config)
-    if config.ce_chunks > 1:
-        ce = _next_token_ce_chunked(x, params, config, targets, config.ce_chunks)
+    par = _par(mesh, rules, config)
+    x, aux = _backbone(params, inputs, config, par)
+    head = _local_head(params, par)
+    chunked = config.ce_chunks > 1
+    if chunked and par is not None and par.n_tp > 1:
+        _warn_ce_chunks_ignored(par.n_tp)
+        chunked = False
+    if chunked:
+        ce = _next_token_ce_chunked(x, head, config, targets, config.ce_chunks)
+    elif par is not None and par.n_tp > 1:
+        ce = _sharded_ce(_lm_head(x, head, config, par), targets, par)
     else:
-        ce = _next_token_ce(_lm_head(x, params, config), targets)
+        ce = _next_token_ce(_lm_head(x, head, config, par), targets)
+    if par is not None:  # each token block's share of the global mean
+        ce = collectives.psum(ce / par.n_tok, mesh, token_axes(par.rules))
     return ce + config.moe_aux_coef * aux
+
+
+_warned_ce_chunks = False
+
+
+def _warn_ce_chunks_ignored(tensor_size: int) -> None:
+    global _warned_ce_chunks
+    if _warned_ce_chunks:
+        return
+    _warned_ce_chunks = True
+    import warnings
+
+    warnings.warn(
+        f"ce_chunks ignored: the mesh's tensor axis ({tensor_size}) shards the "
+        f"head's vocab dim, so the full-logits loss path applies",
+        stacklevel=3,
+    )

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN on one device (kubedl_tpu/models/moe.py).
+"""Mixture-of-Experts FFN (kubedl_tpu/models/moe.py), on one device and
+expert-parallel over a DeviceMesh.
 
 Top-k softmax routing and Mixtral's SwiGLU experts, in the JAX module's two
 single-device forms:
@@ -18,9 +19,25 @@ on the device: nothing on the dropless path reads a value back to the host,
 so a decode tick never waits on it. int8 expert stacks ({"q", "s"},
 models/quant.py) go to the kernels as int8.
 
-Not ported yet: the expert-parallel routes (`mesh`, `rules`, `a2a_chunks`,
-`moe_param_specs`, `_dropless_shard_fn`, `_dropless_mlp_sharded`), which wait
-for the sharded slice (ROADMAP.md).
+Under a mesh of more than one device (`mesh`, `rules`; the layer gets its
+rank's rows and the local views of its leaves, laid out by
+`moe_param_specs`) the two routes are the JAX module's sharded ones:
+
+  * dropless (`_dropless_mlp_sharded`, `_dropless_shard_fn`): each rank
+    routes its own rows, packs them by destination expert shard into
+    `quota`-row slots (entries past a shard's quota drop, as in the JAX
+    module), one `all_to_all_single` over the expert axis lands them on the
+    shard that owns their expert, the local `_gmm_ffn` runs K5 and K6 (K7
+    and K6 in the backward) on its experts, and the reverse all-to-all
+    brings the outputs home; `a2a_chunks` splits the quota into chunks;
+  * the capacity path: the rows of every token block are gathered, so the
+    slots are the global ones of the one-device path, each expert shard
+    computes its experts' slots and the outputs are gathered over the
+    expert axis for the combine.
+
+Both sum their partial FFN outputs over the tensor axis when it shards
+the experts' `mlp` columns, and average the load-balance statistics over
+the token blocks.
 """
 from __future__ import annotations
 
@@ -32,7 +49,21 @@ import torch
 import torch.nn.functional as F
 
 from kubedl_tpu_torch.ops.gmm import TILE_M, gmm, gmm_scaled, gmm_swiglu
+from kubedl_tpu_torch.parallel import collectives
+from kubedl_tpu_torch.parallel.mesh import (ShardingRules, axes_size, axis_size,
+                                            live_axes, token_axes, token_index)
 from kubedl_tpu_torch.utils.device import resolve_device
+
+
+def moe_param_specs(rules: Optional[ShardingRules] = None) -> Dict:
+    """PartitionSpec tree matching moe_init() for one MoE FFN layer."""
+    r = rules or ShardingRules()
+    return {
+        "router": r.spec("embed", "expert"),
+        "w1": r.spec("expert", "embed", "mlp"),
+        "w3": r.spec("expert", "embed", "mlp"),
+        "w2": r.spec("expert", "mlp", "embed"),
+    }
 
 
 def moe_init(d_model: int, d_ff: int, n_experts: int, dtype=torch.bfloat16,
@@ -261,6 +292,197 @@ def _dropless_mlp(hf, params: Dict, experts, weights, e: int, fused: bool = True
     return _combine(rows, weights, hf.dtype)
 
 
+def _expert_axis(mesh, rules: ShardingRules) -> str:
+    axes = rules.axes("expert")
+    if len(axes) != 1:
+        raise ValueError(f"expert parallelism needs exactly one expert mesh axis, "
+                         f"got {axes}")
+    return axes[0]
+
+
+def _mlp_axes(mesh, rules: ShardingRules, tok) -> Tuple[str, ...]:
+    """The live axes that shard the experts' mlp columns; the tokens must
+    be replicated over them (their psum completes the FFN)."""
+    mlp = live_axes(mesh, rules.axes("mlp"))
+    if set(mlp) & set(tok):
+        raise ValueError(f"mlp axes {mlp} overlap token axes {tuple(tok)}; "
+                         f"expert x tensor parallelism needs disjoint mesh axes")
+    return mlp
+
+
+def _dropless_shard_fn(hf_loc, params: Dict, *, top_k: int, e: int, e_loc: int,
+                       n_e: int, quota: int, mesh, expert_axis: str, token_axes,
+                       tensor_axes=(), fused: bool = True, a2a_chunks: int = 1,
+                       stats: Optional[Dict] = None):
+    """One rank's body of the expert-parallel dropless route (the JAX
+    module's shard_map body, with explicit collectives): (y [S_loc, d],
+    aux). Rows are sharded over `token_axes` (the batch axes, then the
+    expert axis), expert blocks over `expert_axis`.
+
+    This rank's k*S_loc (token, choice) entries are sorted by expert, so
+    the runs bound for one expert shard are contiguous, and each run is
+    packed into that shard's `quota`-row slot of an [n_e, quota, d] buffer;
+    entries past the quota drop (their weight renormalized over the kept
+    choices). One all_to_all over the expert axis lands every entry on the
+    shard that owns its expert, the local `_gmm_ffn` computes the received
+    rows, and the reverse all_to_all returns the outputs for the weighted
+    combine. `a2a_chunks > 1` splits the quota into chunks of whole row
+    tiles, each sent, computed and returned in turn: the same rows, slots
+    and weights. `stats`, when given, receives the routing and dispatch
+    integers (experts, kept, slot_of_entry)."""
+    s_loc, d = hf_loc.shape
+    k = top_k
+    ks = k * s_loc
+    dev = hf_loc.device
+    gate_logits = hf_loc.float() @ params["router"]
+    experts, _, gates, _, (me, ce) = _top_k_gating(gate_logits, k, s_loc + 1,
+                                                   need_slots=False)
+    # load-balance loss over the global means: the token blocks partition
+    # the tokens into equal parts
+    n_tok = axes_size(mesh, token_axes)
+    me = collectives.psum(me, mesh, token_axes) / n_tok
+    ce = collectives.psum(ce, mesh, token_axes) / n_tok
+    aux = e * (me * ce).sum()
+
+    ef = experts.reshape(ks).long()  # flat entry f = choice*S_loc + token
+    src_rows = torch.arange(s_loc, dtype=torch.long, device=dev).repeat(k)
+    order = torch.argsort(ef, stable=True)  # by expert, so by shard too
+    sorted_ef = ef[order]
+    sorted_dest = sorted_ef // e_loc
+    shard_offsets = _exclusive_cumsum(_counts(ef // e_loc, n_e))
+    pos = torch.arange(ks, device=dev) - shard_offsets[sorted_dest]
+    kept_sorted = pos < quota  # entries past the shard quota drop
+    slot = torch.where(kept_sorted, sorted_dest * quota + pos,
+                       torch.full_like(pos, n_e * quota))
+    # one extra row takes the dropped entries' writes and is cut off
+    send_x = hf_loc.new_zeros((n_e * quota + 1, d)).index_put(
+        (slot,), hf_loc[src_rows[order]])[:-1]
+    send_eid = torch.full((n_e * quota + 1,), e, dtype=torch.int32, device=dev).index_put(
+        (slot,), sorted_ef.to(torch.int32))[:-1]
+
+    ei = mesh.get_local_rank(expert_axis) if n_e > 1 else 0
+    send_xs = send_x.reshape(n_e, quota, d)
+    send_es = send_eid.reshape(n_e, quota)
+    # chunk count: a divisor of the quota's row tiles, so every chunk keeps
+    # whole TILE_M runs
+    q_tiles = max(quota // TILE_M, 1)
+    nc = next(c for c in range(min(max(a2a_chunks, 1), q_tiles), 0, -1) if q_tiles % c == 0)
+    qc = quota // nc
+    backs = []
+    for ci in range(nc):
+        rx = collectives.all_to_all(send_xs[:, ci * qc:(ci + 1) * qc].contiguous(),
+                                    mesh, expert_axis)
+        with torch.no_grad():
+            re = collectives.all_to_all(send_es[:, ci * qc:(ci + 1) * qc].contiguous(),
+                                        mesh, expert_axis)
+        flat_eid = re.reshape(n_e * qc).long()
+        local_eid = torch.where(flat_eid < e, flat_eid - ei * e_loc,
+                                torch.full_like(flat_eid, e_loc))
+        rows = collectives.enter(rx.reshape(n_e * qc, d), mesh, tensor_axes)
+        y_rows = _gmm_ffn(rows, torch.arange(n_e * qc, dtype=torch.long, device=dev),
+                          local_eid, params, e_loc, fused=fused)
+        # tensor-parallel experts: each shard's output is a partial sum over
+        # its mlp columns, and the tokens are replicated over the tensor axes
+        y_rows = collectives.psum(y_rows, mesh, tensor_axes)
+        backs.append(collectives.all_to_all(y_rows.reshape(n_e, qc, d), mesh, expert_axis))
+    back = backs[0] if nc == 1 else torch.cat(backs, dim=1)
+
+    # combine at home: entry f's reply sits at slot_of_entry[f]; dropped
+    # entries point at the appended zero row
+    slot_of_entry = torch.empty(ks, dtype=torch.long, device=dev)
+    slot_of_entry[order] = slot
+    kept = torch.empty(ks, dtype=torch.bool, device=dev)
+    kept[order] = kept_sorted
+    kept = kept.reshape(k, s_loc)
+    weights = gates * kept
+    weights = weights / weights.sum(dim=0, keepdim=True).clamp_min(1e-9)
+    back_flat = torch.cat([back.reshape(n_e * quota, d), back.new_zeros((1, d))], dim=0)
+    y = torch.zeros((s_loc, d), dtype=hf_loc.dtype, device=dev)
+    for kk in range(k):
+        rows_k = back_flat[slot_of_entry[kk * s_loc:(kk + 1) * s_loc]]
+        y = y + weights[kk][:, None].to(hf_loc.dtype) * rows_k
+    if stats is not None:
+        stats.update(experts=experts, kept=kept, slot_of_entry=slot_of_entry)
+    return y, aux
+
+
+def _dropless_mlp_sharded(hf, params: Dict, *, top_k: int, quota_factor: float, mesh,
+                          rules: ShardingRules, e: int, fused: bool = True,
+                          a2a_chunks: int = 1, stats: Optional[Dict] = None):
+    """Expert-parallel dropless MoE over `mesh`: hf [S_loc, d] is this
+    rank's block of the token rows (sharded over the batch axes x the
+    expert axis), `params` its local views (the router whole, its e/n_e
+    experts, its mlp columns). Two all_to_alls over the expert axis; the
+    rows a rank computes scale with the quota (~ routed rows / n_e x
+    quota_factor), not with a per-expert capacity."""
+    expert_axis = _expert_axis(mesh, rules)
+    tok = live_axes(mesh, token_axes(rules))
+    n_e = axis_size(mesh, expert_axis)
+    if e % n_e:
+        raise ValueError(f"{e} experts not divisible by expert axis {expert_axis}={n_e}")
+    e_loc = e // n_e
+    w1 = params["w1"]
+    if (w1["q"] if isinstance(w1, dict) else w1).shape[0] != e_loc:
+        raise ValueError(f"params hold {(w1['q'] if isinstance(w1, dict) else w1).shape[0]} "
+                         f"experts, the expert shard {e_loc}")
+    ks_loc = top_k * hf.shape[0]
+    quota = int(math.ceil(ks_loc * quota_factor / n_e / TILE_M)) * TILE_M
+    return _dropless_shard_fn(
+        hf, params, top_k=top_k, e=e, e_loc=e_loc, n_e=n_e, quota=quota, mesh=mesh,
+        expert_axis=expert_axis, token_axes=tok, tensor_axes=_mlp_axes(mesh, rules, tok),
+        fused=fused, a2a_chunks=a2a_chunks, stats=stats)
+
+
+def _capacity_mlp_sharded(hf, params: Dict, *, top_k: int, capacity_factor: float, mesh,
+                          rules: ShardingRules, e: int):
+    """The capacity path over `mesh`: (y [S_loc, d] for this rank's rows,
+    aux). The token blocks are gathered in their global order, so routing,
+    slots and drops are the one-device path's over the global batch; each
+    expert shard computes its experts' slots (partial sums over the mlp
+    columns, summed over the tensor axis) and the slot outputs are gathered
+    over the expert axis for the weighted combine of this rank's rows."""
+    expert_axis = _expert_axis(mesh, rules)
+    tok = live_axes(mesh, token_axes(rules))
+    mlp = _mlp_axes(mesh, rules, tok)
+    tok_index, n_tok = token_index(mesh, rules)
+    s_loc, d = hf.shape
+    s = s_loc * n_tok
+    c = expert_capacity(s, e, top_k, capacity_factor)
+    router = params["router"]
+    hf_all = collectives.all_gather(hf, mesh, tok)
+    experts, slots, weights, keeps, _ = _top_k_gating(hf_all.float() @ router, top_k, c)
+    # the load-balance statistics of this rank's rows, averaged over the
+    # token blocks (the global means)
+    lo = tok_index * s_loc
+    me = torch.softmax(hf.float() @ router, dim=-1).mean(dim=0)
+    me = collectives.psum(me, mesh, tok) / n_tok
+    ce = _counts(experts[0, lo:lo + s_loc], e).float() / s_loc
+    ce = collectives.psum(ce, mesh, tok) / n_tok
+    aux = e * (me * ce).sum()
+
+    w1 = params["w1"]
+    e_loc = (w1["q"] if isinstance(w1, dict) else w1).shape[0]
+    xi = mesh.get_local_rank(expert_axis) if axis_size(mesh, expert_axis) > 1 else 0
+    flat = torch.where(keeps, experts.long() * c + slots.long(),
+                       torch.full_like(experts, e * c, dtype=torch.long))
+    token_of_slot = torch.full((e * c + 1,), s, dtype=torch.long, device=hf.device)
+    arange_s = torch.arange(s, dtype=torch.long, device=hf.device)
+    for k in range(flat.shape[0]):
+        token_of_slot[flat[k]] = arange_s
+    hf_pad = torch.cat([hf_all, hf_all.new_zeros((1, d))], dim=0)
+    expert_in = hf_pad[token_of_slot[xi * e_loc * c:(xi + 1) * e_loc * c]]
+    expert_in = collectives.enter(expert_in.reshape(e_loc, c, d), mesh, mlp)
+    gate = F.silu(_emm(expert_in, params["w1"], "ecd,edf->ecf").float()).to(hf.dtype)
+    up = _emm(expert_in, params["w3"], "ecd,edf->ecf")
+    out = collectives.psum(_emm(gate * up, params["w2"], "ecf,efd->ecd"), mesh, mlp)
+    out = collectives.all_gather(out, mesh, live_axes(mesh, (expert_axis,)))
+    out_pad = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))], dim=0)
+    y = torch.zeros((s_loc, d), dtype=hf.dtype, device=hf.device)
+    for k in range(flat.shape[0]):
+        y = y + weights[k, lo:lo + s_loc][:, None].to(hf.dtype) * out_pad[flat[k, lo:lo + s_loc]]
+    return y, aux
+
+
 def _emm(x, w, eq: str):
     """Batched expert einsum; int8 stacks apply their [E, out] scale after
     the contraction (exact: the scale is constant per output column)."""
@@ -270,24 +492,42 @@ def _emm(x, w, eq: str):
 
 
 def moe_mlp(h, params: Dict, *, top_k: int = 2, capacity_factor: float = 1.25,
-            dropless: Optional[bool] = None,
-            fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mesh=None, rules: Optional[ShardingRules] = None,
+            dropless: Optional[bool] = None, fused: Optional[bool] = None,
+            a2a_chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(output [b, t, d], aux load-balance loss) for normed hidden states h.
 
-    dropless=None means True (there is no mesh in the port yet): the grouped
-    product route, every token kept. dropless=False takes the capacity path,
-    where capacity_factor bounds each expert's slots. fused=None means True:
-    the fused SwiGLU kernel; False the three-product reference path."""
+    dropless=None (auto): the grouped product route, every token kept,
+    when there is no mesh or a one-device one; under a mesh of more than
+    one device the capacity path, as in the JAX module. dropless=True
+    forces the grouped products: `_dropless_mlp` off-mesh, the expert-
+    parallel `_dropless_mlp_sharded` on a mesh, where capacity_factor bounds
+    the per-shard all-to-all quota instead of per-expert slots. fused=None
+    means True: the fused SwiGLU kernel; False the three-product reference
+    path. a2a_chunks splits the sharded dropless route's all-to-all quota.
+
+    On a mesh, h holds this rank's rows and `params` the local views of the
+    layer's leaves (the router whole, the rank's experts and mlp columns)."""
     b, t, d = h.shape
     s = b * t
-    w1 = params["w1"]
-    e = (w1["q"] if isinstance(w1, dict) else w1).shape[0]
-    c = expert_capacity(s, e, top_k, capacity_factor)
+    e = params["router"].shape[-1]
     if dropless is None:
-        dropless = True
+        dropless = mesh is None or mesh.size() <= 1
     if fused is None:
         fused = True
     hf = h.reshape(s, d)
+    if mesh is not None and mesh.size() > 1:
+        rules = rules or ShardingRules()
+        if dropless:
+            y, aux = _dropless_mlp_sharded(
+                hf, params, top_k=top_k, quota_factor=capacity_factor, mesh=mesh,
+                rules=rules, e=e, fused=fused, a2a_chunks=a2a_chunks)
+        else:
+            y, aux = _capacity_mlp_sharded(hf, params, top_k=top_k,
+                                           capacity_factor=capacity_factor,
+                                           mesh=mesh, rules=rules, e=e)
+        return y.reshape(b, t, d), aux
+    c = expert_capacity(s, e, top_k, capacity_factor)
     gate_logits = hf.float() @ params["router"]
     if dropless:
         experts, _, gates, _, (me, ce) = _top_k_gating(

@@ -20,6 +20,11 @@ leaf's gradient into its update, ``end`` advances the counters. Leaves
 are lists of tensors in one fixed order (models/llama.py ``tree_leaves``).
 Scalars enter the arithmetic rounded to the leaf's dtype, as JAX's
 weakly-typed constants do; the global norm is summed in f32.
+
+Sharded leaves (DTensors, parallel/mesh.py) are updated through their
+local shards, with moments and accumulators laid out as their parameter;
+`global_norm` sums each leaf's local squares once over the mesh axes that
+shard it, never over those that replicate it.
 """
 from __future__ import annotations
 
@@ -38,9 +43,44 @@ def _as_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage), or x itself."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _sq(g: torch.Tensor) -> torch.Tensor:
+    g = _local(g).float()
+    return torch.sum(g * g)
+
+
 def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (0-d f32 tensor)."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in leaves))
+    """sqrt of the sum of squares of every element (0-d f32 tensor). For
+    DTensor leaves: the local sums of each set of sharding mesh dims are
+    added up, then each is all-reduced over just those dims (one small
+    all-reduce per mesh dim that shards anything)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    sharded = [g for g in leaves if isinstance(g, DTensor)]
+    if not sharded:
+        return torch.sqrt(sum(_sq(g) for g in leaves))
+    mesh = sharded[0].device_mesh
+    by_dims = {}
+    for g in leaves:
+        dims = ()
+        if isinstance(g, DTensor):
+            dims = tuple(i for i, p in enumerate(g.placements)
+                         if isinstance(p, Shard) and mesh.size(i) > 1)
+        by_dims[dims] = by_dims.get(dims, 0.0) + _sq(g)
+    keys = sorted(by_dims)
+    sums = torch.stack([torch.as_tensor(by_dims[k]) for k in keys])
+    for i in sorted({i for k in keys for i in k}):
+        mask = torch.tensor([i in k for k in keys], device=sums.device)
+        part = torch.where(mask, sums, torch.zeros_like(sums))
+        torch.distributed.all_reduce(part, group=mesh.get_group(i))
+        sums = torch.where(mask, part, sums)
+    return torch.sqrt(sums.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +148,8 @@ class Transform:
         with torch.no_grad():
             ctx = self.begin(grads, state)
             for i, (p, g) in enumerate(zip(params, grads)):
-                p.add_(self.leaf(i, g, p, state, ctx))
+                p = _local(p)
+                p.add_(self.leaf(i, _local(g), p, state, ctx))
             self.end(state, ctx)
 
 
@@ -152,7 +193,7 @@ class adamw(Transform):
 
     def leaf(self, i, u, p, state, ctx):
         dt = u.dtype
-        mu, nu = state["mu"][i], state["nu"][i]
+        mu, nu = _local(state["mu"][i]), _local(state["nu"][i])
         # in place, each product rounded to the leaf's dtype as optax's is
         mu.mul_(_as_dtype(B1, dt)).add_(u * _as_dtype(1 - B1, dt))
         nu.mul_(_as_dtype(B2, dt)).add_((u * u).mul_(_as_dtype(1 - B2, dt)))
@@ -211,10 +252,11 @@ class MultiSteps:
         n = state["mini_step"]
         with torch.no_grad():
             for a, g in zip(state["acc"], grads):
-                a.copy_(a + (g - a) / (n + 1))
+                a = _local(a)
+                a.copy_(a + (_local(g) - a) / (n + 1))
         if n == self.every_k - 1:
             self.inner.apply(params, state["acc"], state["inner"])
             for a in state["acc"]:
-                a.zero_()
+                _local(a).zero_()
             state["gradient_step"] += 1
         state["mini_step"] = (n + 1) % self.every_k

@@ -1,33 +1,44 @@
-"""Trainer -- the JAXJob workload runtime on PyTorch, one process and one
-device (the port of kubedl_tpu/train/trainer.py).
+"""Trainer -- the JAXJob workload runtime on PyTorch (the port of
+kubedl_tpu/train/trainer.py): one process per device, a gang of processes
+training one model.
 
-Llama (models/llama.py) -> the one-device train step (parallel/
-train_step.py, optimizer parallel/optim.py) -> checkpoints with
-preemption-safe save and resume (train/checkpoint.py). The contract the
-operator depends on is the JAX trainer's: the same flags and env defaults,
-the same printed lines and trace spans, and on SIGTERM a final checkpoint
-and then the retryable exit 113, so the ExitCode restart policy brings the
-pod back and the trainer resumes from the latest step.
+Llama (models/llama.py) -> the train step (parallel/train_step.py,
+optimizer parallel/optim.py) -> checkpoints with preemption-safe save and
+resume (train/checkpoint.py). The contract the operator depends on is the
+JAX trainer's: the same flags and env defaults, the same printed lines and
+trace spans, and on SIGTERM a final checkpoint and then the retryable exit
+113, so the ExitCode restart policy brings the pod back and the trainer
+resumes from the latest step.
+
+A gang: the operator's KUBEDL_COORDINATOR_ADDRESS / KUBEDL_NUM_PROCESSES /
+KUBEDL_PROCESS_ID form the torch.distributed group (train/coordinator.py),
+KUBEDL_MESH and KUBEDL_DCN_MESH its DeviceMesh (parallel/mesh.py), whose
+size must be the number of processes (else exit 2, before the
+rendezvous). The step is then the sharded one over that mesh, with
+sharded checkpoints. Process p's batches are the rows of its token block
+(its coordinate over data x fsdp x expert): batch ids step * blocks +
+block, so tensor peers feed the same rows. Rank 0 prints the trainer's
+lines; every process records its own spans. A process without an address
+trains alone on the one-device step.
 
 Usage (as a pod command; it runs on the card unless --device cpu):
     python -m kubedl_tpu_torch.train.trainer --model llama-7b --steps 100
 
 Refused with exit 2, until ported (ROADMAP.md): --lora-rank, --hf-model,
 pipeline stages (KUBEDL_PP_STAGES > 1, KUBEDL_PP_MPMD), live reshard
-(KUBEDL_LIVE_RESHARD=1), more than one process (KUBEDL_NUM_PROCESSES) and
-a mesh of more than one device (KUBEDL_MESH, KUBEDL_DCN_MESH).
+(KUBEDL_LIVE_RESHARD=1) and a mesh context axis above 1 (context
+parallelism).
 """
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import signal
 import sys
 import time
-from typing import Dict, Optional
+from typing import Optional
 
-AXIS_ORDER = ("data", "fsdp", "stage", "tensor", "context", "expert")
+from kubedl_tpu_torch.parallel.mesh import mesh_from_env
 
 
 def parse_args(argv=None):
@@ -103,47 +114,6 @@ def parse_args(argv=None):
     return args
 
 
-def _parse_axes(value: str, fill: bool) -> Dict[str, int]:
-    """"data=2,fsdp=4" -> axis sizes (KUBEDL_MESH / KUBEDL_DCN_MESH syntax);
-    an empty KUBEDL_MESH (`fill`) means data=-1."""
-    axes = {name: 1 for name in AXIS_ORDER}
-    if not value:
-        if fill:
-            axes["data"] = -1
-        return axes
-    for part in value.split(","):
-        if not part.strip():
-            continue
-        name, _, size = part.partition("=")
-        name = name.strip()
-        if name not in axes:
-            raise ValueError(f"unknown mesh axis {name!r} (known: {AXIS_ORDER})")
-        axes[name] = int(size)
-    return axes
-
-
-def mesh_from_env(visible: int) -> Dict[str, int]:
-    """The mesh KUBEDL_MESH and KUBEDL_DCN_MESH ask for, with a -1 axis
-    resolved against the `visible` devices (per DCN slice). Raises
-    ValueError for a mesh of more than one device."""
-    ici = _parse_axes(os.environ.get("KUBEDL_MESH", ""), fill=True)
-    dcn = _parse_axes(os.environ.get("KUBEDL_DCN_MESH", ""), fill=False)
-    wild = [k for k, v in ici.items() if v == -1]
-    if len(wild) > 1:
-        raise ValueError(f"only one mesh axis may be -1, got {wild}")
-    if wild:
-        fixed = math.prod(v for v in ici.values() if v != -1)
-        ici[wild[0]] = max(visible // max(math.prod(dcn.values()) * fixed, 1), 1)
-    n = math.prod(ici.values()) * math.prod(dcn.values())
-    if n > 1:
-        raise ValueError(
-            f"the mesh KUBEDL_MESH={os.environ.get('KUBEDL_MESH', '')!r} "
-            f"KUBEDL_DCN_MESH={os.environ.get('KUBEDL_DCN_MESH', '')!r} asks for "
-            f"{n} devices ({visible} visible); kubedl_tpu_torch trains on one "
-            f"device until the sharded step is ported (ROADMAP.md)")
-    return {k: ici[k] * dcn[k] for k in AXIS_ORDER}
-
-
 def _refused(args, info) -> Optional[str]:
     """The message for an option this slice of the port refuses, or None."""
     if os.environ.get("KUBEDL_PP_MPMD") == "1":
@@ -163,6 +133,25 @@ def _refused(args, info) -> Optional[str]:
     return None
 
 
+def _gang_mesh(info) -> "tuple[Optional[dict], Optional[str]]":
+    """(the mesh's axis sizes, None) or (None, the reason to exit 2). The
+    gang has one device per process, so the mesh must hold
+    KUBEDL_NUM_PROCESSES devices; this runs before the rendezvous, so a
+    mismatch never leaves peers waiting."""
+    try:
+        axes = mesh_from_env(info.num_processes)
+    except ValueError as e:
+        return None, (f"{e} (one device per process: KUBEDL_NUM_PROCESSES="
+                      f"{info.num_processes})")
+    if axes["context"] > 1:
+        return None, (f"mesh context={axes['context']}: context parallelism is not "
+                      f"ported to kubedl_tpu_torch yet (ROADMAP.md)")
+    if info.num_processes > 1 and info.coordinator_address is None:
+        return None, (f"KUBEDL_NUM_PROCESSES={info.num_processes} without "
+                      f"KUBEDL_COORDINATOR_ADDRESS: the gang cannot meet")
+    return axes, None
+
+
 def main(argv=None) -> int:
     t_main0 = time.perf_counter()
     args = parse_args(argv)
@@ -171,14 +160,17 @@ def main(argv=None) -> int:
 
     info = coordinator.process_info()
     refused = _refused(args, info)
+    axes = None
+    if not refused:
+        axes, refused = _gang_mesh(info)
     if refused:
         print(refused, file=sys.stderr)
         return 2  # permanent config error (utils/exit_codes.py)
-    try:
-        coordinator.initialize(info)
-    except coordinator.MultiProcessNotPorted as e:
-        print(str(e), file=sys.stderr)
-        return 2
+
+    from kubedl_tpu_torch.utils.device import process_device
+
+    device = process_device(args.device)  # current before NCCL binds to it
+    coordinator.initialize(info, backend="nccl" if device.type == "cuda" else "gloo")
 
     # preemption flag flipped by SIGTERM; the previous handler comes back
     # when main returns (an in-process caller keeps its own)
@@ -189,33 +181,40 @@ def main(argv=None) -> int:
 
     prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
     try:
-        return _run(args, info, preempted, t_main0)
+        return _run(args, info, axes, device, preempted, t_main0)
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
 
 
-def _run(args, info, preempted, t_main0) -> int:
+def _run(args, info, axes, device, preempted, t_main0) -> int:
     import dataclasses
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.obs.steps import StepStream
     from kubedl_tpu_torch.obs.trace import tracer_from_env
     from kubedl_tpu_torch.ops import _build
     from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh_from_env, token_index
     from kubedl_tpu_torch.parallel.train_step import make_train_step
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
-    from kubedl_tpu_torch.utils.device import resolve_device
     from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED, EXIT_XLA_COMPILE_ERROR
 
-    device = resolve_device(args.device)
-    try:
-        mesh = mesh_from_env(torch.cuda.device_count() if device.type == "cuda" else 1)
-    except ValueError as e:
-        print(str(e), file=sys.stderr)
-        return 2
+    rules = ShardingRules()
+    mesh, world = None, 1
+    block, n_blocks = 0, 1  # this process's token block of the global batch
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        mesh = build_mesh_from_env(world, device.type)
+        block, n_blocks = token_index(mesh, rules)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
+    def say(*a, **kw):
+        if rank0:
+            print(*a, **kw)
 
     # flight recorder: spans to the pod's JSONL in the injected
     # KUBEDL_TRACE_DIR and a per-step heartbeat stream; inert without the env
@@ -230,11 +229,11 @@ def _run(args, info, preempted, t_main0) -> int:
     if args.ce_chunks > 1:
         config = dataclasses.replace(config, ce_chunks=args.ce_chunks)
     model_name = args.model
-    print(f"mesh: {mesh} devices=1 model={model_name} "
-          f"params≈{config.n_layers}L/{config.d_model}d", flush=True)
+    say(f"mesh: {axes} devices={world} model={model_name} "
+        f"params≈{config.n_layers}L/{config.d_model}d", flush=True)
 
     def loss(params, batch):
-        return llama.loss_fn(params, batch, config)
+        return llama.loss_fn(params, batch, config, mesh=mesh, rules=rules)
 
     if args.lr_schedule == "cosine":
         # warmup -> cosine decay to 10% of peak over the run
@@ -255,7 +254,9 @@ def _run(args, info, preempted, t_main0) -> int:
             _build.build("flash_fwd", "flash_bwd")  # a refused source fails here
         params = llama.init(config, torch.Generator(device=device).manual_seed(0),
                             device=device)
-        init_state, train_step = make_train_step(loss, tx, accum_steps=args.accum_steps)
+        init_state, train_step = make_train_step(
+            loss, tx, mesh, llama.param_specs(config, rules) if mesh is not None else None,
+            rules.spec("batch", None), rules, accum_steps=args.accum_steps)
         state = init_state(params)
         del params
     except (torch.OutOfMemoryError, _build.BuildError) as e:
@@ -273,7 +274,7 @@ def _run(args, info, preempted, t_main0) -> int:
             start_step = state.step
             tracer.record("ckpt.restore", duration_s=time.perf_counter() - t_restore0,
                           step=start_step)
-            print(f"restored checkpoint at step {start_step}", flush=True)
+            say(f"restored checkpoint at step {start_step}", flush=True)
 
     saved_step = {"v": mngr.latest_step() if mngr else None}
     ckpt_stall = {"v": 0.0}  # checkpoint time the loop felt since the last record
@@ -287,14 +288,15 @@ def _run(args, info, preempted, t_main0) -> int:
             mngr.save(step, state)
             saved_step["v"] = step
         if final:
-            print(f"saved final checkpoint at step {step}", flush=True)
+            say(f"saved final checkpoint at step {step}", flush=True)
         if did_save or final:
             stall = time.perf_counter() - t_save0
             ckpt_stall["v"] += stall
             tracer.record("ckpt.save", duration_s=stall, step=step, final=final)
 
-    # input: token shards, or synthetic batches. Batch id = step * world +
-    # rank, so a resume at start_step continues the schedule.
+    # input: token shards, or synthetic batches. Batch id = step * blocks +
+    # block (the rank's token block: tensor peers read the same rows), so a
+    # resume at start_step continues the schedule.
     loader = None
     if args.data_path:
         import glob as globlib
@@ -307,23 +309,23 @@ def _run(args, info, preempted, t_main0) -> int:
             return 1
         loader = PyTokenLoader(shard_paths, batch=args.batch, seq_len=args.seq_len,
                                seed=args.data_seed)
-        print(f"data: {len(shard_paths)} shards, {loader.n_windows} windows, "
-              f"native=False", flush=True)
+        say(f"data: {len(shard_paths)} shards, {loader.n_windows} windows, "
+            f"native=False", flush=True)
 
-    rng = np.random.default_rng(info.process_id)
+    rng = np.random.default_rng(block)
 
     def to_device(local):
         return torch.from_numpy(np.ascontiguousarray(local)).to(device)
 
     def next_batch(step: int):
         if loader is not None:
-            local = loader.batch_at(step * info.num_processes + info.process_id)
+            local = loader.batch_at(step * n_blocks + block)
         else:
             local = rng.integers(0, config.vocab_size, (args.batch, args.seq_len),
                                  dtype=np.int32)
         return to_device(local)
 
-    tokens_per_step = args.batch * info.num_processes * (args.seq_len - 1)
+    tokens_per_step = args.batch * n_blocks * (args.seq_len - 1)
 
     eval_loader = None
     if args.eval_every and args.eval_data_path:
@@ -341,21 +343,21 @@ def _run(args, info, preempted, t_main0) -> int:
     def eval_pass(step: int) -> None:
         """Every pass scores the same fixed batches: held-out shards from id
         0, else a far region of the training loader, else a fixed rng."""
-        erng = np.random.default_rng(10**9 + info.process_id)
+        erng = np.random.default_rng(10**9 + block)
         src = eval_loader if eval_loader is not None else loader
         losses = []
         with torch.no_grad():
             for i in range(args.eval_batches):
                 if src is not None:
                     base = 0 if eval_loader is not None else 2**20
-                    local = src.batch_at(base + i * info.num_processes + info.process_id)
+                    local = src.batch_at(base + i * n_blocks + block)
                 else:
                     local = erng.integers(0, config.vocab_size, (args.batch, args.seq_len),
                                           dtype=np.int32)
                 losses.append(float(loss(state.params, to_device(local))))
         tag = "held-out" if eval_loader is not None else "probe"
-        print(f"eval step {step}: loss={float(np.mean(losses)):.4f} "
-              f"({args.eval_batches} {tag} batches)", flush=True)
+        say(f"eval step {step}: loss={float(np.mean(losses)):.4f} "
+            f"({args.eval_batches} {tag} batches)", flush=True)
 
     from kubedl_tpu_torch.train.profile_window import window_from_args
 
@@ -372,7 +374,21 @@ def _run(args, info, preempted, t_main0) -> int:
     first_step = True  # builds kernels' launch state and warms cuBLAS
 
     tracer.record("trainer.init", duration_s=time.perf_counter() - t_main0,
-                  step=start_step, model=model_name, devices=1)
+                  step=start_step, model=model_name, devices=world)
+
+    # every pod gets its own SIGTERM, and a collective save that ranks enter
+    # at different steps deadlocks: the gang takes the MAX of the flag each
+    # step, on a host (gloo) group, so the check never waits on the device
+    flag_group = None
+    if world > 1:
+        flag_group = dist.new_group(backend="gloo") if device.type == "cuda" else None
+
+    def stop_now() -> bool:
+        if world == 1:
+            return preempted["flag"]
+        flag = torch.tensor([int(preempted["flag"])])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(flag.item())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -405,15 +421,17 @@ def _run(args, info, preempted, t_main0) -> int:
             if prof is not None and prof.should_stop(step):
                 sync()
                 prof.stop()
-            if preempted["flag"]:
+            if stop_now():
                 sync()
                 if prof is not None:
                     prof.stop()
                 save(step + 1, final=True)
                 tracer.record("trainer.preempted", step=step + 1)
-                print("preempted: checkpoint saved, exiting retryable", flush=True)
-                # the checkpoint is durable; exit at once, as the JAX trainer
-                # does to skip interpreter shutdown
+                say("preempted: checkpoint saved, exiting retryable", flush=True)
+                # the checkpoint is durable (the collective save returned on
+                # every rank); exit at once, as the JAX trainer does: a clean
+                # interpreter exit would run the process group's shutdown
+                # while peers may still be in their last collective
                 sys.stdout.flush()
                 sys.stderr.flush()
                 os._exit(EXIT_TPU_PREEMPTED)
@@ -426,8 +444,8 @@ def _run(args, info, preempted, t_main0) -> int:
                 now = time.perf_counter()
                 sps = args.log_every / (now - last_log)
                 last_log = now
-                print(f"step {step + 1}: loss={loss_v:.4f} "
-                      f"step/s={sps:.2f} tok/s={sps * tokens_per_step:.0f}", flush=True)
+                say(f"step {step + 1}: loss={loss_v:.4f} "
+                    f"step/s={sps:.2f} tok/s={sps * tokens_per_step:.0f}", flush=True)
     finally:
         # SIGTERM or a raise inside the traced window must not leave the
         # profiler open (stop is idempotent)
@@ -437,18 +455,20 @@ def _run(args, info, preempted, t_main0) -> int:
     sync()
     total = max(time.perf_counter() - t_start, 1e-9)
     steps_done = args.steps - start_step
-    print(f"done: {steps_done} steps in {total:.1f}s "
-          f"({steps_done / total:.2f} step/s, "
-          f"{steps_done * tokens_per_step / total:.0f} tok/s)", flush=True)
+    say(f"done: {steps_done} steps in {total:.1f}s "
+        f"({steps_done / total:.2f} step/s, "
+        f"{steps_done * tokens_per_step / total:.0f} tok/s)", flush=True)
     if device.type == "cuda":
-        print(f"memory: peak allocated {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
-              f"on {torch.cuda.get_device_name(device)}", flush=True)
+        say(f"memory: peak allocated {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
+            f"on {torch.cuda.get_device_name(device)}", flush=True)
     save(args.steps, final=True)
     tracer.record("trainer.done", step=args.steps, steps_done=steps_done,
                   wall_s=round(total, 3))
     if step_stream is not None:
         step_stream.close()
     tracer.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

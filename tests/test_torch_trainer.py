@@ -2,7 +2,9 @@
 the printed lines, checkpoint interval, resume and pruning, the SIGTERM ->
 checkpoint -> exit 113 contract in a subprocess and through the operator,
 token shards bit-identical to the JAX package's loader, trace spans the
-JAX package's readers load, and the options this slice refuses."""
+JAX package's readers load, the options the port refuses, and meshes whose
+size is not the gang's (exit 2). The trainer as a gang:
+tests/test_torch_trainer_gang.py."""
 import os
 import signal
 import subprocess
@@ -16,6 +18,7 @@ import torch
 from kubedl_tpu_torch.native import loader as tloader
 from kubedl_tpu_torch.train import checkpoint, trainer
 from kubedl_tpu_torch.utils import exit_codes
+from torch_gang import free_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--device", "cpu", "--model", "tiny", "--batch", "2", "--seq-len", "17"]
@@ -172,16 +175,25 @@ def test_profile_window_writes_a_trace(tmp_path, capsys):
     assert len(list(prof.glob("trace-*.json"))) == 1
 
 
+# the last four: a mesh whose size is not the gang's (one device a
+# process), refused before any rendezvous with build_mesh's messages
 REFUSED = {
     "lora": (["--lora-rank", "4"], {}),
     "hf_model": (["--hf-model", "/models/llama"], {}),
     "pp_stages": ([], {"KUBEDL_PP_STAGES": "2"}),
     "pp_mpmd": ([], {"KUBEDL_PP_MPMD": "1"}),
     "live_reshard": ([], {"KUBEDL_LIVE_RESHARD": "1"}),
-    "processes": ([], {"KUBEDL_NUM_PROCESSES": "2", "KUBEDL_PROCESS_ID": "0"}),
+    "processes": ([], {"KUBEDL_NUM_PROCESSES": "2", "KUBEDL_PROCESS_ID": "0",
+                       "KUBEDL_MESH": "data=4"}),
     "mesh": ([], {"KUBEDL_MESH": "data=2"}),
     "mesh_fsdp": ([], {"KUBEDL_MESH": "data=-1,fsdp=4"}),
     "dcn_mesh": ([], {"KUBEDL_DCN_MESH": "data=2"}),
+}
+MISMATCH = {
+    "processes": "multiply to 4, but 2 devices are visible",
+    "mesh": "multiply to 2, but 1 devices are visible",
+    "mesh_fsdp": "1 devices not divisible by fixed axes product 4",
+    "dcn_mesh": "1 devices not divisible by DCN axes",
 }
 
 
@@ -194,6 +206,8 @@ def test_refused_options_exit_2(name, monkeypatch, capsys):
     err = capsys.readouterr().err
     if name == "pp_mpmd":  # the JAX trainer's message: run the stage program
         assert "pipeline_trainer" in err
+    elif name in MISMATCH:
+        assert MISMATCH[name] in err and "one device per process" in err
     else:
         assert "ROADMAP.md" in err
 
@@ -216,7 +230,9 @@ def test_a_one_device_mesh_is_accepted(monkeypatch):
     monkeypatch.setenv("KUBEDL_MESH", "data=-1,fsdp=1")
     assert trainer.mesh_from_env(1)["data"] == 1
     monkeypatch.setenv("KUBEDL_MESH", "data=-1")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    assert trainer.mesh_from_env(4)["data"] == 4  # -1 takes the whole gang
+    monkeypatch.setenv("KUBEDL_MESH", "data=2,fsdp=4")
+    with pytest.raises(ValueError, match="multiply to 8, but 4 devices are visible"):
         trainer.mesh_from_env(4)
 
 
@@ -256,8 +272,11 @@ def test_operator_preempts_and_resumes_the_port_trainer(tmp_path):
                         ],
                         # one OpenMP thread: the tiny model gains nothing from
                         # more, and a thread per core makes the pod crawl (7x
-                        # measured) when other test workers load every core
-                        "env": {"OMP_NUM_THREADS": "1"},
+                        # measured) when other test workers load every core.
+                        # The pod joins a group of one at the store address;
+                        # loopback here, so no service name is looked up
+                        "env": {"OMP_NUM_THREADS": "1",
+                                "KUBEDL_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}"},
                     }]}},
                 }},
             },
