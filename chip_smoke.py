@@ -79,6 +79,18 @@ Phases, each printing its own line of numbers:
      gang's preemption contract at bench-1b: a subprocess trainer in a
      one-rank group SIGTERMed after its first sharded checkpoint exits 113,
      and its rerun resumes from it and exits 0.
+  12. tensor-parallel serving and the int8 KV cache, in the same one-rank
+     group: full-width, full-depth Llama-7B (fresh init, bf16) on the
+     serving engine with phase 4's traffic (8 slots, 1024 positions, 6
+     prompts at once, then one prompt twice, 32 greedy tokens each), in
+     turns one device, mesh, int8 KV, int8 KV, mesh, one device: (a) the
+     parameters through shard_tree onto a {"tensor": 1} DeviceMesh into
+     ServingEngine(mesh=...), the same tokens bit for bit and the same flash
+     launches as the one-device engine, decode ms a tick and prompt tok/s
+     beside it; (b) ServingEngine(kv_dtype="int8"): int8 cache leaves, the
+     cache's bytes against the bf16 cache's, every request's first token
+     equal to the bf16 run's, peak memory, decode ms a tick, and the share
+     of greedy tokens that agree with the bf16 run.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -1196,6 +1208,129 @@ def phase_gang_preemption():
     shutil.rmtree(ckpt, ignore_errors=True)
     return dict(preempted_at=at)
 
+def _drive_engine(engine, prompts, dup):
+    """Phase 4's traffic on a ServingEngine, driven as the server's pump
+    drives it (step_block(8)): every prompt at once, then `dup` twice.
+    Counts the flash launches of this run alone."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_tick = []  # decode seconds a tick of each step_block that ticked
+    reqs = []
+    for wave in (prompts, [dup, dup]):
+        batch = [engine.submit(p, SERVE_NEW) for p in wave]
+        reqs += batch
+        while not all(r.done for r in batch):
+            ticks, dec = engine._ticks, engine._decode_time
+            engine.step_block(8)
+            if engine._ticks > ticks:
+                per_tick.append((engine._decode_time - dec) / (engine._ticks - ticks))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    st = engine.stats()
+    prompt_tokens = sum(len(p) for p in prompts) + 2 * len(dup)
+    return dict(tokens=[r.tokens for r in reqs], errors=[r.error for r in reqs],
+                launches=launches, wall_s=wall_s, ticks=st["ticks"],
+                tick_ms_median=statistics.median(per_tick) * 1e3,
+                decode_ms_per_tick=st["decode_time_s"] / st["ticks"] * 1e3,
+                prefill_tok_s=prompt_tokens / st["prefill_time_s"],
+                kv_cache_bytes=st["kv_cache_bytes"],
+                cache_dtypes=sorted({str(t.dtype) for name in ("k", "v")
+                                     for t in engine.cache[name]}))
+
+
+TP_TURNS = ("one_device", "mesh", "int8_kv", "int8_kv", "mesh", "one_device")
+
+
+def phase_tp_serving():
+    """12: Llama-7B on the serving engine through the sharded decode on a
+    one-device mesh (a) and with the int8 KV cache (b), in turns with the
+    one-device bf16-cache engine on the same parameters and traffic."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
+
+    _one_rank_group()
+    config, rules = llama.LlamaConfig.llama_7b(), ShardingRules()
+    mesh = build_mesh({"tensor": 1}, device_type="cuda")
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    sharded = shard_tree(params, mesh, llama.param_specs(config, rules))
+    kinds = {"one_device": (params, {}), "mesh": (sharded, dict(mesh=mesh, rules=rules)),
+             "int8_kv": (params, dict(kv_dtype="int8"))}
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+               for n in SERVE_LENGTHS]
+    dup = prompts[2]
+    turns = {}
+    for label in TP_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tree, kw = kinds[label]
+        engine = ServingEngine(tree, config, slots=8, max_len=1024, **kw)
+        out = _drive_engine(engine, prompts, dup)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del engine
+        turns.setdefault(label, []).append(out)
+    del params, sharded, kinds
+    ref = turns["one_device"][0]
+    for label, runs in turns.items():
+        for run in runs:
+            bad = [(n, e, len(t)) for n, e, t in zip(list(SERVE_LENGTHS) + [len(dup)] * 2,
+                                                     run["errors"], run["tokens"])
+                   if e or len(t) != SERVE_NEW or not all(0 <= x < 32000 for x in t)]
+            if bad:
+                raise AssertionError(f"12 {label}: failed requests (prompt, error, tokens) {bad}")
+            if run["tokens"][-1] != run["tokens"][-2]:
+                raise AssertionError(f"12 {label}: one prompt sent twice gave different tokens")
+            if run["launches"] < config.n_layers:
+                raise AssertionError(f"12 {label}: flash launched {run['launches']} times")
+            if label != "int8_kv":  # 12a: bit for bit, the same launches
+                if run["tokens"] != ref["tokens"] or run["launches"] != ref["launches"]:
+                    raise AssertionError(
+                        f"12a {label}: tokens equal {run['tokens'] == ref['tokens']}, "
+                        f"launches {run['launches']} vs {ref['launches']}")
+                if run["cache_dtypes"] != ["torch.bfloat16"]:
+                    raise AssertionError(f"12a {label}: cache {run['cache_dtypes']}")
+            else:  # 12b
+                if run["cache_dtypes"] != ["torch.int8"]:
+                    raise AssertionError(f"12b: the int8 engine's cache is {run['cache_dtypes']}")
+                if run["kv_cache_bytes"] > 0.51 * ref["kv_cache_bytes"]:
+                    raise AssertionError(f"12b: cache {run['kv_cache_bytes']} bytes against "
+                                         f"bf16's {ref['kv_cache_bytes']}")
+                firsts = [t[0] for t in run["tokens"]]
+                if firsts != [t[0] for t in ref["tokens"]]:
+                    raise AssertionError("12b: a first token differs from the bf16 run's "
+                                         "(prefill does not read the cache)")
+
+    def mean(label, key):
+        return statistics.mean(r[key] for r in turns[label])
+
+    tick_ratio = mean("mesh", "tick_ms_median") / mean("one_device", "tick_ms_median")
+    i8 = turns["int8_kv"][0]
+    agree = sum(a == b for x, y in zip(i8["tokens"], ref["tokens"]) for a, b in zip(x, y))
+    agree_share = agree / sum(len(t) for t in ref["tokens"])
+    bytes_ratio = i8["kv_cache_bytes"] / ref["kv_cache_bytes"]
+    for label, runs in turns.items():
+        print(f"tp serving {label}: " + "; ".join(
+            f"decode {r['decode_ms_per_tick']:.2f} ms/tick (median {r['tick_ms_median']:.2f}, "
+            f"{r['ticks']} ticks), prefill {r['prefill_tok_s']:.0f} prompt tok/s, "
+            f"peak {r['peak_gb']:.2f} GB, cache {r['kv_cache_bytes'] / 1e9:.3f} GB "
+            f"{r['cache_dtypes']}, flash launches {r['launches']}" for r in runs), flush=True)
+    print(f"tp serving: 12a mesh tokens equal the one-device engine's bit for bit, median "
+          f"tick ratio mesh/one-device {tick_ratio:.4f}; 12b int8 cache "
+          f"{i8['kv_cache_bytes'] / 1e9:.3f} GB vs bf16 {ref['kv_cache_bytes'] / 1e9:.3f} GB "
+          f"(ratio {bytes_ratio:.4f}), first tokens equal, greedy tokens agreeing with the "
+          f"bf16 run {agree}/{sum(len(t) for t in ref['tokens'])} ({agree_share:.4f})",
+          flush=True)
+    return dict(turns=turns, order=list(TP_TURNS), tick_ratio=tick_ratio,
+                bytes_ratio=bytes_ratio, agree_share=agree_share,
+                launches_mesh=turns["mesh"][0]["launches"],
+                launches_int8=turns["int8_kv"][0]["launches"])
+
 # -- the MoE slice: grouped matmul kernels, gradients, training, int8 serving --
 
 
@@ -1762,6 +1897,9 @@ def main(argv=None) -> int:
     ep = _phase("11b expert-parallel body", phase_ep_body)
     _free("the expert-parallel body")
     gang = _phase("11c gang preemption", phase_gang_preemption)
+    _free("gang preemption")
+    tp = _phase("12 tensor-parallel serving and the int8 KV cache", phase_tp_serving)
+    _free("tensor-parallel serving")
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -1817,7 +1955,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"7b_serving": launches, "7b_train": train["launches"][0],
                              "moe_train": moe_train["flash_launches"][0],
                              "7b_sharded_step": sharded["launches"][0],
-                             "moe_int8_serving": moe_serve["flash_launches"]},
+                             "moe_int8_serving": moe_serve["flash_launches"],
+                             "7b_tp_serving": tp["launches_mesh"],
+                             "7b_int8_kv_serving": tp["launches_int8"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()),
         "ms": main_k["kernel_ms"],
         "plain_ms": main_k["plain_ms"],
@@ -1832,7 +1972,7 @@ def main(argv=None) -> int:
                            bwd_kernels=bwd, gmm_kernels=gmm, model=model, serving=serving,
                            grads=grads, train=train, options=options, moe_grads=moe_grads,
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
-                           ep_body=ep, gang_preemption=gang,
+                           ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

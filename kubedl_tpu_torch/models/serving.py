@@ -13,9 +13,17 @@ device for the engine's lifetime and requests come and go by writing rows:
     empty slots; `step_block` chains up to k ticks with one host sync;
   * a cluster whose prefill raises fails only its own requests.
 
+`kv_dtype="int8"` keeps the live cache and the prefill scratch in int8
+codes with bf16 scales (models/decode.py). With a `mesh`, the parameters
+are DTensors (`llama.param_specs`) and the engine runs on every rank of the
+group with the same submissions in the same order: its slots are
+replicated, only the tensor axis splits the work, the local views of the
+leaves are taken once here, and every rank samples the same tokens from
+the gathered logits with the same seeded generator.
+
 Not ported yet, and refused with NotImplementedError where they would be
 asked for: speculative decoding, LoRA adapters, prefix caching, chunked
-prefill, ring and int8 KV caches (ROADMAP.md).
+prefill and ring KV caches (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -173,7 +181,7 @@ def _unported(what: str):
 
 class ServingEngine:
     """Slot-based continuous batching for one model on one device (the
-    device its params lie on)."""
+    device its params lie on), or on this rank's device of a `mesh`."""
 
     def __init__(
         self,
@@ -190,9 +198,9 @@ class ServingEngine:
         prefill_chunk: int = 0,
         draft_params: Optional[Dict] = None,
         draft_config: Optional[LlamaConfig] = None,
+        mesh=None,
+        rules=None,
     ) -> None:
-        if kv_dtype is not None:
-            raise _unported("int8 KV serving (kv_dtype)")
         if ring:
             raise _unported("ring KV caches (ring=True)")
         if prefill_chunk:
@@ -201,7 +209,10 @@ class ServingEngine:
             raise _unported("speculative decoding (draft_params)")
         self.params = params
         self.config = config
-        self.device = params["embed"].device
+        self.kv_dtype = kv_dtype
+        self.mesh, self.rules = mesh, rules
+        self._local, self._par = decode._mesh_context(params, config, mesh, rules)
+        self.device = self._local["embed"].device
         self.slots = slots
         self.max_len = max_len
         if prompt_buckets is None:
@@ -225,7 +236,7 @@ class ServingEngine:
         self.samp_topk = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.samp_topp = torch.ones((slots,), dtype=torch.float32, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self.cache = decode.init_kv_cache(config, slots, max_len, device=dev)
+        self.cache = self._new_cache(slots, max_len)
         self.cur_tokens = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._slot_req: List[Optional[Request]] = [None] * slots
@@ -248,11 +259,16 @@ class ServingEngine:
 
     # -- device pieces -----------------------------------------------------
 
+    def _new_cache(self, batch: int, max_len: int) -> Dict:
+        return decode.init_kv_cache(self.config, batch, max_len, kv_dtype=self.kv_dtype,
+                                    device=self.device, mesh=self.mesh, rules=self.rules)
+
     def _insert(self, rows: Dict, i: int, slot: int, length: int, first) -> None:
-        """Splice row i of a prefill cache into `slot` of the live batch."""
+        """Splice row i of a prefill cache (K/V and any int8 scales) into
+        `slot` of the live batch."""
         L = rows["k"][0].shape[2]
-        for name in ("k", "v"):
-            for big, small in zip(self.cache[name], rows[name]):
+        for name in ("k", "v", "ks", "vs"):
+            for big, small in zip(self.cache.get(name, ()), rows.get(name, ())):
                 big[slot, :, :L] = small[i]
         self.cache["lengths"][slot] = length
         self.cur_tokens[slot] = first
@@ -261,8 +277,10 @@ class ServingEngine:
     def _tick(self, mode: str):
         """One decode tick over every slot: (next tokens, their logprobs)."""
         old = self.cache["lengths"]
-        logits, self.cache = decode.decode_step(
-            self.params, self.cur_tokens, self.cache, self.config, check=False)
+        logits, self.cache = decode._decode_block_step(
+            self._local, self.cur_tokens[:, None], self.cache, self.config,
+            check=False, par=self._par)
+        logits = logits[:, 0]
         nxt = sample_tokens(logits, self.generator, self.samp_temps,
                             self.samp_topk, self.samp_topp, mode, self.max_top_k)
         nxt = torch.where(self.active, nxt, torch.zeros_like(nxt))
@@ -387,8 +405,7 @@ class ServingEngine:
             for slot, req in enumerate(self._slot_req):
                 if req is not None:
                     self._fail(slot, req, "engine cache rebuilt after prefill failure")
-            self.cache = decode.init_kv_cache(self.config, self.slots,
-                                              self.max_len, device=self.device)
+            self.cache = self._new_cache(self.slots, self.max_len)
             self.cur_tokens = torch.zeros((self.slots,), dtype=torch.int32,
                                           device=self.device)
             self.active = torch.zeros((self.slots,), dtype=torch.bool,
@@ -451,10 +468,9 @@ class ServingEngine:
             topks[i] = r.top_k
             topps[i] = r.top_p
         dev = self.device
-        scratch = decode.init_kv_cache(self.config, k_pad, bucket, device=dev)
-        logits, rows = decode.prefill(
-            self.params, torch.from_numpy(padded).to(dev), scratch, self.config,
-            lengths=torch.from_numpy(lengths).to(dev))
+        logits, rows = decode._prefill(
+            self._local, torch.from_numpy(padded).to(dev), self._new_cache(k_pad, bucket),
+            self.config, torch.from_numpy(lengths).to(dev), self._par)
         self._prefill_batches += 1
         if any(r.needs_filter for r in reqs):
             mode = "filtered"
@@ -602,4 +618,5 @@ class ServingEngine:
             "prefill_batches": self._prefill_batches,
             "wave_failures": self._wave_failures,
             "wave_resets": self._wave_resets,
+            "kv_cache_bytes": decode.cache_bytes(self.cache),
         }

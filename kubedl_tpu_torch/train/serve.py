@@ -16,9 +16,11 @@ ticks. Run it with
     python -m kubedl_tpu_torch.train.serve --model llama-7b --allow-fresh-init
 
 It runs on the card unless --device cpu is given; --int8 serves the
-weight-only int8 tree (models/quant.py). Text prompts (they need a
-tokenizer), streaming, prefixes, adapters, int8 KV caches, speculative
-decoding, checkpoints and --hf-model are not ported yet and are refused.
+weight-only int8 tree (models/quant.py), --kv-int8 keeps the KV cache in
+int8 codes with bf16 scales (models/decode.py). The server is one process
+on one device, as the reference's is. Text prompts (they need a
+tokenizer), streaming, prefixes, adapters, speculative decoding,
+checkpoints and --hf-model are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -69,7 +71,6 @@ def parse_args(argv=None):
 _UNPORTED_FLAGS = (
     ("lora_checkpoint_path", "--lora-checkpoint-path"),
     ("adapter", "--adapter"),
-    ("kv_int8", "--kv-int8"),
     ("draft_model", "--draft-model"),
     ("draft_checkpoint_path", "--draft-checkpoint-path"),
     ("draft_hf_model", "--draft-hf-model"),
@@ -269,7 +270,8 @@ def build_server(args):
 
         params = quant.quantize_params(params)
     engine = ServingEngine(params, config, slots=args.slots,
-                           max_len=args.max_len, temperature=args.temperature)
+                           max_len=args.max_len, temperature=args.temperature,
+                           kv_dtype="int8" if args.kv_int8 else None)
     svc = _Service(engine, decode_block=args.decode_block)
     httpd = ThreadingHTTPServer((args.bind, args.port), _Handler)
     httpd.daemon_threads = True

@@ -174,8 +174,9 @@ def test_sampled_generate_is_seeded_and_in_range(model):
 
 def test_cache_guards(model):
     _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError):
-        tdecode.init_kv_cache(tcfg, 1, 8, kv_dtype="int8", device="cpu")
+    int8 = tdecode.init_kv_cache(tcfg, 1, 8, kv_dtype="int8", device="cpu")
+    assert int8["k"][0].dtype == torch.int8 and int8["ks"][0].dtype == torch.bfloat16
+    assert int8["ks"][0].shape == (1, tcfg.n_kv_heads, 8) and bool((int8["vs"][1] == 1).all())
     with pytest.raises(NotImplementedError):
         tdecode.init_kv_cache(tcfg, 1, 8, ring=True, device="cpu")
     with pytest.raises(ValueError):

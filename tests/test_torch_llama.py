@@ -106,13 +106,22 @@ def test_init_matches_jax_tree_and_statistics():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: int8 and ring KV caches (the MoE layers
-    and int8 weight leaves that this test once pinned are ported)."""
+    """What the port still refuses: ring KV caches and MoE layers in a
+    decode under a mesh (the MoE layers, int8 weight leaves and int8 KV
+    caches that this test once pinned are ported)."""
+    import types
+
     from kubedl_tpu_torch.models import decode
+    from kubedl_tpu_torch.parallel.mesh import AXIS_ORDER
 
     cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    moe = tllama.LlamaConfig.tiny(dtype=torch.float32, n_experts=2)
+    mesh = types.SimpleNamespace(  # stand-in: the refusal comes before any collective
+        mesh_dim_names=AXIS_ORDER, mesh=np.zeros([2 if a == "tensor" else 1 for a in AXIS_ORDER]),
+        get_local_rank=lambda axis: 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.init_kv_cache(cfg, 1, 8, kv_dtype="int8", device="cpu")
+        decode.prefill(tllama.init(moe, torch.Generator().manual_seed(0), device="cpu"),
+                       torch.ones((1, 4), dtype=torch.int32), {}, moe, mesh=mesh)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode.init_kv_cache(cfg, 1, 8, ring=True, device="cpu")
     with pytest.raises(ValueError):

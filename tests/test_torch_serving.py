@@ -124,14 +124,14 @@ def test_sample_tokens_modes():
 def test_prefill_failure_fails_only_its_cluster(model, monkeypatch):
     _, _, tcfg, tp = model
     prompts = _prompts((5, 100), 4)
-    real = decode.prefill
+    real = decode._prefill
 
-    def flaky(params, tokens, cache, config, lengths=None):
+    def flaky(params, tokens, cache, config, lengths=None, par=None):
         if tokens.shape[1] == 128:
             raise RuntimeError("injected prefill failure")
-        return real(params, tokens, cache, config, lengths=lengths)
+        return real(params, tokens, cache, config, lengths, par)
 
-    monkeypatch.setattr(serving.decode, "prefill", flaky)
+    monkeypatch.setattr(serving.decode, "_prefill", flaky)
     eng = ServingEngine(tp, tcfg, slots=2, max_len=128)
     good, bad = eng.submit(prompts[0], 4), eng.submit(prompts[1], 4)
     while eng.has_pending():
@@ -167,7 +167,7 @@ def test_wave_sync_failure_isolates_clusters(model):
 
 def test_unported_features_are_refused(model):
     _, _, tcfg, tp = model
-    for kw in (dict(kv_dtype="int8"), dict(ring=True), dict(prefill_chunk=256),
+    for kw in (dict(ring=True), dict(prefill_chunk=256),
                dict(draft_params=tp, draft_config=tcfg)):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServingEngine(tp, tcfg, slots=1, max_len=32, **kw)
@@ -236,8 +236,8 @@ def test_http_round_trip_on_cpu(server):
 def test_serve_refuses_unported_flags_and_missing_card(monkeypatch):
     from kubedl_tpu_torch.train import serve
 
-    with pytest.raises(NotImplementedError, match="--kv-int8"):
-        serve.build_server(serve.parse_args(["--device", "cpu", "--kv-int8"]))
+    with pytest.raises(NotImplementedError, match="--draft-model"):
+        serve.build_server(serve.parse_args(["--device", "cpu", "--draft-model", "tiny"]))
     with pytest.raises(NotImplementedError):
         serve.build_server(serve.parse_args(["--device", "cpu",
                                              "--checkpoint-path", "/nonexistent"]))
@@ -280,6 +280,37 @@ def test_http_round_trip_int8_on_cpu():
         prompt = _prompts((9,), 8)[0]
         got = _post(base, {"tokens": prompt.tolist(), "max_new_tokens": 5})
         assert got["tokens"] == _generate(qp, tcfg, prompt, 5)
+    finally:
+        httpd.shutdown()
+        t.join(timeout=30)
+        httpd.server_close()
+        svc.stop()
+
+
+def test_http_round_trip_kv_int8_on_cpu():
+    """--kv-int8: the engine keeps an int8 cache and answers with the greedy
+    tokens of decode.generate(kv_dtype="int8") on the same weights; /stats
+    reports the cache's bytes."""
+    from kubedl_tpu_torch.train import serve
+    from kubedl_tpu_torch.train.generate import resolve_params
+
+    args = serve.parse_args(["--model", "tiny", "--device", "cpu", "--port", "0",
+                             "--bind", "127.0.0.1", "--max-len", "64", "--kv-int8"])
+    httpd, svc = serve.build_server(args)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        assert svc.engine.cache["k"][0].dtype == torch.int8
+        tp, tcfg = resolve_params("tiny", device="cpu")
+        prompt = _prompts((9,), 9)[0]
+        got = _post(base, {"tokens": prompt.tolist(), "max_new_tokens": 5})
+        want = decode.generate(tp, torch.from_numpy(prompt)[None], tcfg, 5, kv_dtype="int8")
+        assert got["tokens"] == want[0].tolist()
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        # 8 slots, 2 KV heads, 64 positions: int8 codes of head_dim 32 + bf16 scales
+        assert stats["kv_cache_bytes"] == tcfg.n_layers * 2 * (8 * 2 * 64 * 32 + 8 * 2 * 64 * 2)
     finally:
         httpd.shutdown()
         t.join(timeout=30)

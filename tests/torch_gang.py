@@ -1,5 +1,6 @@
-"""A gloo gang of the port's sharded train step, for the tests that hold it
-against the JAX step (tests/test_torch_sharded_*.py).
+"""A gloo gang of the port's sharded train step, decode and serving engine,
+for the tests that hold them against the JAX package on the same mesh
+(tests/test_torch_sharded_*.py, tests/test_torch_tp_decode.py).
 
 `run_gang(cases, world, tmp)` starts `world` processes of this file, each
 one rank of a torch.distributed group formed from the operator's env
@@ -15,7 +16,14 @@ Each rank takes its rows of every global batch (parallel/mesh.py
 `token_index`), runs `make_train_step` on its DeviceMesh and reports the
 loss and grad norm of each micro-step, the first micro-step's gradients and
 the parameters after the last, gathered to their full shapes and laid out
-as the case's parameter tree. This module imports no JAX.
+as the case's parameter tree.
+
+A case with kind "decode" (prompt, optional lengths, new_tokens, max_len,
+kv_dtype, and temperature/seed for a sampled run beside the greedy one)
+runs `decode.generate` on the sharded tree; kind "serving" (prompts,
+slots, max_len, new_tokens, kv_dtype) runs a `ServingEngine` on it. Every
+rank runs the whole batch, and every rank's tokens come back. This module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -84,7 +92,50 @@ def _like(tree, leaves):
     return build(tree)
 
 
+def _inference_case(case):
+    """Greedy (and sampled) tokens of every rank for a decode or serving case."""
+    import torch
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import decode, llama
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    params = shard_tree(params_from_numpy(case["params"]), mesh, llama.param_specs(cfg, rules))
+    out = {}
+    if case["kind"] == "decode":
+        prompt = torch.from_numpy(case["prompt"])
+        lengths = case.get("lengths")
+        lengths = None if lengths is None else torch.from_numpy(lengths)
+
+        def run(**kw):
+            return decode.generate(params, prompt, cfg, case["new_tokens"],
+                                   max_len=case["max_len"], lengths=lengths,
+                                   kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules,
+                                   **kw).tolist()
+        out["greedy"] = run()
+        if case.get("temperature"):
+            out["sampled"] = run(temperature=case["temperature"],
+                                 generator=torch.Generator().manual_seed(case["seed"]))
+    else:
+        eng = ServingEngine(params, cfg, slots=case["slots"], max_len=case["max_len"],
+                            kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules)
+        out["greedy"] = eng.serve_all(case["prompts"], case["new_tokens"])
+        stats = eng.stats()
+        out["kv_cache_bytes"] = stats["kv_cache_bytes"]
+        out["cache_dtype"] = str(eng.cache["k"][0].dtype)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
 def _case(case):
+    if case.get("kind"):
+        return _inference_case(case)
     import numpy as np
     import torch
     import torch.distributed as dist
