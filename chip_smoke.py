@@ -10,7 +10,8 @@ Phases, each printing its own line of numbers:
      gmm_sm90.cu must show no spill and no wgmma wait that ptxas injected);
   2. the flash forward against its plain PyTorch version on the card, at
      the 7B prefill shapes, serving's short buckets and the variants the
-     model can ask for (GQA, window, softcap, d=64, a long sequence): the
+     model can ask for (GQA, window, softcap, d=64, a long sequence) and
+     phase 13's one-pass prefills (GQA with a window at S=8192, S=4096): the
      kernel kernel_source routes to (flash_fwd_sm90.cu at d <= 128), the
      mma.sync kernel of flash_fwd.cu at the same shape, and
      scaled_dot_product_attention, each timed as device time (10 launches
@@ -91,6 +92,28 @@ Phases, each printing its own line of numbers:
      cache's bytes against the bf16 cache's, every request's first token
      equal to the bf16 run's, peak memory, decode ms a tick, and the share
      of greedy tokens that agree with the bf16 run.
+  13. the serving features, after phase 12's group is gone: (a) Llama-7B
+     on ServingEngine (8 slots, max_len 4096, buckets to 1024, chunks of
+     256): a 3,840-token prompt chunk-prefills while seven slots decode;
+     its first-token logits against a one-pass decode.prefill, and the
+     longest gap between two tokens of a decoding slot against an engine
+     whose buckets reach 4096; (b) the HTTP server: a 1,024-token prefix
+     through POST /prefix, 8 requests naming it against the full prompts
+     (first-token logits, greedy tokens, prefill time), the registered
+     cache unchanged bit for bit; (c) the trainer trains and checkpoints
+     bench-1b, serve --draft-model bench-1b --draft-checkpoint-path answers
+     8 greedy requests (restored draft equal to the saved one, acceptance,
+     agreement with the plain engine), plain and speculative engines in
+     turns, the 7B drafting for itself (acceptance >= 0.9), the verify
+     block against decode_step; (d) Mistral-7B-v0.1 widths, max_len 8192:
+     the default ring cache (4096 rows) against a full cache on a
+     6,000-token prompt (tokens equal, logits of every sampling call, half
+     the cache's bytes, peak memory); (e) generate(with_logprobs=True)
+     against a teacher-forced forward's log_softmax at the chosen tokens
+     (a tolerance that two wrong logprobs exceed) and against the same
+     path's logits replayed. K1 must launch on
+     a-d; its counts join the kernels line's launches_by_path. Every
+     line carries nvidia-smi's name and power limit.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -115,6 +138,7 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -256,6 +280,10 @@ def phase_kernels():
         "softcap50_s1024": (4, 32, 32, 1024, 128, True, None, 50.0),
         "d64_s1024": (4, 32, 32, 1024, 64, True, None, None),
         "long_b1_h8_s8320": (1, 8, 8, 8320, 128, True, None, None),
+        # phase 13's prefills: 13d's 6000-token prompt in the 8192 bucket
+        # (Mistral-7B: GQA 32/8, window 4096), 13a's one-pass 3840 in 4096
+        "mistral_w4096_s8192": (1, 32, 8, 8192, 128, True, 4096, None),
+        "7b_b1_s4096": (1, 32, 32, 4096, 128, True, None, None),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -386,8 +414,8 @@ def phase_model():
                 logits_max=scale, argmax_agree=ak == ap)
 
 
-def _post(base, body, timeout=600):
-    req = urllib.request.Request(f"{base}/generate", data=json.dumps(body).encode(),
+def _post(base, body, timeout=600, path="/generate"):
+    req = urllib.request.Request(f"{base}{path}", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return json.loads(r.read())
@@ -1848,6 +1876,488 @@ def phase_moe_serve():
     return numbers
 
 
+# -- phase 13: the serving features (chunked prefill, prefixes, speculative
+# serving, ring caches, logprobs) --------------------------------------------
+
+CHUNK_PROMPT, CHUNK_NEW = 3840, 8      # 13a: 15 chunks of 256 into max_len 4096
+CHUNK_SHORT, CHUNK_SHORT_NEW = 64, 48  # the seven slots decoding meanwhile
+LOGIT_TOL = 0.05          # max|a - b| / max|b| of two bf16 7B paths (phase 3's bound)
+PREFIX_LEN, PREFIX_SUFFIXES = 1024, (32, 44, 56, 68, 80, 96, 112, 128)
+SPEC_NEW, SELF_ACCEPT_MIN = 32, 0.9
+RING_PROMPT, RING_NEW = 6000, 32       # 13d: wraps a 4096-row ring of max_len 8192
+# 13e: |logprob - teacher-forced log_softmax| of bf16 7B logits; on an H100
+# a sound run read 0.031 and the two wrong logprobs 1.02 and 1.24 (PERF.md)
+LP_TOL = 0.1
+LP_REPLAY_TOL = 1e-5      # 13e: |logprob - log_softmax of the same path's logits|
+
+
+def _compare_logits(got, ref, what):
+    """(max_abs, scale, argmax agree) of two [V] logit rows; raises past
+    LOGIT_TOL, or on a differing argmax that is not a near-tie within the
+    measured error."""
+    got, ref = got.float(), ref.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    max_abs = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    ag, ar = int(got.argmax()), int(ref.argmax())
+    if max_abs > LOGIT_TOL * scale or (ag != ar and (ref[ar] - ref[ag]).item() > max_abs):
+        raise AssertionError(f"{what}: max_abs {max_abs:.4e} of max|logit| {scale:.3f}, "
+                             f"argmax {ag} vs {ar}")
+    return max_abs, scale, ag == ar
+
+
+def _agree(a, b):
+    """Share of equal greedy tokens over request lists a and b."""
+    n = sum(len(x) for x in b)
+    return sum(p == q for x, y in zip(a, b) for p, q in zip(x, y)) / n
+
+
+def _chunk_traffic(engine, prompts, long_prompt):
+    """Seven short requests decoding, then the long prompt arrives; the
+    engine driven by step(). Returns (longest gap between two tokens of a
+    short request while the long prompt enters, s; the long request;
+    seconds from its submit to its first token)."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    shorts = [engine.submit(p, CHUNK_SHORT_NEW) for p in prompts]
+    for r in shorts:
+        r.token_times = []
+    for _ in range(4):
+        engine.step()
+    torch.cuda.synchronize()
+    t_sub = time.monotonic()
+    long_req = engine.submit(long_prompt, CHUNK_NEW)
+    while not long_req.tokens:
+        engine.step()
+    t_first = long_req.first_token_at
+    while engine.has_pending():
+        engine.step()
+    gaps = [b - a for r in shorts for a, b in zip(r.token_times, r.token_times[1:])
+            if b > t_sub and a < t_first]
+    bad = [r.error for r in shorts + [long_req] if r.error or not r.done]
+    if bad or len(long_req.tokens) != CHUNK_NEW:
+        raise AssertionError(f"13a: failed requests {bad}")
+    return max(gaps), long_req, t_first - t_sub, flash_attention.launches, shorts
+
+
+def _13a_chunked(params, config, smi):
+    from kubedl_tpu_torch.models import decode
+    from kubedl_tpu_torch.models.serving import ServingEngine
+
+    rng = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(1, config.vocab_size, (CHUNK_SHORT,), generator=rng).tolist()
+               for _ in range(7)]
+    long_prompt = torch.randint(1, config.vocab_size, (CHUNK_PROMPT,), generator=rng).tolist()
+    buckets = [16 << i for i in range(7)]  # 16 .. 1024
+    out = {}
+    for label, kw in (("chunked", dict(prompt_buckets=buckets, prefill_chunk=256)),
+                      ("one_pass", dict(prompt_buckets=buckets + [2048, 4096],
+                                        prefill_chunk=0))):
+        engine = ServingEngine(params, config, slots=8, max_len=4096, **kw)
+        firsts, chunks = [], [0]
+        sample_first, append = engine._sample_first, engine._append_block
+
+        def keep_first(logits, req, _f=sample_first):
+            firsts.append((req, logits[0].float().clone()))
+            return _f(logits, req)
+
+        def count_chunk(*a, _f=append):
+            chunks[0] += 1
+            return _f(*a)
+
+        engine._sample_first, engine._append_block = keep_first, count_chunk
+        gap, long_req, ttft, launches, shorts = _chunk_traffic(engine, prompts, long_prompt)
+        st = engine.stats()
+        out[label] = dict(gap_ms=gap * 1e3, ttft_s=ttft, launches=launches, chunks=chunks[0],
+                          chunked_prefills=st["chunked_prefills"],
+                          tokens=[r.tokens for r in shorts] + [long_req.tokens],
+                          first_logits=[lg for r, lg in firsts if r is long_req])
+        del engine, firsts
+        gc.collect()
+        torch.cuda.empty_cache()
+    ch = out["chunked"]
+    if ch["chunked_prefills"] != 1 or ch["chunks"] != CHUNK_PROMPT // 256 \
+            or out["one_pass"]["chunked_prefills"] != 0:
+        raise AssertionError(f"13a: chunked prefills {ch['chunked_prefills']}, chunks "
+                             f"{ch['chunks']}, one-pass engine "
+                             f"{out['one_pass']['chunked_prefills']}")
+    if ch["launches"] <= 0 or out["one_pass"]["launches"] <= 0:
+        raise AssertionError(f"13a: flash launches {ch['launches']}, "
+                             f"{out['one_pass']['launches']}")
+    cache = decode.init_kv_cache(config, 1, CHUNK_PROMPT, uniform=True, device="cuda")
+    ref, _ = decode.prefill(params, torch.tensor([long_prompt], dtype=torch.int32,
+                                                 device="cuda"), cache, config)
+    del cache
+    max_abs, scale, agree = _compare_logits(ch["first_logits"][0], ref[0], "13a")
+    share = _agree(ch["tokens"], out["one_pass"]["tokens"])
+    print(f"13a chunked prefill [{smi}]: llama-7b, 8 slots, max_len 4096, a {CHUNK_PROMPT}-token "
+          f"prompt in {ch['chunks']} chunks of 256 beside 7 decoding slots; longest gap between "
+          f"two tokens of a decoding slot while it entered {ch['gap_ms']:.1f} ms vs "
+          f"{out['one_pass']['gap_ms']:.1f} ms with a one-pass prefill (buckets to 4096); "
+          f"first token {ch['ttft_s']:.3f} s vs {out['one_pass']['ttft_s']:.3f} s after "
+          f"submit; first-token logits vs one-pass decode.prefill max_abs {max_abs:.4e} "
+          f"(max |logit| {scale:.3f}, rel {max_abs / scale:.3e}, tol {LOGIT_TOL}), argmax "
+          f"{'agree' if agree else 'near-tie'}; greedy tokens agreeing with the one-pass "
+          f"engine {share:.4f}; flash launches {ch['launches']} (one-pass engine "
+          f"{out['one_pass']['launches']})", flush=True)
+    return dict(gap_ms=ch["gap_ms"], gap_ms_one_pass=out["one_pass"]["gap_ms"],
+                ttft_s=ch["ttft_s"], ttft_s_one_pass=out["one_pass"]["ttft_s"],
+                chunks=ch["chunks"], logits_max_abs=max_abs, logits_scale=scale,
+                agree_share=share, launches=ch["launches"],
+                launches_one_pass=out["one_pass"]["launches"])
+
+
+def _serve_args(*extra):
+    from kubedl_tpu_torch.train import serve
+
+    return serve.parse_args(["--model", "llama-7b", "--allow-fresh-init", "--slots", "8",
+                             "--port", "0", "--bind", "127.0.0.1", *extra])
+
+
+@contextlib.contextmanager
+def _server(args):
+    from kubedl_tpu_torch.train import serve
+
+    built = serve.build_server(args)
+    if built is None:
+        raise AssertionError("serve.build_server found no weights")
+    httpd, svc = built
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}", svc
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=60)
+        httpd.server_close()
+        svc.stop()
+
+
+def _13b_prefix(smi):
+    """POST /prefix of a 1024-token prefix, 8 requests naming it, the same
+    8 full prompts without it. Returns (numbers, the server's params)."""
+    from kubedl_tpu_torch.models import decode
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = torch.Generator().manual_seed(14)
+    prefix = torch.randint(1, 32000, (PREFIX_LEN,), generator=rng).tolist()
+    suffixes = [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in PREFIX_SUFFIXES]
+    with _server(_serve_args("--max-len", "2048")) as (base, svc):
+        engine = svc.engine
+        flash_attention.launches = 0
+        pid = _post(base, {"tokens": prefix}, path="/prefix")["prefix_id"]
+        registered = decode.clone_cache(engine._prefixes[pid][0])
+        p0 = engine.stats()["prefill_time_s"]
+        with_prefix = _post(base, {"requests": [
+            {"tokens": s, "max_new_tokens": SERVE_NEW, "prefix_id": pid} for s in suffixes]})
+        p1 = engine.stats()["prefill_time_s"]
+        launches = flash_attention.launches
+        full = _post(base, {"requests": [
+            {"tokens": prefix + s, "max_new_tokens": SERVE_NEW} for s in suffixes]})
+        p2 = engine.stats()["prefill_time_s"]
+        with svc._lock:  # the pump is idle; first-token logits of both paths
+            worst = (0.0, 1.0)
+            for s in suffixes:
+                lg, _ = engine._suffix_prefill(pid, np.asarray(s, np.int32))
+                cache = decode.init_kv_cache(engine.config, 1, PREFIX_LEN + len(s),
+                                             uniform=True, device="cuda")
+                ref, _ = decode.prefill(engine.params, torch.tensor(
+                    [prefix + s], dtype=torch.int32, device="cuda"), cache, engine.config)
+                max_abs, scale, _ = _compare_logits(lg[0], ref[0], "13b")
+                worst = max(worst, (max_abs / scale, max_abs))
+                del cache
+        after = engine._prefixes[pid][0]
+        unchanged = all(torch.equal(a, b) for name in ("k", "v")
+                        for a, b in zip(registered[name], after[name])) \
+            and torch.equal(registered["lengths"], after["lengths"])
+        params = engine.params
+    toks_p = [r["tokens"] for r in with_prefix["results"]]
+    toks_f = [r["tokens"] for r in full["results"]]
+    errors = [r.get("error") for r in with_prefix["results"] + full["results"] if r.get("error")]
+    if errors or any(len(t) != SERVE_NEW for t in toks_p + toks_f):
+        raise AssertionError(f"13b: failed requests {errors}")
+    if not unchanged:
+        raise AssertionError("13b: the registered prefix's cache changed")
+    if launches < 32:
+        raise AssertionError(f"13b: flash launched {launches} times for the prefix")
+    firsts = sum(a[0] == b[0] for a, b in zip(toks_p, toks_f))
+    if firsts < len(suffixes) - 1:  # one near-tie flip allowed, as the logits check allows
+        raise AssertionError(f"13b: first tokens agree on {firsts} of {len(suffixes)}")
+    share = _agree(toks_p, toks_f)
+    print(f"13b prefix caching [{smi}]: a {PREFIX_LEN}-token prefix through POST /prefix, 8 "
+          f"requests of prefix + {PREFIX_SUFFIXES[0]}-{PREFIX_SUFFIXES[-1]} suffix tokens; "
+          f"prefill time {p1 - p0:.4f} s with the prefix vs {p2 - p1:.4f} s for the full "
+          f"prompts; first-token logits vs a one-pass prefill of the full prompt worst rel "
+          f"{worst[0]:.3e} (max_abs {worst[1]:.4e}, tol {LOGIT_TOL}); first tokens equal "
+          f"{firsts}/8, greedy tokens agreeing {share:.4f}; registered cache unchanged bit "
+          f"for bit; flash launches {launches}", flush=True)
+    return dict(prefill_s_prefix=p1 - p0, prefill_s_full=p2 - p1, logits_rel=worst[0],
+                first_tokens_equal=firsts, agree_share=share, launches=launches), params
+
+
+def _spec_turn(engine, prompts):
+    """8 greedy requests driven by step_block(8): (tokens, decode ms a
+    tick (a round on a speculative engine), stats)."""
+    engine._ticks, engine._decode_time = 0, 0.0
+    reqs = [engine.submit(p, SPEC_NEW) for p in prompts]
+    while engine.has_pending():
+        engine.step_block(8)
+    if any(r.error or len(r.tokens) != SPEC_NEW for r in reqs):
+        raise AssertionError(f"13c: failed requests {[r.error for r in reqs]}")
+    st = engine.stats()
+    return [r.tokens for r in reqs], st["decode_time_s"] / max(st["ticks"], 1) * 1e3, st
+
+
+def _13c_speculative(smi):
+    from kubedl_tpu_torch.models import decode, llama
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    ckpt = os.path.join(WORK, "ckpt-draft-1b")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rc, spans, _ = _run_trainer(["--model", "bench-1b", "--batch", "2", "--seq-len", "256",
+                                 "--steps", "3", "--log-every", "100",
+                                 "--checkpoint-path", ckpt], "draft")
+    if rc != 0 or _latest_ckpt(ckpt) != 3:
+        raise AssertionError(f"13c: bench-1b trainer rc={rc}, checkpoint {_latest_ckpt(ckpt)}")
+    saved = torch.load(os.path.join(ckpt, "3", "state.pt"), map_location="cpu", mmap=True,
+                       weights_only=True)["params"]
+    rng = torch.Generator().manual_seed(15)
+    prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in SERVE_LENGTHS] \
+        + [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in (40, 300)]
+    flash_attention.launches = 0
+    with _server(_serve_args("--max-len", "1024", "--draft-model", "bench-1b",
+                             "--draft-checkpoint-path", ckpt)) as (base, svc):
+        answers = _post(base, {"requests": [
+            {"tokens": p, "max_new_tokens": SPEC_NEW} for p in prompts]})["results"]
+        launches = flash_attention.launches
+        engine = svc.engine
+        restored = all(torch.equal(a.cpu(), b) for a, b in
+                       zip(llama.tree_leaves(engine.draft_params), llama.tree_leaves(saved)))
+        http_stats = engine.stats()
+        params, config = engine.params, engine.config
+        draft, draft_config = engine.draft_params, engine.draft_config
+    del svc, engine, saved
+    if any(a.get("error") or len(a["tokens"]) != SPEC_NEW for a in answers):
+        raise AssertionError(f"13c: failed requests {[a.get('error') for a in answers]}")
+    if not restored:
+        raise AssertionError("13c: the restored draft params differ from the saved ones")
+    if launches < 2 * 16 or http_stats["spec_rounds"] <= 0:
+        raise AssertionError(f"13c: flash launches {launches}, rounds "
+                             f"{http_stats['spec_rounds']}")
+    turns = {}
+    for label in ("plain", "spec", "spec", "plain"):
+        kw = dict(draft_params=draft, draft_config=draft_config) if label == "spec" else {}
+        engine = ServingEngine(params, config, slots=8, max_len=1024, **kw)
+        turns.setdefault(label, []).append(_spec_turn(engine, prompts))
+        del engine
+    engine = ServingEngine(params, config, slots=8, max_len=1024, draft_params=params,
+                           draft_config=config)
+    self_toks, self_ms, self_st = _spec_turn(engine, prompts)
+    del engine
+    # the verify block against single decode steps on one cache
+    prompt = torch.tensor([prompts[1]], dtype=torch.int32, device="cuda")
+    cache = decode.init_kv_cache(config, 1, 200, uniform=True, device="cuda")
+    logits, cache = decode.prefill(params, prompt, cache, config)
+    blk = torch.tensor([[int(logits.argmax())] + turns["plain"][0][0][1][:3]],
+                       dtype=torch.int32, device="cuda")
+    step_cache = decode.clone_cache(cache)
+    blk_logits, _ = decode.decode_block_step(params, blk, cache, config, check=False)
+    worst = (0.0, 1.0)
+    for i in range(blk.shape[1]):
+        lg, step_cache = decode.decode_step(params, blk[:, i], step_cache, config, check=False)
+        max_abs, scale, _ = _compare_logits(blk_logits[0, i], lg[0], "13c verify")
+        worst = max(worst, (max_abs / scale, max_abs))
+    del cache, step_cache
+    plain_toks = turns["plain"][0][0]
+    served = [a["tokens"] for a in answers]
+    share = _agree(served, plain_toks)
+    firsts = sum(a[0] == b[0] for a, b in zip(served, plain_toks))
+    self_share = _agree(self_toks, plain_toks)
+    if firsts != len(prompts):
+        raise AssertionError(f"13c: first tokens (one prefill) equal {firsts}/{len(prompts)}")
+    if self_st["spec_acceptance"] < SELF_ACCEPT_MIN:
+        raise AssertionError(f"13c: self-draft acceptance {self_st['spec_acceptance']}")
+
+    def mean(label, i):
+        return statistics.mean(t[i] for t in turns[label])
+
+    spec_st = turns["spec"][0][2]
+    per_round = SPEC_NEW * len(prompts) / max(spec_st["spec_rounds"], 1) / len(prompts)
+    print(f"13c speculative serving [{smi}]: serve --model llama-7b --draft-model bench-1b "
+          f"--draft-checkpoint-path (3 trainer steps, restored params equal the saved ones "
+          f"bit for bit), 8 greedy requests of {SPEC_NEW} tokens: acceptance "
+          f"{http_stats['spec_acceptance']:.4f} over {http_stats['spec_rounds']} rounds; "
+          f"greedy tokens agreeing with the plain engine {share:.4f}, first tokens {firsts}/8; "
+          f"in turns plain, spec, spec, plain: decode {mean('plain', 1):.2f} ms a tick (plain) "
+          f"vs {mean('spec', 1):.2f} ms a round (spec, {per_round:.3f} tokens a slot a round, "
+          f"acceptance {spec_st['spec_acceptance']:.4f}); self-draft (7B drafting for itself): "
+          f"acceptance {self_st['spec_acceptance']:.4f}, {self_ms:.2f} ms a round, "
+          f"{self_st['spec_rounds']} rounds, tokens agreeing with plain {self_share:.4f}; "
+          f"verify block vs decode_step logits worst rel {worst[0]:.3e} (max_abs "
+          f"{worst[1]:.4e}, tol {LOGIT_TOL}); flash launches {launches}", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(acceptance=http_stats["spec_acceptance"], rounds=http_stats["spec_rounds"],
+                agree_share=share, tick_ms_plain=mean("plain", 1),
+                round_ms_spec=mean("spec", 1), tokens_per_round=per_round,
+                self_acceptance=self_st["spec_acceptance"], self_round_ms=self_ms,
+                self_agree_share=self_share, verify_rel=worst[0], launches=launches)
+
+
+def _mistral():
+    """Mistral-7B-v0.1's published config (mistralai/Mistral-7B-v0.1
+    config.json: d_model 4096, 32 layers, 32 q / 8 kv heads, d_ff 14336,
+    sliding_window 4096, vocab 32000, rope_theta 1e4, bf16); random weights."""
+    from kubedl_tpu_torch.models import llama
+
+    return llama.LlamaConfig(n_kv_heads=8, d_ff=14336, sliding_window=4096, max_seq_len=8192)
+
+
+def _13d_ring(smi):
+    from kubedl_tpu_torch.models import llama, serving
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    config = _mistral()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = torch.Generator().manual_seed(16)
+    prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in (RING_PROMPT, 500)]
+    out = {}
+    sample = serving.sample_tokens
+    for label, ring in (("ring", None), ("full", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        engine = ServingEngine(params, config, slots=2, max_len=8192, ring=ring)
+        seen = []  # the logits every sampling call saw: admission, then each tick
+
+        def keep(logits, *a, **kw):
+            seen.append(logits.float().cpu())
+            return sample(logits, *a, **kw)
+
+        serving.sample_tokens = keep
+        try:
+            reqs = [engine.submit(p, RING_NEW) for p in prompts]
+            while engine.has_pending():
+                engine.step_block(8)
+            torch.cuda.synchronize()
+        finally:
+            serving.sample_tokens = sample
+        st = engine.stats()
+        out[label] = dict(tokens=[r.tokens for r in reqs], logits=seen,
+                          errors=[r.error for r in reqs], ring=engine.ring,
+                          rows=engine.cache["k"][0].shape[2], bytes=st["kv_cache_bytes"],
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=flash_attention.launches,
+                          decode_ms=st["decode_time_s"] / max(st["ticks"], 1) * 1e3)
+        del engine
+    r, f = out["ring"], out["full"]
+    if any(r["errors"] + f["errors"]) or not r["ring"] or f["ring"] or r["rows"] != 4096:
+        raise AssertionError(f"13d: errors {r['errors']} {f['errors']}, ring {r['ring']} "
+                             f"rows {r['rows']}")
+    ratio = r["bytes"] / f["bytes"]
+    if abs(ratio - 0.5) > 1e-3:
+        raise AssertionError(f"13d: ring cache {r['bytes']} bytes vs {f['bytes']}")
+    if r["launches"] <= 0:
+        raise AssertionError("13d: no flash launch")
+    if r["tokens"] != f["tokens"] or len(r["logits"]) != len(f["logits"]):
+        raise AssertionError(f"13d: ring tokens {r['tokens']} vs full {f['tokens']}")
+    worst = (0.0, 0.0)
+    for a, b in zip(r["logits"], f["logits"]):
+        for row in range(a.shape[0]):
+            max_abs, scale, _ = _compare_logits(a[row], b[row], "13d")
+            worst = max(worst, (max_abs / scale, max_abs))
+    print(f"13d ring caches [{smi}]: Mistral-7B-v0.1 widths (random weights), max_len 8192, "
+          f"a {RING_PROMPT}-token and a 500-token prompt, {RING_NEW} greedy tokens each: ring "
+          f"of {r['rows']} rows, greedy tokens equal the full cache's; logits of "
+          f"{len(r['logits'])} sampling calls worst rel {worst[0]:.3e} (max_abs "
+          f"{worst[1]:.4e}, tol {LOGIT_TOL}); cache {r['bytes'] / 1e9:.3f} GB vs "
+          f"{f['bytes'] / 1e9:.3f} GB (ratio {ratio:.4f}); peak allocated {r['peak_gb']:.2f} GB "
+          f"vs {f['peak_gb']:.2f} GB; decode {r['decode_ms']:.2f} vs {f['decode_ms']:.2f} ms a "
+          f"tick; flash launches {r['launches']}", flush=True)
+    return dict(bytes_ratio=ratio, peak_gb_ring=r["peak_gb"], peak_gb_full=f["peak_gb"],
+                logits_rel=worst[0], decode_ms_ring=r["decode_ms"],
+                decode_ms_full=f["decode_ms"], launches=r["launches"]), params, config
+
+
+def _13e_logprobs(params, config, smi):
+    """generate's logprobs against a teacher-forced forward (llama.forward
+    over prompt + generated tokens, log_softmax at the chosen tokens),
+    which must tell them from two wrong logprobs (one position late, and
+    tempered by 0.7); and against log_softmax of the same decode path's
+    logits, replayed step by step on a cache of the same shape."""
+    from kubedl_tpu_torch.models import decode, llama
+
+    b, t, n = 2, 128, 16
+    prompt = torch.randint(1, config.vocab_size, (b, t),
+                           generator=torch.Generator(device="cuda").manual_seed(17),
+                           device="cuda", dtype=torch.int32)
+    toks, lps = decode.generate(params, prompt, config, n, with_logprobs=True)
+    plain = decode.generate(params, prompt, config, n)
+    idx = toks[:, :, None].long()
+    with torch.no_grad():
+        full = llama.forward(params, torch.cat([prompt, toks], 1), config).float()
+
+    def at_chosen(logits):
+        return torch.log_softmax(logits, -1).gather(-1, idx)[..., 0]
+
+    teacher = (lps - at_chosen(full[:, t - 1:-1])).abs().max().item()
+    wrong = {"one_late": (lps - at_chosen(full[:, t:])).abs().max().item(),
+             "tempered_0.7": (lps - at_chosen(full[:, t - 1:-1] / 0.7)).abs().max().item()}
+    del full
+    cache = decode.init_kv_cache(config, b, t + n, uniform=True, device="cuda")
+    logits, cache = decode.prefill(params, prompt, cache, config)
+    ref = []
+    for i in range(n):
+        ref.append(torch.log_softmax(logits.float(), -1).gather(
+            -1, toks[:, i:i + 1].long())[:, 0])
+        if i + 1 < n:
+            logits, cache = decode.decode_step(params, toks[:, i], cache, config, check=False)
+    replay = (lps - torch.stack(ref, 1)).abs().max().item()
+    print(f"13e logprobs [{smi}]: generate(with_logprobs=True) at Mistral-7B widths, {b} x "
+          f"{t} prompt tokens, {n} new: tokens equal generate's {torch.equal(plain, toks)}; "
+          f"logprobs against a teacher-forced forward's log_softmax at the chosen tokens max "
+          f"diff {teacher:.4e} (tol {LP_TOL}); a wrong logprob reads one position late "
+          f"{wrong['one_late']:.4e}, tempered by 0.7 {wrong['tempered_0.7']:.4e}; against "
+          f"the replayed decode path's log_softmax {replay:.4e} (tol {LP_REPLAY_TOL}); mean "
+          f"logprob {lps.mean().item():.4f}", flush=True)
+    if not torch.equal(plain, toks) or not torch.isfinite(lps).all() or teacher > LP_TOL \
+            or replay > LP_REPLAY_TOL or min(wrong.values()) <= LP_TOL:
+        raise AssertionError(f"13e: tokens equal {torch.equal(plain, toks)}, logprob diff "
+                             f"teacher-forced {teacher}, replay {replay}, wrong {wrong}")
+    return dict(lp_teacher_max_diff=teacher, lp_wrong_max_diff=wrong, lp_replay_max_diff=replay,
+                lp_mean=lps.mean().item())
+
+
+def phase_serving_features(smi):
+    """13: the serving features on one card. a) chunked prefill beside
+    decoding slots; b) a registered prefix over HTTP; c) speculative
+    serving with a trained, checkpointed bench-1b draft; d) ring caches at
+    Mistral-7B widths; e) generate's logprobs. K1 launch counts by path."""
+    from kubedl_tpu_torch.models import llama
+
+    out = {}
+    out["b_prefix"], params = _13b_prefix(smi)
+    out["a_chunked"] = _13a_chunked(params, llama.LlamaConfig.llama_7b(), smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c_speculative"] = _13c_speculative(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d_ring"], params, config = _13d_ring(smi)
+    out["e_logprobs"] = _13e_logprobs(params, config, smi)
+    del params
+    out["launches"] = {"7b_chunked_prefill_serving": out["a_chunked"]["launches"],
+                       "7b_prefix_serving": out["b_prefix"]["launches"],
+                       "7b_speculative_serving": out["c_speculative"]["launches"],
+                       "mistral_ring_serving": out["d_ring"]["launches"]}
+    return out
+
+
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1903,6 +2413,8 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()
+    features = _phase("13 serving features", phase_serving_features, smi)
+    _free("the serving features")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -1957,7 +2469,8 @@ def main(argv=None) -> int:
                              "7b_sharded_step": sharded["launches"][0],
                              "moe_int8_serving": moe_serve["flash_launches"],
                              "7b_tp_serving": tp["launches_mesh"],
-                             "7b_int8_kv_serving": tp["launches_int8"]},
+                             "7b_int8_kv_serving": tp["launches_int8"],
+                             **features["launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()),
         "ms": main_k["kernel_ms"],
         "plain_ms": main_k["plain_ms"],
@@ -1973,7 +2486,7 @@ def main(argv=None) -> int:
                            grads=grads, train=train, options=options, moe_grads=moe_grads,
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
-                           seconds=time.perf_counter() - t_start),
+                           serving_features=features, seconds=time.perf_counter() - t_start),
                       f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -11,7 +11,20 @@ device for the engine's lifetime and requests come and go by writing rows:
   * each tick is one ragged `decode.decode_step` over every slot plus
     per-slot sampling, with an activity mask that freezes finished and
     empty slots; `step_block` chains up to k ticks with one host sync;
-  * a cluster whose prefill raises fails only its own requests.
+  * a cluster whose prefill raises fails only its own requests;
+  * a prompt longer than the largest bucket prefills in `prefill_chunk`
+    block steps, one chunk per engine step, so the decoding slots keep
+    emitting between chunks (one such prompt at a time);
+  * a registered prefix (`register_prefix`, a shared system prompt) is
+    prefilled once; a request naming it appends only its suffix, to a copy
+    of the prefix's cache;
+  * sliding-window models keep ring caches by default (the window's rows,
+    not max_len's); a prefill row is spliced into ring order;
+  * with `draft_params`, each engine step over all-greedy traffic is a
+    speculative round: the draft proposes `spec_k` tokens a slot, one
+    ragged block step of the target verifies every slot, each keeps its
+    longest accepted prefix and the target's next token. Sampled traffic
+    falls back to plain ticks, with the draft cache kept in step.
 
 `kv_dtype="int8"` keeps the live cache and the prefill scratch in int8
 codes with bf16 scales (models/decode.py). With a `mesh`, the parameters
@@ -19,15 +32,14 @@ are DTensors (`llama.param_specs`) and the engine runs on every rank of the
 group with the same submissions in the same order: its slots are
 replicated, only the tensor axis splits the work, the local views of the
 leaves are taken once here, and every rank samples the same tokens from
-the gathered logits with the same seeded generator.
-
-Not ported yet, and refused with NotImplementedError where they would be
-asked for: speculative decoding, LoRA adapters, prefix caching, chunked
-prefill and ring KV caches (ROADMAP.md).
+the gathered logits with the same seeded generator. Under a mesh, ring
+caches, chunked prefill, prefixes and speculative serving are refused, and
+LoRA adapters everywhere (NotImplementedError naming ROADMAP.md).
 """
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -99,6 +111,8 @@ def emit_token(req: "Request", token: int, logprob: float = 0.0) -> bool:
     req.tokens.append(token)
     if req.first_token_at is None:
         req.first_token_at = time.monotonic()
+    if req.token_times is not None:
+        req.token_times.append(time.monotonic())
     hit_stop = False
     for seq in req.stop_sequences:
         n = len(seq)
@@ -140,12 +154,15 @@ def validate_sampling(temperature, top_k, top_p, max_top_k, stop) -> List[tuple]
     return stop_seqs
 
 
+
+
 @dataclass
 class Request:
     request_id: int
-    prompt: np.ndarray  # [t] int32
+    prompt: np.ndarray  # [t] int32 (the suffix when prefix_id is set)
     max_new_tokens: int
     eos_token: Optional[int] = None
+    prefix_id: Optional[int] = None
     # temperature None = engine default; 0 = greedy. top_k 0 and top_p 1.0
     # are off; filtering runs within the engine's top-max_top_k candidates
     temperature: Optional[float] = None
@@ -158,10 +175,12 @@ class Request:
     token_logprobs: List[float] = field(default_factory=list)
     done: bool = False
     error: Optional[str] = None  # set when the engine failed the request
-    cache_len: int = 0  # prompt tokens + device ticks consumed
+    cache_len: int = 0  # prompt (+ prefix) tokens + device ticks consumed
     submitted_at: float = field(default_factory=time.monotonic)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # per-token wall clocks, kept only when a caller sets a list here
+    token_times: Optional[List[float]] = None
 
     @property
     def needs_filter(self) -> bool:
@@ -175,8 +194,7 @@ def _to_host(tensors):
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported to kubedl_tpu_torch yet "
-                               f"(ROADMAP.md: serving features deferred from "
-                               f"slice 1)")
+                               f"(ROADMAP.md)")
 
 
 class ServingEngine:
@@ -192,21 +210,29 @@ class ServingEngine:
         prompt_buckets: Optional[List[int]] = None,
         temperature: float = 0.0,
         seed: int = 0,
+        max_prefixes: int = 8,
         kv_dtype=None,
         ring: Optional[bool] = None,
         max_top_k: int = 64,
-        prefill_chunk: int = 0,
+        prefill_chunk: int = 256,
         draft_params: Optional[Dict] = None,
         draft_config: Optional[LlamaConfig] = None,
+        spec_k: int = 4,
         mesh=None,
         rules=None,
     ) -> None:
-        if ring:
-            raise _unported("ring KV caches (ring=True)")
-        if prefill_chunk:
-            raise _unported("chunked prefill (prefill_chunk > 0)")
-        if draft_params is not None or draft_config is not None:
-            raise _unported("speculative decoding (draft_params)")
+        # ring caches (sliding-window models): the live buffers hold the
+        # window's rows; max_len stays each slot's token budget. On by
+        # default whenever the window is smaller than max_len.
+        if ring is None:
+            ring = bool(config.sliding_window) and config.sliding_window < max_len
+        if ring and not config.sliding_window:
+            raise ValueError("ring=True requires config.sliding_window")
+        self.ring = bool(ring)
+        if mesh is not None and self.ring:
+            raise _unported("a ring KV cache under a mesh (pass ring=False)")
+        if mesh is not None and draft_params is not None:
+            raise _unported("speculative serving under a mesh")
         self.params = params
         self.config = config
         self.kv_dtype = kv_dtype
@@ -236,7 +262,7 @@ class ServingEngine:
         self.samp_topk = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.samp_topp = torch.ones((slots,), dtype=torch.float32, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self.cache = self._new_cache(slots, max_len)
+        self.cache = self._new_cache(slots, max_len, ring=self.ring)
         self.cur_tokens = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._slot_req: List[Optional[Request]] = [None] * slots
@@ -256,21 +282,83 @@ class ServingEngine:
         self._wave_sync = _to_host
         self._wave_failures = 0
         self._wave_resets = 0
+        # chunked prefill: one long prompt at a time, one chunk an engine
+        # step; 0 sends everything through the batched wave
+        self.prefill_chunk = int(prefill_chunk)
+        self._chunking: Optional[Dict] = None  # {req, slot, cache, pos}
+        self._chunked_prefills = 0
+        # prefix caching: each prefix holds a batch-1 [max_len] cache
+        self._prefixes: Dict[int, tuple] = {}
+        self._next_prefix_id = 0
+        self.max_prefixes = max_prefixes
+        self._prefix_lock = threading.Lock()
+        # speculative serving: the draft shares the slot structure with a
+        # ragged cache of its own, prefilled beside the target's
+        self._spec = draft_params is not None
+        if self._spec:
+            if draft_config is None:
+                raise ValueError("draft_params needs draft_config")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_config.vocab_size} != target "
+                    f"{config.vocab_size}; the models must share a tokenizer")
+            if self.ring:
+                raise ValueError("speculative serving is unsupported with ring caches "
+                                 "(the verify block can't wrap)")
+            if spec_k < 2:
+                raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+            self.draft_params = draft_params
+            self.draft_config = draft_config
+            self.spec_k = int(spec_k)
+            self.draft_cache = self._new_cache(slots, max_len, config=draft_config)
+            self._spec_rounds = 0
+            self._spec_slot_rounds = 0  # sum over rounds of decoding slots
+            self._spec_accepted = 0
 
     # -- device pieces -----------------------------------------------------
 
-    def _new_cache(self, batch: int, max_len: int) -> Dict:
-        return decode.init_kv_cache(self.config, batch, max_len, kv_dtype=self.kv_dtype,
-                                    device=self.device, mesh=self.mesh, rules=self.rules)
+    def _new_cache(self, batch: int, max_len: int, ring: bool = False,
+                   uniform: bool = False, config: Optional[LlamaConfig] = None) -> Dict:
+        cfg = config or self.config
+        return decode.init_kv_cache(cfg, batch, max_len, uniform=uniform,
+                                    kv_dtype=self.kv_dtype, ring=ring, device=self.device,
+                                    mesh=None if config else self.mesh, rules=self.rules)
+
+    def _prefill_rows(self, params, config, padded: np.ndarray, lengths: np.ndarray,
+                      par=None):
+        """Batched one-pass prefill of right-padded prompts into a scratch
+        cache as long as the padding: (last-token logits, rows)."""
+        dev = self.device
+        cache = decode.init_kv_cache(config, padded.shape[0], padded.shape[1],
+                                     kv_dtype=self.kv_dtype, device=dev,
+                                     mesh=self.mesh if par is not None else None,
+                                     rules=self.rules)
+        return decode._prefill(params, torch.from_numpy(padded).to(dev), cache, config,
+                               torch.from_numpy(lengths).to(dev), par)
+
+    @staticmethod
+    def _splice(cache: Dict, rows: Dict, i: int, slot: int, length: int) -> None:
+        """Row i of a full-layout prefill cache (K/V and any int8 scales)
+        into `slot` of `cache`. A ring takes the prompt's last positions in
+        ring order (the formula the attention reads them with)."""
+        L = rows["k"][0].shape[2]
+        idx = None
+        if "ring" in cache:
+            W = cache["k"][0].shape[2]
+            idx = decode.ring_rows(torch.tensor(length, device=cache["k"][0].device),
+                                   W, L)
+        for name in ("k", "v", "ks", "vs"):
+            for big, small in zip(cache.get(name, ()), rows.get(name, ())):
+                if idx is None:
+                    big[slot, :, :L] = small[i]
+                else:
+                    big[slot] = small[i][:, idx]
+        cache["lengths"][slot] = length
 
     def _insert(self, rows: Dict, i: int, slot: int, length: int, first) -> None:
-        """Splice row i of a prefill cache (K/V and any int8 scales) into
-        `slot` of the live batch."""
-        L = rows["k"][0].shape[2]
-        for name in ("k", "v", "ks", "vs"):
-            for big, small in zip(self.cache.get(name, ()), rows.get(name, ())):
-                big[slot, :, :L] = small[i]
-        self.cache["lengths"][slot] = length
+        """Splice row i of a prefill cache into `slot` of the live batch,
+        with the slot's first token, and mark the slot active."""
+        self._splice(self.cache, rows, i, slot, length)
         self.cur_tokens[slot] = first
         self.active[slot] = True
 
@@ -291,7 +379,176 @@ class ServingEngine:
         self.cur_tokens = nxt
         return nxt, lp
 
+    def _append_block(self, toks: np.ndarray, cache: Dict):
+        """A block step of a uniform batch-1 cache, in place: (hidden rows
+        [1, T, d], cache). The chunked prefill and the suffix append."""
+        return decode._decode_block_step(
+            self._local, torch.from_numpy(np.ascontiguousarray(toks[None])).to(self.device),
+            cache, self.config, check=False, par=self._par, return_hidden=True)
+
+    def _head(self, hidden):
+        """Logits [1, V] of the hidden row [1, d]."""
+        return decode._full_logits(
+            decode._lm_head(hidden[:, None], self._local, self.config, self._par)[:, 0],
+            self._par)
+
+    def _spec_round(self, cur, active, base, d_base):
+        """One greedy speculative round over the whole slot batch: (new
+        current tokens, emit [slots, k], accepted [slots], logprobs [slots,
+        k]). Slot s produced emit[s, :accepted+1] (accepted drafts, then
+        the target's next token); both caches roll back to base + accepted
+        + 1, frozen slots to base. The verify block is k wide: the k-th
+        draft can never be emitted (acceptance caps at k-1 so the draft
+        cache, which saw k inputs, stays aligned), but its draft step's
+        write is needed at full acceptance."""
+        k = self.spec_k
+        tok, drafted = cur, []
+        for _ in range(k):
+            lg, self.draft_cache = decode._decode_block_step(
+                self.draft_params, tok[:, None], self.draft_cache, self.draft_config,
+                check=False)
+            tok = torch.where(active, lg[:, 0].argmax(dim=-1).to(torch.int32),
+                              torch.zeros_like(tok))
+            drafted.append(tok)
+        drafted = torch.stack(drafted, dim=1)  # [s, k]
+        blk = torch.cat([cur[:, None], drafted[:, : k - 1]], dim=1)  # [s, k]
+        blk_logits, self.cache = decode._decode_block_step(
+            self._local, blk, self.cache, self.config, check=False, par=self._par)
+        ta = blk_logits.argmax(dim=-1).to(torch.int32)  # [s, k]
+        matches = (drafted[:, : k - 1] == ta[:, : k - 1]).to(torch.int32)
+        a = torch.cumprod(matches, dim=1).sum(dim=1)  # [s], <= k-1
+        bonus = ta.gather(1, a[:, None].long())[:, 0]
+        cols = torch.arange(k, device=cur.device)[None, :]
+        emit = torch.where(cols < a[:, None], drafted, torch.zeros_like(drafted))
+        emit = torch.where(cols == a[:, None], bonus[:, None], emit)
+        lg32 = blk_logits.float()  # position j's logits predict emit j
+        lp = lg32.gather(2, emit[:, :, None].long())[:, :, 0] - torch.logsumexp(lg32, dim=-1)
+        adv = (a + 1).to(torch.int32)
+        self.cache["lengths"] = torch.where(active, base + adv, base)
+        self.draft_cache["lengths"] = torch.where(active, d_base + adv, d_base)
+        return (torch.where(active, bonus, cur), emit,
+                torch.where(active, a, torch.zeros_like(a)), lp)
+
+    def _spec_block(self, r: int):
+        """r speculative rounds chained on the device with one host sync
+        (the tick block applied to rounds): [r, slots, ...] on the host."""
+        emits, accs, lps = [], [], []
+        cur = self.cur_tokens
+        for _ in range(r):
+            cur, emit, acc, lp = self._spec_round(
+                cur, self.active, self.cache["lengths"], self.draft_cache["lengths"])
+            emits.append(emit)
+            accs.append(acc)
+            lps.append(lp)
+        self.cur_tokens = cur
+        return _to_host((torch.stack(emits), torch.stack(accs), torch.stack(lps)))
+
+    def _spec_head(self, decoding: List[int]) -> int:
+        """KV headroom of the fullest decoding slot, shared by the go/no-go
+        guard and the round sizing (head >= spec_k implies r >= 1)."""
+        return self.max_len - max(self._slot_req[s].cache_len for s in decoding)
+
+    def _use_spec_round(self, head: int) -> bool:
+        """Rounds need all-greedy traffic and spec_k positions of headroom
+        on every decoding slot: the rounds' block writes are unchecked
+        (a check would read the lengths back every step), so the guard
+        lives here."""
+        return self._sample_mode() == "greedy" and head >= self.spec_k
+
+    def _spec_rounds_for(self, decoding: List[int], head: int) -> int:
+        """Rounds in one dispatch: bounded by headroom (a round writes
+        spec_k positions), the smallest budget left (a round emits >= 1),
+        a cap of 2 while requests queue, a prefill is chunking or an EOS
+        could end a request mid-block; a power of two."""
+        reqs = [self._slot_req[s] for s in decoding]
+        r = min(4, head // self.spec_k)
+        if any(q.eos_token is not None or q.stop_sequences for q in reqs):
+            r = min(r, 2)
+        if self._queue or self._chunking is not None:
+            r = min(r, 2)
+        budget = min(q.max_new_tokens - len(q.tokens) for q in reqs)
+        r = max(min(r, budget), 1)
+        return 1 << (r.bit_length() - 1)
+
+    def _draft_sync(self) -> None:
+        """Append the tick's input tokens to the draft cache (frozen slots
+        do not advance), so plain ticks keep the draft aligned."""
+        old = self.draft_cache["lengths"]
+        _, self.draft_cache = decode._decode_block_step(
+            self.draft_params, self.cur_tokens[:, None], self.draft_cache,
+            self.draft_config, check=False)
+        self.draft_cache["lengths"] = torch.where(self.active, self.draft_cache["lengths"], old)
+
+    def _spec_step(self, decoding: List[int], head: int) -> int:
+        """Advance every greedy decoding slot r fused speculative rounds
+        (up to r * spec_k tokens each) with one host sync."""
+        t0 = time.monotonic()
+        r = self._spec_rounds_for(decoding, head)
+        emits, accs, lps = (x.tolist() for x in self._spec_block(r))
+        self._ticks += r
+        self._decode_time += time.monotonic() - t0
+        self._spec_rounds += r
+        for slot in decoding:
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            for ri in range(r):
+                if req.done:
+                    break  # later fused rounds of a finished slot: junk
+                self._spec_slot_rounds += 1
+                n = accs[ri][slot] + 1
+                emitted = 0
+                for j in range(n):
+                    if req.done:
+                        break  # EOS/stop mid-round: the rest is dropped
+                    req.cache_len += 1
+                    self._emit(slot, int(emits[ri][slot][j]), float(lps[ri][slot][j]))
+                    emitted += 1
+                # only drafts that became output count toward acceptance
+                self._spec_accepted += min(emitted, accs[ri][slot])
+        return len(decoding)
+
     # -- public API --------------------------------------------------------
+
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prompt prefix (a system prompt) once: requests
+        submitted with the returned id prefill only their suffix, appended
+        to a copy of this cache. Each prefix holds a batch-1 [max_len]
+        cache on the device; register a handful."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if self.ring:
+            # the suffix append runs block steps, which a ring cannot take
+            raise ValueError("prefix caching is unsupported with ring "
+                             "(sliding-window) caches")
+        if self.mesh is not None:
+            raise _unported("prefix caching under a mesh")
+        if tokens.size == 0:
+            raise ValueError("empty prefix")
+        if tokens.size >= self.max_len:
+            raise ValueError(f"prefix of {tokens.size} tokens leaves no room in "
+                             f"max_len {self.max_len}")
+        with self._prefix_lock:
+            if len(self._prefixes) >= self.max_prefixes:
+                raise ValueError(f"prefix registry full ({self.max_prefixes}); "
+                                 f"unregister_prefix one first")
+        # the prefill runs outside the lock
+        cache = self._new_cache(1, self.max_len, uniform=True)
+        _, cache = decode._prefill(self._local, torch.from_numpy(tokens[None]).to(self.device),
+                                   cache, self.config, None, self._par)
+        with self._prefix_lock:
+            if len(self._prefixes) >= self.max_prefixes:
+                raise ValueError(f"prefix registry full ({self.max_prefixes}); "
+                                 f"unregister_prefix one first")
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+            self._prefixes[pid] = (cache, int(tokens.size))
+        return pid
+
+    def unregister_prefix(self, prefix_id: int) -> None:
+        """Release a prefix's cache. Queued requests still naming it fail
+        at admission (no tokens, done)."""
+        with self._prefix_lock:
+            self._prefixes.pop(prefix_id, None)
 
     def submit(
         self,
@@ -306,25 +563,44 @@ class ServingEngine:
         adapter_id: int = 0,
         stop: Optional[list] = None,
     ) -> Request:
-        if prefix_id is not None:
-            raise _unported("prefix caching (prefix_id)")
         if adapter_id:
             raise _unported("LoRA adapter serving (adapter_id)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         stop_seqs = validate_sampling(
             temperature, top_k, top_p, self.max_top_k, stop)
+        if self._spec and prefix_id is not None:
+            # the draft has no prefix cache; a cold draft would floor acceptance
+            raise ValueError("prefix caching is unsupported with speculative serving")
         if prompt.size == 0:
-            raise ValueError("empty prompt")
-        if prompt.size + max_new_tokens > self.max_len:
+            raise ValueError("empty prompt (with a prefix, pass at least the first "
+                             "suffix token)")
+        prefix_len = 0
+        if prefix_id is not None:
+            if prefix_id not in self._prefixes:
+                raise ValueError(f"unknown prefix_id {prefix_id}")
+            prefix_len = self._prefixes[prefix_id][1]
+        if prefix_len + prompt.size + max_new_tokens > self.max_len:
             raise ValueError(
-                f"prompt {prompt.size} + {max_new_tokens} new tokens exceeds "
-                f"max_len {self.max_len}")
-        if prompt.size > self.prompt_buckets[-1]:
-            raise ValueError(
-                f"prompt of {prompt.size} tokens exceeds the largest prompt "
-                f"bucket {self.prompt_buckets[-1]} (chunked prefill, which "
-                f"lifts this cap, is not ported yet)")
+                f"prefix {prefix_len} + prompt {prompt.size} + {max_new_tokens} new "
+                f"tokens exceeds max_len {self.max_len}")
+        chunk_eligible = self._chunk_eligible(prompt.size)
+        if prefix_id is None and prompt.size > self.prompt_buckets[-1] and not chunk_eligible:
+            # rejected here, not when _admit pops it; the chunked path needs
+            # no bucket, so it lifts this cap (max_len still bounds it)
+            hint = ""
+            if self.prefill_chunk > 0 and not self.ring:
+                blocks = -(-int(prompt.size) // self.prefill_chunk)
+                if blocks * self.prefill_chunk > self.max_len:
+                    hint = (f" (chunked prefill would pad to "
+                            f"{blocks * self.prefill_chunk} cache positions, past "
+                            f"max_len {self.max_len} — raise max_len to a multiple "
+                            f"of prefill_chunk {self.prefill_chunk})")
+            raise ValueError(f"prompt of {prompt.size} tokens exceeds the largest "
+                             f"prompt bucket {self.prompt_buckets[-1]}{hint}")
+        if chunk_eligible and self.mesh is not None:
+            raise _unported("chunked prefill under a mesh")
         req = Request(self._next_id, prompt, max_new_tokens, eos_token,
+                      prefix_id=prefix_id,
                       temperature=(self.temperature if temperature is None
                                    else float(temperature)),
                       top_k=int(top_k), top_p=float(top_p),
@@ -333,19 +609,53 @@ class ServingEngine:
         self._queue.append(req)
         return req
 
+    def _suffix_prefill(self, prefix_id: int, suffix: np.ndarray):
+        """Append the suffix to a copy of the prefix's cache in one block
+        step: (last-token logits, row cache). The block step writes in
+        place, so the copy is what keeps the registered cache unchanged."""
+        cache = decode.clone_cache(self._prefixes[prefix_id][0])
+        hidden, cache = self._append_block(suffix, cache)
+        return self._head(hidden[:, -1]), cache
+
     def _admit(self) -> None:
-        """Pop every request a free slot can take and prefill the wave in
-        bucket clusters; one host sync fetches every first token."""
+        """Pop every request a free slot can take: prefix requests append
+        their suffix, a prompt past the largest bucket starts the chunker,
+        the rest prefill as a wave in bucket clusters; one host sync
+        fetches every first token."""
         t0 = time.monotonic()
         wave = []  # (slot, first token, its logprob, cluster key)
         batch: List[Request] = []
         batch_slots: List[int] = []
+        deferred: List[Request] = []  # long prompts waiting for the chunker
         while self._queue and None in self._slot_req:
             req = self._queue.popleft()
             slot = self._slot_req.index(None)
-            batch.append(req)
-            batch_slots.append(slot)
-            self._slot_req[slot] = req  # claim so .index(None) advances
+            if req.prefix_id is not None:
+                entry = self._prefixes.get(req.prefix_id)
+                if entry is None:  # unregistered while queued
+                    req.done = True
+                    continue
+                t = len(req.prompt) + entry[1]
+                logits, row_cache = self._suffix_prefill(req.prefix_id, req.prompt)
+                first, first_lp = self._sample_first(logits, req)
+                self._insert(row_cache, 0, slot, t, first[0])
+                self._claim_slot(slot, req, t)
+                wave.append((slot, first[0], first_lp[0], f"prefix:{req.request_id}"))
+            elif self._chunk_eligible(len(req.prompt)):
+                if self._chunking is not None:
+                    # one chunked prefill at a time; shorter requests behind
+                    # it may still admit
+                    deferred.append(req)
+                    continue
+                self._slot_req[slot] = req  # claimed; decode skips it
+                self._chunking = {"req": req, "slot": slot, "pos": 0,
+                                  "cache": self._new_cache(1, self.max_len, uniform=True)}
+            else:
+                batch.append(req)
+                batch_slots.append(slot)
+                self._slot_req[slot] = req  # claim so .index(None) advances
+        for req in reversed(deferred):
+            self._queue.appendleft(req)
         if batch:
             self._admit_batch(batch, batch_slots, wave)
         if wave:
@@ -405,11 +715,26 @@ class ServingEngine:
             for slot, req in enumerate(self._slot_req):
                 if req is not None:
                     self._fail(slot, req, "engine cache rebuilt after prefill failure")
-            self.cache = self._new_cache(self.slots, self.max_len)
+            self.cache = self._new_cache(self.slots, self.max_len, ring=self.ring)
             self.cur_tokens = torch.zeros((self.slots,), dtype=torch.int32,
                                           device=self.device)
             self.active = torch.zeros((self.slots,), dtype=torch.bool,
                                       device=self.device)
+            self._chunking = None
+
+    def _sample_first(self, logits, req: Request):
+        """First token and its logprob ([1] each) for one request's [1, V]
+        logits: the tail of the batch-1 admissions (prefix, chunked)."""
+        dev = self.device
+        mode = ("filtered" if req.needs_filter
+                else ("plain" if req.temperature > 0 else "greedy"))
+        first = sample_tokens(
+            logits, self.generator,
+            torch.tensor([req.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([req.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([req.top_p], dtype=torch.float32, device=dev),
+            mode, self.max_top_k)
+        return first, chosen_logprob(logits, first)
 
     def _claim_slot(self, slot: int, req: Request, cache_len: int) -> None:
         self.samp_temps[slot] = req.temperature
@@ -419,8 +744,78 @@ class ServingEngine:
         self._admitted += 1
         req.cache_len = cache_len
 
+    def _chunk_eligible(self, prompt_len: int) -> bool:
+        """Chunked prefill takes only the prompts the wave cannot (past the
+        largest bucket), and only when every padded chunk fits the cache:
+        the last chunk writes ceil(len/chunk)*chunk positions, and past
+        max_len the clamped write would overwrite earlier positions. A
+        misaligned prompt falls back to the wave if a bucket fits it and is
+        rejected at submit otherwise. Ring caches take no block steps.
+        Both submit and _admit route by this one predicate."""
+        if self.prefill_chunk <= 0 or self.ring:
+            return False
+        if prompt_len <= self.prompt_buckets[-1]:
+            return False  # the wave admits it in one batched prefill
+        blocks = -(-prompt_len // self.prefill_chunk)
+        return blocks * self.prefill_chunk <= self.max_len
+
+    def _advance_chunk(self) -> None:
+        """One prefill_chunk block step of the chunked prefill in flight; on
+        the last chunk, sample the first token and splice the row into the
+        live batch. A chunk that raises fails its request and frees the
+        slot and the chunker."""
+        st = self._chunking
+        if st is None:
+            return
+        try:
+            self._advance_chunk_inner(st)
+        except Exception as e:  # noqa: BLE001 — must not wedge the chunker
+            _log.exception("chunked prefill failed (slot=%d)", st["slot"])
+            self._fail(st["slot"], st["req"], f"chunked prefill failed: {e}")
+            self._chunking = None
+
+    def _advance_chunk_inner(self, st: Dict) -> None:
+        t0 = time.monotonic()
+        req: Request = st["req"]
+        c = self.prefill_chunk
+        prompt = req.prompt
+        t = len(prompt)
+        pos = st["pos"]
+        toks = prompt[pos:pos + c]
+        tail = len(toks)
+        if tail < c:
+            # one chunk shape; the pad positions' K/V lie past the length
+            # the splice sets, so nothing attends them
+            toks = np.pad(toks, (0, c - tail))
+        hidden, st["cache"] = self._append_block(toks, st["cache"])
+        st["pos"] = pos + c
+        if st["pos"] < t:
+            self._prefill_time += time.monotonic() - t0
+            return
+        first, first_lp = self._sample_first(self._head(hidden[:, tail - 1]), req)
+        slot = st["slot"]
+        self._insert(st["cache"], 0, slot, t, first[0])
+        if self._spec:
+            # the draft's state for the long prompt in one prefill, its
+            # width a power of two
+            t_pad = min(1 << (t - 1).bit_length(), self.max_len)
+            padded = np.zeros((1, t_pad), np.int32)
+            padded[0, :t] = prompt
+            _, d_rows = self._prefill_rows(self.draft_params, self.draft_config, padded,
+                                           np.array([t], np.int32))
+            self._splice(self.draft_cache, d_rows, 0, slot, t)
+        self._claim_slot(slot, req, t)
+        self._chunking = None
+        self._chunked_prefills += 1
+        tok, lp = _to_host((first, first_lp))
+        self._emit(slot, int(tok[0]), float(lp[0]))
+        self._prefill_time += time.monotonic() - t0
+
     def _decoding(self) -> List[int]:
-        return [s for s, r in enumerate(self._slot_req) if r is not None]
+        """Slots whose request is in the decode batch (not the slot of a
+        prompt still chunk-prefilling)."""
+        busy = self._chunking["slot"] if self._chunking else -1
+        return [s for s, r in enumerate(self._slot_req) if r is not None and s != busy]
 
     def _admit_batch(self, reqs: List[Request], slots: List[int], wave: list) -> None:
         """Wave prefill in bucket clusters: buckets within a 4x span share
@@ -452,7 +847,8 @@ class ServingEngine:
                      wave: list, cluster: str = "") -> None:
         """One prefill for a bucket cluster: rows padded to the bucket, the
         batch padded to a power of two with dummy rows (length 1, token 0)
-        that are never inserted."""
+        that are never inserted. A speculative engine prefills the draft on
+        the same wave and splices its rows beside the target's."""
         k = len(reqs)
         k_pad = 1 << (k - 1).bit_length()
         padded = np.zeros((k_pad, bucket), np.int32)
@@ -468,10 +864,13 @@ class ServingEngine:
             topks[i] = r.top_k
             topps[i] = r.top_p
         dev = self.device
-        logits, rows = decode._prefill(
-            self._local, torch.from_numpy(padded).to(dev), self._new_cache(k_pad, bucket),
-            self.config, torch.from_numpy(lengths).to(dev), self._par)
+        logits, rows = self._prefill_rows(self._local, self.config, padded, lengths,
+                                          self._par)
         self._prefill_batches += 1
+        d_rows = None
+        if self._spec:
+            _, d_rows = self._prefill_rows(self.draft_params, self.draft_config, padded,
+                                           lengths)
         if any(r.needs_filter for r in reqs):
             mode = "filtered"
         elif any(r.temperature > 0 for r in reqs):
@@ -485,6 +884,8 @@ class ServingEngine:
         lps = chosen_logprob(logits, firsts)
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             self._insert(rows, i, slot, int(lengths[i]), firsts[i])
+            if d_rows is not None:
+                self._splice(self.draft_cache, d_rows, i, slot, int(lengths[i]))
             self._claim_slot(slot, req, int(lengths[i]))
             wave.append((slot, firsts[i], lps[i], cluster))
 
@@ -507,8 +908,8 @@ class ServingEngine:
         return "greedy"
 
     def cancel(self, req: Request) -> None:
-        """Drop a request: dequeue it if waiting, or free its slot. A no-op
-        on finished requests."""
+        """Drop a request: dequeue it if waiting, or free its slot (and the
+        chunker, mid-prefill). A no-op on finished requests."""
         if req.done:
             return
         try:
@@ -521,19 +922,34 @@ class ServingEngine:
             if r is req:
                 req.done = True
                 self._release(slot)
+                if self._chunking is not None and self._chunking["req"] is req:
+                    self._chunking = None
                 return
 
     def step(self) -> int:
-        """Admit waiting requests, then advance every active slot one
-        token. Returns the number of decoding slots this tick."""
+        """Admit waiting requests, advance the chunked prefill in flight one
+        chunk, then every decoding slot one token (or one speculative
+        round). Returns the number of decoding slots."""
         self._admit()
+        self._advance_chunk()
         return self._step_inner()
 
     def _step_inner(self) -> int:
+        """One tick after admission and chunk work, shared by step() and
+        step_block()'s fallbacks (which must not advance the chunker
+        again)."""
         decoding = self._decoding()
         if not decoding:
             return 0
+        if self._spec:
+            head = self._spec_head(decoding)
+            if self._use_spec_round(head):
+                return self._spec_step(decoding, head)
         t0 = time.monotonic()
+        if self._spec:
+            # the draft must see the tokens the target sees, or speculation
+            # resumes out of step after this tick
+            self._draft_sync()
         nxt, lp = self._tick(self._sample_mode())
         self._ticks += 1
         emitted, lps = (a.tolist() for a in _to_host((nxt, lp)))
@@ -550,19 +966,29 @@ class ServingEngine:
 
         The block adapts down to the smallest token budget left, to the KV
         headroom of the fullest slot, and to a small cap while requests
-        queue or an EOS/stop is possible; sizes are powers of two and the
-        overshoot past a budget is trimmed on the host. Degenerates to one
-        tick when the block would be 1."""
+        queue, a prefill is chunking or an EOS/stop is possible; sizes are
+        powers of two and the overshoot past a budget is trimmed on the
+        host. Degenerates to one tick when the block would be 1. A
+        speculative engine runs a round block instead (or, on sampled
+        traffic, single ticks, which keep the draft in step)."""
         self._admit()
+        self._advance_chunk()
         decoding = self._decoding()
         reqs = [self._slot_req[s] for s in decoding]
         if not reqs:
             return 0
+        if self._spec:
+            head = self._spec_head(decoding)
+            if self._use_spec_round(head):
+                return self._spec_step(decoding, head)
+            return self._step_inner()
         k = min(r.max_new_tokens - len(r.tokens) for r in reqs)
         k = min(k, max_block)
         if any(r.eos_token is not None or r.stop_sequences for r in reqs):
             k = min(k, 8)  # post-EOS/stop ticks are pure waste; stay short
-        elif self._queue:
+        elif self._queue or self._chunking is not None:
+            # a slot freed mid-block cannot admit, and the chunker advances
+            # only between blocks
             k = min(k, max(max_block // 4, 8))
         if k <= 1:
             return self._step_inner()
@@ -604,7 +1030,7 @@ class ServingEngine:
     def stats(self) -> Dict:
         wall = max(time.monotonic() - self._t0, 1e-9)
         busy = sum(1 for r in self._slot_req if r is not None)
-        return {
+        out = {
             "slots": self.slots,
             "slots_busy": busy,
             "queue_depth": len(self._queue),
@@ -613,10 +1039,18 @@ class ServingEngine:
             "tokens_out": self._tokens_out,
             "tokens_per_sec": self._tokens_out / wall,
             "slot_utilization": busy / self.slots,
+            "prefixes_registered": len(self._prefixes),
             "prefill_time_s": round(self._prefill_time, 4),
             "decode_time_s": round(self._decode_time, 4),
             "prefill_batches": self._prefill_batches,
+            "chunked_prefills": self._chunked_prefills,
             "wave_failures": self._wave_failures,
             "wave_resets": self._wave_resets,
             "kv_cache_bytes": decode.cache_bytes(self.cache),
         }
+        if self._spec:
+            # accepted drafts per (round, decoding slot) over the cap k-1
+            out["spec_rounds"] = self._spec_rounds
+            out["spec_acceptance"] = round(
+                self._spec_accepted / max(self._spec_slot_rounds * (self.spec_k - 1), 1), 4)
+        return out

@@ -75,6 +75,22 @@ def _assign(live: Any, saved: Any, path: str = "state") -> Any:
     return saved
 
 
+def all_steps(directory: str) -> List[int]:
+    """The complete steps under `directory`, oldest first ([] if none)."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    return sorted(int(n) for n in names if n.isdigit() and any(
+        os.path.isfile(os.path.join(directory, n, f)) for f in (STATE_FILE, SHARDED_FILE)))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest complete step under `directory`, or None; creates nothing."""
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = directory
@@ -82,17 +98,10 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     def all_steps(self) -> List[int]:
-        try:
-            names = os.listdir(self.directory)
-        except OSError:
-            return []
-        return sorted(int(n) for n in names if n.isdigit() and any(
-            os.path.isfile(os.path.join(self.directory, n, f))
-            for f in (STATE_FILE, SHARDED_FILE)))
+        return all_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        return latest_step(self.directory)
 
     def save(self, step: int, state) -> None:
         """Write the state as step `step`, atomically, then prune."""

@@ -3,9 +3,11 @@
 
     POST /generate   {"tokens": [..], "max_new_tokens": 32, "eos_token": 2?,
                       "temperature"?, "top_k"?, "top_p"?, "logprobs"?,
-                      "stop"?: [[ids], ...]}  -> {"tokens": [...]}
+                      "stop"?: [[ids], ...], "prefix_id"?}  -> {"tokens": [...]}
     POST /generate   {"requests": [{...}, ...]}  (batch form; each entry
                       rides its own engine slot)  -> {"results": [...]}
+    POST /prefix     {"tokens": [...]}  -> {"prefix_id": N}  (a shared
+                      system prompt, prefilled once; register_prefix)
     GET  /stats      -> ServingEngine.stats()
     GET  /healthz    -> {"ok": true}
 
@@ -13,14 +15,19 @@ One background thread drives the engine whenever work is pending; handlers
 only enqueue and wait, so concurrent clients batch onto the same decode
 ticks. Run it with
 
-    python -m kubedl_tpu_torch.train.serve --model llama-7b --allow-fresh-init
+    python -m kubedl_tpu_torch.train.serve --model llama-7b --checkpoint-path DIR
 
-It runs on the card unless --device cpu is given; --int8 serves the
-weight-only int8 tree (models/quant.py), --kv-int8 keeps the KV cache in
-int8 codes with bf16 scales (models/decode.py). The server is one process
-on one device, as the reference's is. Text prompts (they need a
-tokenizer), streaming, prefixes, adapters, speculative decoding,
-checkpoints and --hf-model are not ported yet and are refused.
+It serves the newest params the port's trainer saved under
+--checkpoint-path (train/generate.py restore_params), or fresh ones with
+--allow-fresh-init. It runs on the card unless --device cpu is given;
+--int8 serves the weight-only int8 tree (models/quant.py), --kv-int8 keeps
+the KV cache in int8 codes with bf16 scales (models/decode.py).
+--draft-model with --draft-checkpoint-path turns on speculative serving
+(--spec-k drafts a round); a draft without weights exits 1 unless
+--allow-fresh-init is given. The server is one process on one device, as
+the reference's is. Text prompts (they need a tokenizer), streaming,
+adapters, --hf-model and --draft-hf-model are not ported yet and are
+refused.
 """
 from __future__ import annotations
 
@@ -71,8 +78,6 @@ def parse_args(argv=None):
 _UNPORTED_FLAGS = (
     ("lora_checkpoint_path", "--lora-checkpoint-path"),
     ("adapter", "--adapter"),
-    ("draft_model", "--draft-model"),
-    ("draft_checkpoint_path", "--draft-checkpoint-path"),
     ("draft_hf_model", "--draft-hf-model"),
 )
 
@@ -116,14 +121,20 @@ class _Service:
                 self.ticks += 1
 
     def submit(self, prompt, max_new_tokens: int, eos_token: Optional[int],
-               temperature: Optional[float] = None, top_k: int = 0,
-               top_p: float = 1.0, logprobs: bool = False, stop=None):
+               prefix_id: Optional[int] = None, temperature: Optional[float] = None,
+               top_k: int = 0, top_p: float = 1.0, logprobs: bool = False, stop=None):
         with self._lock:
             req = self.engine.submit(prompt, max_new_tokens, eos_token,
-                                     temperature=temperature, top_k=top_k,
-                                     top_p=top_p, logprobs=logprobs, stop=stop)
+                                     prefix_id=prefix_id, temperature=temperature,
+                                     top_k=top_k, top_p=top_p, logprobs=logprobs,
+                                     stop=stop)
         self._work.set()
         return req
+
+    def register_prefix(self, tokens) -> int:
+        # not under the service lock: the prefill must not stall the pump;
+        # the engine's own lock guards its registry
+        return self.engine.register_prefix(tokens)
 
     def wait(self, reqs, timeout: float = 300.0) -> bool:
         deadline = time.monotonic() + timeout
@@ -191,7 +202,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802
-        if self.path != "/generate":
+        if self.path not in ("/generate", "/prefix"):
             return self._send(404, {"error": f"unknown path {self.path}"})
         try:
             length = int(self.headers.get("Content-Length", "0") or "0")
@@ -200,6 +211,12 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send(400, {"error": f"bad JSON: {e}"})
         if not isinstance(body, dict):
             return self._send(400, {"error": "body must be a JSON object"})
+        if self.path == "/prefix":
+            try:
+                pid = self.svc.register_prefix(body.get("tokens") or [])
+            except (ValueError, TypeError, NotImplementedError) as e:
+                return self._send(422, {"error": str(e)})
+            return self._send(200, {"prefix_id": pid})
         entries = body.get("requests")
         single = entries is None
         if single:
@@ -215,10 +232,8 @@ class _Handler(BaseHTTPRequestHandler):
                     if e.get(key) is not None:
                         raise ValueError(f"{key!r} prompts need a tokenizer, "
                                          f"not ported yet; send token ids")
-                for key in ("prefix_id", "adapter_id"):
-                    if e.get(key):
-                        raise ValueError(f"{key} is not ported to "
-                                         f"kubedl_tpu_torch yet")
+                if e.get("adapter_id"):
+                    raise ValueError("adapter_id is not ported to kubedl_tpu_torch yet")
                 temp = e.get("temperature")
                 top_k = e.get("top_k")
                 top_p = e.get("top_p")
@@ -226,6 +241,7 @@ class _Handler(BaseHTTPRequestHandler):
                     e.get("tokens") or [],
                     int(e.get("max_new_tokens") or 32),
                     e.get("eos_token"),
+                    prefix_id=e.get("prefix_id"),
                     temperature=None if temp is None else float(temp),
                     top_k=0 if top_k is None else int(top_k),
                     top_p=1.0 if top_p is None else float(top_p),
@@ -252,9 +268,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 def build_server(args):
     """Resolve weights, build the engine, bind the HTTP server: returns
-    (httpd, service). The caller runs ``httpd.serve_forever()`` and, when
-    done, ``httpd.shutdown()``, ``httpd.server_close()`` and
-    ``service.stop()``."""
+    (httpd, service), or None when weights are missing (the error is
+    printed). The caller runs ``httpd.serve_forever()`` and, when done,
+    ``httpd.shutdown()``, ``httpd.server_close()`` and ``service.stop()``."""
     for attr, flag in _UNPORTED_FLAGS:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not yet ported to "
@@ -265,13 +281,34 @@ def build_server(args):
     params, config = resolve_params(
         args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
         device=args.device)
+    if params is None:
+        return None
     if args.int8:
         from kubedl_tpu_torch.models import quant
 
         params = quant.quantize_params(params)
+    draft_params = draft_config = None
+    if args.draft_model or args.draft_checkpoint_path:
+        if not args.draft_checkpoint_path:
+            # a random draft floors acceptance: speculation would be
+            # strictly slower than the plain engine
+            if not args.allow_fresh_init:
+                print("error: --draft-model needs weights (--draft-checkpoint-path); "
+                      "pass --allow-fresh-init to force a random draft for tests",
+                      file=sys.stderr)
+                return None
+            print("warning: random-init draft — speculation will be slower than "
+                  "plain serving (test mode)", file=sys.stderr)
+        draft_params, draft_config = resolve_params(
+            args.draft_model or "tiny", "", args.draft_checkpoint_path,
+            args.allow_fresh_init, label="draft", device=args.device)
+        if draft_params is None:
+            return None
     engine = ServingEngine(params, config, slots=args.slots,
                            max_len=args.max_len, temperature=args.temperature,
-                           kv_dtype="int8" if args.kv_int8 else None)
+                           kv_dtype="int8" if args.kv_int8 else None,
+                           draft_params=draft_params, draft_config=draft_config,
+                           spec_k=args.spec_k)
     svc = _Service(engine, decode_block=args.decode_block)
     httpd = ThreadingHTTPServer((args.bind, args.port), _Handler)
     httpd.daemon_threads = True
@@ -281,7 +318,10 @@ def build_server(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    httpd, svc = build_server(args)
+    built = build_server(args)
+    if built is None:
+        return 1
+    httpd, svc = built
     host, port = httpd.server_address[:2]
     print(f"serving {args.model} on http://{host}:{port} "
           f"(device={svc.engine.device}, slots={args.slots}, "

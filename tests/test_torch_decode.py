@@ -177,8 +177,11 @@ def test_cache_guards(model):
     int8 = tdecode.init_kv_cache(tcfg, 1, 8, kv_dtype="int8", device="cpu")
     assert int8["k"][0].dtype == torch.int8 and int8["ks"][0].dtype == torch.bfloat16
     assert int8["ks"][0].shape == (1, tcfg.n_kv_heads, 8) and bool((int8["vs"][1] == 1).all())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sliding_window"):  # ring caches need a window
         tdecode.init_kv_cache(tcfg, 1, 8, ring=True, device="cpu")
+    ring = tdecode.init_kv_cache(dataclasses.replace(tcfg, sliding_window=4), 1, 8, ring=True,
+                                 device="cpu")
+    assert ring["k"][0].shape == (1, tcfg.n_kv_heads, 4, tcfg.head_dim) and "ring" in ring
     with pytest.raises(ValueError):
         tdecode.init_kv_cache(tcfg, 1, 8, kv_dtype="fp8", device="cpu")
     cache = tdecode.init_kv_cache(tcfg, 1, 4, device="cpu")

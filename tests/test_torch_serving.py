@@ -2,7 +2,9 @@
 gives the JAX engine's greedy tokens on the same f32 parameters across
 bucket clusters and slot reuse; EOS, step_block, sampling semantics and
 failure isolation; one HTTP round trip through the port's server on the
-CPU."""
+CPU. Ring caches, chunked prefill, prefixes and speculative serving have
+files of their own (tests/test_torch_{ring_cache,chunked_prefill,
+prefix_cache,speculative}.py)."""
 import dataclasses
 import json
 import threading
@@ -166,18 +168,25 @@ def test_wave_sync_failure_isolates_clusters(model):
 
 
 def test_unported_features_are_refused(model):
+    """LoRA adapters are still refused; the ring cache, chunked prefill and
+    speculative serving this test once pinned as refused are ported
+    (tests/test_torch_{ring_cache,chunked_prefill,speculative}.py hold them
+    against JAX) and serve the plain engine's tokens here."""
     _, _, tcfg, tp = model
-    for kw in (dict(ring=True), dict(prefill_chunk=256),
-               dict(draft_params=tp, draft_config=tcfg)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServingEngine(tp, tcfg, slots=1, max_len=32, **kw)
+    prompt = _prompts((9,), 10)[0]
+    want = ServingEngine(tp, tcfg, slots=1, max_len=32).serve_all([prompt], 4)
+    windowed = dataclasses.replace(tcfg, sliding_window=64)  # wider than the prompt
+    for cfg, kw in ((windowed, dict(ring=True, max_len=64)), (tcfg, dict(prefill_chunk=8)),
+                    (tcfg, dict(draft_params=tp, draft_config=tcfg))):
+        eng = ServingEngine(tp, cfg, slots=1, **{"max_len": 32, **kw})
+        assert eng.serve_all([prompt], 4) == want, kw
     eng = ServingEngine(tp, tcfg, slots=1, max_len=32)
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], 2, prefix_id=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.submit([1, 2], 2, adapter_id=1)
+    with pytest.raises(ValueError, match="unknown prefix_id"):
+        eng.submit([1, 2], 2, prefix_id=0)
     with pytest.raises(ValueError):
-        eng.submit([1] * 40, 2)  # past the largest bucket (chunking unported)
+        eng.submit([1] * 40, 2)  # past max_len
     with pytest.raises(ValueError):
         eng.submit([1, 2], 2, top_p=0.0)
 
@@ -233,14 +242,16 @@ def test_http_round_trip_on_cpu(server):
     assert svc.engine.has_pending() is False
 
 
-def test_serve_refuses_unported_flags_and_missing_card(monkeypatch):
+def test_serve_refuses_unported_flags_and_missing_card(monkeypatch, tmp_path, capsys):
     from kubedl_tpu_torch.train import serve
 
-    with pytest.raises(NotImplementedError, match="--draft-model"):
-        serve.build_server(serve.parse_args(["--device", "cpu", "--draft-model", "tiny"]))
-    with pytest.raises(NotImplementedError):
-        serve.build_server(serve.parse_args(["--device", "cpu",
-                                             "--checkpoint-path", "/nonexistent"]))
+    for flags in (["--adapter", "x"], ["--lora-checkpoint-path", "x"],
+                  ["--draft-hf-model", "x"], ["--hf-model", "x"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            serve.build_server(serve.parse_args(["--device", "cpu"] + flags))
+    # checkpoints are ported: an empty path is the reference's error, exit 1
+    assert serve.main(["--device", "cpu", "--checkpoint-path", str(tmp_path)]) == 1
+    assert f"error: no checkpoint under {tmp_path}" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.build_server(serve.parse_args(["--port", "0"]))

@@ -10,7 +10,9 @@ returns rank 0's results by case name. A case is a dict:
   name, ici (and dcn) mesh axes, config (LlamaConfig fields, dtype a name),
   params (a numpy tree), batches (global [B, T] int32 arrays, one a
   micro-step), accum, lr, clip, and optionally stats (capture the dropless
-  route's routing and dispatch integers of layer 0's first forward).
+  route's routing and dispatch integers of layer 0's first forward) and
+  checkpoint (a directory: every rank saves the sharded state after the
+  last step through train/checkpoint.py's CheckpointManager).
 
 Each rank takes its rows of every global batch (parallel/mesh.py
 `token_index`), runs `make_train_step` on its DeviceMesh and reports the
@@ -191,6 +193,10 @@ def _case(case):
         state, m = train_step(state, local(b))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    if case.get("checkpoint"):
+        from kubedl_tpu_torch.train.checkpoint import CheckpointManager
+
+        CheckpointManager(case["checkpoint"]).save(int(state.step), state)
     params = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, (tok, stats[0] if stats else None))
