@@ -114,6 +114,25 @@ Phases, each printing its own line of numbers:
      path's logits replayed. K1 must launch on
      a-d; its counts join the kernels line's launches_by_path. Every
      line carries nvidia-smi's name and power limit.
+  14. LoRA, after phase 13: (a) the trainer at --lora-rank 16 on
+     full-width, full-depth Llama-7B (6 steps, b=4, 1024-token rows,
+     checkpoints, one profiled step): losses and grad norms finite, the
+     adapter count, the optimizer state's bytes, K1/K2/K3 launches equal to
+     phase 6's, the base unchanged bit for bit (init's draws replayed),
+     the merge and the adapters' optimizer alone, then the LoRA step in
+     turns with phase 6's full step on the same init; (b) Llama-7B on
+     ServingEngine with phase 4's traffic, two rank-16 adapters with noise
+     in B registered: adapter-0 requests equal the no-adapter engine's
+     tokens bit for bit (in turns, decode ms a tick and kernels a tick
+     beside), each adapter's first-token logits against an engine on the
+     merged weights (LOGIT_TOL) and the share of greedy tokens that agree;
+     (c) serve --adapter with (a)'s checkpoint and POST /adapter of it (ids
+     1 and 2 give the same tokens), generate --lora-checkpoint-path against
+     serve --lora-checkpoint-path on generate's prompts; (d) on that server
+     at --decode-block 1, one stream: true request equal to the unstreamed
+     answer, the gaps between its events (p50, p90, max), and GET /metrics
+     against GET /stats. K1 launches of a-d and K2/K3 of (a) join the
+     kernels line's launches_by_path.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -1017,11 +1036,14 @@ def _one_rank_group():
             backend="nccl")
 
 
-def _run_7b_steps(config, batches, mesh=None):
+def _run_7b_steps(config, batches, mesh=None, lora_rank=0):
     """make_train_step on a fresh 7B init (seed 0) over `batches`, on one
     device (mesh None) or through the sharded code on `mesh`: (losses,
     grad norms, step times in s, flash launches (fwd, dq, dkv), peak GB,
-    the one-device loss of the first batch before any step)."""
+    the one-device loss of the first batch before any step). lora_rank > 0
+    trains adapters of that rank through models/lora.py `make_lora_step`
+    on one device instead, and raises unless the base is unchanged bit for
+    bit after the steps."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.parallel import optim
     from kubedl_tpu_torch.parallel.mesh import ShardingRules
@@ -1035,14 +1057,20 @@ def _run_7b_steps(config, batches, mesh=None):
     with torch.no_grad():
         plain_loss = llama.loss_fn(params, batches[0], config).item()
     tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(3e-4, weight_decay=0.01))
-    if mesh is None:
+    base = trained = params
+    if lora_rank:
+        from kubedl_tpu_torch.models import lora
+
+        trained, init_state, train_step = lora.make_lora_step(params, config, tx,
+                                                              rank=lora_rank)
+    elif mesh is None:
         init_state, train_step = make_train_step(lambda p, b: llama.loss_fn(p, b, config), tx)
     else:
         init_state, train_step = make_train_step(
             lambda p, b: llama.loss_fn(p, b, config, mesh=mesh, rules=rules), tx, mesh,
             llama.param_specs(config, rules), rules.spec("batch", None), rules)
-    state = init_state(params)
-    del params
+    state = init_state(trained)
+    del params, trained
     kind = type(next(iter(llama.tree_leaves(state.params)))).__name__
     if (kind == "DTensor") != (mesh is not None):
         raise AssertionError(f"7B step on mesh {mesh}: leaves are {kind}")
@@ -1058,6 +1086,9 @@ def _run_7b_steps(config, batches, mesh=None):
     counts = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del state, metrics
+    if lora_rank and not _base_unchanged(base, config):
+        raise AssertionError("7B LoRA steps changed the base weights")
+    del base
     gc.collect()
     torch.cuda.empty_cache()
     return losses, gnorms, times, counts, peak_gb, plain_loss
@@ -1236,19 +1267,21 @@ def phase_gang_preemption():
     shutil.rmtree(ckpt, ignore_errors=True)
     return dict(preempted_at=at)
 
-def _drive_engine(engine, prompts, dup):
+def _drive_engine(engine, prompts, dup, adapters=None):
     """Phase 4's traffic on a ServingEngine, driven as the server's pump
     drives it (step_block(8)): every prompt at once, then `dup` twice.
-    Counts the flash launches of this run alone."""
+    Counts the flash launches of this run alone. `adapters`: each
+    request's adapter id, in submission order (None: all 0)."""
     from kubedl_tpu_torch.ops.flash_attention import flash_attention
 
+    ids = iter(adapters or [0] * (len(prompts) + 2))
     flash_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     per_tick = []  # decode seconds a tick of each step_block that ticked
     reqs = []
     for wave in (prompts, [dup, dup]):
-        batch = [engine.submit(p, SERVE_NEW) for p in wave]
+        batch = [engine.submit(p, SERVE_NEW, adapter_id=next(ids)) for p in wave]
         reqs += batch
         while not all(r.done for r in batch):
             ticks, dec = engine._ticks, engine._decode_time
@@ -2357,6 +2390,413 @@ def phase_serving_features(smi):
                        "mistral_ring_serving": out["d_ring"]["launches"]}
     return out
 
+# ---------------------------------------------------------------------------
+# phase 14: LoRA training, adapter serving, SSE and /metrics
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 16
+LORA_ADAPTER_PARAMS = 39_976_960  # rank 16 on wq, wk, wv, wo, w1, w3, w2 of 32 7B layers
+# 14b's B noise: A @ B then has std 0.05 * sqrt(16 / 4096), a fifth of a 7B
+# weight's (1 / sqrt(4096)), so the adapters change greedy tokens
+LORA_B_STD = 0.05
+LORA_TURN_STEPS = 4
+STREAM_PROMPT, STREAM_NEW = 100, 128
+
+
+def _base_unchanged(base, config):
+    """Every leaf of a fresh 7B tree (llama.init, seed 0 on the card) equal
+    bit for bit to a replay of init's draws, made one layer at a time."""
+    from kubedl_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for layer in base["layers"]:  # init draws the layers, then embed, then lm_head
+        fresh = llama.init_layer(config, gen, dev)
+        if not all(torch.equal(layer[k], fresh[k]) for k in fresh) or set(layer) != set(fresh):
+            return False
+    d = config.d_model
+    for name, shape in (("embed", (config.vocab_size, d)), ("lm_head", (d, config.vocab_size))):
+        if not torch.equal(base[name], llama._dense(shape, d, config.dtype, gen, dev)):
+            return False
+    return True
+
+
+def _14a_lora_train(train, smi):
+    """trainer --lora-rank 16 on Llama-7B (6 steps, b=4, 1024-token rows,
+    checkpoints, one profiled step), the base checked bit for bit after,
+    then the step in turns with phase 6's full step on the same init."""
+    from kubedl_tpu_torch.models import llama, lora
+    from kubedl_tpu_torch.parallel import optim
+
+    steps, n_layers, batch, seq = 6, 32, 4, 1024
+    config = llama.LlamaConfig.llama_7b()
+    ckpt = os.path.join(WORK, "ckpt-lora-7b")
+    profile_dir = os.path.join(WORK, "profile-lora-7b")
+    for d in (ckpt, profile_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    kept, real = {}, lora.make_lora_step
+
+    def keep(base_params, *a, **kw):  # the trainer's base, to check after
+        kept["base"] = base_params
+        return real(base_params, *a, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    lora.make_lora_step = keep
+    t0 = time.perf_counter()
+    try:
+        rc, spans, _ = _run_trainer(
+            ["--model", "llama-7b", "--batch", str(batch), "--seq-len", str(seq),
+             "--steps", str(steps), "--log-every", "1", "--grad-clip", "1.0",
+             "--lora-rank", str(LORA_RANK), "--checkpoint-path", ckpt,
+             "--checkpoint-interval", "3", "--profile-dir", profile_dir,
+             "--profile-steps", "1"], "lora7b")
+    finally:
+        lora.make_lora_step = real
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0 or len(spans) != steps:
+        raise AssertionError(f"7B LoRA trainer: rc={rc}, {len(spans)} step spans of {steps}")
+    losses = [sp["attrs"]["loss"] for sp in spans]
+    gnorms = [sp["attrs"]["grad_norm"] for sp in spans]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"7B LoRA trainer: non-finite loss or grad_norm {losses} {gnorms}")
+    if abs(losses[0] - math.log(32000)) > 1.5:
+        raise AssertionError(f"7B LoRA first loss {losses[0]} not within 1.5 of ln 32000")
+    want = (2 * steps * n_layers, steps * n_layers, steps * n_layers)
+    if counts != want or list(counts) != train["launches"]:
+        raise AssertionError(f"7B LoRA launches (fwd, dq, dkv) {counts}, expected {want}")
+    base = kept.pop("base")
+    n_base = llama.param_count(base)
+    if not _base_unchanged(base, config):
+        raise AssertionError("7B LoRA trainer changed the base weights")
+    saved_steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+    saved = torch.load(os.path.join(ckpt, str(steps), "state.pt"), map_location="cuda",
+                       weights_only=True)
+    adapters = saved["params"]
+    n_ad = lora.adapter_count(adapters)
+    opt_bytes = sum(t.numel() * t.element_size() for t in llama.tree_leaves(saved["opt_state"])
+                    if torch.is_tensor(t))
+    if saved_steps != [3, 6] or n_ad != LORA_ADAPTER_PARAMS or set(adapters) != {"layers"}:
+        raise AssertionError(f"7B LoRA checkpoints {saved_steps}, {n_ad} adapter params")
+    with torch.no_grad():
+        merge_ms = _time_ms(lambda: lora.merge(base, adapters), warmup=1, iters=3)
+    leaves = list(llama.tree_leaves(adapters))
+    grads = [torch.randn_like(p).mul_(1e-3) for p in leaves]
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(3e-4, weight_decay=0.01))
+    opt_state = tx.init(leaves)
+    opt_ms = _time_ms(lambda: tx.apply(leaves, grads, opt_state), warmup=1, iters=3)
+    del base, saved, adapters, leaves, grads, opt_state
+    step_s = statistics.median(sp["dur"] for sp in spans[1:])
+    tokens = batch * (seq - 1)
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"7B LoRA trainer wrote {len(traces)} profile traces")
+    prof = _kernel_profile(traces[0], spans[1]["dur"] * 1e3)
+    share = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    print(f"14a lora train [{smi}]: trainer --lora-rank {LORA_RANK} on llama-7b, {steps} steps "
+          f"b={batch} seq={seq} in {wall_s:.1f} s (init included); {n_ad} adapter params "
+          f"({100.0 * n_ad / n_base:.2f}% of {n_base}); optimizer state {opt_bytes / 1e6:.1f} "
+          f"MB; losses {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+          f"{', '.join(f'{x:.4f}' for x in gnorms)}; base unchanged bit for bit; "
+          f"checkpoints at steps {saved_steps}", flush=True)
+    print(f"14a lora train [{smi}]: step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; "
+          f"first {spans[0]['dur'] * 1e3:.1f} ms), {tokens / step_s:.0f} tok/s, peak allocated "
+          f"{peak_gb:.2f} GB (phase 6: {train['peak_gb']:.2f}); launches fwd/dq/dkv {counts}; "
+          f"merge alone {merge_ms:.1f} ms, clip + AdamW on the adapters alone {opt_ms:.2f} ms",
+          flush=True)
+    print(f"14a profile lora step [{smi}]: wall {prof['wall_ms']:.1f} ms (profiled), device "
+          f"busy {prof['device_busy_ms']:.1f} ms, idle share {share}, {prof['kernels']} "
+          f"kernels; by kind: " + "; ".join(f"{k} {ms:.1f} ms" for k, ms in
+                                            prof["groups"].items())
+          + "; top: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in prof["top"]), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [torch.randint(0, config.vocab_size, (batch, seq), generator=gen, device="cuda",
+                             dtype=torch.int32) for _ in range(LORA_TURN_STEPS)]
+    turns = {}
+    for label in ("full", "lora", "lora", "full"):
+        turns.setdefault(label, []).append(
+            _run_7b_steps(config, batches, lora_rank=LORA_RANK if label == "lora" else 0))
+    med = {k: [statistics.median(t[2][1:]) * 1e3 for t in v] for k, v in turns.items()}
+    peaks = {k: [t[4] for t in v] for k, v in turns.items()}
+    for label, runs in turns.items():
+        for losses_t, gnorms_t, _, counts_t, _, plain_loss in runs:
+            if not all(math.isfinite(x) for x in losses_t + gnorms_t) or \
+                    abs(losses_t[0] - plain_loss) > 1e-2 * abs(plain_loss):
+                raise AssertionError(f"14a turn {label}: losses {losses_t} vs {plain_loss}")
+    ratio = statistics.mean(med["lora"]) / statistics.mean(med["full"])
+    print(f"14a turns [{smi}]: {LORA_TURN_STEPS} steps each on the same init and batches, "
+          f"median of steps 2-{LORA_TURN_STEPS}: full step {', '.join(f'{x:.1f}' for x in med['full'])} "
+          f"ms, LoRA step {', '.join(f'{x:.1f}' for x in med['lora'])} ms (ratio "
+          f"{ratio:.4f}); peak {', '.join(f'{x:.2f}' for x in peaks['full'])} GB full, "
+          f"{', '.join(f'{x:.2f}' for x in peaks['lora'])} GB LoRA", flush=True)
+    return dict(losses=losses, grad_norms=gnorms, adapter_params=n_ad, base_params=n_base,
+                opt_state_bytes=opt_bytes, step_ms=step_s * 1e3,
+                first_step_ms=spans[0]["dur"] * 1e3, tok_s=tokens / step_s, peak_gb=peak_gb,
+                launches=list(counts), merge_ms=merge_ms, adapter_opt_ms=opt_ms,
+                profile=prof, turns_ms=med, turns_peak_gb=peaks, lora_over_full=ratio,
+                wall_s=wall_s), ckpt
+
+
+def _kernels_a_tick(engine, prompts, adapters, ticks=4):
+    """CUDA kernels a decode tick (torch.profiler over `ticks` engine steps
+    with every slot decoding)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [engine.submit(p, 2 * ticks, adapter_id=a) for p, a in zip(prompts, adapters)]
+    engine._admit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    while not all(r.done for r in reqs):
+        engine.step_block(8)
+    return n / ticks
+
+
+def _14b_adapter_serving(smi):
+    """Llama-7B on ServingEngine with phase 4's traffic: no adapter against
+    two registered rank-16 adapters (requests naming adapter 0) in turns,
+    tokens bit for bit; then each adapter against an engine on the merged
+    weights (first-token logits, greedy agreement)."""
+    from kubedl_tpu_torch.models import llama, lora
+    from kubedl_tpu_torch.models.serving import ServingEngine, _bucket
+
+    config = llama.LlamaConfig.llama_7b()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    adapters = []
+    for _ in range(2):
+        ad = lora.lora_init(gen, params, rank=LORA_RANK)
+        for entry in ad["layers"]:
+            for ab in entry.values():
+                ab["b"].normal_(0.0, LORA_B_STD, generator=gen)
+        adapters.append(ad)
+    engines = {"0": ServingEngine(params, config, slots=8, max_len=1024),
+               "2": ServingEngine(params, config, slots=8, max_len=1024)}
+    for ad in adapters:
+        engines["2"].register_adapter(ad)
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+               for n in SERVE_LENGTHS]
+    dup = prompts[2]
+    turns = {}
+    for label in ("0", "2", "2", "0"):
+        turns.setdefault(label, []).append(_drive_engine(engines[label], prompts, dup))
+    runs = turns["0"] + turns["2"]
+    if any(e for r in runs for e in r["errors"]) or any(r["tokens"] != runs[0]["tokens"]
+                                                        for r in runs):
+        raise AssertionError("14b: adapter-0 requests differ from the no-adapter engine's")
+    if turns["2"][0]["launches"] != turns["0"][0]["launches"] or turns["2"][0]["launches"] < 32:
+        raise AssertionError(f"14b: flash launches {[r['launches'] for r in runs]}")
+    tick = {k: [r["tick_ms_median"] for r in v] for k, v in turns.items()}
+    mixed = [1 + i % 2 for i in range(len(prompts) + 2)]
+    kernels = {k: _kernels_a_tick(engines[k], prompts + [dup, dup], mixed if k == "2"
+                                  else [0] * 8) for k in ("0", "2")}
+    adapted = _drive_engine(engines["2"], prompts, dup, mixed)
+    launches = adapted["launches"]
+    del engines["0"]
+    every = prompts + [dup, dup]
+    per_adapter = {}
+    for k in (1, 2):
+        merged = lora.merge(params, adapters[k - 1])
+        engm = ServingEngine(merged, config, slots=8, max_len=1024)
+        idx = [i for i, a in enumerate(mixed) if a == k]
+        reqs = [engm.submit(every[i], SERVE_NEW) for i in idx]
+        while not all(r.done for r in reqs):
+            engm.step_block(8)
+        share = _agree([adapted["tokens"][i] for i in idx], [r.tokens for r in reqs])
+        p = np.asarray(prompts[3], np.int32)  # 513 tokens
+        bucket = _bucket(len(p), engm.prompt_buckets)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(p)] = p
+        lengths = np.array([len(p)], np.int32)
+        eng2 = engines["2"]
+        la, _ = eng2._prefill_rows(eng2._local, config, padded, lengths, None,
+                                   np.array([k], np.int32))
+        lm, _ = engm._prefill_rows(engm._local, config, padded, lengths)
+        max_abs, scale, argmax_equal = _compare_logits(la[0], lm[0], f"14b adapter {k}")
+        changed = _agree([adapted["tokens"][i] for i in idx], [runs[0]["tokens"][i] for i in idx])
+        per_adapter[k] = dict(logits_rel=max_abs / scale, max_abs=max_abs,
+                              argmax_equal=argmax_equal, agree_share=share,
+                              agree_with_base=changed)
+        del merged, engm, reqs, la, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    if max(v["agree_with_base"] for v in per_adapter.values()) > 0.9:
+        raise AssertionError(f"14b: the adapters barely change greedy tokens {per_adapter}")
+    del engines, params, adapters
+    print(f"14b adapter serving [{smi}]: llama-7b, 8 slots, 1024 positions, phase 4's traffic; "
+          f"2 rank-{LORA_RANK} adapters registered (B ~ N(0, {LORA_B_STD})): adapter-0 requests "
+          f"equal the no-adapter engine's tokens bit for bit in every turn; decode ms a tick "
+          f"(median) with 0 adapters {', '.join(f'{x:.2f}' for x in tick['0'])}, with 2 "
+          f"{', '.join(f'{x:.2f}' for x in tick['2'])} (ratio "
+          f"{statistics.mean(tick['2']) / statistics.mean(tick['0']):.4f}); CUDA kernels a "
+          f"tick {kernels['0']:.0f} without, {kernels['2']:.0f} with adapters; flash launches "
+          f"{launches} (the traffic naming adapters 1 and 2)", flush=True)
+    for k, v in per_adapter.items():
+        print(f"14b adapter {k} [{smi}]: first-token logits (513-token prompt) against an "
+              f"engine on merge(base, adapter {k}) rel {v['logits_rel']:.3e} (max_abs "
+              f"{v['max_abs']:.4e}, tol {LOGIT_TOL}), argmax equal {v['argmax_equal']}; greedy "
+              f"tokens agreeing with the merged engine {v['agree_share']:.4f}, with the base "
+              f"{v['agree_with_base']:.4f}", flush=True)
+    return dict(tick_ms=tick, kernels_a_tick=kernels, per_adapter=per_adapter,
+                launches=launches, prefill_tok_s={k: [r["prefill_tok_s"] for r in v]
+                                                  for k, v in turns.items()})
+
+
+def _14c_entry_points(ckpt, smi):
+    """serve --adapter CKPT and POST /adapter with the same checkpoint;
+    generate --lora-checkpoint-path CKPT. Returns (numbers, flash launches,
+    generate's prompts and tokens)."""
+    from kubedl_tpu_torch.models import decode
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+    from kubedl_tpu_torch.train import generate
+
+    rng = torch.Generator().manual_seed(15)
+    # two prompts under three adapter ids: six requests, all in the first
+    # wave of 8 slots, so the rows naming 1 and 2 share every shape
+    prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in (40, 700)]
+    flash_attention.launches = 0
+    with _server(_serve_args("--max-len", "1024", "--adapter", ckpt)) as (base, svc):
+        registered = svc.engine.stats()["adapters_registered"]
+        second = _post(base, {"checkpoint_path": ckpt}, path="/adapter")["adapter_id"]
+        out = _post(base, {"requests": [{"tokens": p, "max_new_tokens": SERVE_NEW,
+                                         "adapter_id": a} for p in prompts for a in (0, 1, 2)]})
+    answers = [r["tokens"] for r in out["results"]]
+    errors = [r.get("error") for r in out["results"] if r.get("error")]
+    if registered != 1 or second != 2 or errors or any(len(t) != SERVE_NEW for t in answers):
+        raise AssertionError(f"14c: adapters {registered}, POST /adapter {second}, {errors}")
+    if any(answers[3 * i + 1] != answers[3 * i + 2] for i in range(len(prompts))):
+        raise AssertionError("14c: --adapter and POST /adapter of one checkpoint differ")
+    trained_vs_base = _agree([answers[3 * i + 1] for i in range(len(prompts))],
+                             [answers[3 * i] for i in range(len(prompts))])
+    kept, real = [], decode.generate
+
+    def record(*a, **kw):
+        toks = real(*a, **kw)
+        kept.append(toks.cpu())
+        return toks
+
+    decode.generate = record
+    t0 = time.perf_counter()
+    try:
+        rc = generate.main(["--model", "llama-7b", "--lora-checkpoint-path", ckpt,
+                            "--batch", "8", "--prompt-len", "64", "--max-new-tokens", "16"])
+    finally:
+        decode.generate = real
+    gen_s = time.perf_counter() - t0
+    if rc != 0 or len(kept) != 2 or not torch.equal(kept[0], kept[1]):
+        raise AssertionError(f"14c: generate rc {rc}, {len(kept)} runs")
+    # generate's prompts: its seed + 1 on the host, as train/generate.py draws them
+    gen_prompts = torch.randint(0, 32000, (8, 64), generator=torch.Generator().manual_seed(1),
+                                dtype=torch.int32)
+    launches = flash_attention.launches
+    numbers = dict(adapter_ids=[1, second], trained_vs_base_agree=trained_vs_base,
+                   generate_s=gen_s)
+    print(f"14c entry points [{smi}]: serve --adapter {os.path.basename(ckpt)} (id 1) and POST "
+          f"/adapter of the same checkpoint (id {second}): {len(answers)} answers of "
+          f"{SERVE_NEW} tokens, ids 1 and 2 equal bit for bit, the trained adapter agreeing "
+          f"with the base on {trained_vs_base:.4f} of tokens; generate --lora-checkpoint-path: "
+          f"8 x 16 tokens in {gen_s:.1f} s (7B init and merge included)", flush=True)
+    return numbers, launches, gen_prompts.tolist(), kept[-1].tolist()
+
+
+def _14d_stream(base, svc, smi):
+    """One stream: true request at --decode-block 1 against the same
+    request unstreamed; the gaps between its events; GET /metrics against
+    GET /stats."""
+    rng = torch.Generator().manual_seed(16)
+    prompt = torch.randint(1, 32000, (STREAM_PROMPT,), generator=rng).tolist()
+    body = {"tokens": prompt, "max_new_tokens": STREAM_NEW}
+    plain = _post(base, body)
+    req = urllib.request.Request(f"{base}/generate", data=json.dumps(dict(body, stream=True))
+                                 .encode(), headers={"Content-Type": "application/json"})
+    events, arrivals = [], []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        ctype = r.headers["Content-Type"]
+        for raw in r:
+            if raw.startswith(b"data: "):
+                arrivals.append(time.perf_counter())
+                events.append(json.loads(raw[len(b"data: "):]))
+    toks = [e["token"] for e in events[:-1]]
+    final = events[-1] if events else {}
+    if not ctype.startswith("text/event-stream") or not final.get("done") or \
+            toks != plain["tokens"] or final["tokens"] != plain["tokens"] or \
+            len(toks) != STREAM_NEW:
+        raise AssertionError(f"14d: stream of {len(toks)} tokens, final {final.keys()}, "
+                             f"equal to the plain answer {toks == plain['tokens']}")
+    gaps = [(b - a) * 1e3 for a, b in zip(arrivals[:len(toks)], arrivals[1:len(toks)])]
+    q = statistics.quantiles(gaps, n=10)
+    metrics = urllib.request.urlopen(f"{base}/metrics", timeout=60).read().decode()
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+    gauges = dict(line.split(" ", 1) for line in metrics.splitlines()
+                  if not line.startswith("#"))
+    numeric = {k for k, v in stats.items() if isinstance(v, (int, float))}
+    stable = ("slots", "admitted", "tokens_out", "ticks", "prefill_batches",
+              "adapters_registered")
+    if set(gauges) != {f"kubedl_serving_{k}" for k in numeric} or any(
+            float(gauges[f"kubedl_serving_{k}"]) != float(stats[k]) for k in stable):
+        raise AssertionError(f"14d: /metrics {sorted(gauges)} against /stats {stats}")
+    print(f"14d stream [{smi}]: one stream of {len(toks)} tokens ({STREAM_PROMPT}-token "
+          f"prompt, --decode-block 1) equal to the unstreamed answer; gaps between events "
+          f"p50 {statistics.median(gaps):.2f} ms, p90 {q[8]:.2f} ms, max {max(gaps):.2f} ms "
+          f"over {len(gaps)} gaps; GET /metrics {len(gauges)} gauges, equal to GET /stats",
+          flush=True)
+    return dict(tokens=len(toks), gap_p50_ms=statistics.median(gaps), gap_p90_ms=q[8],
+                gap_max_ms=max(gaps), gaps=len(gaps), gauges=len(gauges))
+
+
+def phase_lora(train, smi):
+    """14: LoRA on one card. a) the trainer's --lora-rank on Llama-7B and
+    the step in turns with phase 6's; b) two adapters on the serving engine;
+    c) serve --adapter, POST /adapter and generate --lora-checkpoint-path
+    on (a)'s checkpoint, against serve --lora-checkpoint-path; d) an SSE
+    stream and GET /metrics on that server. K1-K3 launch counts by path."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    out["a_train"], ckpt = _14a_lora_train(train, smi)
+    out["b_serving"] = _14b_adapter_serving(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c_entry_points"], launches_c, gen_prompts, gen_toks = _14c_entry_points(ckpt, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _server(_serve_args("--max-len", "1024", "--lora-checkpoint-path", ckpt,
+                             "--decode-block", "1")) as (base, svc):
+        flash_attention.launches = 0
+        merged = _post(base, {"requests": [{"tokens": p, "max_new_tokens": 16}
+                                           for p in gen_prompts]})
+        launches_c += flash_attention.launches
+        served = [r["tokens"] for r in merged["results"]]
+        flash_attention.launches = 0
+        out["d_stream"] = _14d_stream(base, svc, smi)
+        launches_d = flash_attention.launches
+    firsts = sum(a[0] == b[0] for a, b in zip(served, gen_toks))
+    share = _agree(served, gen_toks)
+    print(f"14c merged [{smi}]: serve --lora-checkpoint-path against generate "
+          f"--lora-checkpoint-path on generate's 8 prompts of 64 tokens: first tokens equal "
+          f"{firsts}/8, greedy tokens agreeing {share:.4f}", flush=True)
+    if firsts < len(served) - 1:  # one near-tie flip allowed, as 13b allows
+        raise AssertionError(f"14c: generate and serve agree on {firsts} first tokens of 8")
+    out["c_entry_points"].update(generate_first_tokens_equal=firsts, generate_agree=share)
+    out["launches"] = {"7b_lora_train": out["a_train"]["launches"][0],
+                       "7b_adapter_serving": out["b_serving"]["launches"],
+                       "7b_adapter_entry_points": launches_c, "7b_sse_stream": launches_d}
+    for path, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"14: flash forward never launched on {path}")
+    return out
+
+
 
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
@@ -2415,6 +2855,8 @@ def main(argv=None) -> int:
     dist.destroy_process_group()
     features = _phase("13 serving features", phase_serving_features, smi)
     _free("the serving features")
+    lora = _phase("14 LoRA, adapter serving, SSE and /metrics", phase_lora, train, smi)
+    _free("LoRA")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -2424,6 +2866,9 @@ def main(argv=None) -> int:
             "source": f"kubedl_tpu_torch/ops/csrc/{main_b['source']}",
             "replaces": f"kubedl_tpu/ops/flash_attention.py:{line}",
             "launches": train["launches"][1 if part == "dq" else 2],
+            "launches_by_path": {"7b_train": train["launches"][1 if part == "dq" else 2],
+                                 "7b_lora_train": lora["a_train"]["launches"][
+                                     1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
                                if r["source"] == main_b["source"] for g in gname),
             "ms": main_b[f"{part}_ms"],
@@ -2470,7 +2915,7 @@ def main(argv=None) -> int:
                              "moe_int8_serving": moe_serve["flash_launches"],
                              "7b_tp_serving": tp["launches_mesh"],
                              "7b_int8_kv_serving": tp["launches_int8"],
-                             **features["launches"]},
+                             **features["launches"], **lora["launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()),
         "ms": main_k["kernel_ms"],
         "plain_ms": main_k["plain_ms"],
@@ -2486,7 +2931,8 @@ def main(argv=None) -> int:
                            grads=grads, train=train, options=options, moe_grads=moe_grads,
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
-                           serving_features=features, seconds=time.perf_counter() - t_start),
+                           serving_features=features, lora=lora,
+                           seconds=time.perf_counter() - t_start),
                       f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -40,9 +40,14 @@ the window mask applies unchanged. Decode steps on a ring are single-token.
 `prefill_chunked` appends a prompt in block steps, `generate_speculative`
 drafts with a small model and verifies in one block step a round; both,
 and the ring, are plain torch over the cache, as the JAX package computes
-them outside any kernel. Under a mesh, ring caches and logprobs are
-refused (ROADMAP.md); `prefill_chunked` and `generate_speculative` take no
-mesh, as the JAX functions take none.
+them outside any kernel. Under a mesh, ring caches, logprobs and LoRA
+adapters are refused (ROADMAP.md); `prefill_chunked` and
+`generate_speculative` take no mesh, as the JAX functions take none.
+
+`decode_step`, `decode_block_step` and `prefill` take per-row LoRA adapters
+(`lora`, the serving engine's stacks, and `adapter_ids` [b]): two batched
+products a projection on top of the main one (models/llama.py `_proj`),
+plain torch as the reference's einsums are.
 """
 from __future__ import annotations
 
@@ -231,11 +236,15 @@ def _check_capacity(pos, T: int, max_cap: int) -> None:
             f"overflows it — init a larger max_len")
 
 
-def _mesh_context(params: Dict, config: LlamaConfig, mesh, rules=None):
+def _mesh_context(params: Dict, config: LlamaConfig, mesh, rules=None, lora=None):
     """(the tree a decode computes on, its _Par): the params and None
     without a mesh; with one, every leaf's local view, taken here once."""
     if mesh is None:
         return params, None
+    if lora is not None:
+        raise NotImplementedError(
+            "LoRA adapters under a mesh are not ported to kubedl_tpu_torch yet "
+            "(ROADMAP.md)")
     if config.n_experts > 0:
         raise NotImplementedError(
             "MoE layers under a mesh in decode are not ported to kubedl_tpu_torch "
@@ -261,21 +270,26 @@ def _full_logits(logits, par: Optional[_Par]):
 
 
 def decode_step(params: Dict, token, cache: Dict, config: LlamaConfig,
-                check: bool = True, mesh=None, rules=None) -> Tuple[torch.Tensor, Dict]:
+                check: bool = True, mesh=None, rules=None, lora: Optional[Dict] = None,
+                adapter_ids=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step for token [b]: (logits [b, vocab], cache), the T=1
     case of decode_block_step: a uniform cache writes every row at the one
     length, a ragged one each row at its own, a ring cache at the length
     modulo its window. `check=False` skips the capacity guard (it reads the
     lengths back from the device) for callers that sized the cache
-    themselves."""
-    local, par = _mesh_context(params, config, mesh, rules)
-    logits, cache = _decode_block_step(local, token[:, None], cache, config, check, par)
+    themselves. `lora` ({"layers": [per-layer stacks]}) and `adapter_ids`
+    [b] add each row's adapter delta (models/llama.py `_proj`; id 0 is the
+    base model)."""
+    local, par = _mesh_context(params, config, mesh, rules, lora)
+    logits, cache = _decode_block_step(local, token[:, None], cache, config, check, par,
+                                       lora=lora, adapter_ids=adapter_ids)
     return logits[:, 0], cache
 
 
 def decode_block_step(params: Dict, tokens, cache: Dict, config: LlamaConfig,
                       check: bool = True, mesh=None, rules=None,
-                      return_hidden: bool = False) -> Tuple[torch.Tensor, Dict]:
+                      return_hidden: bool = False, lora: Optional[Dict] = None,
+                      adapter_ids=None) -> Tuple[torch.Tensor, Dict]:
     """T tokens per row [b, T] through the cache in one forward: (logits
     [b, T, vocab], cache advanced by T), or with return_hidden the pre-head
     activations [b, T, d]. Query i sees the cache plus the block up to
@@ -283,17 +297,22 @@ def decode_block_step(params: Dict, tokens, cache: Dict, config: LlamaConfig,
     each row at its own. Ring caches take uniform single-token steps only.
     A caller that keeps fewer than T positions (speculative decoding) rolls
     back by shrinking ``lengths``: later positions are masked and written
-    over."""
+    over. `lora`, `adapter_ids` as in decode_step."""
     if "ring" in cache and (tokens.shape[1] > 1 or cache["lengths"].dim() == 1):
         # a block can wrap over its own writes; ragged rings step through
         # decode_step, as the JAX package's do
         raise ValueError("ring caches support uniform single-token steps only")
-    local, par = _mesh_context(params, config, mesh, rules)
-    return _decode_block_step(local, tokens, cache, config, check, par, return_hidden)
+    local, par = _mesh_context(params, config, mesh, rules, lora)
+    return _decode_block_step(local, tokens, cache, config, check, par, return_hidden,
+                              lora, adapter_ids)
+
+
+def _layer_lora(lora, i: int):
+    return None if lora is None else lora["layers"][i]
 
 
 def _decode_block_step(params, tokens, cache, config, check=True, par=None,
-                       return_hidden=False):
+                       return_hidden=False, lora=None, adapter_ids=None):
     c = config
     b, T = tokens.shape
     pos = cache["lengths"]
@@ -322,8 +341,9 @@ def _decode_block_step(params, tokens, cache, config, check=True, par=None,
 
     x = _embed(params, tokens, c, par)
     for i, layer in enumerate(params["layers"]):
+        llayer = _layer_lora(lora, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps, c.norm_offset)
-        q, k, v = _qkv(h, layer, c, positions)
+        q, k, v = _qkv(h, layer, c, positions, llayer, adapter_ids)
         ks, vs = _store(cache, i, k, v, put)
         attn = _attend_cached(q, cache["k"][i], cache["v"][i], limits,
                               q.shape[1] // k.shape[1], k_scale=ks, v_scale=vs,
@@ -331,8 +351,8 @@ def _decode_block_step(params, tokens, cache, config, check=True, par=None,
                               ring_total=(pos + T) if ring else None,
                               softcap=c.attn_logit_softcap or None)
         attn = attn.transpose(1, 2).reshape(b, T, -1)
-        x = _attn_out(x, attn, layer, c, par)
-        x, _ = _mlp_block(x, layer, c, par)
+        x = _attn_out(x, attn, layer, c, par, llayer, adapter_ids)
+        x, _ = _mlp_block(x, layer, c, par, llayer, adapter_ids)
     out = dict(cache, lengths=pos + T)
     if return_hidden:
         return x, out
@@ -340,7 +360,8 @@ def _decode_block_step(params, tokens, cache, config, check=True, par=None,
 
 
 def prefill(params: Dict, tokens, cache: Dict, config: LlamaConfig,
-            lengths=None, mesh=None, rules=None):
+            lengths=None, mesh=None, rules=None, lora: Optional[Dict] = None,
+            adapter_ids=None):
     """One full-sequence forward over prompt tokens [b, t] (right-padded
     when ragged), writing K/V positions [0, t) of the cache. Returns
     (logits at each row's last real token [b, vocab], cache). Attention
@@ -348,9 +369,9 @@ def prefill(params: Dict, tokens, cache: Dict, config: LlamaConfig,
     Padding is safe under the causal mask: a real query only attends keys
     at or before it, and pad positions are never attended later (per-row
     lengths). A ring cache takes each row's last `window` positions, in
-    ring order."""
-    local, par = _mesh_context(params, config, mesh, rules)
-    return _prefill(local, tokens, cache, config, lengths, par)
+    ring order. `lora`, `adapter_ids` as in decode_step."""
+    local, par = _mesh_context(params, config, mesh, rules, lora)
+    return _prefill(local, tokens, cache, config, lengths, par, lora, adapter_ids)
 
 
 def ring_rows(lengths, W: int, t: int):
@@ -361,7 +382,8 @@ def ring_rows(lengths, W: int, t: int):
     return _ring_positions(lengths, W).clamp(0, t - 1)
 
 
-def _prefill(params, tokens, cache, config, lengths=None, par=None):
+def _prefill(params, tokens, cache, config, lengths=None, par=None, lora=None,
+             adapter_ids=None):
     c = config
     b, t = tokens.shape
     uniform = cache["lengths"].dim() == 0
@@ -388,15 +410,16 @@ def _prefill(params, tokens, cache, config, lengths=None, par=None):
 
     x = _embed(params, tokens, c, par)
     for i, layer in enumerate(params["layers"]):
+        llayer = _layer_lora(lora, i)
         h = rms_norm(x, layer["attn_norm"], c.rms_eps, c.norm_offset)
-        q, k, v = _qkv(h, layer, c, positions)
+        q, k, v = _qkv(h, layer, c, positions, llayer, adapter_ids)
         _store(cache, i, k, v, put)
         # GQA is handled inside the attention entry points
         attn = attend(q, k, v, causal=True, window=c.window_for(i),
                       softcap=c.attn_logit_softcap or None)
         attn = attn.transpose(1, 2).reshape(b, t, -1)
-        x = _attn_out(x, attn, layer, c, par)
-        x, _ = _mlp_block(x, layer, c, par)
+        x = _attn_out(x, attn, layer, c, par, llayer, adapter_ids)
+        x, _ = _mlp_block(x, layer, c, par, llayer, adapter_ids)
     if uniform:
         last = x[:, t - 1]
         new_len = torch.full((), t, dtype=torch.int32, device=tokens.device)

@@ -393,23 +393,37 @@ def _rope(x, positions, theta, scaling=None):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _proj(h, layer, name):
+def _proj(h, layer, name, lora=None, adapter_ids=None):
     """h @ layer['w<name>'], plus the optional f32 QKV bias (Qwen2) added
-    in the activation dtype."""
-    out = _mm(h, layer["w" + name])
+    in the activation dtype.
+
+    Multi-adapter serving (models/serving.py `register_adapter`): `lora` is
+    this layer's stacked adapters {"w<name>": {"a": [N, in, r], "b": [N, r,
+    out]}}, row 0 all zeros (the base model) and the alpha/r scale folded
+    into b; `adapter_ids` [b] picks each row's adapter. The rank-r delta is
+    two batched products with f32 accumulation on top of the main product,
+    added in the output dtype."""
+    wkey = "w" + name
+    out = _mm(h, layer[wkey])
     bias = layer.get("b" + name)
     if bias is not None:
         out = out + bias.to(out.dtype)
+    if lora is not None and wkey in lora:
+        a = torch.index_select(lora[wkey]["a"], 0, adapter_ids).to(h.dtype)
+        bm = torch.index_select(lora[wkey]["b"], 0, adapter_ids).to(h.dtype)
+        delta = torch.bmm(h.float(), a.float()).to(h.dtype)  # [b, t, r]
+        out = out + torch.bmm(delta.float(), bm.float()).to(out.dtype)
     return out
 
 
-def _qkv(h, layer, c: LlamaConfig, positions):
+def _qkv(h, layer, c: LlamaConfig, positions, lora=None, adapter_ids=None):
     """Projected, rotated q [b, hq, t, hd] and k, v [b, hkv, t, hd] (the
-    local heads, when the projections are a tensor shard)."""
+    local heads, when the projections are a tensor shard); `lora`,
+    `adapter_ids` as in `_proj`."""
     b, t, _ = h.shape
-    q = _proj(h, layer, "q").reshape(b, t, -1, c.head_dim).transpose(1, 2)
-    k = _proj(h, layer, "k").reshape(b, t, -1, c.head_dim).transpose(1, 2)
-    v = _proj(h, layer, "v").reshape(b, t, -1, c.head_dim).transpose(1, 2)
+    q = _proj(h, layer, "q", lora, adapter_ids).reshape(b, t, -1, c.head_dim).transpose(1, 2)
+    k = _proj(h, layer, "k", lora, adapter_ids).reshape(b, t, -1, c.head_dim).transpose(1, 2)
+    v = _proj(h, layer, "v", lora, adapter_ids).reshape(b, t, -1, c.head_dim).transpose(1, 2)
     q = _rope(q, positions, c.rope_theta, c.rope_scaling)
     k = _rope(k, positions, c.rope_theta, c.rope_scaling)
     if c.q_prescale != 1.0:
@@ -417,10 +431,11 @@ def _qkv(h, layer, c: LlamaConfig, positions):
     return q, k, v
 
 
-def _attn_out(x, attn, layer, c: LlamaConfig, par: Optional["_Par"] = None):
+def _attn_out(x, attn, layer, c: LlamaConfig, par: Optional["_Par"] = None,
+              lora=None, adapter_ids=None):
     """Residual add of the output projection of attn [b, t, hq*hd]; with
     local heads the partial products are summed over the tensor axis."""
-    out = _mm(attn.to(c.dtype), layer["wo"]).to(x.dtype)
+    out = _proj(attn.to(c.dtype), layer, "o", lora, adapter_ids).to(x.dtype)
     if par is not None:
         out = par.psum(out)
     if "post_attn_norm" in layer:
@@ -442,9 +457,12 @@ def _attention_block(x, layer, config: LlamaConfig, positions, window=None,
     return _attn_out(x, attn, layer, config, par)
 
 
-def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None):
+def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None,
+               lora=None, adapter_ids=None):
     """Dense or MoE FFN with the residual add: (x, aux), aux the MoE
-    load-balance loss (a 0-d f32 tensor) or 0.0 for a dense layer."""
+    load-balance loss (a 0-d f32 tensor) or 0.0 for a dense layer.
+    `lora`, `adapter_ids`: per-row serving adapters on w1/w3/w2 (`_proj`);
+    MoE layers carry no dense projections for adapters to target."""
     h = rms_norm(x, layer["mlp_norm"], config.rms_eps, config.norm_offset)
     if "moe" in layer:
         y, aux = moe_mlp(h, layer["moe"], top_k=config.expert_top_k,
@@ -457,9 +475,10 @@ def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None):
     else:
         if par is not None:
             h = par.enter(h)
-        gate = _act(_proj(h, layer, "1").float(), config.act).to(h.dtype)
-        up = _proj(h, layer, "3")
-        y = _proj(gate * up, layer, "2").to(x.dtype)
+        gate = _act(_proj(h, layer, "1", lora, adapter_ids).float(),
+                    config.act).to(h.dtype)
+        up = _proj(h, layer, "3", lora, adapter_ids)
+        y = _proj(gate * up, layer, "2", lora, adapter_ids).to(x.dtype)
         if par is not None:
             y = par.psum(y)
         aux = 0.0

@@ -24,7 +24,12 @@ device for the engine's lifetime and requests come and go by writing rows:
     speculative round: the draft proposes `spec_k` tokens a slot, one
     ragged block step of the target verifies every slot, each keeps its
     longest accepted prefix and the target's next token. Sampled traffic
-    falls back to plain ticks, with the draft cache kept in step.
+    falls back to plain ticks, with the draft cache kept in step;
+  * LoRA adapters registered with `register_adapter` are chosen per
+    request (`adapter_id`, 0 the base model): their deltas ride the shared
+    prefill, chunk append, tick and verify as stacks gathered by each
+    slot's id (models/llama.py `_proj`); the draft runs without them. With
+    no adapter registered nothing of this runs.
 
 `kv_dtype="int8"` keeps the live cache and the prefill scratch in int8
 codes with bf16 scales (models/decode.py). With a `mesh`, the parameters
@@ -33,8 +38,8 @@ group with the same submissions in the same order: its slots are
 replicated, only the tensor axis splits the work, the local views of the
 leaves are taken once here, and every rank samples the same tokens from
 the gathered logits with the same seeded generator. Under a mesh, ring
-caches, chunked prefill, prefixes and speculative serving are refused, and
-LoRA adapters everywhere (NotImplementedError naming ROADMAP.md).
+caches, chunked prefill, prefixes, speculative serving and LoRA adapters
+are refused (NotImplementedError naming ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch
 
 from kubedl_tpu_torch.models import decode
 from kubedl_tpu_torch.models.llama import LlamaConfig
+from kubedl_tpu_torch.models.quant import is_quantized
 
 _log = logging.getLogger("kubedl_tpu_torch.serving")
 
@@ -170,6 +176,8 @@ class Request:
     top_p: float = 1.0
     logprobs: bool = False
     stop_sequences: tuple = ()
+    # LoRA adapter id from engine.register_adapter (0 = base model)
+    adapter_id: int = 0
     # filled by the engine
     tokens: List[int] = field(default_factory=list)
     token_logprobs: List[float] = field(default_factory=list)
@@ -220,6 +228,7 @@ class ServingEngine:
         spec_k: int = 4,
         mesh=None,
         rules=None,
+        max_adapters: int = 8,
     ) -> None:
         # ring caches (sliding-window models): the live buffers hold the
         # window's rows; max_len stays each slot's token budget. On by
@@ -262,6 +271,14 @@ class ServingEngine:
         self.samp_topk = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.samp_topp = torch.ones((slots,), dtype=torch.float32, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # multi-adapter serving: stacked LoRA deltas chosen per slot inside
+        # the shared tick; adapter 0 is the base model (an all-zero row).
+        # None until the first register_adapter.
+        self.max_adapters = max_adapters
+        self.lora: Optional[Dict] = None
+        self._adapter_rows: list = []  # host f32 copies for stack rebuilds
+        self._adapter_meta = None  # (rank, per-layer target tuple)
+        self.slot_adapter = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.cache = self._new_cache(slots, max_len, ring=self.ring)
         self.cur_tokens = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
@@ -325,16 +342,27 @@ class ServingEngine:
                                     mesh=None if config else self.mesh, rules=self.rules)
 
     def _prefill_rows(self, params, config, padded: np.ndarray, lengths: np.ndarray,
-                      par=None):
+                      par=None, adapters: Optional[np.ndarray] = None):
         """Batched one-pass prefill of right-padded prompts into a scratch
-        cache as long as the padding: (last-token logits, rows)."""
+        cache as long as the padding: (last-token logits, rows). `adapters`
+        [rows] are the rows' adapter ids, when adapters are registered."""
         dev = self.device
         cache = decode.init_kv_cache(config, padded.shape[0], padded.shape[1],
                                      kv_dtype=self.kv_dtype, device=dev,
                                      mesh=self.mesh if par is not None else None,
                                      rules=self.rules)
         return decode._prefill(params, torch.from_numpy(padded).to(dev), cache, config,
-                               torch.from_numpy(lengths).to(dev), par)
+                               torch.from_numpy(lengths).to(dev), par,
+                               **self._lora_for(adapters))
+
+    def _lora_for(self, adapters: Optional[np.ndarray]) -> Dict:
+        """The decode functions' adapter arguments for rows with adapter ids
+        `adapters`: none when no adapter is registered or no ids are given
+        (the base model's path takes no adapter arguments)."""
+        if self.lora is None or adapters is None:
+            return {}
+        return {"lora": self.lora,
+                "adapter_ids": torch.from_numpy(adapters).to(self.device)}
 
     @staticmethod
     def _splice(cache: Dict, rows: Dict, i: int, slot: int, length: int) -> None:
@@ -367,7 +395,7 @@ class ServingEngine:
         old = self.cache["lengths"]
         logits, self.cache = decode._decode_block_step(
             self._local, self.cur_tokens[:, None], self.cache, self.config,
-            check=False, par=self._par)
+            check=False, par=self._par, lora=self.lora, adapter_ids=self.slot_adapter)
         logits = logits[:, 0]
         nxt = sample_tokens(logits, self.generator, self.samp_temps,
                             self.samp_topk, self.samp_topp, mode, self.max_top_k)
@@ -379,12 +407,14 @@ class ServingEngine:
         self.cur_tokens = nxt
         return nxt, lp
 
-    def _append_block(self, toks: np.ndarray, cache: Dict):
+    def _append_block(self, toks: np.ndarray, cache: Dict, adapter_id: Optional[int] = None):
         """A block step of a uniform batch-1 cache, in place: (hidden rows
-        [1, T, d], cache). The chunked prefill and the suffix append."""
+        [1, T, d], cache). The chunked prefill (with its request's adapter)
+        and the suffix append (base model only)."""
         return decode._decode_block_step(
             self._local, torch.from_numpy(np.ascontiguousarray(toks[None])).to(self.device),
-            cache, self.config, check=False, par=self._par, return_hidden=True)
+            cache, self.config, check=False, par=self._par, return_hidden=True,
+            **self._lora_for(None if adapter_id is None else np.array([adapter_id], np.int32)))
 
     def _head(self, hidden):
         """Logits [1, V] of the hidden row [1, d]."""
@@ -413,7 +443,8 @@ class ServingEngine:
         drafted = torch.stack(drafted, dim=1)  # [s, k]
         blk = torch.cat([cur[:, None], drafted[:, : k - 1]], dim=1)  # [s, k]
         blk_logits, self.cache = decode._decode_block_step(
-            self._local, blk, self.cache, self.config, check=False, par=self._par)
+            self._local, blk, self.cache, self.config, check=False, par=self._par,
+            lora=self.lora, adapter_ids=self.slot_adapter)
         ta = blk_logits.argmax(dim=-1).to(torch.int32)  # [s, k]
         matches = (drafted[:, : k - 1] == ta[:, : k - 1]).to(torch.int32)
         a = torch.cumprod(matches, dim=1).sum(dim=1)  # [s], <= k-1
@@ -510,6 +541,81 @@ class ServingEngine:
 
     # -- public API --------------------------------------------------------
 
+    def register_adapter(self, adapters: Dict, alpha=None) -> int:
+        """Register a LoRA adapter tree (models/lora.py `lora_init` layout:
+        {"layers": [{name: {"a": [in, r], "b": [r, out]}}]}) for
+        per-request selection; returns its id (0 is always the base
+        model). The alpha/r scale folds into b, and every adapter joins
+        per-target stacks ([N+1, ...], row 0 zeros) that ride the shared
+        tick: per-request adapters with no per-request weights.
+
+        All registered adapters must share rank and target set (the stacks
+        are rectangular). Registration rebuilds the stacks; register
+        adapters before opening traffic, not per request. Refused under a
+        mesh (NotImplementedError) and on an int8 weight tree (ValueError)."""
+        if self.mesh is not None:
+            raise _unported("LoRA adapters under a mesh")
+        layers = adapters["layers"]
+        base = self.params["layers"]
+        if len(layers) != len(base):
+            raise ValueError(f"adapter has {len(layers)} layers, model has {len(base)}")
+        meta = tuple(tuple(sorted(entry)) for entry in layers)
+        ranks = {ab["a"].shape[1] for entry in layers for ab in entry.values()}
+        if len(ranks) != 1:
+            raise ValueError(f"mixed ranks within adapter: {sorted(ranks)}")
+        rank = ranks.pop()
+        # dimension check against this model's weights: a wrong-width
+        # checkpoint would otherwise register and fail later inside the
+        # serve pump's prefill, for every client
+        for li, entry in enumerate(layers):
+            for name, ab in entry.items():
+                w = base[li].get(name)
+                if w is None:
+                    raise ValueError(f"adapter targets {name!r} but layer {li} has no "
+                                     f"such projection")
+                if is_quantized(w):
+                    raise ValueError(
+                        f"adapter {name!r} at layer {li} targets an int8 weight "
+                        f"(quant.quantize_params): LoRA adapters serve on "
+                        f"unquantized weights only")
+                if (ab["a"].shape[0], ab["b"].shape[1]) != (w.shape[0], w.shape[1]):
+                    raise ValueError(
+                        f"adapter {name!r} at layer {li} is "
+                        f"{ab['a'].shape[0]}x{ab['b'].shape[1]}, model "
+                        f"weight is {w.shape[0]}x{w.shape[1]} — wrong "
+                        f"checkpoint/model pairing")
+        if self._adapter_meta is not None and self._adapter_meta != (rank, meta):
+            raise ValueError(
+                "adapter rank/targets differ from already-registered "
+                "adapters — stacks must be rectangular (serve mixed "
+                "shapes from separate engines)")
+        if len(self._adapter_rows) >= self.max_adapters:
+            raise ValueError(f"adapter registry full ({self.max_adapters})")
+        scale = (float(alpha) if alpha is not None else float(rank)) / rank
+        row = [{name: {"a": torch.as_tensor(ab["a"]).detach().float().cpu(),
+                       "b": torch.as_tensor(ab["b"]).detach().float().cpu() * scale}
+                for name, ab in entry.items()}
+               for entry in layers]
+        # build the new stacks whole before committing any state, so a
+        # failure leaves the registry and the stacks consistent; they are
+        # stored in the model dtype (_proj's cast is then a no-op)
+        rows = self._adapter_rows + [row]
+        stacked = []
+        for li, entry in enumerate(layers):
+            out = {}
+            for name in entry:
+                out[name] = {
+                    part: torch.stack(
+                        [torch.zeros_like(rows[0][li][name][part])]
+                        + [r[li][name][part] for r in rows]
+                    ).to(dtype=self.config.dtype, device=self.device)
+                    for part in ("a", "b")}
+            stacked.append(out)
+        self._adapter_rows = rows
+        self._adapter_meta = (rank, meta)
+        self.lora = {"layers": stacked}
+        return len(self._adapter_rows)
+
     def register_prefix(self, tokens) -> int:
         """Prefill a shared prompt prefix (a system prompt) once: requests
         submitted with the returned id prefill only their suffix, appended
@@ -563,11 +669,18 @@ class ServingEngine:
         adapter_id: int = 0,
         stop: Optional[list] = None,
     ) -> Request:
-        if adapter_id:
-            raise _unported("LoRA adapter serving (adapter_id)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         stop_seqs = validate_sampling(
             temperature, top_k, top_p, self.max_top_k, stop)
+        if not 0 <= adapter_id <= len(self._adapter_rows):
+            raise ValueError(
+                f"unknown adapter_id {adapter_id} "
+                f"({len(self._adapter_rows)} registered; 0 = base)")
+        if adapter_id and prefix_id is not None:
+            # a shared prefix's K/V was computed with base projections;
+            # reusing it under an adapter would silently mix models
+            raise ValueError("adapter_id cannot combine with prefix_id "
+                             "(prefix K/V is base-model state)")
         if self._spec and prefix_id is not None:
             # the draft has no prefix cache; a cold draft would floor acceptance
             raise ValueError("prefix caching is unsupported with speculative serving")
@@ -604,7 +717,8 @@ class ServingEngine:
                       temperature=(self.temperature if temperature is None
                                    else float(temperature)),
                       top_k=int(top_k), top_p=float(top_p),
-                      logprobs=bool(logprobs), stop_sequences=tuple(stop_seqs))
+                      logprobs=bool(logprobs), stop_sequences=tuple(stop_seqs),
+                      adapter_id=int(adapter_id))
         self._next_id += 1
         self._queue.append(req)
         return req
@@ -740,6 +854,7 @@ class ServingEngine:
         self.samp_temps[slot] = req.temperature
         self.samp_topk[slot] = req.top_k
         self.samp_topp[slot] = req.top_p
+        self.slot_adapter[slot] = req.adapter_id
         self._slot_req[slot] = req
         self._admitted += 1
         req.cache_len = cache_len
@@ -787,7 +902,7 @@ class ServingEngine:
             # one chunk shape; the pad positions' K/V lie past the length
             # the splice sets, so nothing attends them
             toks = np.pad(toks, (0, c - tail))
-        hidden, st["cache"] = self._append_block(toks, st["cache"])
+        hidden, st["cache"] = self._append_block(toks, st["cache"], req.adapter_id)
         st["pos"] = pos + c
         if st["pos"] < t:
             self._prefill_time += time.monotonic() - t0
@@ -856,16 +971,18 @@ class ServingEngine:
         temps = np.zeros((k_pad,), np.float32)
         topks = np.zeros((k_pad,), np.int32)
         topps = np.ones((k_pad,), np.float32)
+        adapters = np.zeros((k_pad,), np.int32)
         for i, r in enumerate(reqs):
             t = len(r.prompt)
             padded[i, :t] = r.prompt
             lengths[i] = t
+            adapters[i] = r.adapter_id
             temps[i] = r.temperature
             topks[i] = r.top_k
             topps[i] = r.top_p
         dev = self.device
         logits, rows = self._prefill_rows(self._local, self.config, padded, lengths,
-                                          self._par)
+                                          self._par, adapters)
         self._prefill_batches += 1
         d_rows = None
         if self._spec:
@@ -1040,6 +1157,7 @@ class ServingEngine:
             "tokens_per_sec": self._tokens_out / wall,
             "slot_utilization": busy / self.slots,
             "prefixes_registered": len(self._prefixes),
+            "adapters_registered": len(self._adapter_rows),
             "prefill_time_s": round(self._prefill_time, 4),
             "decode_time_s": round(self._decode_time, 4),
             "prefill_batches": self._prefill_batches,

@@ -8,9 +8,12 @@ restores the params of the newest step the port's trainer saved under
 DIR (train/checkpoint.py; the optimizer state is dropped), or draws fresh
 ones when no path is given (or, with --allow-fresh-init, when the path
 holds no checkpoint), then generates through models/decode.py: `generate`,
-or `generate_speculative` with --speculative-k and a draft model. It runs
-on the card unless --device cpu is given. --hf-model and the LoRA flags
-are refused: Hugging Face import and LoRA are not ported yet (ROADMAP.md).
+or `generate_speculative` with --speculative-k and a draft model.
+--lora-checkpoint-path merges the newest adapters a trainer --lora-rank run
+saved there into the base (models/lora.py `restore_and_merge`, scale
+--lora-alpha over the rank); a path with no adapters is an error (exit 1).
+It runs on the card unless --device cpu is given. --hf-model is refused:
+Hugging Face import is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,7 +39,9 @@ def parse_args(argv=None):
     p.add_argument("--allow-fresh-init", action="store_true",
                    help="use random weights when --checkpoint-path holds no "
                         "checkpoint (otherwise that is an error)")
-    p.add_argument("--lora-checkpoint-path", default="")
+    p.add_argument("--lora-checkpoint-path", default="",
+                   help="merge the newest adapter checkpoint of a trainer "
+                        "--lora-rank run into the base weights")
     p.add_argument("--lora-alpha", type=float, default=None)
     p.add_argument("--batch", type=int, default=int(os.environ.get("KUBEDL_BATCH", 8)))
     p.add_argument("--prompt-len", type=int, default=32)
@@ -86,23 +91,26 @@ def restore_params(path, label="params", device="cuda"):
 
 
 def resolve_params(model, hf_model="", checkpoint_path="", allow_fresh_init=False,
-                   lora_checkpoint_path="", seed=0, label="target", device="cuda"):
-    """(params, config) for a named model, from its checkpoint or fresh;
-    (None, None) when a required checkpoint is missing (the error is
-    printed). --hf-model and a LoRA merge are not ported yet."""
+                   lora_checkpoint_path="", lora_alpha=None, seed=0, label="target",
+                   device="cuda"):
+    """(params, config) for a named model, from its checkpoint or fresh,
+    then an optional LoRA merge; (None, None) when a required checkpoint
+    is missing (the error is printed). Raises ValueError when
+    `lora_checkpoint_path` holds no adapters. --hf-model is not ported
+    yet."""
     if hf_model:
         raise NotImplementedError(
             f"--hf-model {hf_model!r}: Hugging Face import is not yet ported "
             f"to kubedl_tpu_torch (ROADMAP.md)")
-    if lora_checkpoint_path:
-        raise NotImplementedError(
-            "--lora-checkpoint-path: LoRA is not yet ported to kubedl_tpu_torch "
-            "(ROADMAP.md)")
     config = llama.LlamaConfig.config_for(model)
     params = restore_or_init(config, checkpoint_path, allow_fresh_init, seed=seed,
                              label=label, device=device)
     if params is None:
         return None, None
+    if lora_checkpoint_path:
+        from kubedl_tpu_torch.models.lora import restore_and_merge
+
+        params = restore_and_merge(params, lora_checkpoint_path, alpha=lora_alpha)
     return params, config
 
 
@@ -137,11 +145,14 @@ def main(argv=None) -> int:
     try:
         params, config = resolve_params(
             args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
-            lora_checkpoint_path=args.lora_checkpoint_path, seed=args.seed,
-            device=args.device)
+            lora_checkpoint_path=args.lora_checkpoint_path, lora_alpha=args.lora_alpha,
+            seed=args.seed, device=args.device)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    except ValueError as e:  # an adapter directory with no checkpoint
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     if params is None:
         return 1
     dev = resolve_device(args.device)

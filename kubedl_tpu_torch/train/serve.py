@@ -3,13 +3,23 @@
 
     POST /generate   {"tokens": [..], "max_new_tokens": 32, "eos_token": 2?,
                       "temperature"?, "top_k"?, "top_p"?, "logprobs"?,
-                      "stop"?: [[ids], ...], "prefix_id"?}  -> {"tokens": [...]}
+                      "stop"?: [[ids], ...], "prefix_id"?, "adapter_id"?,
+                      "stream"?}  -> {"tokens": [...]}
     POST /generate   {"requests": [{...}, ...]}  (batch form; each entry
                       rides its own engine slot)  -> {"results": [...]}
     POST /prefix     {"tokens": [...]}  -> {"prefix_id": N}  (a shared
                       system prompt, prefilled once; register_prefix)
+    POST /adapter    {"checkpoint_path": DIR, "alpha"?}  -> {"adapter_id": N}
+                      (a trainer --lora-rank checkpoint; register_adapter)
     GET  /stats      -> ServingEngine.stats()
+    GET  /metrics    -> Prometheus text (kubedl_serving_* gauges)
     GET  /healthz    -> {"ok": true}
+
+"stream": true (single-request form only) answers with server-sent events:
+one `data:` event a token as the engine emits it ({"token", "request_id",
+"logprob"?}), then a final event with "done", "tokens", "error"? and
+"logprobs"?; tokens a stop sequence could still take back are held until
+the request ends. Serve with --decode-block 1 for one event a tick.
 
 One background thread drives the engine whenever work is pending; handlers
 only enqueue and wait, so concurrent clients batch onto the same decode
@@ -24,10 +34,12 @@ It serves the newest params the port's trainer saved under
 the KV cache in int8 codes with bf16 scales (models/decode.py).
 --draft-model with --draft-checkpoint-path turns on speculative serving
 (--spec-k drafts a round); a draft without weights exits 1 unless
---allow-fresh-init is given. The server is one process on one device, as
-the reference's is. Text prompts (they need a tokenizer), streaming,
-adapters, --hf-model and --draft-hf-model are not ported yet and are
-refused.
+--allow-fresh-init is given. --lora-checkpoint-path merges one adapter
+checkpoint into the weights at startup; each --adapter CKPT[:ALPHA]
+registers one for per-request selection (ids from 1; a failure exits 1).
+The server is one process on one device, as the reference's is. Text
+prompts (they need a tokenizer), --hf-model and --draft-hf-model are not
+ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -49,9 +61,13 @@ def parse_args(argv=None):
                    default=os.environ.get("KUBEDL_CHECKPOINT_PATH", ""))
     p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""))
     p.add_argument("--allow-fresh-init", action="store_true")
-    p.add_argument("--lora-checkpoint-path", default="")
+    p.add_argument("--lora-checkpoint-path", default="",
+                   help="merge the newest adapter checkpoint from a trainer "
+                        "--lora-rank run into the base weights")
     p.add_argument("--lora-alpha", type=float, default=None)
-    p.add_argument("--adapter", action="append", default=[], metavar="CKPT[:ALPHA]")
+    p.add_argument("--adapter", action="append", default=[], metavar="CKPT[:ALPHA]",
+                   help="register a LoRA adapter checkpoint at startup for "
+                        "per-request selection (repeatable; ids from 1)")
     p.add_argument("--bind", default="0.0.0.0")
     p.add_argument("--port", type=int, default=int(os.environ.get("PORT", 8000)),
                    help="0 picks a free port (printed at start)")
@@ -75,11 +91,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-_UNPORTED_FLAGS = (
-    ("lora_checkpoint_path", "--lora-checkpoint-path"),
-    ("adapter", "--adapter"),
-    ("draft_hf_model", "--draft-hf-model"),
-)
+_UNPORTED_FLAGS = (("draft_hf_model", "--draft-hf-model"),)
 
 
 class _Service:
@@ -122,19 +134,37 @@ class _Service:
 
     def submit(self, prompt, max_new_tokens: int, eos_token: Optional[int],
                prefix_id: Optional[int] = None, temperature: Optional[float] = None,
-               top_k: int = 0, top_p: float = 1.0, logprobs: bool = False, stop=None):
+               top_k: int = 0, top_p: float = 1.0, logprobs: bool = False,
+               adapter_id: int = 0, stop=None):
         with self._lock:
             req = self.engine.submit(prompt, max_new_tokens, eos_token,
                                      prefix_id=prefix_id, temperature=temperature,
                                      top_k=top_k, top_p=top_p, logprobs=logprobs,
-                                     stop=stop)
+                                     adapter_id=adapter_id, stop=stop)
         self._work.set()
         return req
+
+    def register_adapter(self, checkpoint_path: str, alpha=None) -> int:
+        """Load a trainer --lora-rank adapter checkpoint and register it for
+        per-request selection. The restore runs outside the service lock;
+        only the registry swap holds it."""
+        from kubedl_tpu_torch.train.generate import restore_params
+
+        adapters = restore_params(checkpoint_path, label="lora adapters",
+                                  device=self.engine.device)
+        if adapters is None:
+            raise ValueError(f"no adapter checkpoint under {checkpoint_path!r}")
+        with self._lock:
+            return self.engine.register_adapter(adapters, alpha=alpha)
 
     def register_prefix(self, tokens) -> int:
         # not under the service lock: the prefill must not stall the pump;
         # the engine's own lock guards its registry
         return self.engine.register_prefix(tokens)
+
+    def kick(self) -> None:
+        """Nudge the pump (streaming handlers poll instead of wait())."""
+        self._work.set()
 
     def wait(self, reqs, timeout: float = 300.0) -> bool:
         deadline = time.monotonic() + timeout
@@ -192,17 +222,93 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(payload)
 
+    def _stats(self) -> dict:
+        stats = self.svc.engine.stats()
+        stats["ticks"] = self.svc.ticks
+        return stats
+
     def do_GET(self) -> None:  # noqa: N802
         if self.path == "/healthz":
             return self._send(200, {"ok": True})
         if self.path == "/stats":
-            stats = self.svc.engine.stats()
-            stats["ticks"] = self.svc.ticks
-            return self._send(200, stats)
+            return self._send(200, self._stats())
+        if self.path == "/metrics":
+            # Prometheus text format: every numeric stat as a
+            # kubedl_serving_<key> gauge
+            lines = []
+            for key, val in sorted(self._stats().items()):
+                if not isinstance(val, (int, float)):
+                    continue
+                name = f"kubedl_serving_{key}"
+                lines.append(f"# TYPE {name} gauge")
+                lines.append(f"{name} {float(val)}")
+            payload = ("\n".join(lines) + "\n").encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+            return
         self._send(404, {"error": f"unknown path {self.path}"})
 
+    def _event(self, body: dict) -> None:
+        self.wfile.write(b"data: " + json.dumps(body).encode() + b"\n\n")
+
+    def _stream_response(self, req, timeout: float = 300.0) -> None:
+        """Server-sent events: one `data:` event a token as the engine emits
+        it, then a final event. Any exit before the request finishes (a
+        disconnect, a socket error, the deadline) cancels it, so an
+        abandoned stream frees its slot."""
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        # no Content-Length: the stream ends at EOF, so the connection closes
+        self.send_header("Connection", "close")
+        self.end_headers()
+        self.close_connection = True
+        sent = 0
+        # a stop sequence deletes its match from the tail when it completes,
+        # so tokens within the longest stop's reach are held until the
+        # request ends: the stream never shows what the final answer drops
+        margin = max((len(s) for s in req.stop_sequences), default=0)
+        deadline = time.monotonic() + timeout
+        try:
+            while True:
+                done = req.done  # read before draining: no lost wake-up
+                toks = list(req.tokens)
+                lps = list(req.token_logprobs)
+                limit = len(toks) if done else max(len(toks) - margin, 0)
+                while sent < limit:
+                    event = {"token": toks[sent], "request_id": req.request_id}
+                    if req.logprobs and sent < len(lps):
+                        event["logprob"] = lps[sent]
+                    self._event(event)
+                    sent += 1
+                self.wfile.flush()
+                if done:
+                    final = {"done": True, "tokens": toks, "request_id": req.request_id}
+                    if req.error:
+                        final["error"] = req.error
+                    if req.logprobs:
+                        final["logprobs"] = list(req.token_logprobs)
+                    self._event(final)
+                    self.wfile.flush()
+                    return
+                if time.monotonic() > deadline:
+                    self._event({"error": "generation timed out",
+                                 "request_id": req.request_id})
+                    self.wfile.flush()
+                    return
+                self.svc.kick()
+                time.sleep(0.005)
+        except (BrokenPipeError, ConnectionResetError):
+            pass  # the finally clause frees the slot
+        finally:
+            if not req.done:
+                self.svc.cancel([req])
+
     def do_POST(self) -> None:  # noqa: N802
-        if self.path not in ("/generate", "/prefix"):
+        if self.path not in ("/generate", "/prefix", "/adapter"):
             return self._send(404, {"error": f"unknown path {self.path}"})
         try:
             length = int(self.headers.get("Content-Length", "0") or "0")
@@ -217,14 +323,27 @@ class _Handler(BaseHTTPRequestHandler):
             except (ValueError, TypeError, NotImplementedError) as e:
                 return self._send(422, {"error": str(e)})
             return self._send(200, {"prefix_id": pid})
+        if self.path == "/adapter":
+            alpha = body.get("alpha")
+            try:
+                aid = self.svc.register_adapter(str(body.get("checkpoint_path") or ""),
+                                                alpha=None if alpha is None else float(alpha))
+            except (ValueError, TypeError, NotImplementedError) as e:
+                return self._send(422, {"error": str(e)})
+            return self._send(200, {"adapter_id": aid})
+        try:
+            stream = _parse_bool(body.get("stream"), "stream")
+        except ValueError as e:
+            return self._send(422, {"error": str(e)})
         entries = body.get("requests")
         single = entries is None
         if single:
             entries = [body]
+        if stream and not single:
+            return self._send(422, {"error": "stream only supports the "
+                                             "single-request form"})
         reqs = []
         try:
-            if _parse_bool(body.get("stream"), "stream"):
-                raise ValueError("streaming is not ported to kubedl_tpu_torch yet")
             for e in entries:
                 if not isinstance(e, dict):
                     raise ValueError("each request must be a JSON object")
@@ -232,8 +351,6 @@ class _Handler(BaseHTTPRequestHandler):
                     if e.get(key) is not None:
                         raise ValueError(f"{key!r} prompts need a tokenizer, "
                                          f"not ported yet; send token ids")
-                if e.get("adapter_id"):
-                    raise ValueError("adapter_id is not ported to kubedl_tpu_torch yet")
                 temp = e.get("temperature")
                 top_k = e.get("top_k")
                 top_p = e.get("top_p")
@@ -246,12 +363,15 @@ class _Handler(BaseHTTPRequestHandler):
                     top_k=0 if top_k is None else int(top_k),
                     top_p=1.0 if top_p is None else float(top_p),
                     logprobs=_parse_bool(e.get("logprobs"), "logprobs"),
+                    adapter_id=int(e.get("adapter_id") or 0),
                     stop=_parse_stop(e.get("stop")),
                 ))
         except (ValueError, TypeError) as e:
             # partially-submitted batch: release what already went in
             self.svc.cancel(reqs)
             return self._send(422, {"error": str(e)})
+        if stream:
+            return self._stream_response(reqs[0])
         if not self.svc.wait(reqs):
             self.svc.cancel(reqs)
             return self._send(504, {"error": "generation timed out"})
@@ -267,10 +387,11 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def build_server(args):
-    """Resolve weights, build the engine, bind the HTTP server: returns
-    (httpd, service), or None when weights are missing (the error is
-    printed). The caller runs ``httpd.serve_forever()`` and, when done,
-    ``httpd.shutdown()``, ``httpd.server_close()`` and ``service.stop()``."""
+    """Resolve weights, build the engine, register the --adapter
+    checkpoints, bind the HTTP server: returns (httpd, service), or None
+    when weights or adapters are missing (the error is printed). The caller
+    runs ``httpd.serve_forever()`` and, when done, ``httpd.shutdown()``,
+    ``httpd.server_close()`` and ``service.stop()``."""
     for attr, flag in _UNPORTED_FLAGS:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not yet ported to "
@@ -278,9 +399,14 @@ def build_server(args):
     from kubedl_tpu_torch.models.serving import ServingEngine
     from kubedl_tpu_torch.train.generate import resolve_params
 
-    params, config = resolve_params(
-        args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
-        device=args.device)
+    try:
+        params, config = resolve_params(
+            args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
+            lora_checkpoint_path=args.lora_checkpoint_path, lora_alpha=args.lora_alpha,
+            device=args.device)
+    except ValueError as e:  # --lora-checkpoint-path holds no adapters
+        print(f"error: {e}", file=sys.stderr)
+        return None
     if params is None:
         return None
     if args.int8:
@@ -310,6 +436,21 @@ def build_server(args):
                            draft_params=draft_params, draft_config=draft_config,
                            spec_k=args.spec_k)
     svc = _Service(engine, decode_block=args.decode_block)
+    for spec in args.adapter:
+        # CKPT[:ALPHA]; a failure is fatal: a deployment that dropped an
+        # adapter would 422 every request naming it
+        path, _, alpha_s = spec.rpartition(":")
+        if path and alpha_s.replace(".", "", 1).isdigit():
+            alpha = float(alpha_s)
+        else:
+            path, alpha = spec, None
+        try:
+            aid = svc.register_adapter(path, alpha=alpha)
+        except ValueError as e:
+            print(f"error: --adapter {spec!r}: {e}", file=sys.stderr)
+            svc.stop()
+            return None
+        print(f"adapter {aid}: {path} (alpha={alpha})", flush=True)
     httpd = ThreadingHTTPServer((args.bind, args.port), _Handler)
     httpd.daemon_threads = True
     httpd.svc = svc  # type: ignore[attr-defined]

@@ -24,8 +24,14 @@ trains alone on the one-device step.
 Usage (as a pod command; it runs on the card unless --device cpu):
     python -m kubedl_tpu_torch.train.trainer --model llama-7b --steps 100
 
-Refused with exit 2, until ported (ROADMAP.md): --lora-rank, --hf-model,
-pipeline stages (KUBEDL_PP_STAGES > 1, KUBEDL_PP_MPMD), live reshard
+--lora-rank R (KUBEDL_LORA_RANK) trains LoRA adapters only
+(models/lora.py `make_lora_step`), on one device or in a gang (adapters
+replicated, the base sharded): the optimizer state and the checkpoints hold
+the adapters alone, which generate and serve merge or register with
+--lora-checkpoint-path / --adapter.
+
+Refused with exit 2, until ported (ROADMAP.md): --hf-model, pipeline
+stages (KUBEDL_PP_STAGES > 1, KUBEDL_PP_MPMD), live reshard
 (KUBEDL_LIVE_RESHARD=1) and a mesh context axis above 1 (context
 parallelism).
 """
@@ -86,7 +92,8 @@ def parse_args(argv=None):
                    type=int, default=int(os.environ.get("KUBEDL_CHECKPOINT_KEEP", 3)))
     p.add_argument("--lora-rank", type=int,
                    default=int(os.environ.get("KUBEDL_LORA_RANK", 0)),
-                   help="not ported yet: refused when > 0")
+                   help=">0: train LoRA adapters of this rank only "
+                        "(models/lora.py); 0 = full fine-tune/pretrain")
     p.add_argument("--lora-alpha", type=float, default=None)
     p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""),
                    help="not ported yet: refused when set")
@@ -121,8 +128,6 @@ def _refused(args, info) -> Optional[str]:
                 "python -m kubedl_tpu.train.pipeline_trainer (this SPMD "
                 "trainer would train the full model un-pipelined)")
     later = "is not ported to kubedl_tpu_torch yet (ROADMAP.md, trainer options refused)"
-    if args.lora_rank > 0:
-        return f"--lora-rank {args.lora_rank}: LoRA training {later}"
     if args.hf_model:
         return f"--hf-model {args.hf_model!r}: Hugging Face import {later}"
     if int(os.environ.get("KUBEDL_PP_STAGES", "1")) > 1:
@@ -254,10 +259,28 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
             _build.build("flash_fwd", "flash_bwd")  # a refused source fails here
         params = llama.init(config, torch.Generator(device=device).manual_seed(0),
                             device=device)
-        init_state, train_step = make_train_step(
-            loss, tx, mesh, llama.param_specs(config, rules) if mesh is not None else None,
-            rules.spec("batch", None), rules, accum_steps=args.accum_steps)
-        state = init_state(params)
+        if args.lora_rank > 0:
+            # adapter-only training: gradients and optimizer state cover the
+            # low-rank deltas; the frozen base rides through the step
+            from kubedl_tpu_torch.models import lora as lora_mod
+
+            adapters0, init_state, train_step = lora_mod.make_lora_step(
+                params, config, tx, mesh, rules=rules, rank=args.lora_rank,
+                alpha=args.lora_alpha, accum_steps=args.accum_steps)
+            state = init_state(adapters0)
+            n_ad = lora_mod.adapter_count(adapters0)
+            say(f"lora: rank {args.lora_rank}, {n_ad} adapter params "
+                f"({100.0 * n_ad / llama.param_count(params):.2f}% of base)", flush=True)
+            if args.eval_every:
+                say("note: --eval-every is skipped under --lora-rank "
+                    "(restore with generate/serve --lora-checkpoint-path "
+                    "to evaluate the merged model)", flush=True)
+                args.eval_every = 0
+        else:
+            init_state, train_step = make_train_step(
+                loss, tx, mesh, llama.param_specs(config, rules) if mesh is not None else None,
+                rules.spec("batch", None), rules, accum_steps=args.accum_steps)
+            state = init_state(params)
         del params
     except (torch.OutOfMemoryError, _build.BuildError) as e:
         print(f"compile/alloc failure: {e}", file=sys.stderr)

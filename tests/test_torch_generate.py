@@ -4,7 +4,8 @@ train/generate.py main with --checkpoint-path (and as a speculative
 draft): the restored params equal the saved ones bit for bit, and the
 tokens equal those of the trained params in memory. An empty checkpoint
 directory exits 1 with the reference's error unless --allow-fresh-init is
-given; the flags still unported exit 2 naming ROADMAP.md."""
+given, as does an adapter directory with no adapters; --hf-model, still
+unported, exits 2 naming ROADMAP.md."""
 import copy
 import json
 import threading
@@ -128,10 +129,17 @@ def test_empty_checkpoint_dir_is_an_error(tmp_path, capsys):
                                   ["--speculative-k", "1", "--batch", "1"],
                                   ["--speculative-k", "2", "--batch", "2"]])
 def test_generate_refusals_exit_2(argv, capsys):
-    assert generate.main(["--device", "cpu"] + argv) == 2
+    """--lora-checkpoint-path was refused (exit 2) until LoRA was ported:
+    now a directory with no adapters is the reference's error, exit 1, as
+    a missing checkpoint is (tests/test_torch_lora.py merges a real one)."""
+    rc = generate.main(["--device", "cpu"] + argv)
     err = capsys.readouterr().err
     assert "error:" in err
-    if argv[0] in ("--hf-model", "--lora-checkpoint-path"):
+    if argv[0] == "--lora-checkpoint-path":
+        assert rc == 1 and "error: no adapter checkpoint under 'x'" in err
+        return
+    assert rc == 2
+    if argv[0] == "--hf-model":
         assert "ROADMAP.md" in err
 
 

@@ -168,10 +168,12 @@ def test_wave_sync_failure_isolates_clusters(model):
 
 
 def test_unported_features_are_refused(model):
-    """LoRA adapters are still refused; the ring cache, chunked prefill and
-    speculative serving this test once pinned as refused are ported
-    (tests/test_torch_{ring_cache,chunked_prefill,speculative}.py hold them
-    against JAX) and serve the plain engine's tokens here."""
+    """The ring cache, chunked prefill, speculative serving and LoRA
+    adapters this test once pinned as refused are ported
+    (tests/test_torch_{ring_cache,chunked_prefill,speculative,
+    lora_serving}.py hold them against JAX): the first three serve the
+    plain engine's tokens here, and an adapter id that names no registered
+    adapter is the reference's ValueError."""
     _, _, tcfg, tp = model
     prompt = _prompts((9,), 10)[0]
     want = ServingEngine(tp, tcfg, slots=1, max_len=32).serve_all([prompt], 4)
@@ -181,7 +183,7 @@ def test_unported_features_are_refused(model):
         eng = ServingEngine(tp, cfg, slots=1, **{"max_len": 32, **kw})
         assert eng.serve_all([prompt], 4) == want, kw
     eng = ServingEngine(tp, tcfg, slots=1, max_len=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match=r"unknown adapter_id 1 \(0 registered; 0 = base\)"):
         eng.submit([1, 2], 2, adapter_id=1)
     with pytest.raises(ValueError, match="unknown prefix_id"):
         eng.submit([1, 2], 2, prefix_id=0)
@@ -234,8 +236,10 @@ def test_http_round_trip_on_cpu(server):
     with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
         stats = json.loads(r.read())
     assert stats["admitted"] == 3 and stats["tokens_out"] == 15
+    # stream: true is ported (tests/test_torch_serve_stream.py); only its
+    # batch form stays refused, as the reference refuses it
     for bad in ({"text": "hi"}, {"tokens": [1], "prefix_id": 2},
-                {"tokens": [1], "stream": True}, {"tokens": []}):
+                {"requests": [{"tokens": [1]}], "stream": True}, {"tokens": []}):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base, bad)
         assert e.value.code == 422
@@ -243,12 +247,21 @@ def test_http_round_trip_on_cpu(server):
 
 
 def test_serve_refuses_unported_flags_and_missing_card(monkeypatch, tmp_path, capsys):
+    """--draft-hf-model and --hf-model stay refused; --adapter and
+    --lora-checkpoint-path, refused until LoRA was ported, now read adapter
+    checkpoints, and a path with none exits 1 with the reference's error
+    (tests/test_torch_serve_stream.py and test_torch_lora.py serve real
+    ones)."""
     from kubedl_tpu_torch.train import serve
 
-    for flags in (["--adapter", "x"], ["--lora-checkpoint-path", "x"],
-                  ["--draft-hf-model", "x"], ["--hf-model", "x"]):
+    for flags in (["--draft-hf-model", "x"], ["--hf-model", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             serve.build_server(serve.parse_args(["--device", "cpu"] + flags))
+    for flags, said in ((["--adapter", "x"], "error: --adapter 'x': no adapter checkpoint"),
+                        (["--lora-checkpoint-path", "x"], "error: no adapter checkpoint")):
+        assert serve.main(["--device", "cpu", "--port", "0", "--bind", "127.0.0.1"]
+                          + flags) == 1
+        assert f"{said} under 'x'" in capsys.readouterr().err
     # checkpoints are ported: an empty path is the reference's error, exit 1
     assert serve.main(["--device", "cpu", "--checkpoint-path", str(tmp_path)]) == 1
     assert f"error: no checkpoint under {tmp_path}" in capsys.readouterr().err

@@ -2,7 +2,8 @@
 the printed lines, checkpoint interval, resume and pruning, the SIGTERM ->
 checkpoint -> exit 113 contract in a subprocess and through the operator,
 token shards bit-identical to the JAX package's loader, trace spans the
-JAX package's readers load, the options the port refuses, and meshes whose
+JAX package's readers load, the options the port refuses (and --lora-rank,
+refused until it was ported, training), and meshes whose
 size is not the gang's (exit 2). The trainer as a gang:
 tests/test_torch_trainer_gang.py."""
 import os
@@ -176,7 +177,9 @@ def test_profile_window_writes_a_trace(tmp_path, capsys):
 
 
 # the last four: a mesh whose size is not the gang's (one device a
-# process), refused before any rendezvous with build_mesh's messages
+# process), refused before any rendezvous with build_mesh's messages.
+# "lora" was refused until LoRA was ported; its case now checks that the
+# same flags train (tests/test_torch_lora.py holds the step to JAX's)
 REFUSED = {
     "lora": (["--lora-rank", "4"], {}),
     "hf_model": (["--hf-model", "/models/llama"], {}),
@@ -202,8 +205,12 @@ def test_refused_options_exit_2(name, monkeypatch, capsys):
     flags, env = REFUSED[name]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    assert trainer.main(TINY + ["--steps", "1"] + flags) == 2
-    err = capsys.readouterr().err
+    rc = trainer.main(TINY + ["--steps", "1"] + flags)
+    out, err = capsys.readouterr()
+    if name == "lora":
+        assert rc == 0 and "lora: rank 4, 16384 adapter params (4.54% of base)" in out
+        return
+    assert rc == 2
     if name == "pp_mpmd":  # the JAX trainer's message: run the stage program
         assert "pipeline_trainer" in err
     elif name in MISMATCH:

@@ -20,6 +20,12 @@ loss and grad norm of each micro-step, the first micro-step's gradients and
 the parameters after the last, gathered to their full shapes and laid out
 as the case's parameter tree.
 
+A case with kind "lora" (params, adapters, batches, lr, clip, rank,
+alpha) runs models/lora.py `make_lora_step` on the mesh from the given
+adapters and returns every rank's losses, grad norms and adapters after
+the last step, whether the adapters stayed replicated and whether the base
+tree stayed unchanged.
+
 A case with kind "decode" (prompt, optional lengths, new_tokens, max_len,
 kv_dtype, and temperature/seed for a sampled run beside the greedy one)
 runs `decode.generate` on the sharded tree; kind "serving" (prompts,
@@ -135,7 +141,52 @@ def _inference_case(case):
     return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
 
 
+def _lora_case(case):
+    """make_lora_step on the case's mesh: every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from kubedl_tpu_torch.models import llama, lora
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, token_index
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    tok, n_tok = token_index(mesh, rules)
+    tx = optim.chain(optim.clip_by_global_norm(case["clip"]),
+                     optim.adamw(case["lr"], weight_decay=0.01))
+    base = params_from_numpy(case["params"])
+    before = [t.clone() for t in llama.tree_leaves(base)]
+    _, init_state, step = lora.make_lora_step(base, cfg, tx, mesh, rules=rules,
+                                              rank=case["rank"], alpha=case.get("alpha"))
+    state = init_state(params_from_numpy(case["adapters"]))
+    losses, norms = [], []
+    for batch in case["batches"]:
+        rows = batch.shape[0] // n_tok
+        local = torch.from_numpy(np.ascontiguousarray(batch[tok * rows:(tok + 1) * rows]))
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    leaves = list(llama.tree_leaves(state.params))
+    out = {"loss": losses, "grad_norm": norms,
+           "adapters": [p.detach().to_local().numpy() for p in leaves],
+           "adapters_replicated": all(
+               isinstance(p, DTensor) and all(isinstance(pl, Replicate) for pl in p.placements)
+               for p in leaves),
+           "base_unchanged": all(torch.equal(a, b)
+                                 for a, b in zip(before, llama.tree_leaves(base)))}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
 def _case(case):
+    if case.get("kind") == "lora":
+        return _lora_case(case)
     if case.get("kind"):
         return _inference_case(case)
     import numpy as np
