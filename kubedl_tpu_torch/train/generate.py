@@ -9,11 +9,16 @@ DIR (train/checkpoint.py; the optimizer state is dropped), or draws fresh
 ones when no path is given (or, with --allow-fresh-init, when the path
 holds no checkpoint), then generates through models/decode.py: `generate`,
 or `generate_speculative` with --speculative-k and a draft model.
+--hf-model DIR reads a local Hugging Face checkpoint directory instead
+(models/import_hf.py `load_hf`; it wins over --model and --checkpoint-path).
 --lora-checkpoint-path merges the newest adapters a trainer --lora-rank run
 saved there into the base (models/lora.py `restore_and_merge`, scale
 --lora-alpha over the rank); a path with no adapters is an error (exit 1).
-It runs on the card unless --device cpu is given. --hf-model is refused:
-Hugging Face import is not ported yet (ROADMAP.md).
+It runs on the card unless --device cpu is given.
+
+`load_tokenizer` and `encode_field` are the tokenizer paths that serve,
+dpo and evaluate share: transformers' AutoTokenizer from the --hf-model
+directory when transformers imports, else id-list data only.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ def parse_args(argv=None):
     p.add_argument("--model", default=os.environ.get("KUBEDL_MODEL", "tiny"), choices=MODELS)
     p.add_argument("--checkpoint-path", default=os.environ.get("KUBEDL_CHECKPOINT_PATH", ""),
                    help="trainer checkpoint dir; the newest step's params are used")
-    p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""))
+    p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""),
+                   help="local Hugging Face checkpoint dir; overrides --model/"
+                        "--checkpoint-path (models/import_hf.py)")
     p.add_argument("--allow-fresh-init", action="store_true",
                    help="use random weights when --checkpoint-path holds no "
                         "checkpoint (otherwise that is an error)")
@@ -90,23 +97,56 @@ def restore_params(path, label="params", device="cuda"):
     return llama.tree_map(lambda t: t.detach().to(dev, copy=True), tree)
 
 
+def load_tokenizer(hf_model: str):
+    """transformers' AutoTokenizer for an --hf-model directory, or None with
+    a warning (the id-list APIs still work): the one tokenizer-loading block
+    of serve, dpo and evaluate."""
+    if not hf_model:
+        return None
+    try:
+        import transformers
+
+        return transformers.AutoTokenizer.from_pretrained(hf_model)
+    except Exception as e:  # noqa: BLE001 — id-list data still works
+        print(f"no tokenizer loaded ({e}); id-list data only", flush=True)
+        return None
+
+
+def encode_field(value, tokenizer, field: str, continuation: bool = False):
+    """A JSONL field -> token ids: id lists pass through; strings encode
+    through the tokenizer. Prompts encode with the tokenizer's special
+    tokens (as serve encodes request text, so the trained prompt
+    distribution is the served one); continuations (chosen, rejected,
+    completions) never get BOS/EOS spliced mid-sequence."""
+    if isinstance(value, str):
+        if tokenizer is None:
+            raise ValueError(
+                f"{field!r} is text but no tokenizer is available — "
+                f"pass --hf-model (and check the 'no tokenizer loaded' "
+                f"warning if you already did), or pre-tokenize to id "
+                f"lists")
+        return list(tokenizer.encode(value, add_special_tokens=not continuation))
+    return [int(t) for t in value]
+
+
 def resolve_params(model, hf_model="", checkpoint_path="", allow_fresh_init=False,
                    lora_checkpoint_path="", lora_alpha=None, seed=0, label="target",
                    device="cuda"):
-    """(params, config) for a named model, from its checkpoint or fresh,
-    then an optional LoRA merge; (None, None) when a required checkpoint
-    is missing (the error is printed). Raises ValueError when
-    `lora_checkpoint_path` holds no adapters. --hf-model is not ported
-    yet."""
+    """(params, config): --hf-model's directory, else the named model from
+    its checkpoint or fresh; then an optional LoRA merge. (None, None) when
+    a required checkpoint is missing (the error is printed). Raises
+    ValueError when `lora_checkpoint_path` holds no adapters, and
+    FileNotFoundError naming a checkpoint directory that cannot be read."""
     if hf_model:
-        raise NotImplementedError(
-            f"--hf-model {hf_model!r}: Hugging Face import is not yet ported "
-            f"to kubedl_tpu_torch (ROADMAP.md)")
-    config = llama.LlamaConfig.config_for(model)
-    params = restore_or_init(config, checkpoint_path, allow_fresh_init, seed=seed,
-                             label=label, device=device)
-    if params is None:
-        return None, None
+        from kubedl_tpu_torch.models.import_hf import load_hf
+
+        params, config = load_hf(hf_model, device=device)
+    else:
+        config = llama.LlamaConfig.config_for(model)
+        params = restore_or_init(config, checkpoint_path, allow_fresh_init, seed=seed,
+                                 label=label, device=device)
+        if params is None:
+            return None, None
     if lora_checkpoint_path:
         from kubedl_tpu_torch.models.lora import restore_and_merge
 
@@ -147,9 +187,6 @@ def main(argv=None) -> int:
             args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
             lora_checkpoint_path=args.lora_checkpoint_path, lora_alpha=args.lora_alpha,
             seed=args.seed, device=args.device)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
     except ValueError as e:  # an adapter directory with no checkpoint
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -5,6 +5,10 @@
                       "temperature"?, "top_k"?, "top_p"?, "logprobs"?,
                       "stop"?: [[ids], ...], "prefix_id"?, "adapter_id"?,
                       "stream"?}  -> {"tokens": [...]}
+                     (with an --hf-model tokenizer, {"text": "..."} or
+                      {"messages": [{"role", "content"}, ...]} in place of
+                      "tokens", string stops, and a decoded "text" in the
+                      answer)
     POST /generate   {"requests": [{...}, ...]}  (batch form; each entry
                       rides its own engine slot)  -> {"results": [...]}
     POST /prefix     {"tokens": [...]}  -> {"prefix_id": N}  (a shared
@@ -17,9 +21,11 @@
 
 "stream": true (single-request form only) answers with server-sent events:
 one `data:` event a token as the engine emits it ({"token", "request_id",
-"logprob"?}), then a final event with "done", "tokens", "error"? and
-"logprobs"?; tokens a stop sequence could still take back are held until
-the request ends. Serve with --decode-block 1 for one event a tick.
+"logprob"?, "text_delta"?}), then a final event with "done", "tokens",
+"error"?, "logprobs"? and "text"?; tokens a stop sequence could still take
+back are held until the request ends. With a tokenizer the text deltas
+come from an incremental detokenizer and concatenate to the final text.
+Serve with --decode-block 1 for one event a tick.
 
 One background thread drives the engine whenever work is pending; handlers
 only enqueue and wait, so concurrent clients batch onto the same decode
@@ -28,18 +34,19 @@ ticks. Run it with
     python -m kubedl_tpu_torch.train.serve --model llama-7b --checkpoint-path DIR
 
 It serves the newest params the port's trainer saved under
---checkpoint-path (train/generate.py restore_params), or fresh ones with
+--checkpoint-path (train/generate.py restore_params), a local Hugging Face
+checkpoint directory with --hf-model (models/import_hf.py; its tokenizer,
+when transformers imports, serves text), or fresh ones with
 --allow-fresh-init. It runs on the card unless --device cpu is given;
 --int8 serves the weight-only int8 tree (models/quant.py), --kv-int8 keeps
 the KV cache in int8 codes with bf16 scales (models/decode.py).
---draft-model with --draft-checkpoint-path turns on speculative serving
-(--spec-k drafts a round); a draft without weights exits 1 unless
+--draft-model with --draft-checkpoint-path, or --draft-hf-model, turns on
+speculative serving (--spec-k drafts a round; the draft must share the
+target's vocabulary); a draft without weights exits 1 unless
 --allow-fresh-init is given. --lora-checkpoint-path merges one adapter
 checkpoint into the weights at startup; each --adapter CKPT[:ALPHA]
 registers one for per-request selection (ids from 1; a failure exits 1).
-The server is one process on one device, as the reference's is. Text
-prompts (they need a tokenizer), --hf-model and --draft-hf-model are not
-ported yet and are refused.
+The server is one process on one device, as the reference's is.
 """
 from __future__ import annotations
 
@@ -59,7 +66,9 @@ def parse_args(argv=None):
                    choices=["tiny", "bench-150m", "bench-1b", "llama-7b"])
     p.add_argument("--checkpoint-path",
                    default=os.environ.get("KUBEDL_CHECKPOINT_PATH", ""))
-    p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""))
+    p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""),
+                   help="local Hugging Face checkpoint dir; overrides --model/"
+                        "--checkpoint-path (models/import_hf.py)")
     p.add_argument("--allow-fresh-init", action="store_true")
     p.add_argument("--lora-checkpoint-path", default="",
                    help="merge the newest adapter checkpoint from a trainer "
@@ -80,7 +89,9 @@ def parse_args(argv=None):
     p.add_argument("--kv-int8", action="store_true")
     p.add_argument("--draft-model", default="")
     p.add_argument("--draft-checkpoint-path", default="")
-    p.add_argument("--draft-hf-model", default="")
+    p.add_argument("--draft-hf-model", default="",
+                   help="local Hugging Face checkpoint dir of the draft (must "
+                        "share the target's tokenizer)")
     p.add_argument("--spec-k", type=int, default=4)
     p.add_argument("--max-steps", type=int, default=0,
                    help="stop after N pump passes (smoke tests); 0 = forever")
@@ -91,14 +102,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-_UNPORTED_FLAGS = (("draft_hf_model", "--draft-hf-model"),)
-
-
 class _Service:
     """Engine + queue pump shared by all HTTP handler threads."""
 
-    def __init__(self, engine, decode_block: int = 8) -> None:
+    def __init__(self, engine, tokenizer=None, decode_block: int = 8) -> None:
         self.engine = engine
+        self.tokenizer = tokenizer
         self.decode_block = max(int(decode_block), 1)
         self._lock = threading.Lock()  # engine calls are single-threaded
         self._work = threading.Event()
@@ -185,15 +194,31 @@ class _Service:
         self._thread.join(timeout=30)
 
 
-def _parse_stop(value):
-    """"stop" field -> list of token-id sequences (id lists only: string
-    stops need a tokenizer, which is not ported yet)."""
+def _parse_stop(value, tok):
+    """"stop" field -> list of token-id sequences: one string, a list of
+    strings (they need a tokenizer; encoded without special tokens) or a
+    list of id lists. A string stop is encoded once and matched on tokens,
+    so text that merges differently (leading-space variants) may contain
+    it without a match; id lists give exact control."""
     if value is None:
         return None
-    if not isinstance(value, list) or not all(isinstance(s, list) for s in value):
-        raise ValueError("stop must be a list of token-id lists (string stop "
-                         "sequences need a tokenizer, not ported yet)")
-    return [[int(t) for t in s] for s in value]
+    if isinstance(value, str):
+        value = [value]
+    if not isinstance(value, list):
+        raise ValueError("stop must be a string or a list")
+    out = []
+    for s in value:
+        if isinstance(s, str):
+            if tok is None:
+                raise ValueError("string stop sequences need a tokenizer "
+                                 "— start the server with --hf-model, or "
+                                 "pass token-id lists")
+            out.append(tok.encode(s, add_special_tokens=False))
+        elif isinstance(s, list):
+            out.append([int(t) for t in s])
+        else:
+            raise ValueError("each stop entry must be a string or id list")
+    return out
 
 
 def _parse_bool(value, field: str) -> bool:
@@ -202,6 +227,34 @@ def _parse_bool(value, field: str) -> bool:
     if isinstance(value, bool):
         return value
     raise ValueError(f"{field} must be a JSON boolean, got {value!r}")
+
+
+class _StreamDecoder:
+    """Incremental detokenization for SSE text deltas. Decoding every prefix
+    anew is quadratic and wrong for a character split across tokens (it
+    decodes to U+FFFD until its last byte arrives), so each push decodes a
+    short window [prefix:read) against [prefix:], emits the extension once
+    it no longer ends in a replacement character, and moves the window on.
+    The deltas concatenate to the final text, but for a held-back tail that
+    the final event's full decode supplies."""
+
+    def __init__(self, tok) -> None:
+        self.tok = tok
+        self.toks: list = []
+        self.prefix = 0  # window start
+        self.read = 0    # tokens already in the emitted text
+
+    def push(self, token: int) -> str:
+        self.toks.append(token)
+        prev = self.tok.decode(self.toks[self.prefix:self.read], skip_special_tokens=True)
+        full = self.tok.decode(self.toks[self.prefix:], skip_special_tokens=True)
+        if full.endswith("\ufffd"):
+            return ""  # mid-character: hold until it completes
+        if len(full) > len(prev) and full.startswith(prev):
+            self.prefix = self.read
+            self.read = len(self.toks)
+            return full[len(prev):]
+        return ""
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -259,6 +312,8 @@ class _Handler(BaseHTTPRequestHandler):
         it, then a final event. Any exit before the request finishes (a
         disconnect, a socket error, the deadline) cancels it, so an
         abandoned stream frees its slot."""
+        tok = self.svc.tokenizer
+        dec = _StreamDecoder(tok) if tok is not None else None
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
@@ -282,6 +337,8 @@ class _Handler(BaseHTTPRequestHandler):
                     event = {"token": toks[sent], "request_id": req.request_id}
                     if req.logprobs and sent < len(lps):
                         event["logprob"] = lps[sent]
+                    if dec is not None:
+                        event["text_delta"] = dec.push(toks[sent])
                     self._event(event)
                     sent += 1
                 self.wfile.flush()
@@ -291,6 +348,10 @@ class _Handler(BaseHTTPRequestHandler):
                         final["error"] = req.error
                     if req.logprobs:
                         final["logprobs"] = list(req.token_logprobs)
+                    if tok is not None:
+                        # a full decode: what the deltas held back for an
+                        # incomplete character lands here
+                        final["text"] = tok.decode(toks, skip_special_tokens=True)
                     self._event(final)
                     self.wfile.flush()
                     return
@@ -342,29 +403,36 @@ class _Handler(BaseHTTPRequestHandler):
         if stream and not single:
             return self._send(422, {"error": "stream only supports the "
                                              "single-request form"})
+        tok = self.svc.tokenizer
         reqs = []
         try:
             for e in entries:
                 if not isinstance(e, dict):
                     raise ValueError("each request must be a JSON object")
-                for key in ("text", "messages"):
-                    if e.get(key) is not None:
-                        raise ValueError(f"{key!r} prompts need a tokenizer, "
-                                         f"not ported yet; send token ids")
+                tokens, is_text = _prompt_tokens(e, tok)
+                # the eos default applies to text requests only (a natural
+                # stop); the token-id API keeps exact-length answers, and an
+                # explicit "eos_token": null opts text requests out too
+                if "eos_token" in e:
+                    eos = e["eos_token"]
+                elif is_text:  # a text prompt came through the tokenizer
+                    eos = tok.eos_token_id
+                else:
+                    eos = None
                 temp = e.get("temperature")
                 top_k = e.get("top_k")
                 top_p = e.get("top_p")
                 reqs.append(self.svc.submit(
-                    e.get("tokens") or [],
+                    tokens or [],
                     int(e.get("max_new_tokens") or 32),
-                    e.get("eos_token"),
+                    eos,
                     prefix_id=e.get("prefix_id"),
                     temperature=None if temp is None else float(temp),
                     top_k=0 if top_k is None else int(top_k),
                     top_p=1.0 if top_p is None else float(top_p),
                     logprobs=_parse_bool(e.get("logprobs"), "logprobs"),
                     adapter_id=int(e.get("adapter_id") or 0),
-                    stop=_parse_stop(e.get("stop")),
+                    stop=_parse_stop(e.get("stop"), tok),
                 ))
         except (ValueError, TypeError) as e:
             # partially-submitted batch: release what already went in
@@ -382,8 +450,44 @@ class _Handler(BaseHTTPRequestHandler):
                 entry["error"] = r.error
             if r.logprobs:
                 entry["logprobs"] = r.token_logprobs
+            if tok is not None:
+                entry["text"] = tok.decode(r.tokens, skip_special_tokens=True)
             results.append(entry)
         self._send(200, results[0] if single else {"results": results})
+
+
+def _prompt_tokens(e: dict, tok):
+    """(prompt ids, whether the prompt is text) of one request: exactly one
+    of "tokens", "text" (encoded with the tokenizer's special tokens) and
+    "messages" (rendered by the tokenizer's chat template with the
+    generation prompt)."""
+    provided = [k for k in ("tokens", "text", "messages") if e.get(k) is not None]
+    if len(provided) > 1:
+        raise ValueError(f"pass exactly one of tokens / text / messages, "
+                         f"got {'+'.join(provided)}")
+    msgs = e.get("messages")
+    if msgs is not None:
+        if tok is None:
+            raise ValueError("messages need a tokenizer — start the server with --hf-model")
+        if not (isinstance(msgs, list) and msgs and all(
+                isinstance(m, dict) and "role" in m and "content" in m for m in msgs)):
+            raise ValueError("messages must be a non-empty list of {role, content} objects")
+        try:
+            # return_dict=False: ids, whichever default the installed
+            # transformers has
+            return tok.apply_chat_template(msgs, add_generation_prompt=True, tokenize=True,
+                                           return_dict=False), True
+        except Exception as exc:
+            # a template's own raise_exception (jinja's TemplateError) is no
+            # ValueError: rewrapped, it takes the 422 path and the batch's
+            # partial submits are cancelled
+            raise ValueError(f"chat template failed: {exc}") from exc
+    if e.get("text") is not None:
+        if tok is None:
+            raise ValueError("text requests need a tokenizer — start the server "
+                             "with --hf-model")
+        return tok.encode(str(e["text"])), True
+    return e.get("tokens"), False
 
 
 def build_server(args):
@@ -392,12 +496,8 @@ def build_server(args):
     when weights or adapters are missing (the error is printed). The caller
     runs ``httpd.serve_forever()`` and, when done, ``httpd.shutdown()``,
     ``httpd.server_close()`` and ``service.stop()``."""
-    for attr, flag in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not yet ported to "
-                                      f"kubedl_tpu_torch (ROADMAP.md)")
     from kubedl_tpu_torch.models.serving import ServingEngine
-    from kubedl_tpu_torch.train.generate import resolve_params
+    from kubedl_tpu_torch.train.generate import load_tokenizer, resolve_params
 
     try:
         params, config = resolve_params(
@@ -409,24 +509,25 @@ def build_server(args):
         return None
     if params is None:
         return None
+    tokenizer = load_tokenizer(args.hf_model)
     if args.int8:
         from kubedl_tpu_torch.models import quant
 
         params = quant.quantize_params(params)
     draft_params = draft_config = None
-    if args.draft_model or args.draft_checkpoint_path:
-        if not args.draft_checkpoint_path:
+    if args.draft_model or args.draft_hf_model or args.draft_checkpoint_path:
+        if not (args.draft_hf_model or args.draft_checkpoint_path):
             # a random draft floors acceptance: speculation would be
             # strictly slower than the plain engine
             if not args.allow_fresh_init:
-                print("error: --draft-model needs weights (--draft-checkpoint-path); "
-                      "pass --allow-fresh-init to force a random draft for tests",
-                      file=sys.stderr)
+                print("error: --draft-model needs weights (--draft-checkpoint-path "
+                      "or --draft-hf-model); pass --allow-fresh-init to force a "
+                      "random draft for tests", file=sys.stderr)
                 return None
             print("warning: random-init draft — speculation will be slower than "
                   "plain serving (test mode)", file=sys.stderr)
         draft_params, draft_config = resolve_params(
-            args.draft_model or "tiny", "", args.draft_checkpoint_path,
+            args.draft_model or "tiny", args.draft_hf_model, args.draft_checkpoint_path,
             args.allow_fresh_init, label="draft", device=args.device)
         if draft_params is None:
             return None
@@ -435,7 +536,7 @@ def build_server(args):
                            kv_dtype="int8" if args.kv_int8 else None,
                            draft_params=draft_params, draft_config=draft_config,
                            spec_k=args.spec_k)
-    svc = _Service(engine, decode_block=args.decode_block)
+    svc = _Service(engine, tokenizer=tokenizer, decode_block=args.decode_block)
     for spec in args.adapter:
         # CKPT[:ALPHA]; a failure is fatal: a deployment that dropped an
         # adapter would 422 every request naming it
@@ -464,7 +565,7 @@ def main(argv=None) -> int:
         return 1
     httpd, svc = built
     host, port = httpd.server_address[:2]
-    print(f"serving {args.model} on http://{host}:{port} "
+    print(f"serving {args.hf_model or args.model} on http://{host}:{port} "
           f"(device={svc.engine.device}, slots={args.slots}, "
           f"max_len={args.max_len})", flush=True)
     try:

@@ -24,13 +24,17 @@ trains alone on the one-device step.
 Usage (as a pod command; it runs on the card unless --device cpu):
     python -m kubedl_tpu_torch.train.trainer --model llama-7b --steps 100
 
+--hf-model DIR (KUBEDL_HF_MODEL) starts from a local Hugging Face
+checkpoint directory (models/import_hf.py) in place of --model's fresh
+init; a checkpoint under --checkpoint-path still wins on resume.
+
 --lora-rank R (KUBEDL_LORA_RANK) trains LoRA adapters only
 (models/lora.py `make_lora_step`), on one device or in a gang (adapters
 replicated, the base sharded): the optimizer state and the checkpoints hold
 the adapters alone, which generate and serve merge or register with
 --lora-checkpoint-path / --adapter.
 
-Refused with exit 2, until ported (ROADMAP.md): --hf-model, pipeline
+Refused with exit 2, until ported (ROADMAP.md): pipeline
 stages (KUBEDL_PP_STAGES > 1, KUBEDL_PP_MPMD), live reshard
 (KUBEDL_LIVE_RESHARD=1) and a mesh context axis above 1 (context
 parallelism).
@@ -96,7 +100,8 @@ def parse_args(argv=None):
                         "(models/lora.py); 0 = full fine-tune/pretrain")
     p.add_argument("--lora-alpha", type=float, default=None)
     p.add_argument("--hf-model", default=os.environ.get("KUBEDL_HF_MODEL", ""),
-                   help="not ported yet: refused when set")
+                   help="local Hugging Face checkpoint dir for the base "
+                        "weights (models/import_hf.py)")
     p.add_argument("--remat", choices=["full", "dots", "none"],
                    default=os.environ.get("KUBEDL_REMAT", ""),
                    help="override the model's remat: full recompute, "
@@ -128,8 +133,6 @@ def _refused(args, info) -> Optional[str]:
                 "python -m kubedl_tpu.train.pipeline_trainer (this SPMD "
                 "trainer would train the full model un-pipelined)")
     later = "is not ported to kubedl_tpu_torch yet (ROADMAP.md, trainer options refused)"
-    if args.hf_model:
-        return f"--hf-model {args.hf_model!r}: Hugging Face import {later}"
     if int(os.environ.get("KUBEDL_PP_STAGES", "1")) > 1:
         return (f"KUBEDL_PP_STAGES={os.environ['KUBEDL_PP_STAGES']}: pipeline "
                 f"parallelism {later}")
@@ -226,14 +229,22 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     tracer = tracer_from_env()
     step_stream = StepStream.from_env()
 
-    config = llama.LlamaConfig.config_for(args.model)
+    hf_base = None
+    if args.hf_model:
+        from kubedl_tpu_torch.models.import_hf import load_hf
+
+        hf_base, config = load_hf(args.hf_model, device=device)
+        say(f"base weights: {args.hf_model} ({config.n_layers}L/{config.d_model}d)",
+            flush=True)
+    else:
+        config = llama.LlamaConfig.config_for(args.model)
     if args.remat:
         config = dataclasses.replace(
             config, remat=args.remat != "none",
             remat_policy="dots" if args.remat == "dots" else None)
     if args.ce_chunks > 1:
         config = dataclasses.replace(config, ce_chunks=args.ce_chunks)
-    model_name = args.model
+    model_name = args.hf_model or args.model
     say(f"mesh: {axes} devices={world} model={model_name} "
         f"params≈{config.n_layers}L/{config.d_model}d", flush=True)
 
@@ -257,8 +268,10 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     try:
         if device.type == "cuda" and config.use_flash:
             _build.build("flash_fwd", "flash_bwd")  # a refused source fails here
-        params = llama.init(config, torch.Generator(device=device).manual_seed(0),
-                            device=device)
+        params = (hf_base if hf_base is not None else
+                  llama.init(config, torch.Generator(device=device).manual_seed(0),
+                             device=device))
+        hf_base = None  # the state holds the tree from here on
         if args.lora_rank > 0:
             # adapter-only training: gradients and optimizer state cover the
             # low-rank deltas; the frozen base rides through the step

@@ -38,6 +38,7 @@ KERNEL_CASES = [
     (1, 4, 4, 190, 128, True, None, 50.0),      # softcap
     (1, 2, 2, 160, 64, True, None, None),
     (1, 2, 2, 96, 256, True, None, None),
+    (1, 8, 4, 300, 256, True, 64, 50.0),        # Gemma-2 at d 256: GQA, window, softcap
     (1, 2, 1, 70, 40, True, None, None),        # d padded 40 -> 64
     (1, 2, 2, 150, 128, False, None, None),     # not causal
     (1, 1, 1, 1, 128, True, None, None),        # one token
@@ -90,6 +91,36 @@ def test_flash_bwd_kernels_match_plain(dev, b, hq, hkv, s, d, causal, window, so
         assert _rel_err(g, r) <= 2e-2, (name, _rel_err(g, r))
     again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_kernels_hold_softcap_and_window_where_they_bind(dev, d):
+    """Gemma-2's attention (GQA 8/4, softcap 50, a window shorter than S)
+    with q scaled x8, so that the scores reach the cap (at unit inputs
+    50 tanh(s / 50) differs from s by under 1e-2): the kernels match the
+    plain version, and the same kernels with the softcap or the window
+    dropped fail the same checks."""
+    b, hq, hkv, s, window, cap = 1, 8, 4, 300, 64, 50.0
+    q, k, v = _qkv(dev, b, hq, hkv, s, d, seed=2)
+    q = q * 8
+    dout = _qkv(dev, b, hq, hq, s, d, seed=3)[0]
+    kw = dict(causal=True, window=window, softcap=cap)
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_g = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                         dout.float(), **kw)
+
+    def reads(opts):
+        """(forward error / its tolerance, backward error / its tolerance)"""
+        o, lo = fa.flash_attention_fwd(q, k, v, **dict(kw, **opts))
+        g = fa.flash_attention_bwd(q, k, v, out, lse, dout, **dict(kw, **opts))
+        fwd = max((o.float() - ref).abs().max().item() / 2e-2,
+                  (lo - ref_lse).abs().max().item() / 1e-3)
+        return fwd, max(_rel_err(x, r) for x, r in zip(g, ref_g)) / 2e-2
+
+    assert max(reads({})) <= 1
+    for dropped in ({"softcap": None}, {"window": None}):
+        assert min(reads(dropped)) > 1, dropped
 
 
 def test_flash_autograd_through_the_kernels(dev):

@@ -4,8 +4,9 @@ train/generate.py main with --checkpoint-path (and as a speculative
 draft): the restored params equal the saved ones bit for bit, and the
 tokens equal those of the trained params in memory. An empty checkpoint
 directory exits 1 with the reference's error unless --allow-fresh-init is
-given, as does an adapter directory with no adapters; --hf-model, still
-unported, exits 2 naming ROADMAP.md."""
+given, as does an adapter directory with no adapters; --hf-model, once
+refused, generates from a Hugging Face directory and raises naming a
+missing one."""
 import copy
 import json
 import threading
@@ -128,10 +129,24 @@ def test_empty_checkpoint_dir_is_an_error(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--hf-model", "x"], ["--lora-checkpoint-path", "x"],
                                   ["--speculative-k", "1", "--batch", "1"],
                                   ["--speculative-k", "2", "--batch", "2"]])
-def test_generate_refusals_exit_2(argv, capsys):
+def test_generate_refusals_exit_2(argv, capsys, tmp_path):
     """--lora-checkpoint-path was refused (exit 2) until LoRA was ported:
     now a directory with no adapters is the reference's error, exit 1, as
-    a missing checkpoint is (tests/test_torch_lora.py merges a real one)."""
+    a missing checkpoint is (tests/test_torch_lora.py merges a real one).
+    --hf-model was refused until Hugging Face import was ported: now a
+    missing directory raises naming it, and a real one generates
+    (tests/test_torch_import_hf.py holds the tree and the tokens to JAX)."""
+    if argv[0] == "--hf-model":
+        pytest.importorskip("transformers")
+        from hf_dirs import GEMMA2, save_hf
+
+        with pytest.raises(FileNotFoundError, match="x: not a Hugging Face checkpoint"):
+            generate.main(["--device", "cpu"] + argv)
+        save_hf(str(tmp_path), *GEMMA2)
+        assert generate.main(["--device", "cpu", "--hf-model", str(tmp_path), "--batch",
+                              "1", "--prompt-len", "4", "--max-new-tokens", "2"]) == 0
+        assert "done: generated 1x2 tokens" in capsys.readouterr().out
+        return
     rc = generate.main(["--device", "cpu"] + argv)
     err = capsys.readouterr().err
     assert "error:" in err
@@ -139,8 +154,6 @@ def test_generate_refusals_exit_2(argv, capsys):
         assert rc == 1 and "error: no adapter checkpoint under 'x'" in err
         return
     assert rc == 2
-    if argv[0] == "--hf-model":
-        assert "ROADMAP.md" in err
 
 
 def _post(base, body):

@@ -237,7 +237,9 @@ def test_http_round_trip_on_cpu(server):
         stats = json.loads(r.read())
     assert stats["admitted"] == 3 and stats["tokens_out"] == 15
     # stream: true is ported (tests/test_torch_serve_stream.py); only its
-    # batch form stays refused, as the reference refuses it
+    # batch form stays refused, as the reference refuses it. Text needs a
+    # tokenizer, which a --model server has none of (the reference's 422;
+    # tests/test_torch_serve_text.py serves text)
     for bad in ({"text": "hi"}, {"tokens": [1], "prefix_id": 2},
                 {"requests": [{"tokens": [1]}], "stream": True}, {"tokens": []}):
         with pytest.raises(urllib.error.HTTPError) as e:
@@ -247,15 +249,17 @@ def test_http_round_trip_on_cpu(server):
 
 
 def test_serve_refuses_unported_flags_and_missing_card(monkeypatch, tmp_path, capsys):
-    """--draft-hf-model and --hf-model stay refused; --adapter and
-    --lora-checkpoint-path, refused until LoRA was ported, now read adapter
-    checkpoints, and a path with none exits 1 with the reference's error
-    (tests/test_torch_serve_stream.py and test_torch_lora.py serve real
-    ones)."""
+    """--draft-hf-model and --hf-model, refused until Hugging Face import
+    was ported, now read checkpoint directories, and a missing one raises
+    naming it (tests/test_torch_serve_text.py serves real ones); --adapter
+    and --lora-checkpoint-path, refused until LoRA was ported, now read
+    adapter checkpoints, and a path with none exits 1 with the reference's
+    error (tests/test_torch_serve_stream.py and test_torch_lora.py serve
+    real ones)."""
     from kubedl_tpu_torch.train import serve
 
     for flags in (["--draft-hf-model", "x"], ["--hf-model", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(FileNotFoundError, match="x: not a Hugging Face checkpoint"):
             serve.build_server(serve.parse_args(["--device", "cpu"] + flags))
     for flags, said in ((["--adapter", "x"], "error: --adapter 'x': no adapter checkpoint"),
                         (["--lora-checkpoint-path", "x"], "error: no adapter checkpoint")):

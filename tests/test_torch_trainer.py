@@ -178,8 +178,9 @@ def test_profile_window_writes_a_trace(tmp_path, capsys):
 
 # the last four: a mesh whose size is not the gang's (one device a
 # process), refused before any rendezvous with build_mesh's messages.
-# "lora" was refused until LoRA was ported; its case now checks that the
-# same flags train (tests/test_torch_lora.py holds the step to JAX's)
+# "lora" was refused until LoRA was ported, "hf_model" until Hugging Face
+# import was; their cases now check that the same flags train
+# (tests/test_torch_lora.py holds the step to JAX's)
 REFUSED = {
     "lora": (["--lora-rank", "4"], {}),
     "hf_model": (["--hf-model", "/models/llama"], {}),
@@ -201,14 +202,26 @@ MISMATCH = {
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_options_exit_2(name, monkeypatch, capsys):
+def test_refused_options_exit_2(name, monkeypatch, capsys, tmp_path):
     flags, env = REFUSED[name]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if name == "hf_model":  # a missing directory raises naming it; a real one trains
+        pytest.importorskip("transformers")
+        from hf_dirs import GEMMA2, save_hf
+
+        with pytest.raises(FileNotFoundError, match="/models/llama"):
+            trainer.main(TINY + ["--steps", "1"] + flags)
+        save_hf(str(tmp_path), *GEMMA2)
+        flags = ["--hf-model", str(tmp_path), "--lora-rank", "2"]
     rc = trainer.main(TINY + ["--steps", "1"] + flags)
     out, err = capsys.readouterr()
     if name == "lora":
         assert rc == 0 and "lora: rank 4, 16384 adapter params (4.54% of base)" in out
+        return
+    if name == "hf_model":
+        assert rc == 0 and f"base weights: {tmp_path} (3L/64d)" in out
+        assert f"model={tmp_path}" in out and "lora: rank 2" in out
         return
     assert rc == 2
     if name == "pp_mpmd":  # the JAX trainer's message: run the stage program
