@@ -14,9 +14,10 @@ Phases, each printing its own line of numbers:
      phase 13's one-pass prefills (GQA with a window at S=8192, S=4096) and
      phase 15's Gemma-2-2B prefills at d 256 (GQA 8/4, softcap 50, window
      4096 at S=5000 where it binds, and the twin without the softcap): the
-     kernel kernel_source routes to (flash_fwd_sm90.cu at d <= 128,
-     flash_fwd.cu at d 256), the mma.sync kernel of flash_fwd.cu at the
-     same shape, and the library (scaled_dot_product_attention, or
+     kernel kernel_source routes to (flash_fwd_sm90.cu at every head dim,
+     its Fwd<256> geometry at d 256), rerun bit for bit, the mma.sync
+     kernel of flash_fwd.cu at the same shape, and the library
+     (scaled_dot_product_attention, or
      flex_attention compiled with the softcap as its score_mod), each timed
      as device time (10 launches in a CUDA graph, median of 7 replays), the
      plain version and one whole wrapper call (CUDA events, median of 7
@@ -35,9 +36,10 @@ Phases, each printing its own line of numbers:
      7B training shapes and the variants (GQA, window, softcap, d=64,
      d=256, a long sequence, and phase 15c's Gemma-2-2B shape at d 256 with
      GQA 8/4 and softcap 50, the same with window 4096 at S=5000, and its
-     twin without the softcap): the source bwd_kernel_source routes to
-     (flash_bwd_sm90.cu at d <= 128, flash_bwd.cu at d 256) and, at
-     d <= 128, flash_bwd.cu's mma.sync kernels at the same shape, each two
+     twin without the softcap): the sources bwd_kernel_source routes each
+     kernel to (flash_bwd_sm90.cu's dq and dkv at d <= 128; at d 256
+     flash_bwd.cu's dq and flash_bwd_sm90.cu's Dkv256 dkv kernel) and
+     flash_bwd.cu's mma.sync kernels at the same shape, each two
      launches bit-identical and timed as device time (CUDA graphs), beside
      one whole wrapper call, the plain version and the library
      (scaled_dot_product_attention's backward, or flex_attention's where a
@@ -150,7 +152,7 @@ Phases, each printing its own line of numbers:
      script into build/chip_smoke/; models/import_hf.py load_hf onto the
      card, every leaf against the seeded tensor bit for bit, load seconds
      and bytes; a 5000-token prefill (past the sliding layers' 4096
-     window) through flash_fwd.cu (d 256) against plain attention; (b)
+     window) through flash_fwd_sm90.cu (d 256) against plain attention; (b)
      generate --hf-model, whose rows must not be degenerate (the seed's
      weight scales are chosen for that), then serve --hf-model with phase
      4's traffic and generate's prompts (a served row may leave
@@ -201,6 +203,8 @@ MAIN_SHAPE = "7b_b4_s1024"
 # the training path's attention: --batch 4 --seq-len 1024 feeds tokens[:, :-1]
 MAIN_BWD_SHAPE = "7b_b4_s1023"
 MAIN_D256, MAIN_BWD_D256 = "gemma2_s1024", "gemma2_s1023"  # phase 15's shapes at d 256
+# the kernels phase 15 runs at d 256: K1, K2, K3
+D256_NAMES = ("flash_fwd_sm90.cu", "flash_bwd.cu dq", "flash_bwd_sm90.cu dkv")
 # phases 2 and 2b scale q by this on their softcap rows: at unit q and k the
 # scaled scores are about N(0, 1), where 50 tanh(s / 50) differs from s by
 # under 1e-2 and no tolerance would see a dropped softcap; x8 puts them near
@@ -374,7 +378,7 @@ def phase_kernels():
         # (Mistral-7B: GQA 32/8, window 4096), 13a's one-pass 3840 in 4096
         "mistral_w4096_s8192": (1, 32, 8, 8192, 128, True, 4096, None),
         "7b_b1_s4096": (1, 32, 32, 4096, 128, True, None, None),
-        # phase 15's Gemma-2-2B (flash_fwd.cu at d 256): GQA 8/4, softcap 50;
+        # phase 15's Gemma-2-2B (flash_fwd_sm90.cu's Fwd<256>): GQA 8/4, softcap 50;
         # 15a's prefill on the sliding layers, where the 4096 window binds;
         # the twin without the softcap that scaled_dot_product_attention takes
         MAIN_D256: (4, 8, 4, 1024, 256, True, None, 50.0),
@@ -392,7 +396,10 @@ def phase_kernels():
         kw = dict(causal=causal, window=window, softcap=softcap)
         source = fa.kernel_source(d)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        again, again_lse = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
+        same = torch.equal(out, again) and torch.equal(lse, again_lse)
+        del again, again_lse
         ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         out_err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
@@ -418,7 +425,7 @@ def phase_kernels():
                                      f"{name}: out {library_err}")
             del lib_out, lib_lse
         mma_sync_ms = mma_sync_err = mma_sync_lse_err = None
-        if source != fa.MMA_SYNC:  # the PR 1 kernel at the same shape, in the same run
+        if source != fa.MMA_SYNC:  # the mma.sync kernel at the same shape, in the same run
             old, old_lse = fa.flash_attention_fwd(q, k, v, source=fa.MMA_SYNC, **kw)
             torch.cuda.synchronize()
             mma_sync_err = (old.float() - ref).abs().max().item()
@@ -447,7 +454,8 @@ def phase_kernels():
                  softcap=softcap, q_scale=SOFTCAP_Q_SCALE if softcap is not None else 1.0,
                  dropped_option_reads=dropped, library=library, library_out_err=library_err,
                  source=f"{source}.cu", out_max_abs_err=out_err,
-                 lse_max_abs_err=lse_err, kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
+                 lse_max_abs_err=lse_err, deterministic=same, kernel_ms=kernel_ms,
+                 wrapper_ms=wrapper_ms,
                  mma_sync_ms=mma_sync_ms, mma_sync_err=mma_sync_err,
                  mma_sync_lse_err=mma_sync_lse_err,
                  speedup_vs_mma_sync=None if mma_sync_ms is None else mma_sync_ms / kernel_ms,
@@ -464,11 +472,12 @@ def phase_kernels():
               f"wrapper_ms={wrapper_ms:.4f} mma_sync_ms={old} plain_ms={plain_ms:.4f} "
               f"library_ms={lib} bound_ms={bound_ms:.4f} ({r['bound_by']}) "
               f"share={r['share_of_bound']:.3f} tflops={r['tflops']:.1f} "
-              f"out_err={out_err:.3e} lse_err={lse_err:.3e}{faults}", flush=True)
-        if not finite or out_err > OUT_TOL or lse_err > LSE_TOL:
+              f"out_err={out_err:.3e} lse_err={lse_err:.3e} deterministic={same}{faults}",
+              flush=True)
+        if not finite or not same or out_err > OUT_TOL or lse_err > LSE_TOL:
             raise AssertionError(
                 f"flash_fwd disagrees with its plain version at {name}: "
-                f"finite={finite} out_err={out_err} (tol {OUT_TOL}) "
+                f"finite={finite} deterministic={same} out_err={out_err} (tol {OUT_TOL}) "
                 f"lse_err={lse_err} (tol {LSE_TOL})")
         if mma_sync_err is not None and (mma_sync_err > OUT_TOL or mma_sync_lse_err > LSE_TOL):
             raise AssertionError(f"the mma.sync forward disagrees at {name}: out "
@@ -699,9 +708,9 @@ def _bound(flop, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-# the backward kernels' tiles: source -> ((q rows, key rows) of a dq
-# item's tile, (key rows, q rows) of a dkv item's tile)
-BWD_TILES = {"flash_bwd_sm90": ((128, 64), (128, 64)), "flash_bwd": ((64, 64), (64, 32))}
+# flash_bwd.cu's tiles: (q rows, key rows) of a dq item's tile, (key rows,
+# q rows) of a dkv item's tile; flash_bwd_sm90.cu's are fa.sm90_tiles'
+MMA_SYNC_BWD_TILES = {"dq": (64, 64), "dkv": (64, 32)}
 
 
 def _loaded_pairs(s, causal, window, rows, cols, by_key):
@@ -724,10 +733,14 @@ def _loaded_pairs(s, causal, window, rows, cols, by_key):
     return tiles * rows * cols
 
 
-def _executed_share(source, b, hq, s, d, causal, window):
+def _executed_share(sources, b, hq, s, d, causal, window):
     """The least backward work (5 products a kept pair) over what the two
-    kernels run: 3 products a loaded pair in dq, 4 in dkv."""
-    (qr, kc), (kr, qc) = BWD_TILES[source]
+    kernels (sources: {"dq": csrc name, "dkv": csrc name}) run: 3 products a
+    loaded pair in dq, 4 in dkv."""
+    from kubedl_tpu_torch.ops import flash_attention as fa
+
+    (qr, kc), (kr, qc) = (fa.sm90_tiles(kind, d) if sources[kind] == fa.BWD_SM90
+                          else MMA_SYNC_BWD_TILES[kind] for kind in ("dq", "dkv"))
     run = 6 * d * _loaded_pairs(s, causal, window, qr, kc, False) \
         + 8 * d * _loaded_pairs(s, causal, window, kr, qc, True)
     return 10 * d * _attended_pairs(s, causal, window) / run
@@ -735,8 +748,9 @@ def _executed_share(source, b, hq, s, d, causal, window):
 
 def phase_bwd_kernels():
     """The dq and dkv kernels against the f32 plain backward; returns
-    {shape name: numbers}: the routed source's at the top level, flash_bwd.cu's
-    under "mma_sync" where the route is flash_bwd_sm90.cu."""
+    {shape name: numbers}: the routed kernels' at the top level (their
+    sources under "sources"), flash_bwd.cu's mma.sync kernels' at the same
+    shape under "mma_sync"."""
     import torch.nn.functional as F
 
     from kubedl_tpu_torch.ops import flash_attention as fa
@@ -752,7 +766,8 @@ def phase_bwd_kernels():
         "d64_s1024": (4, 32, 32, 1024, 64, True, None, None),
         "d256_b2_h8_s1024": (2, 8, 8, 1024, 256, True, None, None),
         "b1_h8_s8192": (1, 8, 8, 8192, 128, True, None, None),
-        # phase 15c's Gemma-2-2B training shape (flash_bwd.cu at d 256): GQA
+        # phase 15c's Gemma-2-2B training shape (d 256: flash_bwd.cu's dq,
+        # flash_bwd_sm90.cu's Dkv256): GQA
         # 8/4, softcap 50; the sliding layers at a length where the 4096
         # window binds; the twin without the softcap that SDPA's backward takes
         MAIN_BWD_D256: (4, 8, 4, 1023, 256, True, None, 50.0),
@@ -772,9 +787,11 @@ def phase_bwd_kernels():
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
                                            lse, dout.float(), **kw)
-        routed = fa.bwd_kernel_source(d)
+        routed = {kind: fa.bwd_kernel_source(d, kind) for kind in ("dq", "dkv")}
         runs = {}
-        for source in (routed, fa.BWD_MMA_SYNC) if routed != fa.BWD_MMA_SYNC else (routed,):
+        # the routed kernels, then flash_bwd.cu's mma.sync kernels at the same shape
+        for run, source in (("routed", None), ("mma_sync", fa.BWD_MMA_SYNC)):
+            sources = routed if source is None else {"dq": source, "dkv": source}
             got = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=source, **kw)
             again = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=source, **kw)
             torch.cuda.synchronize()
@@ -790,13 +807,15 @@ def phase_bwd_kernels():
             dq_ms = _graph_ms(lambda: fa._launch_bwd("dq", launch_args["dq"]))
             dkv_ms = _graph_ms(lambda: fa._launch_bwd("dkv", launch_args["dkv"]))
             del launch_args
-            runs[source] = dict(source=f"{source}.cu", errors=errs, finite=finite,
-                                deterministic=same, dq_ms=dq_ms, dkv_ms=dkv_ms,
-                                executed_work_share=_executed_share(source, b, hq, s, d, causal,
-                                                                    window))
+            label = "+".join(dict.fromkeys(f"{x}.cu" for x in sources.values()))
+            runs[run] = dict(source=label, sources={kd: f"{x}.cu" for kd, x in sources.items()},
+                             errors=errs, finite=finite, deterministic=same, dq_ms=dq_ms,
+                             dkv_ms=dkv_ms,
+                             executed_work_share=_executed_share(sources, b, hq, s, d, causal,
+                                                                 window))
             if not finite or not same or max(errs[g] for g in ("dq", "dk", "dv")) > BWD_TOL:
                 raise AssertionError(
-                    f"{source}.cu disagrees with the plain backward at {name}: finite={finite} "
+                    f"{label} disagrees with the plain backward at {name}: finite={finite} "
                     f"deterministic={same} errors={errs} (tol {BWD_TOL})")
         # a planted fault: the routed kernels without one of their options
         # (the forward's out and lse kept) must fail the same check
@@ -841,7 +860,7 @@ def phase_bwd_kernels():
         work = _bwd_bounds(b, hq, hkv, s, d, causal, window)
         r = dict(shape=[b, hq, hkv, s, d], causal=causal, window=window, softcap=softcap,
                  q_scale=SOFTCAP_Q_SCALE if softcap is not None else 1.0,
-                 dropped_option_reads=dropped, **runs[routed], wrapper_ms=wrapper_ms,
+                 dropped_option_reads=dropped, **runs["routed"], wrapper_ms=wrapper_ms,
                  plain_ms=plain_ms, library=library, library_rel_err=library_err,
                  library_ms=library_ms)
         for part in ("dq", "dkv", "bwd"):
@@ -849,18 +868,18 @@ def phase_bwd_kernels():
         kernel_ms = r["dq_ms"] + r["dkv_ms"]
         r["share_of_bound"] = r["bwd_bound_ms"] / kernel_ms
         r["tflops"] = work["bwd"][0] / kernel_ms / 1e9
-        old = runs.get(fa.BWD_MMA_SYNC) if routed != fa.BWD_MMA_SYNC else None
+        old = runs["mma_sync"]
         r["mma_sync"] = old
-        r["speedup_vs_mma_sync"] = None if old is None else \
-            (old["dq_ms"] + old["dkv_ms"]) / kernel_ms
+        r["speedup_vs_mma_sync"] = (old["dq_ms"] + old["dkv_ms"]) / kernel_ms
+        r["dkv_speedup_vs_mma_sync"] = old["dkv_ms"] / r["dkv_ms"]
         results[name] = r
         lib = f"{library_ms:.4f} ({library})"
         errs = r["errors"]
-        vs = "n/a" if old is None else \
-            (f"{old['dq_ms']:.4f}+{old['dkv_ms']:.4f} (x{r['speedup_vs_mma_sync']:.2f}, "
-             f"rel_err dq={old['errors']['dq']:.2e} dk={old['errors']['dk']:.2e} "
-             f"dv={old['errors']['dv']:.2e})")
-        print(f"bwd {name} [{routed}.cu]: dq_ms={r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f} "
+        vs = (f"{old['dq_ms']:.4f}+{old['dkv_ms']:.4f} (x{r['speedup_vs_mma_sync']:.2f}, "
+              f"dkv x{r['dkv_speedup_vs_mma_sync']:.2f}, "
+              f"rel_err dq={old['errors']['dq']:.2e} dk={old['errors']['dk']:.2e} "
+              f"dv={old['errors']['dv']:.2e})")
+        print(f"bwd {name} [dq {routed['dq']}.cu, dkv {routed['dkv']}.cu]: dq_ms={r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f} "
               f"{r['dq_bound_by']}) dkv_ms={r['dkv_ms']:.4f} (bound {r['dkv_bound_ms']:.4f} "
               f"{r['dkv_bound_by']}) mma_sync={vs} wrapper_ms={wrapper_ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib} bwd_bound_ms={r['bwd_bound_ms']:.4f} "
@@ -3091,8 +3110,9 @@ def _15a_load(path, smi):
     params, config = load_hf(path, device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    if fa.kernel_source(config.head_dim) != fa.MMA_SYNC or \
-            fa.bwd_kernel_source(config.head_dim) != fa.BWD_MMA_SYNC:
+    if (fa.kernel_source(config.head_dim), fa.bwd_kernel_source(config.head_dim, "dq"),
+            fa.bwd_kernel_source(config.head_dim, "dkv")) != (fa.SM90, fa.BWD_MMA_SYNC,
+                                                              fa.BWD_SM90):
         raise AssertionError(f"15a: head dim {config.head_dim} does not route to the d 256 "
                              f"kernels")
     want_windows = tuple(GEMMA2_2B["sliding_window"] if t == "sliding_attention" else None
@@ -3144,7 +3164,7 @@ def _15a_load(path, smi):
           f"{write_s:.1f} s ({nbytes / 1e9:.3f} GB, {free_gb:.0f} GB free after); load_hf "
           f"onto the card {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s), {len(leaves)} "
           f"leaves equal to the seeded tensors bit for bit; prefill {G2_PREFILL} tokens "
-          f"through {fa.MMA_SYNC}.cu (d 256) {tk * 1e3:.1f} ms, plain {tp * 1e3:.1f} ms; "
+          f"through {fa.SM90}.cu (d 256) {tk * 1e3:.1f} ms, plain {tp * 1e3:.1f} ms; "
           f"last-token logits max_abs_diff {max_abs:.4e} (max |logit| {scale:.3f}, rel "
           f"{max_abs / scale:.3e}), argmax {ak} vs {ap} "
           f"{'agree' if ak == ap else f'gap {tie_gap:.3e}'}; K1 launches {nk}", flush=True)
@@ -3262,7 +3282,7 @@ def _15b_serve(path, smi):
           f"equal; prefill {stats['prefill_batches']} dispatches {stats['prefill_time_s']:.3f} s "
           f"({(sum(SERVE_LENGTHS) + 2 * len(dup)) / stats['prefill_time_s']:.0f} prompt tok/s); "
           f"decode {stats['decode_time_s']:.3f} s over {stats['ticks']} ticks "
-          f"({stats['decode_time_s'] / ticks * 1e3:.1f} ms/tick); K1 (d 256) launches "
+          f"({stats['decode_time_s'] / ticks * 1e3:.1f} ms/tick); K1 ({D256_NAMES[0]}) launches "
           f"{launches}; generate --hf-model {G2_GEN['batch']}x{G2_GEN['new']} tokens in "
           f"{gen_s:.1f} s (load included, K1 {gen_launches}); generate's rows: distinct "
           f"tokens of {G2_GEN['new']} {distinct}, {firsts} distinct first tokens, next token "
@@ -3369,7 +3389,8 @@ def _15c_train(path, smi):
           f"losses {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
           f"{', '.join(f'{x:.3f}' for x in gnorms)}; step {step_s * 1e3:.1f} ms (median of "
           f"steps 2-{c['steps']}; first {spans[0]['dur'] * 1e3:.1f} ms), {tokens / step_s:.0f} "
-          f"tok/s, peak allocated {peak_gb:.2f} GB; K1/K2/K3 (d 256) launches {counts}",
+          f"tok/s, peak allocated {peak_gb:.2f} GB; K1/K2/K3 ({', '.join(D256_NAMES)}) "
+          f"launches {counts}",
           flush=True)
     return dict(losses=losses, grad_norms=gnorms, step_ms=step_s * 1e3,
                 first_step_ms=spans[0]["dur"] * 1e3, tok_s=tokens / step_s, peak_gb=peak_gb,
@@ -3538,14 +3559,15 @@ def main(argv=None) -> int:
         bwd_rows.append({
             "name": f"flash_bwd_{part}",
             "route": "cuda",
-            "source": f"kubedl_tpu_torch/ops/csrc/{main_b['source']}",
+            "source": f"kubedl_tpu_torch/ops/csrc/{main_b['sources'][part]}",
             "replaces": f"kubedl_tpu/ops/flash_attention.py:{line}",
             "launches": train["launches"][1 if part == "dq" else 2],
             "launches_by_path": {"7b_train": train["launches"][1 if part == "dq" else 2],
                                  "7b_lora_train": lora["a_train"]["launches"][
                                      1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
-                               if r["source"] == main_b["source"] for g in gname),
+                               if r["sources"][part] == main_b["sources"][part]
+                               and r["shape"][4] <= 128 for g in gname),
             "ms": main_b[f"{part}_ms"],
             "plain_ms": main_b["plain_ms"],
             "bound_ms": main_b[f"{part}_bound_ms"],
@@ -3577,7 +3599,9 @@ def main(argv=None) -> int:
             "bound_by": main_g["bound_by"],
             "library_ms": main_g["library_ms"],
         })
-    # the d 256 kernels (flash_fwd.cu, flash_bwd.cu) on phase 15's paths
+    # the d 256 kernels on phase 15's paths: flash_fwd_sm90.cu's Fwd<256>,
+    # flash_bwd.cu's dq, flash_bwd_sm90.cu's Dkv256; the mma.sync kernel's
+    # time at the same shape beside each
     k256, b256 = kernels[MAIN_D256], bwd[MAIN_BWD_D256]
     d256_rows = [{
         "name": "flash_fwd_d256",
@@ -3596,17 +3620,18 @@ def main(argv=None) -> int:
         "library": k256["library"],
         # scaled_dot_product_attention on the same shape without the softcap
         "sdpa_twin_ms": kernels["d256_gqa_s1024"]["library_ms"],
+        "mma_sync_ms": k256["mma_sync_ms"],
     }]
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
         d256_rows.append({
             "name": f"flash_bwd_{part}_d256",
             "route": "cuda",
-            "source": f"kubedl_tpu_torch/ops/csrc/{b256['source']}",
+            "source": f"kubedl_tpu_torch/ops/csrc/{b256['sources'][part]}",
             "replaces": f"kubedl_tpu/ops/flash_attention.py:{line}",
             "launches": sum(gemma["launches"][part].values()),
             "launches_by_path": gemma["launches"][part],
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
-                               if r["source"] == b256["source"] for g in gname),
+                               if r["shape"][4] == 256 for g in gname),
             "ms": b256[f"{part}_ms"],
             "plain_ms": b256["plain_ms"],
             "bound_ms": b256[f"{part}_bound_ms"],
@@ -3614,6 +3639,7 @@ def main(argv=None) -> int:
             "library_ms": b256["library_ms"],
             "library": b256["library"],
             "sdpa_twin_ms": bwd["d256_gqa_s1023"]["library_ms"],
+            "mma_sync_ms": b256["mma_sync"][f"{part}_ms"],
         })
     report = {"kernels": [{
         "name": "flash_fwd",
@@ -3630,7 +3656,7 @@ def main(argv=None) -> int:
                              "7b_int8_kv_serving": tp["launches_int8"],
                              **features["launches"], **lora["launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
-                           if r["source"] == main_k["source"]),
+                           if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
         "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"],

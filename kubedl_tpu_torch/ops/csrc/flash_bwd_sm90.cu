@@ -1,12 +1,14 @@
 // Flash-attention backward redesigned for Hopper (sm_90a): TMA, mbarrier
-// pipelines, wgmma and warp-specialized consumer warpgroups. Two kernels,
-// bf16 in and out, f32 accumulation; plain C interface bound with ctypes by
-// kubedl_tpu_torch/ops/flash_attention.py, which routes head dims padded to
-// 64 or 128 here (flash_bwd.cu keeps 256).
+// pipelines, wgmma and warp-specialized consumer warpgroups. bf16 in and
+// out, f32 accumulation; plain C interface bound with ctypes by
+// kubedl_tpu_torch/ops/flash_attention.py, which routes both kernels here
+// at head dims padded to 64 or 128, and the dK/dV kernel at head dims
+// padded to 256 (flash_bwd.cu's dq kernel runs there).
 //
 // Replaces the TPU kernels
 //   kubedl_tpu/ops/flash_attention.py:291 _bwd_dq_kernel   (K2) -> flash_bwd_dq_sm90_kernel
-//   kubedl_tpu/ops/flash_attention.py:336 _bwd_dkv_kernel  (K3) -> flash_bwd_dkv_sm90_kernel
+//   kubedl_tpu/ops/flash_attention.py:336 _bwd_dkv_kernel  (K3) -> flash_bwd_dkv_sm90_kernel,
+//                                                                 flash_bwd_dkv256_sm90_kernel
 //
 // What they compute is flash_bwd.cu's function: with s = (q . k) * sm_scale,
 // then cap * tanh(s / cap) when softcap > 0, the mask {k_pos < S, q_pos < S,
@@ -69,13 +71,17 @@
 //   - the exponentials run in the log2 domain: sm_scale * log2 e folded
 //     into one multiply-add against LSE * log2 e;
 //   - epilogues scale dQ and dK by sm_scale and write bf16 through the
-//     caller's strides, rows below S and columns below Dv only.
+//     caller's strides, rows below S and columns below Dv only;
+//   - K3 at d 256 (flash_bwd_dkv256_sm90_kernel, its own comment below):
+//     a 128-row item's K and V and its two 64 x 256 f32 accumulators do
+//     not fit, so an item is 64 key rows and the consumers split the
+//     scores over query columns and dK, dV over the head dim.
 //
 // Layout rules: q, o, dO [B, Hq, S, D], k, v [B, Hkv, S, D], last dim
 // contiguous, other strides whole 16-byte vectors, 16-byte aligned bases;
 // lse [B, Hq, S] f32 contiguous; dq, dk, dv are written through
-// their own strides. D is 64 or 128 (the wrapper zero-pads other head dims
-// and passes the true width as Dv).
+// their own strides. D is 64 or 128, and 256 for K3 (the wrapper zero-pads
+// other head dims and passes the true width as Dv).
 
 #include "sm90_common.cuh"
 
@@ -149,49 +155,34 @@ __device__ __forceinline__ bool dq_masked(int kt, const DqItem& w, const BwdArgs
          (p.window > 0 && k0 <= w.q0 + BM - 1 - p.window);
 }
 
-// K3's item: 128 key rows k0.. of (b, KV head hk), its live 64-row q tiles
-// [qb, qe) of each of the rep query heads
+// K3's item: ROWS key rows k0.. of (b, KV head hk) (128, or 64 at d 256),
+// its live 64-row q tiles [qb, qe) of each of the rep query heads
 struct DkvItem {
   int b, hk, k0, qb, qe;
 };
 
+template <int ROWS>
 __device__ __forceinline__ DkvItem dkv_item(int code, const BwdArgs& p) {
   const int bk_n = p.B * p.Hkv, t = code / bk_n, bk = code - t * bk_n;
   DkvItem w;
   w.b = bk / p.Hkv;
   w.hk = bk - w.b * p.Hkv;
-  w.k0 = t * BM;
+  w.k0 = t * ROWS;
   w.qb = p.causal ? w.k0 / BN : 0;
   w.qe = (p.S + BN - 1) / BN;
   if (p.window > 0) {
-    const int k_last = min(w.k0 + BM, p.S) - 1;  // the last query row k_last's window reaches
+    const int k_last = min(w.k0 + ROWS, p.S) - 1;  // the last query row k_last's window reaches
     w.qe = min(w.qe, (k_last + p.window - 1) / BN + 1);
   }
   w.qe = max(w.qe, w.qb);
   return w;
 }
 
+template <int ROWS>
 __device__ __forceinline__ bool dkv_masked(int qt, const DkvItem& w, const BwdArgs& p) {
   const int q0 = qt * BN;
-  return q0 + BN > p.S || (p.causal && q0 < w.k0 + BM - 1) ||
+  return q0 + BN > p.S || (p.causal && q0 < w.k0 + ROWS - 1) ||
          (p.window > 0 && q0 + BN - 1 - w.k0 >= p.window);
-}
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands K-major in shared
-// memory; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // acc[64 x 64] = A[64 rows of an item tile] . B[a streamed tile]^T over D:
@@ -226,9 +217,10 @@ __device__ __forceinline__ void rs_products(float (&acc)[D / 2], const uint32_t 
 
 // bf16 A fragments straight from an accumulator's layout: x[4j + e] is row
 // g + 8 (e / 2), column 8j + 2 tq + e % 2 of the warp's 16 rows.
-__device__ __forceinline__ void pack(uint32_t (&f)[16], const float (&x)[32]) {
+template <int N>
+__device__ __forceinline__ void pack(uint32_t (&f)[N / 2], const float (&x)[N]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     f[2 * j] = pack_bf16(x[4 * j], x[4 * j + 1]);
     f[2 * j + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
   }
@@ -287,11 +279,11 @@ __device__ __forceinline__ void dq_grads(bool masked, float (&s)[32], const floa
 // cap)^2 under the softcap. This thread's key rows are krow and krow + 8,
 // its query columns q0 + 8j + 2tq + {0, 1}, whose LSE * log2 e is the
 // tile's slice in shared memory.
-template <bool SOFTCAP, bool MASKED>
-__device__ __forceinline__ void dkv_probs(float (&s)[32], uint32_t (&pf)[16], const float* lse,
+template <bool SOFTCAP, bool MASKED, int N>
+__device__ __forceinline__ void dkv_probs(float (&s)[N], uint32_t (&pf)[N / 2], const float* lse,
                                           const BwdArgs& p, int krow, int q0, int tq) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * tq);
     const float ll[2] = {l2.x, l2.y};
     float pv[4];
@@ -320,8 +312,8 @@ __device__ __forceinline__ void dkv_probs(float (&s)[32], uint32_t (&pf)[16], co
   }
 }
 
-template <bool SOFTCAP>
-__device__ __forceinline__ void dkv_probs(bool masked, float (&s)[32], uint32_t (&pf)[16],
+template <bool SOFTCAP, int N>
+__device__ __forceinline__ void dkv_probs(bool masked, float (&s)[N], uint32_t (&pf)[N / 2],
                                           const float* lse, const BwdArgs& p, int krow, int q0,
                                           int tq) {
   if (masked)
@@ -332,10 +324,11 @@ __device__ __forceinline__ void dkv_probs(bool masked, float (&s)[32], uint32_t 
 
 // The second half: ds^T = factor * (dP^T - delta) as bf16 A fragments in
 // df, with the columns' delta from the tile's slice in shared memory.
-__device__ __forceinline__ void dkv_ds(const float (&g)[32], const float (&dp)[32],
-                                       uint32_t (&df)[16], const float* delta, int tq) {
+template <int N>
+__device__ __forceinline__ void dkv_ds(const float (&g)[N], const float (&dp)[N],
+                                       uint32_t (&df)[N / 2], const float* delta, int tq) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float2 d2 = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * tq);
     df[2 * j] = pack_bf16(g[4 * j] * (dp[4 * j] - d2.x), g[4 * j + 1] * (dp[4 * j + 1] - d2.y));
     df[2 * j + 1] =
@@ -376,19 +369,20 @@ __device__ __forceinline__ void row_deltas(float (&dl)[2], const uint8_t* o, con
 }
 
 // This thread's part of a 64 x D accumulator (rows row and row + 8 of the
-// warp, columns 8j + 2tq + {0, 1}) times `scale`, as bf16 through the
-// output's strides: rows at or past S and columns at or past Dv are not
+// warp, columns col0 + 8j + 2tq + {0, 1}) times `scale`, as bf16 through
+// the output's strides: rows at or past S and columns at or past Dv are not
 // written.
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float scale, bf16* out,
-                                           int64_t ss, int row, int tq, const BwdArgs& p) {
+                                           int64_t ss, int row, int tq, const BwdArgs& p,
+                                           int col0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row + 8 * h >= p.S) continue;
     bf16* dst = out + static_cast<int64_t>(row + 8 * h) * ss;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * tq;
+      const int col = col0 + 8 * j + 2 * tq;
       const float x = acc[4 * j + 2 * h] * scale, y = acc[4 * j + 2 * h + 1] * scale;
       if (p.vec_out && col + 1 < p.Dv) {
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
@@ -640,7 +634,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       prefetch_map(&map_rows);
       int it = 0, qi = 0;
       for (int j = first; j < last; ++j, ++qi) {
-        const DkvItem w = dkv_item(order[j], p);
+        const DkvItem w = dkv_item<BM>(order[j], p);
         mbar_wait(kv_empty, (qi & 1) ^ 1);
         mbar_expect_tx(kv_full, 2 * T::ITEM);
 #pragma unroll
@@ -681,7 +675,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   zero(dp_acc);
   int it = 0, qi = 0;
   for (int j = first; j < last; ++j, ++qi) {
-    const DkvItem w = dkv_item(order[j], p);
+    const DkvItem w = dkv_item<BM>(order[j], p);
     const int nq = w.qe - w.qb, n = rep * nq;
     const int krow = w.k0 + 64 * c + 16 * warp + g;
     zero(dk_acc);
@@ -704,7 +698,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       fence_regs(dp_acc);
       if (lane == 0 && i + 1 == n) mbar_arrive(kv_empty);  // K, V of the item are read
       // dV += P^T.dO goes out first; ds^T is computed under it
-      dkv_probs<SOFTCAP>(dkv_masked(qt, w, p), s_acc, pf, lse_sm, p, krow, qt * BN, tq);
+      dkv_probs<SOFTCAP>(dkv_masked<BM>(qt, w, p), s_acc, pf, lse_sm, p, krow, qt * BN, tq);
       __syncwarp();
       fence_regs(dv_acc);
       fence_regs(pf);
@@ -728,6 +722,263 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     if (lane == 0 && n == 0) mbar_arrive(kv_empty);
     store_rows<D>(dk_acc, p.sm_scale, dk + w.b * p.a_sb + w.hk * p.a_sh, p.a_ss, krow, tq, p);
     store_rows<D>(dv_acc, 1.f, dv + w.b * p.b_sb + w.hk * p.b_sh, p.b_ss, krow, tq, p);
+  }
+}
+
+// K3 at head dim 256, where a 128-row item's K and V (64 KB each) and
+// dK, dV accumulators of 256 columns (2 x 128 f32 a thread) do not fit: an
+// item is 64 key rows, and the two consumers split the work twice over.
+// Shared memory: K, V 32 KB each, 2 stages of Q and dO 32 KB each, two
+// buffers of P^T and dS^T (8 KB each), the stages' LSE and delta slices.
+struct Dkv256 {
+  static constexpr int D = 256, ROWS = 64, STAGES = 2;
+  static constexpr int BOX = 64 * ROW;          // a 64-column box of 64 rows (8 KB)
+  static constexpr int TILE = (D / 64) * BOX;   // K, V, or a stage's Q or dO (32 KB)
+  static constexpr int K_OFF = 0, V_OFF = TILE, Q_OFF = 2 * TILE;
+  static constexpr int DO_OFF = Q_OFF + STAGES * TILE;
+  static constexpr int P_OFF = DO_OFF + STAGES * TILE;  // buffer b: P^T at + 2b BOX, dS^T + BOX
+  static constexpr int L_OFF = P_OFF + 2 * 2 * BOX;     // each stage: LSE slice, delta slice
+  static constexpr int BAR_OFF = L_OFF + STAGES * 2 * SLICE;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + slack to align
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+// S^T = K.Q^T and dP^T = V.dO^T for this warpgroup's 32 query columns (the
+// stage's Q and dO rows from q, dout): m64n32k16 over D, both operands
+// K-major, 64-column boxes 8 KB apart.
+__device__ __forceinline__ void score_products256(float (&s)[16], float (&dp)[16], uint32_t k,
+                                                  uint32_t v, uint32_t q, uint32_t dout) {
+#pragma unroll
+  for (int kk = 0; kk < Dkv256::D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * Dkv256::BOX + 32 * (kk % 4);
+    wgmma_ss_n32(s, smem_desc(k + off, 16, 1024), smem_desc(q + off, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < Dkv256::D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * Dkv256::BOX + 32 * (kk % 4);
+    wgmma_ss_n32(dp, smem_desc(v + off, 16, 1024), smem_desc(dout + off, 16, 1024), kk > 0);
+  }
+}
+
+// dV[:, half] += P^T.dO[:, half] and dK[:, half] += dS^T.Q[:, half] over
+// the stage's 64 query rows: m64n128k16, P^T and dS^T K-major (one 64 x 64
+// box each), dO and Q MN-major through the transpose bit: the half's two
+// 64-column boxes 8 KB apart (the leading byte offset), 8 rows 1 KB apart
+// (the stride byte offset), a k16 step 16 rows = 2 KB.
+__device__ __forceinline__ void grad_products256(float (&dv)[64], float (&dk)[64], uint32_t pt,
+                                                 uint32_t dst, uint32_t dout, uint32_t q) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n128_tb(dv, smem_desc(pt + 32 * kk, 16, 1024),
+                     smem_desc(dout + 2048 * kk, Dkv256::BOX, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n128_tb(dk, smem_desc(dst + 32 * kk, 16, 1024),
+                     smem_desc(q + 2048 * kk, Dkv256::BOX, 1024), 1);
+}
+
+// This thread's bf16 pairs of P^T or dS^T (rows r and r + 8 of the item,
+// query columns 32c + 8j + 2tq + {0, 1}) into a 64 x 64 K-major box:
+// 16-byte chunk x of row r at chunk x ^ (r % 8), the 128-byte swizzle the
+// wgmma descriptor reads (and conflict-free for these writes).
+__device__ __forceinline__ void store_t(uint8_t* box, const uint32_t (&f)[8], int r, int c,
+                                        int tq) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int off = 16 * ((4 * c + j) ^ (r % 8)) + 4 * tq;  // rows r and r + 8 swizzle alike
+    *reinterpret_cast<uint32_t*>(box + r * ROW + off) = f[2 * j];
+    *reinterpret_cast<uint32_t*>(box + (r + 8) * ROW + off) = f[2 * j + 1];
+  }
+}
+
+// K3 at d 256: dK and dV for the items order[starts[blockIdx.x] ..
+// starts[+1]), each 64 key rows of one (b, KV head). Each of the two
+// consumers computes the transposed scores S^T and dP^T of the 64 keys
+// against its 32 of a Q/dO tile's 64 query rows, forms p^T and ds^T and
+// writes them to shared memory as bf16; the two meet on a named barrier;
+// then each runs dV += P^T.dO and dK += dS^T.Q over the whole tile for its
+// 128 of the 256 columns. The next tile's S^T and dP^T go out before this
+// tile's gradient products, so its p^T and ds^T are computed under them;
+// P^T and dS^T are double-buffered, so one barrier a tile is enough.
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv256_sm90_kernel(const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const __grid_constant__ CUtensorMap map_rows,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 const int* __restrict__ order, const int* __restrict__ starts,
+                                 const BwdArgs p) {
+  using T = Dkv256;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  uint8_t* gbase = aligned_smem(smem_raw, base);
+  // kv_full, kv_empty, then q_full, q_empty of each stage
+  const uint32_t kv_full = base + T::BAR_OFF, kv_empty = kv_full + 8;
+  const uint32_t q_full = kv_full + 16, q_empty = q_full + 8 * STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int first = starts[blockIdx.x], last = starts[blockIdx.x + 1];
+  const int rep = p.Hq / p.Hkv;
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_rows);
+      int it = 0, qi = 0;
+      for (int j = first; j < last; ++j, ++qi) {
+        const DkvItem w = dkv_item<T::ROWS>(order[j], p);
+        mbar_wait(kv_empty, (qi & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * T::TILE);
+#pragma unroll
+        for (int x = 0; x < T::D / 64; ++x) {
+          tma_4d(base + T::K_OFF + x * T::BOX, &map_k, kv_full, 64 * x, w.k0, w.hk, w.b);
+          tma_4d(base + T::V_OFF + x * T::BOX, &map_v, kv_full, 64 * x, w.k0, w.hk, w.b);
+        }
+        for (int h = w.hk * rep; h < (w.hk + 1) * rep; ++h) {
+          const int row_base = (w.b * p.Hq + h) * p.S64;
+          for (int qt = w.qb; qt < w.qe; ++qt, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(q_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(q_full + 8 * s, 2 * T::TILE + 2 * SLICE);
+#pragma unroll
+            for (int x = 0; x < T::D / 64; ++x) {
+              tma_4d(base + T::Q_OFF + s * T::TILE + x * T::BOX, &map_q, q_full + 8 * s,
+                     64 * x, qt * BN, h, w.b);
+              tma_4d(base + T::DO_OFF + s * T::TILE + x * T::BOX, &map_do, q_full + 8 * s,
+                     64 * x, qt * BN, h, w.b);
+            }
+            tma_1d(base + T::L_OFF + s * 2 * SLICE, &map_rows, q_full + 8 * s, row_base + qt * BN);
+            tma_1d(base + T::L_OFF + s * 2 * SLICE + SLICE, &map_rows, q_full + 8 * s,
+                   p.plane + row_base + qt * BN);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c takes query columns 32c .. 32c + 31 of each
+  // tile's scores and columns 128c .. 128c + 127 of dK and dV
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, g = lane / 4, tq = lane % 4;
+  const int r_local = 16 * warp + g;  // this thread's first key row of the item
+  const uint32_t k_sm = base + T::K_OFF, v_sm = base + T::V_OFF;
+  float s_acc[16], dp_acc[16], dk_acc[64], dv_acc[64];
+  uint32_t pf[8], df[8];
+  zero(s_acc);
+  zero(dp_acc);
+  int it = 0, qi = 0;
+  for (int j = first; j < last; ++j, ++qi) {
+    const DkvItem w = dkv_item<T::ROWS>(order[j], p);
+    const int nq = w.qe - w.qb, n = rep * nq, krow = w.k0 + r_local;
+    zero(dk_acc);
+    zero(dv_acc);
+    mbar_wait(kv_full, qi & 1);
+    if (n == 0) {
+      if (lane == 0) mbar_arrive(kv_empty);
+    } else {
+      // the first tile's S^T and dP^T, alone; p^T and ds^T of it
+      int s = it % STAGES;
+      mbar_wait(q_full + 8 * s, (it / STAGES) & 1);
+      __syncwarp();  // the warp meets again before the .aligned wgmma instructions
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wg_fence();
+      score_products256(s_acc, dp_acc, k_sm, v_sm, base + T::Q_OFF + s * T::TILE + 32 * c * ROW,
+                        base + T::DO_OFF + s * T::TILE + 32 * c * ROW);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      if (lane == 0 && n == 1) mbar_arrive(kv_empty);  // K, V of the item are read
+      {
+        const float* sl = reinterpret_cast<const float*>(gbase + T::L_OFF + s * 2 * SLICE);
+        dkv_probs<SOFTCAP>(dkv_masked<T::ROWS>(w.qb, w, p), s_acc, pf, sl + 32 * c, p, krow,
+                           w.qb * BN + 32 * c, tq);
+        dkv_ds(s_acc, dp_acc, df, sl + SLICE / 4 + 32 * c, tq);
+      }
+      // Every tile but the last: its p^T and ds^T go to shared memory; the
+      // next tile's S^T, dP^T and this tile's gradient products go out as
+      // two commit groups; the next tile's p^T and ds^T are computed as
+      // soon as its scores retire, under the gradient products. The body
+      // commits the same two groups on every pass.
+      for (int i = 0; i + 1 < n; ++i, ++it) {
+        s = it % STAGES;
+        const int s_next = (it + 1) % STAGES, qt = w.qb + (i + 1) % nq;
+        const int pb = T::P_OFF + (it & 1) * 2 * T::BOX;
+        store_t(gbase + pb, pf, r_local, c, tq);
+        store_t(gbase + pb + T::BOX, df, r_local, c, tq);
+        // the generic-proxy writes before wgmma reads them; both halves written
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        mbar_wait(q_full + 8 * s_next, ((it + 1) / STAGES) & 1);
+        __syncwarp();
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        wg_fence();
+        score_products256(s_acc, dp_acc, k_sm, v_sm,
+                          base + T::Q_OFF + s_next * T::TILE + 32 * c * ROW,
+                          base + T::DO_OFF + s_next * T::TILE + 32 * c * ROW);
+        wg_commit();
+        grad_products256(dv_acc, dk_acc, base + pb, base + pb + T::BOX,
+                         base + T::DO_OFF + s * T::TILE + 2 * c * T::BOX,
+                         base + T::Q_OFF + s * T::TILE + 2 * c * T::BOX);
+        wg_commit();
+        wg_wait<1>();  // the next tile's scores have retired; the gradient products run on
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+        if (lane == 0 && i + 2 == n) mbar_arrive(kv_empty);  // K, V of the item are read
+        const float* sl = reinterpret_cast<const float*>(gbase + T::L_OFF + s_next * 2 * SLICE);
+        dkv_probs<SOFTCAP>(dkv_masked<T::ROWS>(qt, w, p), s_acc, pf, sl + 32 * c, p, krow,
+                           qt * BN + 32 * c, tq);
+        dkv_ds(s_acc, dp_acc, df, sl + SLICE / 4 + 32 * c, tq);
+        wg_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        if (lane == 0) mbar_arrive(q_empty + 8 * s);  // Q, dO and the slices are read
+      }
+      // the last tile's gradient products
+      s = it % STAGES;
+      const int pb = T::P_OFF + (it & 1) * 2 * T::BOX;
+      store_t(gbase + pb, pf, r_local, c, tq);
+      store_t(gbase + pb + T::BOX, df, r_local, c, tq);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      __syncwarp();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      wg_fence();
+      grad_products256(dv_acc, dk_acc, base + pb, base + pb + T::BOX,
+                       base + T::DO_OFF + s * T::TILE + 2 * c * T::BOX,
+                       base + T::Q_OFF + s * T::TILE + 2 * c * T::BOX);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      if (lane == 0) mbar_arrive(q_empty + 8 * s);
+      ++it;
+    }
+    store_rows<128>(dk_acc, p.sm_scale, dk + w.b * p.a_sb + w.hk * p.a_sh, p.a_ss, krow, tq, p,
+                    128 * c);
+    store_rows<128>(dv_acc, 1.f, dv + w.b * p.b_sb + w.hk * p.b_sh, p.b_ss, krow, tq, p, 128 * c);
   }
 }
 
@@ -767,6 +1018,19 @@ int launch_dkv(const CUtensorMap (&m)[5], void* dk, void* dv, const int* order,
   return cudaGetLastError();
 }
 
+template <bool SOFTCAP>
+int launch_dkv256(const CUtensorMap (&m)[5], void* dk, void* dv, const int* order,
+                  const int* starts, int n_ctas, const BwdArgs& p, cudaStream_t stream) {
+  static uint64_t set = 0;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv256_sm90_kernel<SOFTCAP>, Dkv256::BYTES, set);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv256_sm90_kernel<SOFTCAP><<<n_ctas, NTHREADS, Dkv256::BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], static_cast<bf16*>(dk), static_cast<bf16*>(dv), order, starts,
+      p);
+  return cudaGetLastError();
+}
+
 // A 1-D f32 map over n values, boxes of BN, no swizzle; zero-filled past n.
 int map_1d_f32(CUtensorMap* map, const float* ptr, int64_t n) {
   EncodeTiled fn = encode_tiled();
@@ -788,8 +1052,8 @@ bool even_ok(const void* ptr, int64_t a, int64_t b, int64_t c) {
 // The checks and arguments both kernels share; false for what they do not take.
 bool fill(BwdArgs& p, int B, int Hq, int Hkv, int S, int D, int Dv, float sm_scale, int causal,
           int window, float softcap, const int* order, const int* starts, int n_ctas) {
-  if ((D != 64 && D != 128) || B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 ||
-      Dv <= 0 || Dv > D || order == nullptr || starts == nullptr || n_ctas <= 0 ||
+  if ((D != 64 && D != 128 && D != 256) || B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 ||
+      Hq % Hkv != 0 || Dv <= 0 || Dv > D || order == nullptr || starts == nullptr || n_ctas <= 0 ||
       2 * static_cast<int64_t>(B) * Hq * (S + BN) > 0x7fffffff)
     return false;
   p.B = B;
@@ -835,7 +1099,8 @@ int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, c
                                   int window, float softcap, const int* order, const int* starts,
                                   int n_ctas, void* stream) {
   BwdArgs p = {};
-  if (!fill(p, B, Hq, Hkv, S, D, Dv, sm_scale, causal, window, softcap, order, starts, n_ctas) ||
+  if (D == 256 ||
+      !fill(p, B, Hq, Hkv, S, D, Dv, sm_scale, causal, window, softcap, order, starts, n_ctas) ||
       !vec_ok(q, q_sb, q_sh, q_ss) || !vec_ok(k, k_sb, k_sh, k_ss) ||
       !vec_ok(v, v_sb, v_sh, v_ss) || !vec_ok(o, o_sb, o_sh, o_ss) ||
       !vec_ok(dout, do_sb, do_sh, do_ss) || lse == nullptr || rows == nullptr)
@@ -863,7 +1128,9 @@ int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, c
 // K3. q, k, v, dout as above, `rows` as K2 wrote it; writes dk, dv through
 // their strides. Strides in (b, h, s) triples in the order q, k, v, dout,
 // dk, dv. The schedule's items are coded k_tile * B * Hkv + b * Hkv + hk
-// (kind "dkv"). Returns as K2's.
+// (kind "dkv"; a k_tile is 128 key rows, or 64 at D 256). D is 64, 128 or
+// 256; at 256 `rows` is built by the wrapper (ops/flash_attention.py
+// _dkv_rows), since flash_bwd.cu's dq kernel runs there. Returns as K2's.
 int kubedl_flash_bwd_dkv_sm90_bf16(const void* q, const void* k, const void* v,
                                    const void* dout, const float* rows, void* dk, void* dv,
                                    int B, int Hq, int Hkv, int S, int D, int Dv, int64_t q_sb,
@@ -888,8 +1155,9 @@ int kubedl_flash_bwd_dkv_sm90_bf16(const void* q, const void* k, const void* v,
   p.b_ss = dv_ss;
   p.vec_out = even_ok(dk, dk_sb, dk_sh, dk_ss) && even_ok(dv, dv_sb, dv_sh, dv_ss);
   CUtensorMap m[5];
-  int err = map_4d(&m[0], k, D, S, Hkv, B, k_sb, k_sh, k_ss, BM);
-  if (!err) err = map_4d(&m[1], v, D, S, Hkv, B, v_sb, v_sh, v_ss, BM);
+  const int item_rows = D == 256 ? Dkv256::ROWS : BM;  // key rows an item
+  int err = map_4d(&m[0], k, D, S, Hkv, B, k_sb, k_sh, k_ss, item_rows);
+  if (!err) err = map_4d(&m[1], v, D, S, Hkv, B, v_sb, v_sh, v_ss, item_rows);
   if (!err) err = map_4d(&m[2], q, D, S, Hq, B, q_sb, q_sh, q_ss, BN);
   if (!err) err = map_4d(&m[3], dout, D, S, Hq, B, do_sb, do_sh, do_ss, BN);
   if (!err) err = map_1d_f32(&m[4], rows, 2 * static_cast<int64_t>(p.plane));
@@ -899,8 +1167,11 @@ int kubedl_flash_bwd_dkv_sm90_bf16(const void* q, const void* k, const void* v,
   if (D == 64)
     return cap ? launch_dkv<64, true>(m, dk, dv, order, starts, n_ctas, p, st)
                : launch_dkv<64, false>(m, dk, dv, order, starts, n_ctas, p, st);
-  return cap ? launch_dkv<128, true>(m, dk, dv, order, starts, n_ctas, p, st)
-             : launch_dkv<128, false>(m, dk, dv, order, starts, n_ctas, p, st);
+  if (D == 128)
+    return cap ? launch_dkv<128, true>(m, dk, dv, order, starts, n_ctas, p, st)
+               : launch_dkv<128, false>(m, dk, dv, order, starts, n_ctas, p, st);
+  return cap ? launch_dkv256<true>(m, dk, dv, order, starts, n_ctas, p, st)
+             : launch_dkv256<false>(m, dk, dv, order, starts, n_ctas, p, st);
 }
 
 const char* kubedl_flash_bwd_sm90_error_string(int err) { return sm90_error_string(err); }

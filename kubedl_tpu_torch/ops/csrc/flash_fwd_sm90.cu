@@ -1,8 +1,9 @@
 // Flash-attention forward redesigned for Hopper (sm_90a): TMA, mbarrier
 // pipelines, wgmma and warp-specialized consumer warpgroups. bf16 in and
 // out, f32 softmax state and accumulation; plain C interface bound with
-// ctypes by kubedl_tpu_torch/ops/flash_attention.py, which routes head
-// dims padded to 64 or 128 here (flash_fwd.cu keeps 256).
+// ctypes by kubedl_tpu_torch/ops/flash_attention.py, which routes every
+// head dim here, zero-padded to 64, 128 or 256 (flash_fwd.cu, the mma.sync
+// kernel, runs only when a caller asks for it by name).
 //
 // Replaces the TPU kernels
 //   kubedl_tpu/ops/flash_attention.py:107 _fwd_kernel          (K1)
@@ -17,53 +18,73 @@
 //   and LSE = m + log(l) in natural log, l floored at 1e-30 so no row is
 //   NaN. GQA reads KV head h / (Hq / Hkv). The exponentials run in the log2
 //   domain (sm_scale * log2 e folded into one multiply-add); the LSE that
-//   flash_bwd.cu reads is written in natural log.
+//   the backward kernels read is written in natural log.
 //
 // Bound on an H100 SXM: 4 * b * hq * S^2 * d FLOP (x 1/2 causal) at 989
 // TFLOP/s bf16 against (q + k + v + o) bytes at 3.35 TB/s; the 7B prefill
 // and training shapes (S ~ 1024) sit near the ridge, S >= 2048 is bound by
-// the tensor cores. What the design does about it:
+// the tensor cores, and at d 256 (Gemma-2) every shape the model runs is
+// bound by the tensor cores. What the design does about it:
 //   - a CTA takes 128 query rows with three warpgroups: a producer (one
 //     thread issues every TMA load; the warpgroup gives its registers back
-//     with setmaxnreg) and two consumers of 64 rows each (setmaxnreg 232);
-//   - TMA loads Q once an item and K, V through rings of 3 stages of 128
-//     key rows, K and V each with their own full and empty barriers: Q.K^T
-//     starts before V lands, and a K stage is refilled as soon as its
-//     Q.K^T has retired, a tile before its V; every wait traps after ~4 s;
+//     with setmaxnreg) and two consumers of 64 rows each;
+//   - TMA loads Q once an item and K, V through rings of key-row tiles, K
+//     and V each with their own full and empty barriers: Q.K^T starts
+//     before V lands, and a K stage is refilled as soon as its Q.K^T has
+//     retired, a tile before its V; every wait traps after ~4 s;
 //   - q, k, v are read in place through 4-D tensor maps over (d, s, h, b)
 //     with the caller's strides (the model's [b, s, h, d] views need no
 //     copy); TMA zero-fills the rows past S of each (b, h);
-//   - S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
-//     memory; O += P.V is wgmma with P in registers (the f32 scores rounded
-//     in place to bf16 A fragments, no shuffle) and V MN-major through the
-//     transpose bit;
+//   - S = Q.K^T is wgmma with both operands K-major in shared memory; O +=
+//     P.V is wgmma with P in registers (the f32 scores rounded in place to
+//     bf16 A fragments, no shuffle) and V MN-major through the transpose
+//     bit;
 //   - a consumer issues the next tile's Q.K^T and this tile's P.V as two
-//     commit groups and takes the next tile's exponentials as soon as the
-//     Q.K^T retires, under the P.V; O is rescaled after. The two consumers
-//     are not made to take turns: each one's softmax also runs under the
-//     other's products as the warp schedulers interleave them (ping-pong
-//     on named barriers measured no faster on the H100; PERF.md);
+//     commit groups and takes the next tile's exponentials (and the
+//     softcap's tanh) as soon as the Q.K^T retires, under the P.V; O is
+//     rescaled after. The two consumers are not made to take turns: each
+//     one's softmax also runs under the other's products as the warp
+//     schedulers interleave them (ping-pong on named barriers measured no
+//     faster on the H100; PERF.md);
 //   - masks only where needed: a tile is masked only on the causal
 //     diagonal, the window's lower edge or the S tail; other tiles skip
 //     all position arithmetic. Tiles wholly above the diagonal or below
 //     the window are never loaded;
 //   - a persistent grid (one CTA an SM) walks (q-tile, b, h) items in the
 //     host's schedule (ops/flash_attention.py sm90_schedule, cached per
-//     shape): groups of (b, h) whose K/V fit in half the L2, so the CTAs
-//     running at once read each K/V tile from device memory about once;
-//     inside a group the longest causal rows first and the query heads of
-//     one GQA group adjacent; each item to the CTA that frees first, so
-//     the CTAs end together. The producer loads the next item's Q and K/V
-//     while the consumers finish the last one;
-//   - the epilogue normalizes O, rounds it to bf16 through the V tile the
-//     item read last (released after; so the 3rd stage fits in shared
-//     memory) and leaves as 16-byte stores; one thread a row writes the LSE.
+//     shape, costed in this head dim's K/V tiles): groups of (b, h) whose
+//     K/V fit in half the L2, so the CTAs running at once read each K/V
+//     tile from device memory about once; inside a group the longest
+//     causal rows first and the query heads of one GQA group adjacent;
+//     each item to the CTA that frees first, so the CTAs end together. The
+//     producer loads the next item's Q and K/V while the consumers finish
+//     the last one.
+//
+// The tile geometry is a traits struct a head dim (Fwd<D>), within the
+// 227 KB of shared memory a block may have and 255 registers a thread:
+//   - D 64, 128: K/V tiles of 128 key rows in 3 stages (Q 32 KB + 3 x 2 x
+//     32 KB at 128: 224 KB), S = Q.K^T m64n128k16, O += P.V m64n{64,128}k16
+//     over 8 k16 steps; consumers at 232 registers (o[64] + s[64] +
+//     pf[32]). The epilogue normalizes O, rounds it to bf16 through the V
+//     tile the item read last (released after) and leaves as 16-byte
+//     stores;
+//   - D 256: a 128-key tile would be 64 KB, and Q plus 3 stages of K and V
+//     448 KB, so K/V tiles are 64 key rows (32 KB) in 2 stages: Q 64 KB +
+//     2 x (32 + 32) KB = 192 KB. S = Q.K^T is m64n64k16 over 16 k16 steps,
+//     O += P.V one m64n256k16 over 4 k16 steps; a consumer holds o[128] +
+//     s[32] + pf[16], ~176 live f32 (setmaxnreg 240, the producer 24). The
+//     staged O would be 64 KB against a 32 KB V stage, and staging it in
+//     the Q tile would hold the next item's Q load behind the epilogue, so
+//     O leaves straight from the accumulators as bf16 pairs (64 4-byte
+//     stores a thread an item instead of 16 16-byte ones; the rows' halves
+//     meet in L2) and the last V stage is released before them.
+//   One thread a row writes the LSE.
 //
 // Layout rules: q [B, Hq, S, D], k/v [B, Hkv, S, D] with the last dim
 // contiguous, other strides whole 16-byte vectors and 16-byte aligned
 // bases; o is written through its own strides, lse is [B, Hq, S] f32.
-// D is 64 or 128 (the wrapper zero-pads other head dims and passes the
-// true width as Dv).
+// D is 64, 128 or 256 (the wrapper zero-pads other head dims and passes
+// the true width as Dv).
 
 #include "sm90_common.cuh"
 
@@ -71,26 +92,41 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128;                // query rows an item: two consumer warpgroups x 64
-constexpr int BN = 128;                // key rows a K/V tile
-constexpr int STAGES = 3;
-constexpr int NTHREADS = 384;          // producer warpgroup + two consumer warpgroups
-constexpr int BOX_BYTES = 128 * 128;   // 128 rows x 64 bf16 (128 bytes, the swizzle span)
+constexpr int BM = 128;        // query rows an item: two consumer warpgroups x 64
+constexpr int NTHREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int ROW = 128;       // bytes a box row: 64 bf16, the swizzle span
+
+// The shared-memory map and register split of a head dim: key rows a K/V
+// tile, ring stages, whether O is staged through a V tile, and setmaxnreg's
+// counts for the consumers and the producer (2 x consumers + producer <=
+// 504 of the 512 a thread of the block may take, 65,536 / 128).
+template <int D_, int BN_, int STAGES_, bool STAGE_O_, int CONSUMER_REGS_, int PRODUCER_REGS_>
+struct Geometry {
+  static constexpr int D = D_, BN = BN_, STAGES = STAGES_;
+  static constexpr bool STAGE_O = STAGE_O_;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_, PRODUCER_REGS = PRODUCER_REGS_;
+  static constexpr int Q_BOX = BM * ROW;   // a 64-column box of the Q tile
+  static constexpr int KV_BOX = BN * ROW;  // a 64-column box of a K or V tile
+  static constexpr int Q_TILE = (D / 64) * Q_BOX;
+  static constexpr int KV_TILE = (D / 64) * KV_BOX;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty of each stage
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;  // + slack to align to 1024
+  // the staged epilogue puts O in the V tile the item read last: 16 rows
+  // of 2D bytes for each consumer warp, its 16-byte chunks swizzled by row
+  static constexpr int EPI_WARP = 16 * 2 * D;
+  static_assert(!STAGE_O || 8 * EPI_WARP == KV_TILE, "O staging fills one V tile");
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  static_assert(2 * CONSUMER_REGS + PRODUCER_REGS <= 504, "the register file");
+};
 
 template <int D>
-struct Smem {
-  static constexpr int TILE = (D / 64) * BOX_BYTES;  // a Q, K or V tile
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = TILE;
-  static constexpr int V_OFF = K_OFF + STAGES * TILE;
-  // q_full, q_empty, then k_full, v_full, k_empty, v_empty of each stage
-  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
-  static constexpr int BYTES = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;  // + slack to align to 1024
-  // the epilogue stages O in the V tile the item read last: 16 rows of 2D
-  // bytes for each consumer warp, its 16-byte chunks swizzled by row
-  static constexpr int EPI_WARP = 16 * 2 * D;
-  static_assert(8 * EPI_WARP == TILE, "O staging fills one V tile");
-};
+struct Fwd : Geometry<D, 128, 3, true, 232, 40> {};
+template <>
+struct Fwd<256> : Geometry<256, 64, 2, false, 240, 24> {};
 
 struct FwdArgs {
   int B, Hq, Hkv, S, Dv;
@@ -110,7 +146,9 @@ struct Item {
   int b, h, hk, q0, kb, ke;
 };
 
-// Item `code` of the host's schedule: q_tile * B * Hq + (b * Hq + h).
+// Item `code` of the host's schedule: q_tile * B * Hq + (b * Hq + h); K/V
+// tiles of BN key rows.
+template <int BN>
 __device__ __forceinline__ Item item_of(int code, const FwdArgs& p) {
   const int bh_n = p.B * p.Hq, qt = code / bh_n, bh = code - qt * bh_n;
   Item w;
@@ -129,57 +167,42 @@ __device__ __forceinline__ Item item_of(int code, const FwdArgs& p) {
 }
 
 // Does tile kt hold a (query, key) pair of the item that a mask drops?
+template <int BN>
 __device__ __forceinline__ bool tile_masked(int kt, const Item& w, const FwdArgs& p) {
   const int k0 = kt * BN;
   return k0 + BN > p.S || (p.causal && k0 + BN - 1 > w.q0) ||
          (p.window > 0 && k0 <= w.q0 + BM - 1 - p.window);
 }
 
-// s[64 x 128] (+)= A[64 x 16] . B[16 x 128], both operands K-major in
-// shared memory; scale_d 0 overwrites s.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// s = Q[64 rows of this warpgroup] . K_tile^T over D: D / 16 products. Q and
-// K are K-major 64-wide boxes of 128 rows (16 KB apart); a k16 step is 32
-// bytes inside a box.
-template <int D>
-__device__ __forceinline__ void qk_products(float (&s)[64], uint32_t q, uint32_t k) {
+// s = Q[64 rows of this warpgroup] . K_tile^T over D: D / 16 products. Q
+// and K are K-major 64-wide boxes (Q_BOX and KV_BOX apart); a k16 step is
+// 32 bytes inside a box.
+template <class L>
+__device__ __forceinline__ void qk_products(float (&s)[L::BN / 2], uint32_t q, uint32_t k) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + 32 * (kk % 4);
-    wgmma_ss_n128(s, smem_desc(q + off, 16, 1024), smem_desc(k + off, 16, 1024), kk > 0);
+  for (int kk = 0; kk < L::D / 16; ++kk) {
+    const uint32_t col = 32 * (kk % 4);
+    const uint64_t da = smem_desc(q + (kk / 4) * L::Q_BOX + col, 16, 1024);
+    const uint64_t db = smem_desc(k + (kk / 4) * L::KV_BOX + col, 16, 1024);
+    if constexpr (L::BN == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
 }
 
-// o += P . V_tile over the 128 keys: 8 products. V is MN-major (d
-// contiguous): 64-wide boxes 16 KB apart (the leading byte offset), 8 key
+// o += P . V_tile over the tile's keys: BN / 16 products. V is MN-major (d
+// contiguous): 64-wide boxes KV_BOX apart (the leading byte offset), 8 key
 // rows 1 KB apart (the stride byte offset), a k16 step 16 rows = 2 KB.
-template <int D>
-__device__ __forceinline__ void pv_products(float (&o)[D / 2], const uint32_t (&pf)[32],
+template <class L>
+__device__ __forceinline__ void pv_products(float (&o)[L::D / 2], const uint32_t (&pf)[L::BN / 4],
                                             uint32_t v) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint64_t dv = smem_desc(v + 2048 * kk, BOX_BYTES, 1024);
-    if constexpr (D == 128)
+  for (int kk = 0; kk < L::BN / 16; ++kk) {
+    const uint64_t dv = smem_desc(v + 2048 * kk, L::KV_BOX, 1024);
+    if constexpr (L::D == 256)
+      wgmma_rs_n256(o, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3], dv);
+    else if constexpr (L::D == 128)
       wgmma_rs_n128(o, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3], dv);
     else
       wgmma_rs_n64(o, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3], dv);
@@ -187,17 +210,17 @@ __device__ __forceinline__ void pv_products(float (&o)[D / 2], const uint32_t (&
 }
 
 // One tile's online softmax for this thread's rows qrow and qrow + 8, in
-// place: s holds the tile's scores (s[4j + e]: row + 8 (e / 2), key k0 +
-// 8j + 2tq + e % 2) and leaves with their exponentials; m is the rows'
-// running max in the values' units, l the thread's partial row sums, corr
-// the factor the rows' O takes for the new max.
-template <bool SOFTCAP, bool MASKED>
-__device__ __forceinline__ void tile_exp(float (&s)[64], float (&m)[2], float (&l)[2],
+// place: s holds the tile's N / 2 scores a row (s[4j + e]: row + 8 (e /
+// 2), key k0 + 8j + 2tq + e % 2) and leaves with their exponentials; m is
+// the rows' running max in the values' units, l the thread's partial row
+// sums, corr the factor the rows' O takes for the new max.
+template <bool SOFTCAP, bool MASKED, int N>
+__device__ __forceinline__ void tile_exp(float (&s)[N], float (&m)[2], float (&l)[2],
                                          float (&corr)[2], const FwdArgs& p, int qrow, int k0,
                                          int tq) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * j + e];
@@ -226,7 +249,7 @@ __device__ __forceinline__ void tile_exp(float (&s)[64], float (&m)[2], float (&
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       // an unmasked tile holds no masked value: one fused multiply-add
@@ -240,8 +263,8 @@ __device__ __forceinline__ void tile_exp(float (&s)[64], float (&m)[2], float (&
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
 }
 
-template <bool SOFTCAP>
-__device__ __forceinline__ void tile_exp(bool masked, float (&s)[64], float (&m)[2],
+template <bool SOFTCAP, int N>
+__device__ __forceinline__ void tile_exp(bool masked, float (&s)[N], float (&m)[2],
                                          float (&l)[2], float (&corr)[2], const FwdArgs& p,
                                          int qrow, int k0, int tq) {
   if (masked)
@@ -252,11 +275,11 @@ __device__ __forceinline__ void tile_exp(bool masked, float (&s)[64], float (&m)
 
 // P as bf16 A fragments straight from the exponentials' accumulator layout
 // (pf[4kk .. 4kk + 3] is the k16 step kk), and O rescaled for the new max.
-template <int D>
-__device__ __forceinline__ void rescale_pack(float (&o)[D / 2], uint32_t (&pf)[32],
-                                             const float (&s)[64], const float (&corr)[2]) {
+template <int D, int N>
+__device__ __forceinline__ void rescale_pack(float (&o)[D / 2], uint32_t (&pf)[N / 2],
+                                             const float (&s)[N], const float (&corr)[2]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     pf[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
     pf[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }
@@ -266,6 +289,31 @@ __device__ __forceinline__ void rescale_pack(float (&o)[D / 2], uint32_t (&pf)[3
     o[4 * j + 1] *= corr[0];
     o[4 * j + 2] *= corr[1];
     o[4 * j + 3] *= corr[1];
+  }
+}
+
+// The rows' sums over the 4 threads of a row, floored, and their inverses.
+__device__ __forceinline__ void row_sums(float (&l)[2], float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+  }
+}
+
+// One thread of each row (tq 0) writes the LSE of rows row0 + g, + 8.
+__device__ __forceinline__ void store_lse(const float (&m)[2], const float (&l)[2], const Item& w,
+                                          const FwdArgs& p, float* __restrict__ lse, int row0,
+                                          int lane) {
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < p.S)
+        lse[(static_cast<int64_t>(w.b) * p.Hq + w.h) * p.S + row] = m[r] * p.lse_mul + __logf(l[r]);
+    }
   }
 }
 
@@ -282,13 +330,7 @@ __device__ __forceinline__ void store_rows(float (&o)[D / 2], float (&m)[2], flo
   constexpr int PITCH = 2 * D;
   const int g = lane / 4, tq = lane % 4;
   float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-    inv[r] = 1.f / l[r];
-  }
+  row_sums(l, inv);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int off = 16 * (j ^ g) + 4 * tq;  // rows g and g + 8 swizzle alike
@@ -314,14 +356,40 @@ __device__ __forceinline__ void store_rows(float (&o)[D / 2], float (&m)[2], flo
     }
   }
   __syncwarp();  // the warp's reads are done before the tile is released
-  if (tq == 0) {
+  store_lse(m, l, w, p, lse, row0, lane);
+}
+
+// D 256: normalize this warp's 16 x D rows and write them from the
+// accumulators as bf16 pairs (rows g and g + 8, columns 8j + 2tq; element
+// stores when the output's strides or width are not whole vectors), rows
+// at or past S and columns at or past Dv not written. Then the rows' LSE.
+template <int D>
+__device__ __forceinline__ void store_rows_direct(const float (&o)[D / 2], float (&m)[2],
+                                                  float (&l)[2], const Item& w, const FwdArgs& p,
+                                                  bf16* __restrict__ out,
+                                                  float* __restrict__ lse, int row0, int lane) {
+  const int g = lane / 4, tq = lane % 4;
+  float inv[2];
+  row_sums(l, inv);
+  bf16* ob = out + w.b * p.o_sb + w.h * p.o_sh;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row < p.S)
-        lse[(static_cast<int64_t>(w.b) * p.Hq + w.h) * p.S + row] = m[r] * p.lse_mul + __logf(l[r]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= p.S) continue;
+    bf16* dst = ob + static_cast<int64_t>(row) * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      const float x = o[4 * j + 2 * r] * inv[r], y = o[4 * j + 2 * r + 1] * inv[r];
+      if (p.vec_out && col + 1 < p.Dv) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
+      } else {
+        if (col < p.Dv) dst[col] = __float2bfloat16_rn(x);
+        if (col + 1 < p.Dv) dst[col + 1] = __float2bfloat16_rn(y);
+      }
     }
   }
+  store_lse(m, l, w, p, lse, row0, lane);
 }
 
 template <int D, bool SOFTCAP>
@@ -331,7 +399,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
                           float* __restrict__ lse, const int* __restrict__ order,
                           const int* __restrict__ starts, const FwdArgs p) {
-  using L = Smem<D>;
+  using L = Fwd<D>;
+  constexpr int BN = L::BN, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -355,32 +424,32 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int first = starts[blockIdx.x], last = starts[blockIdx.x + 1];  // this CTA's items
 
   if (wg == 0) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS) : "memory");
     if (threadIdx.x == 0) {
       prefetch_map(&map_q);
       prefetch_map(&map_k);
       prefetch_map(&map_v);
       int it = 0, qi = 0;
       for (int j = first; j < last; ++j, ++qi) {
-        const Item w = item_of(order[j], p);
+        const Item w = item_of<BN>(order[j], p);
         mbar_wait(q_empty, (qi & 1) ^ 1);
-        mbar_expect_tx(q_full, L::TILE);  // whole boxes, zero-filled past S too
+        mbar_expect_tx(q_full, L::Q_TILE);  // whole boxes, zero-filled past S too
 #pragma unroll
         for (int x = 0; x < D / 64; ++x)
-          tma_4d(base + L::Q_OFF + x * BOX_BYTES, &map_q, q_full, 64 * x, w.q0, w.h, w.b);
+          tma_4d(base + L::Q_OFF + x * L::Q_BOX, &map_q, q_full, 64 * x, w.q0, w.h, w.b);
         for (int kt = w.kb; kt < w.ke; ++kt, ++it) {
           const int s = it % STAGES, free = ((it / STAGES) & 1) ^ 1;
           mbar_wait(k_empty + 8 * s, free);
-          mbar_expect_tx(k_full + 8 * s, L::TILE);
+          mbar_expect_tx(k_full + 8 * s, L::KV_TILE);
 #pragma unroll
           for (int x = 0; x < D / 64; ++x)
-            tma_4d(base + L::K_OFF + s * L::TILE + x * BOX_BYTES, &map_k, k_full + 8 * s,
+            tma_4d(base + L::K_OFF + s * L::KV_TILE + x * L::KV_BOX, &map_k, k_full + 8 * s,
                    64 * x, kt * BN, w.hk, w.b);
           mbar_wait(v_empty + 8 * s, free);
-          mbar_expect_tx(v_full + 8 * s, L::TILE);
+          mbar_expect_tx(v_full + 8 * s, L::KV_TILE);
 #pragma unroll
           for (int x = 0; x < D / 64; ++x)
-            tma_4d(base + L::V_OFF + s * L::TILE + x * BOX_BYTES, &map_v, v_full + 8 * s,
+            tma_4d(base + L::V_OFF + s * L::KV_TILE + x * L::KV_BOX, &map_v, v_full + 8 * s,
                    64 * x, kt * BN, w.hk, w.b);
         }
       }
@@ -389,15 +458,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   // consumers: warpgroup c owns rows 64c .. 64c + 63 of each item
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
   const int c = wg - 1, warp = (threadIdx.x / 32) % 4, tq = lane % 4;
-  const int epi_off = L::V_OFF + (threadIdx.x / 32 - 4) * L::EPI_WARP;  // in a V tile
-  const uint32_t q_smem = base + L::Q_OFF + c * 64 * 128;  // this warpgroup's 64 rows of each box
-  float s_acc[64], o_acc[D / 2];
-  uint32_t pf[32];
+  const uint32_t q_smem = base + L::Q_OFF + c * 64 * ROW;  // this warpgroup's 64 rows of each box
+  float s_acc[BN / 2], o_acc[D / 2];
+  uint32_t pf[BN / 4];
   int it = 0, qi = 0;
   for (int j = first; j < last; ++j, ++qi) {
-    const Item w = item_of(order[j], p);
+    const Item w = item_of<BN>(order[j], p);
     const int n = w.ke - w.kb;
     const int row0 = w.q0 + 64 * c + 16 * warp, qrow = row0 + lane / 4;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -410,7 +478,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncwarp();  // the warp meets again before the .aligned wgmma instructions
     fence_regs(s_acc);
     wg_fence();
-    qk_products<D>(s_acc, q_smem, base + L::K_OFF + (it % STAGES) * L::TILE);
+    qk_products<L>(s_acc, q_smem, base + L::K_OFF + (it % STAGES) * L::KV_TILE);
     wg_commit();
     wg_wait<0>();
     fence_regs(s_acc);
@@ -420,7 +488,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
 
     float corr[2];
-    tile_exp<SOFTCAP>(tile_masked(w.kb, w, p), s_acc, m, l, corr, p, qrow, w.kb * BN, tq);
+    tile_exp<SOFTCAP>(tile_masked<BN>(w.kb, w, p), s_acc, m, l, corr, p, qrow, w.kb * BN, tq);
     rescale_pack<D>(o_acc, pf, s_acc, corr);
 
     // Every tile but the last: the next tile's Q.K^T and this tile's P.V go
@@ -436,9 +504,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       fence_regs(pf);
       fence_regs(s_acc);
       wg_fence();
-      qk_products<D>(s_acc, q_smem, base + L::K_OFF + s_next * L::TILE);
+      qk_products<L>(s_acc, q_smem, base + L::K_OFF + s_next * L::KV_TILE);
       wg_commit();
-      pv_products<D>(o_acc, pf, base + L::V_OFF + s * L::TILE);
+      pv_products<L>(o_acc, pf, base + L::V_OFF + s * L::KV_TILE);
       wg_commit();
       wg_wait<1>();  // the Q.K^T has retired; the P.V runs on
       fence_regs(s_acc);
@@ -446,32 +514,40 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_arrive(k_empty + 8 * s_next);     // K of the next tile is read
         if (i + 2 == n) mbar_arrive(q_empty);  // the item's last Q.K^T is done
       }
-      tile_exp<SOFTCAP>(tile_masked(kt, w, p), s_acc, m, l, corr, p, qrow, kt * BN, tq);
+      tile_exp<SOFTCAP>(tile_masked<BN>(kt, w, p), s_acc, m, l, corr, p, qrow, kt * BN, tq);
       wg_wait<0>();
       fence_regs(o_acc);
       fence_regs(pf);
       if (lane == 0) mbar_arrive(v_empty + 8 * s);  // V of this tile is read
       rescale_pack<D>(o_acc, pf, s_acc, corr);
     }
-    // the last tile's P.V; its V tile stages O before it is released
+    // the last tile's P.V
     const int s_last = it % STAGES;
     mbar_wait(v_full + 8 * s_last, (it / STAGES) & 1);
     __syncwarp();
     fence_regs(o_acc);
     fence_regs(pf);
     wg_fence();
-    pv_products<D>(o_acc, pf, base + L::V_OFF + s_last * L::TILE);
+    pv_products<L>(o_acc, pf, base + L::V_OFF + s_last * L::KV_TILE);
     wg_commit();
     wg_wait<0>();
     fence_regs(o_acc);
     fence_regs(pf);
     ++it;
-    // both consumers' last P.V have read the tile before either stages O in it
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    store_rows<D>(o_acc, m, l, gbase + epi_off + s_last * L::TILE, w, p, out, lse, row0, lane);
-    // the staging writes were generic-proxy; TMA writes the tile next
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (lane == 0) mbar_arrive(v_empty + 8 * s_last);
+    if constexpr (L::STAGE_O) {
+      // its V tile stages O before it is released: both consumers' last P.V
+      // have read the tile before either stages O in it
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const int epi_off = L::V_OFF + (threadIdx.x / 32 - 4) * L::EPI_WARP;
+      store_rows<D>(o_acc, m, l, gbase + epi_off + s_last * L::KV_TILE, w, p, out, lse, row0,
+                    lane);
+      // the staging writes were generic-proxy; TMA writes the tile next
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(v_empty + 8 * s_last);
+    } else {
+      if (lane == 0) mbar_arrive(v_empty + 8 * s_last);  // V of the last tile is read
+      store_rows_direct<D>(o_acc, m, l, w, p, out, lse, row0, lane);
+    }
   }
 }
 
@@ -479,13 +555,21 @@ template <int D, bool SOFTCAP>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* out,
            float* lse, const int* order, const int* starts, int n_ctas, const FwdArgs& p,
            cudaStream_t stream) {
-  constexpr int smem = Smem<D>::BYTES;
+  constexpr int smem = Fwd<D>::BYTES;
   static uint64_t set = 0;
   const cudaError_t err = allow_smem(flash_fwd_sm90_kernel<D, SOFTCAP>, smem, set);
   if (err != cudaSuccess) return err;
   flash_fwd_sm90_kernel<D, SOFTCAP><<<n_ctas, NTHREADS, smem, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), lse, order, starts, p);
   return cudaGetLastError();
+}
+
+template <int D>
+int launch(bool cap, const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           void* out, float* lse, const int* order, const int* starts, int n_ctas,
+           const FwdArgs& p, cudaStream_t stream) {
+  return cap ? launch<D, true>(mq, mk, mv, out, lse, order, starts, n_ctas, p, stream)
+             : launch<D, false>(mq, mk, mv, out, lse, order, starts, n_ctas, p, stream);
 }
 
 }  // namespace
@@ -497,7 +581,7 @@ extern "C" {
 // order[starts[c] .. starts[c + 1]) (ops/flash_attention.py sm90_schedule),
 // each coded as q_tile * B * Hq + b * Hq + h; every item exactly once.
 // Returns 0, a cudaError_t, 1 (cudaErrorInvalidValue) for a head dim other
-// than 64 or 128 or a layout the tensor maps cannot take, or 1001 / 2000 +
+// than 64, 128 or 256 or a layout the tensor maps cannot take, or 1001 / 2000 +
 // CUresult when a tensor map cannot be made.
 int kubedl_flash_fwd_sm90_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                                int B, int Hq, int Hkv, int S, int D, int Dv, int64_t q_sb,
@@ -506,7 +590,7 @@ int kubedl_flash_fwd_sm90_bf16(const void* q, const void* k, const void* v, void
                                int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale,
                                int causal, int window, float softcap, const int* order,
                                const int* starts, int n_ctas, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 ||
+  if ((D != 64 && D != 128 && D != 256) || B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 ||
       Dv <= 0 || Dv > D || !vec_ok(q, q_sb, q_sh, q_ss) || !vec_ok(k, k_sb, k_sh, k_ss) ||
       !vec_ok(v, v_sb, v_sh, v_ss) || order == nullptr || starts == nullptr || n_ctas <= 0)
     return cudaErrorInvalidValue;
@@ -530,14 +614,15 @@ int kubedl_flash_fwd_sm90_bf16(const void* q, const void* k, const void* v, void
   p.window = window;
   p.vec_out = Dv % 8 == 0 && vec_ok(o, o_sb, o_sh, o_ss);
   CUtensorMap mq, mk, mv;
-  int err = map_4d(&mq, q, D, S, Hq, B, q_sb, q_sh, q_ss, BN);
-  if (!err) err = map_4d(&mk, k, D, S, Hkv, B, k_sb, k_sh, k_ss, BN);
-  if (!err) err = map_4d(&mv, v, D, S, Hkv, B, v_sb, v_sh, v_ss, BN);
+  const int bn = D == 256 ? Fwd<256>::BN : Fwd<128>::BN;  // key rows a K/V box
+  int err = map_4d(&mq, q, D, S, Hq, B, q_sb, q_sh, q_ss, BM);
+  if (!err) err = map_4d(&mk, k, D, S, Hkv, B, k_sb, k_sh, k_ss, bn);
+  if (!err) err = map_4d(&mv, v, D, S, Hkv, B, v_sb, v_sh, v_ss, bn);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return cap ? launch<64, true>(mq, mk, mv, o, lse, order, starts, n_ctas, p, st) : launch<64, false>(mq, mk, mv, o, lse, order, starts, n_ctas, p, st);
-  return cap ? launch<128, true>(mq, mk, mv, o, lse, order, starts, n_ctas, p, st) : launch<128, false>(mq, mk, mv, o, lse, order, starts, n_ctas, p, st);
+  if (D == 64) return launch<64>(cap, mq, mk, mv, o, lse, order, starts, n_ctas, p, st);
+  if (D == 128) return launch<128>(cap, mq, mk, mv, o, lse, order, starts, n_ctas, p, st);
+  return launch<256>(cap, mq, mk, mv, o, lse, order, starts, n_ctas, p, st);
 }
 
 const char* kubedl_flash_fwd_sm90_error_string(int err) { return sm90_error_string(err); }

@@ -12,10 +12,12 @@ snapping) describe its VMEM and MXU and are not carried over.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernels or the call raises on a dtype, head dim or shape they do not take.
 There is no fallback between the two. The forward's source is fixed by the
-head dim (`kernel_source`): padded to 64 or 128, ops/csrc/flash_fwd_sm90.cu
-(TMA, wgmma, warp-specialized); 256, ops/csrc/flash_fwd.cu (mma.sync). The
-backward's likewise (`bwd_kernel_source`): ops/csrc/flash_bwd_sm90.cu at
-64 or 128, ops/csrc/flash_bwd.cu at 256. When an input requires grad,
+head dim (`kernel_source`): ops/csrc/flash_fwd_sm90.cu (TMA, wgmma,
+warp-specialized) at every head dim, padded to 64, 128 or 256; the
+mma.sync kernel, ops/csrc/flash_fwd.cu, only where a caller names it. The
+backward's per kernel (`bwd_kernel_source`): ops/csrc/flash_bwd_sm90.cu's
+dq and dkv kernels at 64 or 128; at 256 flash_bwd.cu's dq kernel
+(mma.sync) and flash_bwd_sm90.cu's dkv kernel. When an input requires grad,
 `flash_attention` goes through `FlashAttention`, a torch.autograd.Function
 whose forward keeps (q, k, v, out, lse) and whose backward is the dq and
 dkv kernels (the plain backward on CPU tensors).
@@ -39,7 +41,9 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the mma.sync kernels' template widths
 SM90, MMA_SYNC = "flash_fwd_sm90", "flash_fwd"  # the forward's kernel sources under ops/csrc/
 BWD_SM90, BWD_MMA_SYNC = "flash_bwd_sm90", "flash_bwd"  # the backward's
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90.cu's and flash_bwd_sm90.cu's dkv kernel's
+SM90_DQ_HEAD_DIMS = (64, 128)    # flash_bwd_sm90.cu's dq kernel's
+LOG2E = 1.4426950408889634
 
 
 def _check(q, k, v, causal, window, softcap) -> None:
@@ -123,24 +127,23 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def kernel_source(head_dim: int) -> str:
     """The csrc/ source whose kernel the CUDA forward takes at this head
-    dim: padded to 64 or 128, flash_fwd_sm90.cu; 256, flash_fwd.cu. Raises
-    past 256."""
+    dim: flash_fwd_sm90.cu, padded to 64, 128 or 256. Raises past 256."""
     if head_dim <= SM90_HEAD_DIMS[-1]:
         return SM90
-    if head_dim <= HEAD_DIMS[-1]:
-        return MMA_SYNC
     raise ValueError(f"flash_attention_fwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
 
 
-def bwd_kernel_source(head_dim: int) -> str:
-    """The csrc/ source whose dq and dkv kernels the CUDA backward takes at
-    this head dim: padded to 64 or 128, flash_bwd_sm90.cu; 256,
-    flash_bwd.cu. Raises past 256."""
-    if head_dim <= SM90_HEAD_DIMS[-1]:
-        return BWD_SM90
-    if head_dim <= HEAD_DIMS[-1]:
-        return BWD_MMA_SYNC
-    raise ValueError(f"flash_attention_bwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
+def bwd_kernel_source(head_dim: int, kind: str) -> str:
+    """The csrc/ source whose `kind` kernel ("dq" or "dkv") the CUDA
+    backward takes at this head dim: flash_bwd_sm90.cu, padded to 64 or 128
+    for both and to 256 for dkv; flash_bwd.cu for dq at 256. Raises past
+    256."""
+    if kind not in ("dq", "dkv"):
+        raise ValueError(f"flash_attention_bwd: unknown kernel {kind!r}")
+    if head_dim > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention_bwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
+    widths = SM90_DQ_HEAD_DIMS if kind == "dq" else SM90_HEAD_DIMS
+    return BWD_SM90 if head_dim <= widths[-1] else BWD_MMA_SYNC
 
 
 SM90_BLOCK = 128              # query rows an item and key rows a tile of flash_fwd_sm90.cu
@@ -150,12 +153,22 @@ SM90_L2_GROUP_BYTES = 24 << 20  # streamed bytes a group of items may take: half
 # "dkv" items are key rows of one (b, KV head) streaming the Q/dO tiles of
 # every query head of its GQA group
 SM90_TILES = {"fwd": (SM90_BLOCK, SM90_BLOCK), "dq": (128, 64), "dkv": (128, 64)}
+# at head dim 256, where a 128-row K/V tile (forward) or a 128-row dK/dV
+# item does not fit in shared memory and registers (Fwd<256>, Dkv256)
+SM90_TILES_D256 = {"fwd": (SM90_BLOCK, 64), "dkv": (64, 64)}
 
 
-def _tiles(t: int, s: int, causal: bool, window: Optional[int], kind: str = "fwd") -> int:
+def sm90_tiles(kind: str, d: int = 128) -> Tuple[int, int]:
+    """(rows an item, rows a streamed tile) of the `kind` kernel at head
+    dim d (padded); KeyError for a kernel that does not take d."""
+    return (SM90_TILES_D256 if d > 128 else SM90_TILES)[kind]
+
+
+def _tiles(t: int, s: int, causal: bool, window: Optional[int], kind: str = "fwd",
+           d: int = 128) -> int:
     """Tiles the `kind` kernel streams for its item row block t, for one
-    query head (its item_of / dq_item / dkv_item)."""
-    bm, bn = SM90_TILES[kind]
+    query head (its item_of / dq_item / dkv_item) at head dim d."""
+    bm, bn = sm90_tiles(kind, d)
     r0, n = t * bm, -(-s // bn)
     if kind == "dkv":  # query tiles from the diagonal on, to the window's last row
         if window:
@@ -187,12 +200,12 @@ def sm90_items(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
                window: Optional[int], kind: str = "fwd"):
     """The `kind` kernel's items in order, as (code, cost): code is
     row_block * pairs + pair (pair = batch * hq + head, or batch * hkv + KV
-    head for "dkv"), cost its streamed tiles (over the GQA group's query
-    heads for "dkv") plus one for its prologue and epilogue. Pairs go in
+    head for "dkv"), cost its streamed tiles at head dim d (over the GQA
+    group's query heads for "dkv") plus one for its prologue and epilogue. Pairs go in
     `sm90_group`s, so what the CTAs running at once stream stays in L2;
     inside a group, all its pairs of the longest causal row block first:
     the last query block, or the first key block."""
-    n_t, rep = -(-s // SM90_TILES[kind][0]), hq // hkv
+    n_t, rep = -(-s // sm90_tiles(kind, d)[0]), hq // hkv
     pairs, per = (b * hkv, rep) if kind == "dkv" else (b * hq, 1)
     group = sm90_group(b, hq, hkv, s, d, kind)
     blocks = list(range(n_t))
@@ -200,7 +213,7 @@ def sm90_items(b: int, hq: int, hkv: int, s: int, d: int, causal: bool,
         blocks.reverse()
     for first in range(0, pairs, group):
         for t in blocks:
-            cost = _tiles(t, s, causal, window, kind) * per + 1
+            cost = _tiles(t, s, causal, window, kind, d) * per + 1
             for pair in range(first, min(first + group, pairs)):
                 yield t * pairs + pair, cost
 
@@ -391,15 +404,47 @@ def _lib_bwd(source: str):
     return fns
 
 
+def _dkv_rows(lse: torch.Tensor, delta: torch.Tensor, s64: int) -> torch.Tensor:
+    """The f32 buffer flash_bwd_sm90.cu's dkv kernel reads, [2, b, hq, s64]:
+    each row's LSE * log2 e, then its delta, with rows s.. (S rounded up to
+    64) holding +inf and 0, so p = 0 there. Its dq kernel writes the same
+    buffer; at head dim 256, where flash_bwd.cu's dq kernel runs, it is
+    built here from the forward's lse and the wrapper's delta."""
+    s = lse.shape[-1]
+    return torch.stack((F.pad(lse.float() * LOG2E, (0, s64 - s), value=math.inf),
+                        F.pad(delta.float(), (0, s64 - s))))
+
+
+def _bwd_plan(d: int, source: Optional[str] = None) -> Tuple[Dict[str, str], int]:
+    """({"dq": source, "dkv": source}, width): each backward kernel's csrc/
+    source (`bwd_kernel_source`, or `source` for both) and the head dim
+    both run at, d zero-padded up to the next of 64, 128, 256. Raises on
+    an unknown source or a head dim a kernel does not take."""
+    if source is not None and source not in (BWD_SM90, BWD_MMA_SYNC):
+        raise ValueError(f"flash_attention_bwd: unknown kernel source {source!r}")
+    width = next((w for w in HEAD_DIMS if w >= d), None)
+    sources = {}
+    for kind in ("dq", "dkv"):
+        sources[kind] = src = source or bwd_kernel_source(d, kind)
+        widths = HEAD_DIMS if src == BWD_MMA_SYNC else \
+            SM90_DQ_HEAD_DIMS if kind == "dq" else SM90_HEAD_DIMS
+        if width is None or width > widths[-1]:
+            raise ValueError(f"flash_attention_bwd: head_dim {d} > {widths[-1]} "
+                             f"({src}.cu's {kind} kernel)")
+    return sources, width
+
+
 def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap,
                      source: Optional[str] = None):
     """Check, pad and allocate for the backward kernels: {"dq": args, "dkv":
     args} of the two launches and the (dq, dk, dv) they write. args =
-    (source, tensors, the other arguments but the stream). On
+    (source, tensors, the other arguments but the stream). Each kernel's
+    source is `bwd_kernel_source(d, kind)`, or `source` for both. On
     flash_bwd_sm90.cu the dq kernel computes delta = rowsum(out * dout) and
     writes it, with LSE * log2 e, to a [2, b, hq, S rounded up to 64] f32
     buffer that the dkv kernel reads; on flash_bwd.cu delta is computed
-    here."""
+    here, and where flash_bwd_sm90.cu's dkv kernel follows flash_bwd.cu's
+    dq kernel (head dim 256) the buffer is built here too (`_dkv_rows`)."""
     _check(q, k, v, causal, window, softcap)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if x.device.type != "cuda":
@@ -419,43 +464,38 @@ def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap,
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     if len({x.device for x in (q, k, v, out, dout)}) != 1:
         raise ValueError("q, k, v, out, dout must be on one device")
-    if source is None:
-        source = bwd_kernel_source(d)
-    widths = {BWD_SM90: SM90_HEAD_DIMS, BWD_MMA_SYNC: HEAD_DIMS}.get(source)
-    if widths is None:
-        raise ValueError(f"flash_attention_bwd: unknown kernel source {source!r}")
-    dk_ = next((w for w in widths if w >= d), None)
-    if dk_ is None:
-        raise ValueError(f"flash_attention_bwd: head_dim {d} > {widths[-1]} ({source}.cu)")
+    sources, width = _bwd_plan(d, source)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    sm90 = source == BWD_SM90
     lse = lse.contiguous()
-    if sm90:  # the dq kernel's rows: LSE * log2 e, then delta
-        rows = torch.empty((2, b, hq, -(-s // 64) * 64), dtype=torch.float32, device=q.device)
+    s64 = -(-s // 64) * 64
+    if sources["dq"] == BWD_SM90:  # the dq kernel's rows: LSE * log2 e, then delta
+        rows = torch.empty((2, b, hq, s64), dtype=torch.float32, device=q.device)
         f32 = {"dq": [lse, rows], "dkv": [rows]}
     else:
         delta = (out.float() * dout.float()).sum(-1)  # [b, hq, s] f32, contiguous
-        f32 = {"dq": [lse, delta], "dkv": [lse, delta]}
-    if dk_ != d:
-        q, k, v, out, dout = (F.pad(x, (0, dk_ - d)) for x in (q, k, v, out, dout))
+        f32 = {"dq": [lse, delta], "dkv": [_dkv_rows(lse, delta, s64)]
+               if sources["dkv"] == BWD_SM90 else [lse, delta]}
+    if width != d:
+        q, k, v, out, dout = (F.pad(x, (0, width - d)) for x in (q, k, v, out, dout))
     q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout))
     grads = (torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2),
              torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2),
              torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device).transpose(1, 2))
-    dims = (b, hq, hkv, s, dk_, d)
     tail = (float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0))
     launches = {}
-    for name, ins, outs in (("dq", [q, k, v, out, dout] if sm90 else [q, k, v, dout], grads[:1]),
-                            ("dkv", [q, k, v, dout], grads[1:])):
+    for name, outs in (("dq", grads[:1]), ("dkv", grads[1:])):
+        src = sources[name]
+        # sm90's dq kernel reads o (for delta) beside q, k, v, dout
+        ins = [q, k, v, out, dout] if name == "dq" and src == BWD_SM90 else [q, k, v, dout]
         ptrs = ins + f32[name] + list(outs)  # tensors: kept alive with the lists
         strides = [st for x in ins + list(outs) for st in x.stride()[:3]]
         sched = ()
-        if sm90:
-            order, starts, n_ctas = _sm90_schedule_on(q.device, b, hq, hkv, s, dk_, bool(causal),
-                                                      window, kind=name)
+        if src == BWD_SM90:
+            order, starts, n_ctas = _sm90_schedule_on(q.device, b, hq, hkv, s, width,
+                                                      bool(causal), window, kind=name)
             sched = (order.data_ptr(), starts.data_ptr(), n_ctas)
-        launches[name] = (source, ptrs, [*dims, *strides, *tail, *sched])
+        launches[name] = (src, ptrs, [b, hq, hkv, s, width, d, *strides, *tail, *sched])
     return launches, grads
 
 
@@ -489,9 +529,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
     Takes what `flash_attention_fwd` takes plus its (out, lse) and the
     output gradient, with the same checks, head-dim padding and stride
-    rules. The kernels are the ones `bwd_kernel_source(head_dim)` names,
-    or `source` (BWD_SM90 or BWD_MMA_SYNC) where a caller compares the two;
-    nothing on the model's path passes it. dq is a [b, hq, s, d] view of a
+    rules. The kernels are the ones `bwd_kernel_source(head_dim, kind)`
+    names, or `source` (BWD_SM90 or BWD_MMA_SYNC) for both where a caller
+    compares them (BWD_SM90 raises at head dim 256, which its dq kernel
+    does not take); nothing on the model's path passes it. dq is a [b, hq, s, d] view of a
     [b, s, hq, d] buffer and dk, dv of [b, s, hkv, d] buffers, the layouts
     the model's projections produce."""
     launches, grads = _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale,

@@ -177,7 +177,8 @@ def test_flash_fwd_strided_input_needs_no_copy(dev):
 
 
 # flash_fwd_sm90.cu (TMA, wgmma) beyond KERNEL_CASES, which it takes too:
-# (b, hq, hkv, s, d, causal, window, softcap)
+# (b, hq, hkv, s, d, causal, window, softcap); the d 256 rows run the
+# Fwd<256> geometry (64-key tiles, 2 stages, O stored from the accumulators)
 SM90_CASES = [
     (1, 4, 4, 1000, 128, True, None, None),     # S not a multiple of 128
     (1, 2, 2, 70, 128, True, None, None),       # S < 128: one zero-filled tile
@@ -189,7 +190,20 @@ SM90_CASES = [
     (1, 4, 2, 300, 128, True, None, 30.0),      # softcap
     (1, 2, 2, 200, 40, True, None, None),       # d 40 padded to 64
     (2, 4, 4, 260, 64, False, None, None),      # not causal
+    (2, 8, 4, 1023, 256, True, None, 50.0),     # Gemma-2: GQA 8/4, softcap 50 (q x8), ragged
+    (1, 8, 4, 700, 256, True, 256, 50.0),       # Gemma-2's sliding layers: a binding window
+    (1, 4, 4, 333, 256, True, None, None),      # S past the last 64-key tile
+    (2, 4, 2, 260, 256, False, None, None),     # not causal
+    (1, 4, 4, 300, 200, True, None, None),      # d 200 padded to 256
+    (1, 2, 2, 130, 250, True, None, None),      # d 250: O written element by element
 ]
+
+
+def _gemma_q(q, d, softcap):
+    """q x8 on the d 256 softcap rows, as chip_smoke.py's Gemma-2 rows: at
+    unit inputs the scores stay where 50 tanh(s / 50) and s differ by under
+    1e-2, and no check would see the cap."""
+    return q * 8 if softcap and d == 256 else q
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,softcap", SM90_CASES)
@@ -200,6 +214,7 @@ def test_flash_fwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal
     at the same shape within twice those (each is within them of plain)."""
     assert fa.kernel_source(d) == fa.SM90
     q, k, v = _qkv(dev, b, hq, hkv, s, d)
+    q = _gemma_q(q, d, softcap)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     again, again_lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -230,19 +245,31 @@ def test_flash_fwd_sm90_reads_strided_views_in_place(dev):
 
 
 def test_flash_fwd_sm90_refuses_what_it_does_not_take(dev):
-    big = torch.zeros(1, 1, 8, 256, device=dev, dtype=torch.bfloat16)
+    """Past head dim 256 neither forward takes the shape; an unknown
+    source raises. (Head dim 256 itself is flash_fwd_sm90.cu's.)"""
+    big = torch.zeros(1, 1, 8, 320, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(big, big, big, source=fa.SM90)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(big, big, big, source=fa.MMA_SYNC)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(big, big, big, source="flash_fwd_sm80")
 
 
-# flash_bwd_sm90.cu (TMA, wgmma) on every KERNEL_CASES row it takes, and
-# beyond them: the main training shape's tail and GQA 32/8 over many items
-SM90_BWD_CASES = [c for c in KERNEL_CASES if c[4] <= 128] + [
+# flash_bwd_sm90.cu (TMA, wgmma) on every KERNEL_CASES row, and beyond
+# them: the main training shape's tail and GQA 32/8 over many items; at d
+# 256 its dkv kernel (Dkv256: 64-key items, the head dim split across the
+# consumers) beside flash_bwd.cu's dq kernel
+SM90_BWD_CASES = KERNEL_CASES + [
     (4, 32, 32, 1023, 128, True, None, None),   # S 1023: a ragged q tile and a masked S tail
     (2, 32, 8, 300, 128, True, None, None),     # GQA 32/8: dK, dV summed over 4 query heads
     (1, 4, 4, 777, 128, True, 2, None),         # window 2: two keys a row, tiles mostly masked
+    (2, 8, 4, 1023, 256, True, None, 50.0),     # Gemma-2: GQA 8/4, softcap 50 (q x8), ragged
+    (1, 8, 4, 700, 256, True, 256, 50.0),       # Gemma-2's sliding layers: a binding window
+    (1, 4, 4, 333, 256, True, None, None),      # S past the last 64-row q tile
+    (2, 4, 2, 260, 256, False, None, None),     # not causal
+    (1, 4, 4, 300, 200, True, None, None),      # d 200 padded to 256
+    (1, 2, 2, 130, 250, True, None, None),      # d 250: dK, dV written element by element
 ]
 
 
@@ -252,14 +279,17 @@ def test_flash_bwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal
     """The TMA/wgmma backward against the f32 plain backward (max|kernel -
     plain| / max|plain| <= 2e-2 for dq, dk, dv, finite), two launches
     bit-identical, and flash_bwd.cu's mma.sync kernels at the same shape
-    within twice that (each is within it of plain)."""
-    assert fa.bwd_kernel_source(d) == fa.BWD_SM90
+    within twice that (each is within it of plain). At d 256 the dq kernel
+    is flash_bwd.cu's on both routes."""
+    assert fa.bwd_kernel_source(d, "dkv") == fa.BWD_SM90
+    assert fa.bwd_kernel_source(d, "dq") == (fa.BWD_SM90 if d <= 128 else fa.BWD_MMA_SYNC)
     q, k, v = _qkv(dev, b, hq, hkv, s, d)
+    q = _gemma_q(q, d, softcap)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     dout = _qkv(dev, b, hq, hq, s, d, seed=1)[0]
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_SM90, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     old = fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_MMA_SYNC, **kw)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
@@ -284,7 +314,7 @@ def test_flash_bwd_sm90_reads_strided_views_in_place(dev):
     q, k, v, dout = view(hq), view(hkv), view(hkv), view(hq)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, None)
-    assert launches["dq"][0] == fa.BWD_SM90
+    assert launches["dq"][0] == launches["dkv"][0] == fa.BWD_SM90
     for x, y in zip((q, k, v, out, dout), launches["dq"][1]):
         assert not x.is_contiguous() and y.data_ptr() == x.data_ptr()
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
@@ -307,6 +337,21 @@ def test_flash_bwd_sm90_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(big, big, big, big, torch.zeros(1, 1, 8, device=dev), big,
                                source=fa.BWD_SM90)
+
+
+def test_flash_bwd_sm90_dq_refuses_d256(dev):
+    """flash_bwd_sm90.cu has no dq kernel at head dim 256: source=BWD_SM90
+    raises there before anything launches, while the routed backward
+    pairs flash_bwd.cu's dq kernel with the sm90 dkv kernel."""
+    q, k, v = _qkv(dev, 1, 2, 2, 64, 256)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dout = _qkv(dev, 1, 2, 2, 64, 256, seed=1)[0]
+    n0 = (fa.flash_attention.bwd_dq_launches, fa.flash_attention.bwd_dkv_launches)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_SM90)
+    assert (fa.flash_attention.bwd_dq_launches, fa.flash_attention.bwd_dkv_launches) == n0
+    launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, None)
+    assert (launches["dq"][0], launches["dkv"][0]) == (fa.BWD_MMA_SYNC, fa.BWD_SM90)
 
 
 @pytest.fixture(scope="module")

@@ -137,10 +137,10 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
 @pytest.mark.parametrize("head_dim,source", [
     (1, tfa.SM90), (40, tfa.SM90), (64, tfa.SM90), (100, tfa.SM90), (128, tfa.SM90),
-    (129, tfa.MMA_SYNC), (256, tfa.MMA_SYNC)])
+    (129, tfa.SM90), (256, tfa.SM90)])
 def test_kernel_source_routes_by_head_dim(head_dim, source):
-    """Head dims padded to 64 or 128 take the TMA/wgmma kernel, 256 the
-    mma.sync kernel: fixed by shape, no fallback between them."""
+    """Every head dim, padded to 64, 128 or 256, takes the TMA/wgmma
+    kernel: fixed by shape, no fallback to the mma.sync kernel."""
     assert tfa.kernel_source(head_dim) == source
 
 
@@ -151,16 +151,62 @@ def test_kernel_source_refuses_past_256():
 
 @pytest.mark.parametrize("head_dim,source", [
     (1, tfa.BWD_SM90), (40, tfa.BWD_SM90), (64, tfa.BWD_SM90), (100, tfa.BWD_SM90),
-    (128, tfa.BWD_SM90), (129, tfa.BWD_MMA_SYNC), (256, tfa.BWD_MMA_SYNC)])
+    (128, tfa.BWD_SM90), (129, (tfa.BWD_MMA_SYNC, tfa.BWD_SM90)),
+    (256, (tfa.BWD_MMA_SYNC, tfa.BWD_SM90))])
 def test_bwd_kernel_source_routes_by_head_dim(head_dim, source):
-    """The backward's route table: padded to 64 or 128, flash_bwd_sm90.cu;
-    256, flash_bwd.cu."""
-    assert tfa.bwd_kernel_source(head_dim) == source
+    """The backward's route table, (dq, dkv): padded to 64 or 128, both on
+    flash_bwd_sm90.cu; padded to 256, dq on flash_bwd.cu and dkv on
+    flash_bwd_sm90.cu."""
+    want = source if isinstance(source, tuple) else (source, source)
+    assert (tfa.bwd_kernel_source(head_dim, "dq"), tfa.bwd_kernel_source(head_dim, "dkv")) == want
 
 
 def test_bwd_kernel_source_refuses_past_256():
+    for kind in ("dq", "dkv"):
+        with pytest.raises(ValueError):
+            tfa.bwd_kernel_source(257, kind)
     with pytest.raises(ValueError):
-        tfa.bwd_kernel_source(257)
+        tfa.bwd_kernel_source(128, "dkq")
+
+
+@pytest.mark.parametrize("d,source,want", [
+    (200, None, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_SM90}, 256)),
+    (256, None, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_SM90}, 256)),
+    (256, tfa.BWD_MMA_SYNC, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_MMA_SYNC}, 256)),
+    (100, None, ({"dq": tfa.BWD_SM90, "dkv": tfa.BWD_SM90}, 128)),
+    (40, tfa.BWD_MMA_SYNC, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_MMA_SYNC}, 64)),
+])
+def test_bwd_plan_routes_each_kernel(d, source, want):
+    """One backward mixes sources at head dim 256: flash_bwd.cu's dq kernel,
+    then flash_bwd_sm90.cu's dkv kernel; `source` names one source for
+    both kernels, where a caller compares them."""
+    assert tfa._bwd_plan(d, source) == want
+
+
+@pytest.mark.parametrize("d,source", [(256, tfa.BWD_SM90), (129, tfa.BWD_SM90),
+                                      (320, None), (64, "flash_bwd_sm80")])
+def test_bwd_plan_refuses_what_no_kernel_takes(d, source):
+    """BWD_SM90 past 128 asks for its dq kernel at a width it does not
+    take: the wrapper raises before anything is built or launched."""
+    with pytest.raises(ValueError):
+        tfa._bwd_plan(d, source)
+
+
+def test_dkv_rows_layout():
+    """`_dkv_rows`: [2, b, hq, S rounded up to 64] f32, LSE * log2 e then
+    delta, +inf and 0 on the rows past S, as the sm90 dq kernel writes it."""
+    rng = np.random.default_rng(7)
+    for s in (1, 64, 100, 1023):
+        lse = torch.from_numpy(rng.standard_normal((2, 3, s), np.float32))
+        delta = torch.from_numpy(rng.standard_normal((2, 3, s), np.float32))
+        s64 = -(-s // 64) * 64
+        rows = tfa._dkv_rows(lse, delta, s64)
+        want = torch.zeros((2, 2, 3, s64))
+        want[0, ..., :s] = lse * np.float32(1.4426950408889634)
+        want[0, ..., s:] = float("inf")
+        want[1, ..., :s] = delta
+        assert rows.dtype == torch.float32 and rows.shape == (2, 2, 3, s64)
+        assert rows.is_contiguous() and torch.equal(rows, want)
 
 
 def test_bwd_wrapper_refuses_cpu_tensors_on_either_route():
@@ -368,3 +414,72 @@ def test_sm90_group_fits_l2_evenly(shape, want):
     assert group % rep == 0
     if s * d * 4 <= tfa.SM90_L2_GROUP_BYTES:
         assert group // rep * s * d * 4 <= tfa.SM90_L2_GROUP_BYTES
+
+
+D256_SCHEDULE_SHAPES = [
+    (4, 8, 4, 1024, 256, True, None),     # Gemma-2-2B's prefill and training rows
+    (4, 8, 4, 1023, 256, True, None),     # ragged
+    (1, 8, 4, 5000, 256, True, 4096),     # the sliding layers past the window
+    (2, 4, 4, 333, 256, False, None),     # not causal
+    (1, 1, 1, 1, 256, True, None),        # fewer items than CTAs
+]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkv"])
+@pytest.mark.parametrize("shape", D256_SCHEDULE_SHAPES)
+def test_d256_schedule_takes_every_item_once(shape, kind):
+    """At head dim 256 the forward streams 64-key tiles into 128-row items
+    and the dkv kernel's items are 64 key rows: every item of that size in
+    exactly one CTA's list, the CTAs' costs (in 64-row tiles) within 12 %
+    of the mean wherever there are several items a CTA."""
+    b, hq, hkv, s, d, causal, window = shape
+    n_ctas, rep = 132, hq // hkv
+    pairs, per = (b * hkv, rep) if kind == "dkv" else (b * hq, 1)
+    rows = 64 if kind == "dkv" else 128
+    assert tfa.sm90_tiles(kind, d) == (rows, 64)
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)
+    assert starts[0] == 0 and starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
+    assert sorted(order.tolist()) == list(range(pairs * -(-s // rows)))
+    work = [sum(tfa._tiles(int(c) // pairs, s, causal, window, kind, d) * per + 1
+                for c in order[starts[i]:starts[i + 1]]) for i in range(n_ctas)]
+    if len(order) >= 4 * n_ctas:
+        assert max(work) <= 1.12 * (sum(work) / n_ctas)
+    assert tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)[0] is order
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkv"])
+def test_d256_schedule_takes_the_longest_items_first(kind):
+    """Inside one L2 group a CTA's causal items at head dim 256 never get
+    more expensive: the forward's last query blocks and dkv's first key
+    blocks first, costed in 64-row tiles."""
+    b, hq, hkv, s, d = 4, 8, 4, 1024, 256
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, True, None, 16, kind)
+    pairs = b * hkv if kind == "dkv" else b * hq
+    group = tfa.sm90_group(b, hq, hkv, s, d, kind)
+    for i in range(16):
+        codes = order[starts[i]:starts[i + 1]]
+        cost = np.array([tfa._tiles(int(c) // pairs, s, True, None, kind, d) for c in codes])
+        grp = (codes % pairs) // group
+        for g in np.unique(grp):
+            assert np.all(np.diff(cost[grp == g]) <= 0)
+
+
+@pytest.mark.parametrize("kind,t,s,causal,window,want", [
+    ("fwd", 0, 1024, True, None, 2), ("fwd", 7, 1024, True, None, 16),
+    ("fwd", 3, 1023, False, None, 16), ("fwd", 39, 5000, True, 4096, 65),
+    ("fwd", 2, 333, True, 100, 4),
+    ("dkv", 0, 1023, True, None, 16), ("dkv", 15, 1023, True, None, 1),
+    ("dkv", 3, 1024, False, None, 16), ("dkv", 0, 5000, True, 4096, 65),
+    ("dkv", 1, 333, True, 100, 3)])
+def test_d256_tiles_match_the_kernels_live_range(kind, t, s, causal, window, want):
+    """The 64-row tiles an item streams at head dim 256 (Fwd<256>'s item_of,
+    Dkv256's dkv_item): the forward's K/V tiles up to its diagonal and from
+    its window's first key; dkv's q tiles from its diagonal to the window's
+    last query."""
+    assert tfa._tiles(t, s, causal, window, kind, 256) == want
+
+
+def test_dq_has_no_d256_tiles():
+    """No sm90 dq kernel takes head dim 256: its tiles are not asked for."""
+    with pytest.raises(KeyError):
+        tfa.sm90_tiles("dq", 256)
