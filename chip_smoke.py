@@ -37,11 +37,11 @@ Phases, each printing its own line of numbers:
      d=256, a long sequence, and phase 15c's Gemma-2-2B shape at d 256 with
      GQA 8/4 and softcap 50, the same with window 4096 at S=5000, and its
      twin without the softcap): the sources bwd_kernel_source routes each
-     kernel to (flash_bwd_sm90.cu's dq and dkv at d <= 128; at d 256
-     flash_bwd.cu's dq and flash_bwd_sm90.cu's Dkv256 dkv kernel) and
-     flash_bwd.cu's mma.sync kernels at the same shape, each two
+     kernel to (flash_bwd_sm90.cu's dq and dkv at every head dim, its
+     Dq256 and Dkv256 kernels at d 256) and flash_bwd.cu's mma.sync
+     kernels at the same shape, each two
      launches bit-identical and timed as device time (CUDA graphs), beside
-     one whole wrapper call, the plain version and the library
+     one whole wrapper call of each, the plain version and the library
      (scaled_dot_product_attention's backward, or flex_attention's where a
      softcap or window is set: forward and backward less forward, device
      time); q scaled and the options dropped as in phase 2;
@@ -204,7 +204,7 @@ MAIN_SHAPE = "7b_b4_s1024"
 MAIN_BWD_SHAPE = "7b_b4_s1023"
 MAIN_D256, MAIN_BWD_D256 = "gemma2_s1024", "gemma2_s1023"  # phase 15's shapes at d 256
 # the kernels phase 15 runs at d 256: K1, K2, K3
-D256_NAMES = ("flash_fwd_sm90.cu", "flash_bwd.cu dq", "flash_bwd_sm90.cu dkv")
+D256_NAMES = ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu dq", "flash_bwd_sm90.cu dkv")
 # phases 2 and 2b scale q by this on their softcap rows: at unit q and k the
 # scaled scores are about N(0, 1), where 50 tanh(s / 50) differs from s by
 # under 1e-2 and no tolerance would see a dropped softcap; x8 puts them near
@@ -766,10 +766,10 @@ def phase_bwd_kernels():
         "d64_s1024": (4, 32, 32, 1024, 64, True, None, None),
         "d256_b2_h8_s1024": (2, 8, 8, 1024, 256, True, None, None),
         "b1_h8_s8192": (1, 8, 8, 8192, 128, True, None, None),
-        # phase 15c's Gemma-2-2B training shape (d 256: flash_bwd.cu's dq,
-        # flash_bwd_sm90.cu's Dkv256): GQA
-        # 8/4, softcap 50; the sliding layers at a length where the 4096
-        # window binds; the twin without the softcap that SDPA's backward takes
+        # phase 15c's Gemma-2-2B training shape (d 256: flash_bwd_sm90.cu's
+        # Dq256 and Dkv256): GQA 8/4, softcap 50; the sliding layers at a
+        # length where the 4096 window binds; the twin without the softcap
+        # that SDPA's backward takes
         MAIN_BWD_D256: (4, 8, 4, 1023, 256, True, None, 50.0),
         "gemma2_w4096_b1_s5000": (1, 8, 4, G2_PREFILL, 256, True, 4096, 50.0),
         "d256_gqa_s1023": (4, 8, 4, 1023, 256, True, None, None),
@@ -848,6 +848,8 @@ def phase_bwd_kernels():
                                      f"kernels' function at {name}: {library_err}")
         del ref
         wrapper_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+        runs["mma_sync"]["wrapper_ms"] = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, source=fa.BWD_MMA_SYNC, **kw))
         plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
                             iters=3)
         # device time, as the kernels': forward and backward less forward,
@@ -871,12 +873,14 @@ def phase_bwd_kernels():
         old = runs["mma_sync"]
         r["mma_sync"] = old
         r["speedup_vs_mma_sync"] = (old["dq_ms"] + old["dkv_ms"]) / kernel_ms
+        r["dq_speedup_vs_mma_sync"] = old["dq_ms"] / r["dq_ms"]
         r["dkv_speedup_vs_mma_sync"] = old["dkv_ms"] / r["dkv_ms"]
         results[name] = r
         lib = f"{library_ms:.4f} ({library})"
         errs = r["errors"]
         vs = (f"{old['dq_ms']:.4f}+{old['dkv_ms']:.4f} (x{r['speedup_vs_mma_sync']:.2f}, "
-              f"dkv x{r['dkv_speedup_vs_mma_sync']:.2f}, "
+              f"dq x{r['dq_speedup_vs_mma_sync']:.2f}, dkv x{r['dkv_speedup_vs_mma_sync']:.2f}, "
+              f"wrapper_ms {old['wrapper_ms']:.4f}, "
               f"rel_err dq={old['errors']['dq']:.2e} dk={old['errors']['dk']:.2e} "
               f"dv={old['errors']['dv']:.2e})")
         print(f"bwd {name} [dq {routed['dq']}.cu, dkv {routed['dkv']}.cu]: dq_ms={r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f} "
@@ -3111,7 +3115,7 @@ def _15a_load(path, smi):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     if (fa.kernel_source(config.head_dim), fa.bwd_kernel_source(config.head_dim, "dq"),
-            fa.bwd_kernel_source(config.head_dim, "dkv")) != (fa.SM90, fa.BWD_MMA_SYNC,
+            fa.bwd_kernel_source(config.head_dim, "dkv")) != (fa.SM90, fa.BWD_SM90,
                                                               fa.BWD_SM90):
         raise AssertionError(f"15a: head dim {config.head_dim} does not route to the d 256 "
                              f"kernels")
@@ -3600,8 +3604,8 @@ def main(argv=None) -> int:
             "library_ms": main_g["library_ms"],
         })
     # the d 256 kernels on phase 15's paths: flash_fwd_sm90.cu's Fwd<256>,
-    # flash_bwd.cu's dq, flash_bwd_sm90.cu's Dkv256; the mma.sync kernel's
-    # time at the same shape beside each
+    # flash_bwd_sm90.cu's Dq256 and Dkv256; the mma.sync kernel's time at
+    # the same shape beside each
     k256, b256 = kernels[MAIN_D256], bwd[MAIN_BWD_D256]
     d256_rows = [{
         "name": "flash_fwd_d256",

@@ -2,11 +2,12 @@
 // pipelines, wgmma and warp-specialized consumer warpgroups. bf16 in and
 // out, f32 accumulation; plain C interface bound with ctypes by
 // kubedl_tpu_torch/ops/flash_attention.py, which routes both kernels here
-// at head dims padded to 64 or 128, and the dK/dV kernel at head dims
-// padded to 256 (flash_bwd.cu's dq kernel runs there).
+// at every head dim, zero-padded to 64, 128 or 256 (flash_bwd.cu, the
+// mma.sync kernels, runs only when a caller asks for it by name).
 //
 // Replaces the TPU kernels
-//   kubedl_tpu/ops/flash_attention.py:291 _bwd_dq_kernel   (K2) -> flash_bwd_dq_sm90_kernel
+//   kubedl_tpu/ops/flash_attention.py:291 _bwd_dq_kernel   (K2) -> flash_bwd_dq_sm90_kernel,
+//                                                                 flash_bwd_dq256_sm90_kernel
 //   kubedl_tpu/ops/flash_attention.py:336 _bwd_dkv_kernel  (K3) -> flash_bwd_dkv_sm90_kernel,
 //                                                                 flash_bwd_dkv256_sm90_kernel
 //
@@ -72,16 +73,19 @@
 //     into one multiply-add against LSE * log2 e;
 //   - epilogues scale dQ and dK by sm_scale and write bf16 through the
 //     caller's strides, rows below S and columns below Dv only;
-//   - K3 at d 256 (flash_bwd_dkv256_sm90_kernel, its own comment below):
-//     a 128-row item's K and V and its two 64 x 256 f32 accumulators do
-//     not fit, so an item is 64 key rows and the consumers split the
-//     scores over query columns and dK, dV over the head dim.
+//   - at d 256 (flash_bwd_dq256_sm90_kernel and
+//     flash_bwd_dkv256_sm90_kernel, each with its own comment below): a
+//     128-row item's tiles and a 64 x 256 f32 accumulator a consumer (128
+//     registers, two of them in K3) do not fit, so an item is 64 rows and
+//     the two consumers split the work twice over: the scores over the
+//     streamed tile's rows, the gradients over the head dim, with the bf16
+//     dS (and P^T) passed between them through shared memory.
 //
 // Layout rules: q, o, dO [B, Hq, S, D], k, v [B, Hkv, S, D], last dim
 // contiguous, other strides whole 16-byte vectors, 16-byte aligned bases;
 // lse [B, Hq, S] f32 contiguous; dq, dk, dv are written through
-// their own strides. D is 64 or 128, and 256 for K3 (the wrapper zero-pads
-// other head dims and passes the true width as Dv).
+// their own strides. D is 64, 128 or 256 (the wrapper zero-pads other head
+// dims and passes the true width as Dv).
 
 #include "sm90_common.cuh"
 
@@ -109,7 +113,7 @@ struct BwdArgs {
   int S64;                   // S rounded up to BN: the row stride of K2's LSE and delta
   int plane;                 // B * Hq * S64: delta's offset after the LSE
   int64_t a_sb, a_sh, a_ss;  // dq (K2) or dk (K3)
-  int64_t b_sb, b_sh, b_ss;  // dv (K3)
+  int64_t b_sb, b_sh, b_ss;  // dv (K3); o, read for delta (K2 at d 256)
   float mul;                 // q . k -> log2 units: sm_scale * log2 e, or log2 e after the softcap
   float cap_in;              // sm_scale / softcap
   float softcap, inv_cap;
@@ -126,20 +130,22 @@ __device__ __forceinline__ bool keep(int qp, int kp, const BwdArgs& p) {
   return ok;
 }
 
-// K2's item: 128 query rows q0.. of (b, h), its live 64-row K/V tiles [kb, ke)
+// K2's item: ROWS query rows q0.. of (b, h) (128, or 64 at d 256), its
+// live 64-row K/V tiles [kb, ke)
 struct DqItem {
   int b, h, hk, q0, kb, ke;
 };
 
+template <int ROWS>
 __device__ __forceinline__ DqItem dq_item(int code, const BwdArgs& p) {
   const int bh_n = p.B * p.Hq, t = code / bh_n, bh = code - t * bh_n;
   DqItem w;
   w.b = bh / p.Hq;
   w.h = bh - w.b * p.Hq;
   w.hk = w.h / (p.Hq / p.Hkv);
-  w.q0 = t * BM;
+  w.q0 = t * ROWS;
   w.ke = (p.S + BN - 1) / BN;
-  if (p.causal) w.ke = min(w.ke, (w.q0 + BM - 1) / BN + 1);
+  if (p.causal) w.ke = min(w.ke, (w.q0 + ROWS - 1) / BN + 1);
   w.kb = 0;
   if (p.window > 0) {
     const int lo = w.q0 - p.window + 1;  // the first key row q0's window admits
@@ -149,10 +155,11 @@ __device__ __forceinline__ DqItem dq_item(int code, const BwdArgs& p) {
 }
 
 // Does K tile kt hold a (query, key) pair of the item that a mask drops?
+template <int ROWS>
 __device__ __forceinline__ bool dq_masked(int kt, const DqItem& w, const BwdArgs& p) {
   const int k0 = kt * BN;
   return k0 + BN > p.S || (p.causal && k0 + BN - 1 > w.q0) ||
-         (p.window > 0 && k0 <= w.q0 + BM - 1 - p.window);
+         (p.window > 0 && k0 <= w.q0 + ROWS - 1 - p.window);
 }
 
 // K3's item: ROWS key rows k0.. of (b, KV head hk) (128, or 64 at d 256),
@@ -234,13 +241,13 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
 
 // K2's scores -> ds in place, for this thread's query rows qrow and qrow + 8
 // (lse2: their LSE * log2 e, +inf past S; dl: their delta) and keys k0 +
-// 8j + 2tq + {0, 1}.
-template <bool SOFTCAP, bool MASKED>
-__device__ __forceinline__ void dq_grads(float (&s)[32], const float (&dp)[32],
+// 8j + 2tq + {0, 1} (N / 4 column groups: 64 keys, or 32 at d 256).
+template <bool SOFTCAP, bool MASKED, int N>
+__device__ __forceinline__ void dq_grads(float (&s)[N], const float (&dp)[N],
                                          const float (&lse2)[2], const float (&dl)[2],
                                          const BwdArgs& p, int qrow, int k0, int tq) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
@@ -264,8 +271,8 @@ __device__ __forceinline__ void dq_grads(float (&s)[32], const float (&dp)[32],
   }
 }
 
-template <bool SOFTCAP>
-__device__ __forceinline__ void dq_grads(bool masked, float (&s)[32], const float (&dp)[32],
+template <bool SOFTCAP, int N>
+__device__ __forceinline__ void dq_grads(bool masked, float (&s)[N], const float (&dp)[N],
                                          const float (&lse2)[2], const float (&dl)[2],
                                          const BwdArgs& p, int qrow, int k0, int tq) {
   if (masked)
@@ -336,6 +343,19 @@ __device__ __forceinline__ void dkv_ds(const float (&g)[N], const float (&dp)[N]
   }
 }
 
+// acc + the dot product of 8 bf16 pairs, in f32.
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 x = __bfloat1622float2(a2[k]), y = __bfloat1622float2(b2[k]);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
 // delta of this thread's rows r and r + 8 of the item tiles O and dO in
 // shared memory (r = the warp's first row + g): each of the 4 threads of a
 // row sums every 4th 16-byte chunk, then the 4 partial sums meet. Chunk c
@@ -351,16 +371,8 @@ __device__ __forceinline__ void row_deltas(float (&dl)[2], const uint8_t* o, con
     for (int i = 0; i < D / 32; ++i) {
       const int ch = tq + 4 * i;
       const int off = (ch / 8) * ITEM_BOX + row * ROW + 16 * ((ch % 8) ^ (row % 8));
-      const uint4 a = *reinterpret_cast<const uint4*>(o + off);
-      const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 x = __bfloat1622float2(a2[k]), y = __bfloat1622float2(b2[k]);
-        acc = fmaf(x.x, y.x, acc);
-        acc = fmaf(x.y, y.y, acc);
-      }
+      acc = dot8(*reinterpret_cast<const uint4*>(o + off),
+                 *reinterpret_cast<const uint4*>(dout + off), acc);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -455,7 +467,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       prefetch_map(&map_v);
       int it = 0, qi = 0;
       for (int j = first; j < last; ++j, ++qi) {
-        const DqItem w = dq_item(order[j], p);
+        const DqItem w = dq_item<BM>(order[j], p);
         mbar_wait(q_empty, (qi & 1) ^ 1);
         mbar_expect_tx(q_full, 3 * T::ITEM);  // whole boxes, zero-filled past S too
 #pragma unroll
@@ -496,7 +508,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   zero(dp_acc);
   int it = 0, qi = 0;
   for (int j = first; j < last; ++j, ++qi) {
-    const DqItem w = dq_item(order[j], p);
+    const DqItem w = dq_item<BM>(order[j], p);
     const int n = w.ke - w.kb, qrow = w.q0 + r_local;
     const int64_t row_base = (static_cast<int64_t>(w.b) * p.Hq + w.h) * p.S;
     float* row_out = rows + (static_cast<int64_t>(w.b) * p.Hq + w.h) * p.S64;
@@ -534,7 +546,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_arrive(v_empty + 8 * s_cur);  // V of the first tile is read
       if (n == 1) mbar_arrive(q_empty);  // Q, dO, O of the item are read
     }
-    dq_grads<SOFTCAP>(dq_masked(w.kb, w, p), s_acc, dp_acc, lse2, dl, p, qrow, w.kb * BN, tq);
+    dq_grads<SOFTCAP>(dq_masked<BM>(w.kb, w, p), s_acc, dp_acc, lse2, dl, p, qrow, w.kb * BN, tq);
     pack(f, s_acc);
 
     // Every tile but the last: the next tile's S and dP and this tile's
@@ -564,7 +576,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_arrive(v_empty + 8 * s_next);     // V of the next tile is read
         if (i + 2 == n) mbar_arrive(q_empty);  // Q, dO, O of the item are read
       }
-      dq_grads<SOFTCAP>(dq_masked(kt, w, p), s_acc, dp_acc, lse2, dl, p, qrow, kt * BN, tq);
+      dq_grads<SOFTCAP>(dq_masked<BM>(kt, w, p), s_acc, dp_acc, lse2, dl, p, qrow, kt * BN, tq);
       wg_wait<0>();
       fence_regs(dq_acc);
       fence_regs(f);
@@ -743,42 +755,47 @@ struct Dkv256 {
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// S^T = K.Q^T and dP^T = V.dO^T for this warpgroup's 32 query columns (the
-// stage's Q and dO rows from q, dout): m64n32k16 over D, both operands
-// K-major, 64-column boxes 8 KB apart.
-__device__ __forceinline__ void score_products256(float (&s)[16], float (&dp)[16], uint32_t k,
-                                                  uint32_t v, uint32_t q, uint32_t dout) {
+// s = A_s.B_s^T and dp = A_dp.B_dp^T, 64 item rows against this
+// warpgroup's 32 rows of the streamed tile: m64n32k16 over D, both
+// operands K-major, 64-column boxes 8 KB apart. K3 passes (K, V; its 32
+// rows of the stage's Q, dO) for S^T and dP^T, K2 (Q, dO; its 32 rows of
+// the stage's K, V) for S and dP.
+__device__ __forceinline__ void score_products256(float (&s)[16], float (&dp)[16], uint32_t a_s,
+                                                  uint32_t a_dp, uint32_t b_s, uint32_t b_dp) {
 #pragma unroll
   for (int kk = 0; kk < Dkv256::D / 16; ++kk) {
     const uint32_t off = (kk / 4) * Dkv256::BOX + 32 * (kk % 4);
-    wgmma_ss_n32(s, smem_desc(k + off, 16, 1024), smem_desc(q + off, 16, 1024), kk > 0);
+    wgmma_ss_n32(s, smem_desc(a_s + off, 16, 1024), smem_desc(b_s + off, 16, 1024), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < Dkv256::D / 16; ++kk) {
     const uint32_t off = (kk / 4) * Dkv256::BOX + 32 * (kk % 4);
-    wgmma_ss_n32(dp, smem_desc(v + off, 16, 1024), smem_desc(dout + off, 16, 1024), kk > 0);
+    wgmma_ss_n32(dp, smem_desc(a_dp + off, 16, 1024), smem_desc(b_dp + off, 16, 1024), kk > 0);
   }
+}
+
+// acc[:, half] += A.B[:, half] over a stage's 64 rows: m64n128k16, A K-major
+// (one 64 x 64 box), B the stage's tile MN-major through the transpose bit:
+// the half's two 64-column boxes 8 KB apart (the leading byte offset), 8
+// rows 1 KB apart (the stride byte offset), a k16 step 16 rows = 2 KB.
+__device__ __forceinline__ void box_products256(float (&acc)[64], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n128_tb(acc, smem_desc(a + 32 * kk, 16, 1024),
+                     smem_desc(b + 2048 * kk, Dkv256::BOX, 1024), 1);
 }
 
 // dV[:, half] += P^T.dO[:, half] and dK[:, half] += dS^T.Q[:, half] over
-// the stage's 64 query rows: m64n128k16, P^T and dS^T K-major (one 64 x 64
-// box each), dO and Q MN-major through the transpose bit: the half's two
-// 64-column boxes 8 KB apart (the leading byte offset), 8 rows 1 KB apart
-// (the stride byte offset), a k16 step 16 rows = 2 KB.
+// the stage's 64 query rows.
 __device__ __forceinline__ void grad_products256(float (&dv)[64], float (&dk)[64], uint32_t pt,
                                                  uint32_t dst, uint32_t dout, uint32_t q) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss_n128_tb(dv, smem_desc(pt + 32 * kk, 16, 1024),
-                     smem_desc(dout + 2048 * kk, Dkv256::BOX, 1024), 1);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss_n128_tb(dk, smem_desc(dst + 32 * kk, 16, 1024),
-                     smem_desc(q + 2048 * kk, Dkv256::BOX, 1024), 1);
+  box_products256(dv, pt, dout);
+  box_products256(dk, dst, q);
 }
 
 // This thread's bf16 pairs of P^T or dS^T (rows r and r + 8 of the item,
-// query columns 32c + 8j + 2tq + {0, 1}) into a 64 x 64 K-major box:
+// query columns 32c + 8j + 2tq + {0, 1}; for K2's dS query rows and key
+// columns) into a 64 x 64 K-major box:
 // 16-byte chunk x of row r at chunk x ^ (r % 8), the 128-byte swizzle the
 // wgmma descriptor reads (and conflict-free for these writes).
 __device__ __forceinline__ void store_t(uint8_t* box, const uint32_t (&f)[8], int r, int c,
@@ -982,6 +999,265 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
+// K2 at head dim 256, where a 128-row item's Q, dO and O (64 KB each) do
+// not fit beside the K/V stages, nor a 64 x 256 f32 dQ accumulator beside
+// the scores: an item is 64 query rows, and the two consumers split the
+// work twice over, as Dkv256 does with the roles of the operands swapped.
+// Budget a CTA (of 232,448 bytes and 512 registers a thread x 128):
+//   - shared memory: Q 32 KB + dO 32 KB, loaded once an item; 2 stages of
+//     K and V, 32 KB each (128 KB); two buffers of dS, 8 KB each; 80 bytes
+//     of barriers and 1 KB to align: 214,096 bytes;
+//   - registers: a consumer holds dq 64 + s 16 + dp 16 + ds fragments 8
+//     live values and the item's two rows' LSE and delta (setmaxnreg 232,
+//     the producer 40);
+//   - delta: O (32 KB more) fits no stage, so each consumer reads its
+//     threads' two rows of O straight from global memory, 8 16-byte
+//     vectors a row a thread, under the item's first S and dP products,
+//     and sums them against dO from shared memory for all 256 columns.
+//     Both consumers read the same rows: 64 KB read an item, against n x
+//     64 KB of K and V for its n tiles, and no barrier between the
+//     consumers before the first ds.
+struct Dq256 {
+  static constexpr int D = 256, ROWS = 64, STAGES = 2;
+  static constexpr int BOX = 64 * ROW;          // a 64-column box of 64 rows (8 KB)
+  static constexpr int TILE = (D / 64) * BOX;   // Q, dO, or a stage's K or V (32 KB)
+  static constexpr int Q_OFF = 0, DO_OFF = TILE, K_OFF = 2 * TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int DS_OFF = V_OFF + STAGES * TILE;  // buffer b at + b BOX
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty of each stage
+  static constexpr int BAR_OFF = DS_OFF + 2 * BOX;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;  // + slack to align
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+// delta of this thread's rows r and r + 8 of the item (q0 + r < S, else 0):
+// O's rows from global memory (o: the (b, h) plane, ss its row stride) in
+// 16-byte vectors, dO's from the item tile in shared memory (64-column
+// boxes 8 KB apart, chunk c of row r at chunk c ^ (r % 8)); each of the 4
+// threads of a row sums every 4th 16-byte chunk of the 256 columns, then
+// the 4 partial sums meet.
+__device__ __forceinline__ void row_deltas256(float (&dl)[2], const bf16* o, int64_t ss,
+                                              const uint8_t* dout, int r, int q0, int S, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    float acc = 0.f;
+    if (q0 + row < S) {
+      const uint4* src = reinterpret_cast<const uint4*>(o + static_cast<int64_t>(q0 + row) * ss);
+      uint4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __ldg(src + tq + 4 * i);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int ch = tq + 4 * i;
+        acc = dot8(a[i], *reinterpret_cast<const uint4*>(
+            dout + (ch / 8) * Dq256::BOX + row * ROW + 16 * ((ch % 8) ^ (row % 8))), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[h] = acc;
+  }
+}
+
+// K2 at d 256: dQ (and delta) for the items order[starts[blockIdx.x] ..
+// starts[+1]), each 64 query rows of one (b, q head). Each of the two
+// consumers computes S and dP of the 64 query rows against its 32 of a
+// K/V tile's 64 keys, forms ds and writes it to shared memory as bf16; the
+// two meet on a named barrier; then each runs dQ += dS.K over the whole
+// tile for its 128 of the 256 columns. The next tile's S and dP go out
+// before this tile's dQ product, so its ds is computed under it; dS is
+// double-buffered, so one barrier a tile is enough.
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq256_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const float* __restrict__ lse, float* __restrict__ rows,
+                                const bf16* __restrict__ o, bf16* __restrict__ dq,
+                                const int* __restrict__ order, const int* __restrict__ starts,
+                                const BwdArgs p) {
+  using T = Dq256;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  uint8_t* gbase = aligned_smem(smem_raw, base);
+  const uint32_t q_full = base + T::BAR_OFF, q_empty = q_full + 8;
+  const uint32_t k_full = q_full + 16, v_full = k_full + 8 * STAGES;
+  const uint32_t k_empty = v_full + 8 * STAGES, v_empty = k_empty + 8 * STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);   // the producer's arrive + the TMA bytes
+    mbar_init(q_empty, 8);  // one arrive from each consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int first = starts[blockIdx.x], last = starts[blockIdx.x + 1];
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      int it = 0, qi = 0;
+      for (int j = first; j < last; ++j, ++qi) {
+        const DqItem w = dq_item<T::ROWS>(order[j], p);
+        mbar_wait(q_empty, (qi & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * T::TILE);  // whole boxes, zero-filled past S too
+#pragma unroll
+        for (int x = 0; x < T::D / 64; ++x) {
+          tma_4d(base + T::Q_OFF + x * T::BOX, &map_q, q_full, 64 * x, w.q0, w.h, w.b);
+          tma_4d(base + T::DO_OFF + x * T::BOX, &map_do, q_full, 64 * x, w.q0, w.h, w.b);
+        }
+        for (int kt = w.kb; kt < w.ke; ++kt, ++it) {
+          const int s = it % STAGES, free = ((it / STAGES) & 1) ^ 1;
+          mbar_wait(k_empty + 8 * s, free);
+          mbar_expect_tx(k_full + 8 * s, T::TILE);
+#pragma unroll
+          for (int x = 0; x < T::D / 64; ++x)
+            tma_4d(base + T::K_OFF + s * T::TILE + x * T::BOX, &map_k, k_full + 8 * s, 64 * x,
+                   kt * BN, w.hk, w.b);
+          mbar_wait(v_empty + 8 * s, free);
+          mbar_expect_tx(v_full + 8 * s, T::TILE);
+#pragma unroll
+          for (int x = 0; x < T::D / 64; ++x)
+            tma_4d(base + T::V_OFF + s * T::TILE + x * T::BOX, &map_v, v_full + 8 * s, 64 * x,
+                   kt * BN, w.hk, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c takes keys 32c .. 32c + 31 of each tile's scores
+  // and columns 128c .. 128c + 127 of dQ
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, g = lane / 4, tq = lane % 4;
+  const int r_local = 16 * warp + g;  // this thread's first query row of the item
+  const uint32_t q_sm = base + T::Q_OFF, do_sm = base + T::DO_OFF;
+  const uint32_t k_own = base + T::K_OFF + 32 * c * ROW, v_own = base + T::V_OFF + 32 * c * ROW;
+  const uint32_t k_half = base + T::K_OFF + 2 * c * T::BOX;
+  float s_acc[16], dp_acc[16], dq_acc[64];
+  uint32_t f[8];
+  zero(s_acc);
+  zero(dp_acc);
+  int it = 0, qi = 0;
+  for (int j = first; j < last; ++j, ++qi) {
+    const DqItem w = dq_item<T::ROWS>(order[j], p);
+    const int n = w.ke - w.kb, qrow = w.q0 + r_local;  // n >= 1: the diagonal tile is live
+    const int64_t bh = static_cast<int64_t>(w.b) * p.Hq + w.h;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // a row past S has p = exp2(-inf) = 0
+      lse2[h] = qrow + 8 * h < p.S ? lse[bh * p.S + qrow + 8 * h] * LOG2E : INFINITY;
+    zero(dq_acc);
+    mbar_wait(q_full, qi & 1);
+
+    // the first tile's S and dP, alone, with the item's delta under them
+    int s_cur = it % STAGES;
+    mbar_wait(k_full + 8 * s_cur, (it / STAGES) & 1);
+    mbar_wait(v_full + 8 * s_cur, (it / STAGES) & 1);
+    __syncwarp();  // the warp meets again before the .aligned wgmma instructions
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    wg_fence();
+    score_products256(s_acc, dp_acc, q_sm, do_sm, k_own + s_cur * T::TILE,
+                      v_own + s_cur * T::TILE);
+    wg_commit();
+    row_deltas256(dl, o + w.b * p.b_sb + w.h * p.b_sh, p.b_ss, gbase + T::DO_OFF, r_local, w.q0,
+                  p.S, tq);
+    if (c == 0 && tq == 0) {
+      float* row_out = rows + bh * p.S64;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (qrow + 8 * h < p.S64) {
+          row_out[qrow + 8 * h] = lse2[h];
+          row_out[p.plane + qrow + 8 * h] = dl[h];  // 0 past S: O is not read there
+        }
+    }
+    wg_wait<0>();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    if (lane == 0) {
+      mbar_arrive(v_empty + 8 * s_cur);  // V of the first tile is read
+      if (n == 1) mbar_arrive(q_empty);  // Q and dO of the item are read
+    }
+    dq_grads<SOFTCAP>(dq_masked<T::ROWS>(w.kb, w, p), s_acc, dp_acc, lse2, dl, p, qrow,
+                      w.kb * BN + 32 * c, tq);
+    pack(f, s_acc);
+
+    // Every tile but the last: its dS goes to shared memory; this tile's
+    // dQ product goes out, then (once the next tile's K and V have landed)
+    // the next tile's S and dP, as two commit groups. K of this tile is
+    // released as soon as the dQ product retires, under the next scores, so
+    // the producer's load of the tile after next has the next tile's
+    // products and ds to land in (with 2 stages, releasing K after the
+    // next ds would leave its load no slack). The body commits the same
+    // two groups on every pass.
+    for (int i = 0; i + 1 < n; ++i, ++it) {
+      const int s_next = (it + 1) % STAGES, ph = ((it + 1) / STAGES) & 1, kt = w.kb + i + 1;
+      const int pb = T::DS_OFF + (it & 1) * T::BOX;
+      store_t(gbase + pb, f, r_local, c, tq);
+      // the generic-proxy writes before wgmma reads them; both halves written
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      __syncwarp();
+      fence_regs(dq_acc);
+      wg_fence();
+      box_products256(dq_acc, base + pb, k_half + s_cur * T::TILE);  // dQ[:, half] += dS.K
+      wg_commit();
+      mbar_wait(k_full + 8 * s_next, ph);
+      mbar_wait(v_full + 8 * s_next, ph);
+      __syncwarp();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wg_fence();
+      score_products256(s_acc, dp_acc, q_sm, do_sm, k_own + s_next * T::TILE,
+                        v_own + s_next * T::TILE);
+      wg_commit();
+      wg_wait<1>();  // this tile's dQ product has retired; the next tile's scores run on
+      fence_regs(dq_acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s_cur);  // K of this tile is read
+      wg_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      if (lane == 0) {
+        mbar_arrive(v_empty + 8 * s_next);     // V of the next tile is read
+        if (i + 2 == n) mbar_arrive(q_empty);  // Q and dO of the item are read
+      }
+      dq_grads<SOFTCAP>(dq_masked<T::ROWS>(kt, w, p), s_acc, dp_acc, lse2, dl, p, qrow,
+                        kt * BN + 32 * c, tq);
+      pack(f, s_acc);
+      s_cur = s_next;
+    }
+    // the last tile's dQ product
+    const int pb = T::DS_OFF + (it & 1) * T::BOX;
+    store_t(gbase + pb, f, r_local, c, tq);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    __syncwarp();
+    fence_regs(dq_acc);
+    wg_fence();
+    box_products256(dq_acc, base + pb, k_half + s_cur * T::TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dq_acc);
+    if (lane == 0) mbar_arrive(k_empty + 8 * s_cur);
+    ++it;
+    store_rows<128>(dq_acc, p.sm_scale, dq + w.b * p.a_sb + w.h * p.a_sh, p.a_ss, qrow, tq, p,
+                    128 * c);
+  }
+}
+
 // Shared memory of each kernel: its tiles and barriers + slack to align to 1024.
 template <int D>
 constexpr int dq_smem() {
@@ -1015,6 +1291,19 @@ int launch_dkv(const CUtensorMap (&m)[5], void* dk, void* dv, const int* order,
   flash_bwd_dkv_sm90_kernel<D, SOFTCAP><<<n_ctas, NTHREADS, dkv_smem<D>(), stream>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<bf16*>(dk), static_cast<bf16*>(dv), order, starts,
       p);
+  return cudaGetLastError();
+}
+
+template <bool SOFTCAP>
+int launch_dq256(const CUtensorMap (&m)[5], const float* lse, float* rows, const void* o,
+                 void* dq, const int* order, const int* starts, int n_ctas, const BwdArgs& p,
+                 cudaStream_t stream) {
+  static uint64_t set = 0;
+  const cudaError_t err = allow_smem(flash_bwd_dq256_sm90_kernel<SOFTCAP>, Dq256::BYTES, set);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq256_sm90_kernel<SOFTCAP><<<n_ctas, NTHREADS, Dq256::BYTES, stream>>>(
+      m[0], m[1], m[3], m[4], lse, rows, static_cast<const bf16*>(o), static_cast<bf16*>(dq),
+      order, starts, p);
   return cudaGetLastError();
 }
 
@@ -1085,9 +1374,10 @@ extern "C" {
 // triples in the order q, k, v, o, dout, dq. Then the persistent schedule:
 // n_ctas CTAs, CTA c taking order[starts[c] .. starts[c + 1]), each item
 // coded q_tile * B * Hq + b * Hq + h (ops/flash_attention.py sm90_schedule,
-// kind "dq"). Returns 0, a cudaError_t, 1 (cudaErrorInvalidValue) for a
-// head dim other than 64 or 128 or a layout the tensor maps cannot take, or
-// 1001 / 2000 + CUresult when a tensor map cannot be made.
+// kind "dq"; an item is 128 query rows, or 64 at D 256). Returns 0, a
+// cudaError_t, 1 (cudaErrorInvalidValue) for a head dim other than 64, 128
+// or 256 or a layout the tensor maps cannot take, or 1001 / 2000 + CUresult
+// when a tensor map cannot be made.
 int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const float* lse, float* rows, void* dq,
                                   int B, int Hq, int Hkv, int S, int D, int Dv,
@@ -1099,8 +1389,7 @@ int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, c
                                   int window, float softcap, const int* order, const int* starts,
                                   int n_ctas, void* stream) {
   BwdArgs p = {};
-  if (D == 256 ||
-      !fill(p, B, Hq, Hkv, S, D, Dv, sm_scale, causal, window, softcap, order, starts, n_ctas) ||
+  if (!fill(p, B, Hq, Hkv, S, D, Dv, sm_scale, causal, window, softcap, order, starts, n_ctas) ||
       !vec_ok(q, q_sb, q_sh, q_ss) || !vec_ok(k, k_sb, k_sh, k_ss) ||
       !vec_ok(v, v_sb, v_sh, v_ss) || !vec_ok(o, o_sb, o_sh, o_ss) ||
       !vec_ok(dout, do_sb, do_sh, do_ss) || lse == nullptr || rows == nullptr)
@@ -1108,16 +1397,23 @@ int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, c
   p.a_sb = dq_sb;
   p.a_sh = dq_sh;
   p.a_ss = dq_ss;
+  p.b_sb = o_sb;  // the d 256 kernel reads O from global memory, the others through m[2]
+  p.b_sh = o_sh;
+  p.b_ss = o_ss;
   p.vec_out = even_ok(dq, dq_sb, dq_sh, dq_ss);
   CUtensorMap m[5];
-  int err = map_4d(&m[0], q, D, S, Hq, B, q_sb, q_sh, q_ss, BM);
-  if (!err) err = map_4d(&m[1], dout, D, S, Hq, B, do_sb, do_sh, do_ss, BM);
-  if (!err) err = map_4d(&m[2], o, D, S, Hq, B, o_sb, o_sh, o_ss, BM);
+  const int item_rows = D == 256 ? Dq256::ROWS : BM;  // query rows an item
+  int err = map_4d(&m[0], q, D, S, Hq, B, q_sb, q_sh, q_ss, item_rows);
+  if (!err) err = map_4d(&m[1], dout, D, S, Hq, B, do_sb, do_sh, do_ss, item_rows);
+  if (!err && D != 256) err = map_4d(&m[2], o, D, S, Hq, B, o_sb, o_sh, o_ss, BM);
   if (!err) err = map_4d(&m[3], k, D, S, Hkv, B, k_sb, k_sh, k_ss, BN);
   if (!err) err = map_4d(&m[4], v, D, S, Hkv, B, v_sb, v_sh, v_ss, BN);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  if (D == 256)
+    return cap ? launch_dq256<true>(m, lse, rows, o, dq, order, starts, n_ctas, p, st)
+               : launch_dq256<false>(m, lse, rows, o, dq, order, starts, n_ctas, p, st);
   if (D == 64)
     return cap ? launch_dq<64, true>(m, lse, rows, dq, order, starts, n_ctas, p, st)
                : launch_dq<64, false>(m, lse, rows, dq, order, starts, n_ctas, p, st);
@@ -1129,8 +1425,7 @@ int kubedl_flash_bwd_dq_sm90_bf16(const void* q, const void* k, const void* v, c
 // their strides. Strides in (b, h, s) triples in the order q, k, v, dout,
 // dk, dv. The schedule's items are coded k_tile * B * Hkv + b * Hkv + hk
 // (kind "dkv"; a k_tile is 128 key rows, or 64 at D 256). D is 64, 128 or
-// 256; at 256 `rows` is built by the wrapper (ops/flash_attention.py
-// _dkv_rows), since flash_bwd.cu's dq kernel runs there. Returns as K2's.
+// 256. Returns as K2's.
 int kubedl_flash_bwd_dkv_sm90_bf16(const void* q, const void* k, const void* v,
                                    const void* dout, const float* rows, void* dk, void* dv,
                                    int B, int Hq, int Hkv, int S, int D, int Dv, int64_t q_sb,

@@ -16,8 +16,9 @@ head dim (`kernel_source`): ops/csrc/flash_fwd_sm90.cu (TMA, wgmma,
 warp-specialized) at every head dim, padded to 64, 128 or 256; the
 mma.sync kernel, ops/csrc/flash_fwd.cu, only where a caller names it. The
 backward's per kernel (`bwd_kernel_source`): ops/csrc/flash_bwd_sm90.cu's
-dq and dkv kernels at 64 or 128; at 256 flash_bwd.cu's dq kernel
-(mma.sync) and flash_bwd_sm90.cu's dkv kernel. When an input requires grad,
+dq and dkv kernels at every head dim, padded to 64, 128 or 256; the
+mma.sync kernels, ops/csrc/flash_bwd.cu, only where a caller names them.
+When an input requires grad,
 `flash_attention` goes through `FlashAttention`, a torch.autograd.Function
 whose forward keeps (q, k, v, out, lse) and whose backward is the dq and
 dkv kernels (the plain backward on CPU tensors).
@@ -41,8 +42,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the mma.sync kernels' template widths
 SM90, MMA_SYNC = "flash_fwd_sm90", "flash_fwd"  # the forward's kernel sources under ops/csrc/
 BWD_SM90, BWD_MMA_SYNC = "flash_bwd_sm90", "flash_bwd"  # the backward's
-SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90.cu's and flash_bwd_sm90.cu's dkv kernel's
-SM90_DQ_HEAD_DIMS = (64, 128)    # flash_bwd_sm90.cu's dq kernel's
+SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90.cu's and flash_bwd_sm90.cu's kernels'
 LOG2E = 1.4426950408889634
 
 
@@ -135,15 +135,13 @@ def kernel_source(head_dim: int) -> str:
 
 def bwd_kernel_source(head_dim: int, kind: str) -> str:
     """The csrc/ source whose `kind` kernel ("dq" or "dkv") the CUDA
-    backward takes at this head dim: flash_bwd_sm90.cu, padded to 64 or 128
-    for both and to 256 for dkv; flash_bwd.cu for dq at 256. Raises past
-    256."""
+    backward takes at this head dim: flash_bwd_sm90.cu for both, padded to
+    64, 128 or 256. Raises past 256."""
     if kind not in ("dq", "dkv"):
         raise ValueError(f"flash_attention_bwd: unknown kernel {kind!r}")
-    if head_dim > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention_bwd: head_dim {head_dim} > {HEAD_DIMS[-1]}")
-    widths = SM90_DQ_HEAD_DIMS if kind == "dq" else SM90_HEAD_DIMS
-    return BWD_SM90 if head_dim <= widths[-1] else BWD_MMA_SYNC
+    if head_dim > SM90_HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention_bwd: head_dim {head_dim} > {SM90_HEAD_DIMS[-1]}")
+    return BWD_SM90
 
 
 SM90_BLOCK = 128              # query rows an item and key rows a tile of flash_fwd_sm90.cu
@@ -153,9 +151,10 @@ SM90_L2_GROUP_BYTES = 24 << 20  # streamed bytes a group of items may take: half
 # "dkv" items are key rows of one (b, KV head) streaming the Q/dO tiles of
 # every query head of its GQA group
 SM90_TILES = {"fwd": (SM90_BLOCK, SM90_BLOCK), "dq": (128, 64), "dkv": (128, 64)}
-# at head dim 256, where a 128-row K/V tile (forward) or a 128-row dK/dV
-# item does not fit in shared memory and registers (Fwd<256>, Dkv256)
-SM90_TILES_D256 = {"fwd": (SM90_BLOCK, 64), "dkv": (64, 64)}
+# at head dim 256, where a 128-row K/V tile (forward) or a 128-row dQ or
+# dK/dV item does not fit in shared memory and registers (Fwd<256>, Dq256,
+# Dkv256)
+SM90_TILES_D256 = {"fwd": (SM90_BLOCK, 64), "dq": (64, 64), "dkv": (64, 64)}
 
 
 def sm90_tiles(kind: str, d: int = 128) -> Tuple[int, int]:
@@ -404,17 +403,6 @@ def _lib_bwd(source: str):
     return fns
 
 
-def _dkv_rows(lse: torch.Tensor, delta: torch.Tensor, s64: int) -> torch.Tensor:
-    """The f32 buffer flash_bwd_sm90.cu's dkv kernel reads, [2, b, hq, s64]:
-    each row's LSE * log2 e, then its delta, with rows s.. (S rounded up to
-    64) holding +inf and 0, so p = 0 there. Its dq kernel writes the same
-    buffer; at head dim 256, where flash_bwd.cu's dq kernel runs, it is
-    built here from the forward's lse and the wrapper's delta."""
-    s = lse.shape[-1]
-    return torch.stack((F.pad(lse.float() * LOG2E, (0, s64 - s), value=math.inf),
-                        F.pad(delta.float(), (0, s64 - s))))
-
-
 def _bwd_plan(d: int, source: Optional[str] = None) -> Tuple[Dict[str, str], int]:
     """({"dq": source, "dkv": source}, width): each backward kernel's csrc/
     source (`bwd_kernel_source`, or `source` for both) and the head dim
@@ -426,8 +414,7 @@ def _bwd_plan(d: int, source: Optional[str] = None) -> Tuple[Dict[str, str], int
     sources = {}
     for kind in ("dq", "dkv"):
         sources[kind] = src = source or bwd_kernel_source(d, kind)
-        widths = HEAD_DIMS if src == BWD_MMA_SYNC else \
-            SM90_DQ_HEAD_DIMS if kind == "dq" else SM90_HEAD_DIMS
+        widths = HEAD_DIMS if src == BWD_MMA_SYNC else SM90_HEAD_DIMS
         if width is None or width > widths[-1]:
             raise ValueError(f"flash_attention_bwd: head_dim {d} > {widths[-1]} "
                              f"({src}.cu's {kind} kernel)")
@@ -443,8 +430,7 @@ def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap,
     flash_bwd_sm90.cu the dq kernel computes delta = rowsum(out * dout) and
     writes it, with LSE * log2 e, to a [2, b, hq, S rounded up to 64] f32
     buffer that the dkv kernel reads; on flash_bwd.cu delta is computed
-    here, and where flash_bwd_sm90.cu's dkv kernel follows flash_bwd.cu's
-    dq kernel (head dim 256) the buffer is built here too (`_dkv_rows`)."""
+    here."""
     _check(q, k, v, causal, window, softcap)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if x.device.type != "cuda":
@@ -474,8 +460,7 @@ def _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale, window, softcap,
         f32 = {"dq": [lse, rows], "dkv": [rows]}
     else:
         delta = (out.float() * dout.float()).sum(-1)  # [b, hq, s] f32, contiguous
-        f32 = {"dq": [lse, delta], "dkv": [_dkv_rows(lse, delta, s64)]
-               if sources["dkv"] == BWD_SM90 else [lse, delta]}
+        f32 = {"dq": [lse, delta], "dkv": [lse, delta]}
     if width != d:
         q, k, v, out, dout = (F.pad(x, (0, width - d)) for x in (q, k, v, out, dout))
     q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout))
@@ -531,8 +516,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     output gradient, with the same checks, head-dim padding and stride
     rules. The kernels are the ones `bwd_kernel_source(head_dim, kind)`
     names, or `source` (BWD_SM90 or BWD_MMA_SYNC) for both where a caller
-    compares them (BWD_SM90 raises at head dim 256, which its dq kernel
-    does not take); nothing on the model's path passes it. dq is a [b, hq, s, d] view of a
+    compares them; nothing on the model's path passes it. dq is a [b, hq, s, d] view of a
     [b, s, hq, d] buffer and dk, dv of [b, s, hkv, d] buffers, the layouts
     the model's projections produce."""
     launches, grads = _bwd_launch_args(q, k, v, out, lse, dout, causal, sm_scale,

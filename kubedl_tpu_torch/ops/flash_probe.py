@@ -14,11 +14,16 @@ Each forward variant is launched through ops/flash_attention.py's wrapper:
               raw scores to bf16: the products, the loads and the epilogue
               alone (its output is wrong; only its time is read);
   mma_sync    flash_fwd.cu, the mma.sync kernel, at the same shapes.
-The backward's variants, each the dq and the dkv launch timed apart:
+The backward's variants, each the dq and the dkv launch timed apart, at
+d 128 and at phase 2b's d 256 shapes (Gemma-2's, q x8 under the softcap):
   base        the two kernels as they are;
   noelem      the source with the elementwise work between the products
               (p, ds, the masks) taken out: each tile's raw S and dP feed
               the next products (its output is wrong; only its time is read);
+  latek       the d 256 dq kernel releasing a tile's K only after the next
+              tile's ds, not as soon as its dQ product retires (the same
+              output; with 2 stages the load of the tile after next then
+              has no slack);
   mma_sync    flash_bwd.cu, the mma.sync kernels, at the same shapes.
 Device time of 10 launches captured in a CUDA graph, median of 7 replays.
 Prints the card's name and power limit, then one line per variant and
@@ -61,11 +66,29 @@ _BWD_ELEM = {
     df[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
     df[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);""",
 }
+# the d 256 dq kernel's release of a tile's K, and where the latek
+# variant moves it: after the next tile's ds
+_K_EARLY = ("""      fence_regs(dq_acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s_cur);  // K of this tile is read
+      wg_wait<0>();""", """      fence_regs(dq_acc);
+      wg_wait<0>();""")
+_K_LATE = ("""                        kt * BN + 32 * c, tq);
+      pack(f, s_acc);
+      s_cur = s_next;""", """                        kt * BN + 32 * c, tq);
+      pack(f, s_acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s_cur);
+      s_cur = s_next;""")
 # name: (b, hq, hkv, s); causal, d = 128
 SHAPES = {"b4_h32_s1024": (4, 32, 32, 1024), "gqa_s1024": (4, 32, 8, 1024),
           "b8_h32_s256": (8, 32, 32, 256), "b1_h8_s8320": (1, 8, 8, 8320)}
 BWD_SHAPES = {"b4_h32_s1023": (4, 32, 32, 1023), "gqa_s1024": (4, 32, 8, 1024),
               "b1_h8_s8192": (1, 8, 8, 8192)}
+# name: (b, hq, hkv, s, window, softcap); causal, d = 256: chip_smoke.py's
+# phase 2b rows at d 256
+BWD_D256_SHAPES = {"gemma2_s1023": (4, 8, 4, 1023, None, 50.0),
+                   "d256_gqa_s1023": (4, 8, 4, 1023, None, None),
+                   "gemma2_w4096_b1_s5000": (1, 8, 4, 5000, 4096, 50.0),
+                   "d256_b2_h8_s1024": (2, 8, 8, 1024, None, None)}
 
 
 def variants() -> dict:
@@ -78,12 +101,18 @@ def variants() -> dict:
 
 def bwd_variants() -> dict:
     """{name: source} of the backward's variants built from a patched copy."""
-    src = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
+    base = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
+    src = base
     for work, stub in _BWD_ELEM.items():
         if work not in src:
             raise RuntimeError("flash_probe: the elementwise work in flash_bwd_sm90.cu moved")
         src = src.replace(work, stub)
-    return {"noelem": src}
+    late = base
+    for was, now in (_K_EARLY, _K_LATE):
+        if late.count(was) != 1:
+            raise RuntimeError("flash_probe: the d 256 dq kernel's K release moved")
+        late = late.replace(was, now)
+    return {"noelem": src, "latek": late}
 
 
 def build(sources: dict, base: str = "flash_fwd_sm90") -> dict:
@@ -142,7 +171,8 @@ def _graph_ms(fn, reps: int = 10, iters: int = 7) -> float:
 
 
 def bwd_main(reps: int) -> int:
-    """The backward's variants at BWD_SHAPES (causal, d = 128)."""
+    """The backward's variants at BWD_SHAPES (causal, d = 128) and
+    BWD_D256_SHAPES (causal, d = 256)."""
     libs = build(bwd_variants(), base=fa.BWD_SM90)
     gen = torch.Generator(device="cuda").manual_seed(0)
     base_lib = _build.load(fa.BWD_SM90)
@@ -150,24 +180,31 @@ def bwd_main(reps: int) -> int:
     runs += [(name, lib, fa.BWD_SM90) for name, lib in libs.items()]
     runs += [("mma_sync", None, fa.BWD_MMA_SYNC)]
     inputs = {}
-    for shape, (b, hq, hkv, s) in BWD_SHAPES.items():
-        q, k, v = (torch.randn((b, h, s, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    shapes = {name: (*x, 128, None, None) for name, x in BWD_SHAPES.items()}
+    shapes.update({name: (b, hq, hkv, s, 256, window, cap)
+                   for name, (b, hq, hkv, s, window, cap) in BWD_D256_SHAPES.items()})
+    for shape, (b, hq, hkv, s, d, window, cap) in shapes.items():
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
-        out, lse = fa.flash_attention_fwd(q, k, v)
-        inputs[shape] = (q, k, v, out, lse, torch.randn_like(out))
+        if cap is not None:
+            q = q * 8  # as chip_smoke.py's softcap rows: the scores reach the cap
+        out, lse = fa.flash_attention_fwd(q, k, v, window=window, softcap=cap)
+        inputs[shape] = (q, k, v, out, lse, torch.randn_like(out), window, cap)
     try:
         for rep in range(reps):
             for name, lib, source in runs:
                 if lib is not None:
                     _build._loaded[fa.BWD_SM90] = lib
                 line = []
-                for shape, (q, k, v, out, lse, dout) in inputs.items():
-                    args, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None,
-                                                  None, source)
+                for shape, (q, k, v, out, lse, dout, window, cap) in inputs.items():
+                    args, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, window,
+                                                  cap, source)
                     dq = _graph_ms(lambda: fa._launch_bwd("dq", args["dq"]))
                     dkv = _graph_ms(lambda: fa._launch_bwd("dkv", args["dkv"]))
-                    b, hq, s = q.shape[0], q.shape[1], q.shape[2]
-                    flop = 10 * b * hq * 128 * s * (s + 1) // 2
+                    b, hq, s, d = q.shape
+                    w = min(window or s, s)
+                    pairs = w * (w + 1) // 2 + (s - w) * w
+                    flop = 10 * b * hq * d * pairs
                     line.append(f"{shape} dq {dq:.4f} dkv {dkv:.4f} ms "
                                 f"({flop / (dq + dkv) / 1e9:.0f} TFLOP/s)")
                 print(f"rep {rep} bwd {name}: " + " ".join(line), flush=True)

@@ -258,8 +258,8 @@ def test_flash_fwd_sm90_refuses_what_it_does_not_take(dev):
 
 # flash_bwd_sm90.cu (TMA, wgmma) on every KERNEL_CASES row, and beyond
 # them: the main training shape's tail and GQA 32/8 over many items; at d
-# 256 its dkv kernel (Dkv256: 64-key items, the head dim split across the
-# consumers) beside flash_bwd.cu's dq kernel
+# 256 its Dq256 and Dkv256 kernels (64-row items, the head dim split
+# across the consumers)
 SM90_BWD_CASES = KERNEL_CASES + [
     (4, 32, 32, 1023, 128, True, None, None),   # S 1023: a ragged q tile and a masked S tail
     (2, 32, 8, 300, 128, True, None, None),     # GQA 32/8: dK, dV summed over 4 query heads
@@ -279,10 +279,10 @@ def test_flash_bwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal
     """The TMA/wgmma backward against the f32 plain backward (max|kernel -
     plain| / max|plain| <= 2e-2 for dq, dk, dv, finite), two launches
     bit-identical, and flash_bwd.cu's mma.sync kernels at the same shape
-    within twice that (each is within it of plain). At d 256 the dq kernel
-    is flash_bwd.cu's on both routes."""
+    within twice that (each is within it of plain). Both kernels route to
+    flash_bwd_sm90.cu at every head dim, 256 included."""
     assert fa.bwd_kernel_source(d, "dkv") == fa.BWD_SM90
-    assert fa.bwd_kernel_source(d, "dq") == (fa.BWD_SM90 if d <= 128 else fa.BWD_MMA_SYNC)
+    assert fa.bwd_kernel_source(d, "dq") == fa.BWD_SM90
     q, k, v = _qkv(dev, b, hq, hkv, s, d)
     q = _gemma_q(q, d, softcap)
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -301,25 +301,28 @@ def test_flash_bwd_sm90_matches_plain_and_mma_sync(dev, b, hq, hkv, s, d, causal
         assert _rel_err(g, o) <= 4e-2, (name, _rel_err(g, o))
 
 
-def test_flash_bwd_sm90_reads_strided_views_in_place(dev):
+@pytest.mark.parametrize("hq,hkv,d,softcap", [(8, 2, 128, None), (8, 4, 256, 50.0)])
+def test_flash_bwd_sm90_reads_strided_views_in_place(dev, hq, hkv, d, softcap):
     """The model's q/k/v/out/dout, transpose(1, 2) views of [b, s, h, d]
-    buffers, go to the tensor maps as they are (no copy), GQA included."""
-    b, s, hq, hkv, d = 2, 300, 8, 2, 128
+    buffers, go to the tensor maps as they are (no copy), GQA included:
+    the 7B's width, and Gemma-2's (d 256, GQA 8/4, softcap 50, q x8), where
+    the dq kernel also reads out's rows from global memory for delta."""
+    b, s = 2, 300
     rng = np.random.default_rng(6)
 
-    def view(h):
-        return (torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+    def view(h, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32) * scale)
                 .to(dev, torch.bfloat16).transpose(1, 2))
 
-    q, k, v, dout = view(hq), view(hkv), view(hkv), view(hq)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, None)
+    q, k, v, dout = view(hq, 8.0 if softcap else 1.0), view(hkv), view(hkv), view(hq)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, softcap=softcap)
+    launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, softcap)
     assert launches["dq"][0] == launches["dkv"][0] == fa.BWD_SM90
     for x, y in zip((q, k, v, out, dout), launches["dq"][1]):
         assert not x.is_contiguous() and y.data_ptr() == x.data_ptr()
-    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, softcap=softcap)
     ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
-                                       dout.float(), causal=True)
+                                       dout.float(), causal=True, softcap=softcap)
     for g, r in zip(got, ref):
         assert _rel_err(g, r) <= 2e-2
 
@@ -333,25 +336,39 @@ def test_flash_bwd_sm90_refuses_what_it_does_not_take(dev):
         fa.flash_attention_bwd(q, k, v, out, lse[:, :1], out, source=fa.BWD_SM90)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(q, k, v, out, lse, out, source="flash_bwd_sm80")
-    big = torch.zeros(1, 1, 8, 256, device=dev, dtype=torch.bfloat16)
+    big = torch.zeros(1, 1, 8, 320, device=dev, dtype=torch.bfloat16)
+    n0 = (fa.flash_attention.bwd_dq_launches, fa.flash_attention.bwd_dkv_launches)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(big, big, big, big, torch.zeros(1, 1, 8, device=dev), big,
                                source=fa.BWD_SM90)
-
-
-def test_flash_bwd_sm90_dq_refuses_d256(dev):
-    """flash_bwd_sm90.cu has no dq kernel at head dim 256: source=BWD_SM90
-    raises there before anything launches, while the routed backward
-    pairs flash_bwd.cu's dq kernel with the sm90 dkv kernel."""
-    q, k, v = _qkv(dev, 1, 2, 2, 64, 256)
-    out, lse = fa.flash_attention_fwd(q, k, v)
-    dout = _qkv(dev, 1, 2, 2, 64, 256, seed=1)[0]
-    n0 = (fa.flash_attention.bwd_dq_launches, fa.flash_attention.bwd_dkv_launches)
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, k, v, out, lse, dout, source=fa.BWD_SM90)
     assert (fa.flash_attention.bwd_dq_launches, fa.flash_attention.bwd_dkv_launches) == n0
+
+
+@pytest.mark.parametrize("s", [333, 1023])
+def test_flash_bwd_sm90_dq256_writes_the_rows(dev, s):
+    """The d 256 dq kernel writes the [2, b, hq, S rounded up to 64] f32
+    rows the dkv kernel reads: LSE * log2 e and delta = rowsum(out * dout)
+    (within 1e-5 of their scale: f32 sums in another order), +inf and 0 on
+    the rows past S."""
+    b, hq, hkv, d = 2, 8, 4, 256
+    q, k, v = _qkv(dev, b, hq, hkv, s, d, seed=4)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dout = _qkv(dev, b, hq, hq, s, d, seed=5)[0]
     launches, _ = fa._bwd_launch_args(q, k, v, out, lse, dout, True, None, None, None)
-    assert (launches["dq"][0], launches["dkv"][0]) == (fa.BWD_MMA_SYNC, fa.BWD_SM90)
+    assert launches["dq"][0] == fa.BWD_SM90
+    rows = launches["dq"][1][6]  # q, k, v, out, dout, lse, then the rows
+    s64 = -(-s // 64) * 64
+    assert rows.shape == (2, b, hq, s64) and rows.dtype == torch.float32
+    rows.fill_(float("nan"))
+    fa._launch_bwd("dq", launches["dq"])
+    torch.cuda.synchronize()
+    lse2 = lse * fa.LOG2E
+    delta = (out.float() * dout.float()).sum(-1)
+    for got, want in ((rows[0, ..., :s], lse2), (rows[1, ..., :s], delta)):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(rows[0, ..., s:], torch.full_like(rows[0, ..., s:], float("inf")))
+    assert torch.equal(rows[1, ..., s:], torch.zeros_like(rows[1, ..., s:]))
 
 
 @pytest.fixture(scope="module")

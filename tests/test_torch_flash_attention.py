@@ -151,12 +151,11 @@ def test_kernel_source_refuses_past_256():
 
 @pytest.mark.parametrize("head_dim,source", [
     (1, tfa.BWD_SM90), (40, tfa.BWD_SM90), (64, tfa.BWD_SM90), (100, tfa.BWD_SM90),
-    (128, tfa.BWD_SM90), (129, (tfa.BWD_MMA_SYNC, tfa.BWD_SM90)),
-    (256, (tfa.BWD_MMA_SYNC, tfa.BWD_SM90))])
+    (128, tfa.BWD_SM90), (129, (tfa.BWD_SM90, tfa.BWD_SM90)),
+    (256, (tfa.BWD_SM90, tfa.BWD_SM90))])
 def test_bwd_kernel_source_routes_by_head_dim(head_dim, source):
-    """The backward's route table, (dq, dkv): padded to 64 or 128, both on
-    flash_bwd_sm90.cu; padded to 256, dq on flash_bwd.cu and dkv on
-    flash_bwd_sm90.cu."""
+    """The backward's route table, (dq, dkv): padded to 64, 128 or 256,
+    both kernels on flash_bwd_sm90.cu; no head dim reaches flash_bwd.cu."""
     want = source if isinstance(source, tuple) else (source, source)
     assert (tfa.bwd_kernel_source(head_dim, "dq"), tfa.bwd_kernel_source(head_dim, "dkv")) == want
 
@@ -170,43 +169,27 @@ def test_bwd_kernel_source_refuses_past_256():
 
 
 @pytest.mark.parametrize("d,source,want", [
-    (200, None, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_SM90}, 256)),
-    (256, None, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_SM90}, 256)),
+    (200, None, ({"dq": tfa.BWD_SM90, "dkv": tfa.BWD_SM90}, 256)),
+    (256, None, ({"dq": tfa.BWD_SM90, "dkv": tfa.BWD_SM90}, 256)),
     (256, tfa.BWD_MMA_SYNC, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_MMA_SYNC}, 256)),
     (100, None, ({"dq": tfa.BWD_SM90, "dkv": tfa.BWD_SM90}, 128)),
     (40, tfa.BWD_MMA_SYNC, ({"dq": tfa.BWD_MMA_SYNC, "dkv": tfa.BWD_MMA_SYNC}, 64)),
 ])
 def test_bwd_plan_routes_each_kernel(d, source, want):
-    """One backward mixes sources at head dim 256: flash_bwd.cu's dq kernel,
-    then flash_bwd_sm90.cu's dkv kernel; `source` names one source for
-    both kernels, where a caller compares them."""
+    """Both backward kernels take flash_bwd_sm90.cu at every head dim,
+    padded to 64, 128 or 256; `source` names one source for both kernels,
+    where a caller compares them."""
     assert tfa._bwd_plan(d, source) == want
 
 
-@pytest.mark.parametrize("d,source", [(256, tfa.BWD_SM90), (129, tfa.BWD_SM90),
+@pytest.mark.parametrize("d,source", [(257, tfa.BWD_SM90), (320, tfa.BWD_SM90),
                                       (320, None), (64, "flash_bwd_sm80")])
 def test_bwd_plan_refuses_what_no_kernel_takes(d, source):
-    """BWD_SM90 past 128 asks for its dq kernel at a width it does not
-    take: the wrapper raises before anything is built or launched."""
+    """Past head dim 256 no kernel takes the width, whichever source is
+    asked for, and an unknown source raises: the wrapper raises before
+    anything is built or launched."""
     with pytest.raises(ValueError):
         tfa._bwd_plan(d, source)
-
-
-def test_dkv_rows_layout():
-    """`_dkv_rows`: [2, b, hq, S rounded up to 64] f32, LSE * log2 e then
-    delta, +inf and 0 on the rows past S, as the sm90 dq kernel writes it."""
-    rng = np.random.default_rng(7)
-    for s in (1, 64, 100, 1023):
-        lse = torch.from_numpy(rng.standard_normal((2, 3, s), np.float32))
-        delta = torch.from_numpy(rng.standard_normal((2, 3, s), np.float32))
-        s64 = -(-s // 64) * 64
-        rows = tfa._dkv_rows(lse, delta, s64)
-        want = torch.zeros((2, 2, 3, s64))
-        want[0, ..., :s] = lse * np.float32(1.4426950408889634)
-        want[0, ..., s:] = float("inf")
-        want[1, ..., :s] = delta
-        assert rows.dtype == torch.float32 and rows.shape == (2, 2, 3, s64)
-        assert rows.is_contiguous() and torch.equal(rows, want)
 
 
 def test_bwd_wrapper_refuses_cpu_tensors_on_either_route():
@@ -381,9 +364,10 @@ def test_sm90_tiles_match_the_kernels_live_range(qt, s, causal, window, want):
 
 
 def test_flash_probe_variants_still_apply():
-    """ops/flash_probe.py patches flash_fwd_sm90.cu's softmax dispatch and
-    flash_bwd_sm90.cu's elementwise work, and deals sm90_items out round
-    robin: all must keep matching the code."""
+    """ops/flash_probe.py patches flash_fwd_sm90.cu's softmax dispatch,
+    flash_bwd_sm90.cu's elementwise work and the d 256 dq kernel's release
+    of K, and deals sm90_items out round robin: all must keep matching the
+    code."""
     from kubedl_tpu_torch.ops import flash_probe
 
     src = flash_probe.variants()["nosoftmax"]
@@ -391,6 +375,8 @@ def test_flash_probe_variants_still_apply():
     src = flash_probe.bwd_variants()["noelem"]
     assert all(stub in src for stub in flash_probe._BWD_ELEM.values())
     assert not any(work in src for work in flash_probe._BWD_ELEM)
+    src = flash_probe.bwd_variants()["latek"]
+    assert flash_probe._K_LATE[1] in src and flash_probe._K_EARLY[0] not in src
     order, starts = flash_probe.round_robin(2, 8, 2, 300, 128, True, None, 7)
     assert sorted(order.tolist()) == list(range(2 * 8 * 3))
     assert starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
@@ -425,17 +411,18 @@ D256_SCHEDULE_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dkv"])
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("shape", D256_SCHEDULE_SHAPES)
 def test_d256_schedule_takes_every_item_once(shape, kind):
-    """At head dim 256 the forward streams 64-key tiles into 128-row items
-    and the dkv kernel's items are 64 key rows: every item of that size in
-    exactly one CTA's list, the CTAs' costs (in 64-row tiles) within 12 %
-    of the mean wherever there are several items a CTA."""
+    """At head dim 256 the forward streams 64-key tiles into 128-row items,
+    the dq kernel's items are 64 query rows and the dkv kernel's 64 key
+    rows: every item of that size in exactly one CTA's list, the CTAs'
+    costs (in 64-row tiles) within 12 % of the mean wherever there are
+    several items a CTA."""
     b, hq, hkv, s, d, causal, window = shape
     n_ctas, rep = 132, hq // hkv
     pairs, per = (b * hkv, rep) if kind == "dkv" else (b * hq, 1)
-    rows = 64 if kind == "dkv" else 128
+    rows = 128 if kind == "fwd" else 64
     assert tfa.sm90_tiles(kind, d) == (rows, 64)
     order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)
     assert starts[0] == 0 and starts[-1] == len(order) and np.all(np.diff(starts) >= 0)
@@ -447,11 +434,11 @@ def test_d256_schedule_takes_every_item_once(shape, kind):
     assert tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, n_ctas, kind)[0] is order
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dkv"])
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 def test_d256_schedule_takes_the_longest_items_first(kind):
     """Inside one L2 group a CTA's causal items at head dim 256 never get
-    more expensive: the forward's last query blocks and dkv's first key
-    blocks first, costed in 64-row tiles."""
+    more expensive: the forward's and dq's last query blocks and dkv's
+    first key blocks first, costed in 64-row tiles."""
     b, hq, hkv, s, d = 4, 8, 4, 1024, 256
     order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, True, None, 16, kind)
     pairs = b * hkv if kind == "dkv" else b * hq
@@ -468,18 +455,52 @@ def test_d256_schedule_takes_the_longest_items_first(kind):
     ("fwd", 0, 1024, True, None, 2), ("fwd", 7, 1024, True, None, 16),
     ("fwd", 3, 1023, False, None, 16), ("fwd", 39, 5000, True, 4096, 65),
     ("fwd", 2, 333, True, 100, 4),
+    ("dq", 0, 1023, True, None, 1), ("dq", 15, 1023, True, None, 16),
+    ("dq", 3, 1024, False, None, 16), ("dq", 78, 5000, True, 4096, 65),
+    ("dq", 4, 333, True, 100, 3),
     ("dkv", 0, 1023, True, None, 16), ("dkv", 15, 1023, True, None, 1),
     ("dkv", 3, 1024, False, None, 16), ("dkv", 0, 5000, True, 4096, 65),
     ("dkv", 1, 333, True, 100, 3)])
 def test_d256_tiles_match_the_kernels_live_range(kind, t, s, causal, window, want):
     """The 64-row tiles an item streams at head dim 256 (Fwd<256>'s item_of,
-    Dkv256's dkv_item): the forward's K/V tiles up to its diagonal and from
-    its window's first key; dkv's q tiles from its diagonal to the window's
-    last query."""
+    Dq256's and Dkv256's dq_item / dkv_item): the forward's and dq's K/V
+    tiles up to its diagonal and from its window's first key; dkv's q tiles
+    from its diagonal to the window's last query."""
     assert tfa._tiles(t, s, causal, window, kind, 256) == want
 
 
-def test_dq_has_no_d256_tiles():
-    """No sm90 dq kernel takes head dim 256: its tiles are not asked for."""
-    with pytest.raises(KeyError):
-        tfa.sm90_tiles("dq", 256)
+def _live_key_tiles(t, s, causal, window, rows=64, cols=64):
+    """The cols-key tiles holding a (query, key) pair that the masks keep,
+    for the query rows [t * rows, (t + 1) * rows) below s: counted pair by
+    pair."""
+    qs = np.arange(t * rows, min((t + 1) * rows, s))[:, None]
+    ks = np.arange(s)[None, :]
+    keep = np.ones((len(qs), s), bool)
+    if causal:
+        keep &= ks <= qs
+    if window:
+        keep &= ks > qs - window
+    return len(np.unique(np.nonzero(keep.any(0))[0] // cols))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 1, 333, 256, True, 100),       # a window shorter than S, a ragged tail
+    (2, 4, 2, 1023, 256, True, None),     # Gemma-2's training rows, causal
+    (1, 2, 1, 5000, 256, True, 4096),     # the sliding layers past the window
+    (2, 2, 2, 260, 256, False, None),     # not causal
+])
+def test_d256_dq_schedule_costs_match_a_brute_force_count(shape):
+    """The d 256 dq schedule's items are 64 query rows each, every one in
+    exactly one CTA's list, and each item's cost is one (its prologue and
+    epilogue) plus the 64-key tiles that hold a pair the causal and window
+    masks keep, counted pair by pair: the work the kernel's live range
+    [kb, ke) streams, no tile more or less."""
+    b, hq, hkv, s, d, causal, window = shape
+    pairs = b * hq
+    assert tfa.sm90_tiles("dq", d) == (64, 64)
+    items = list(tfa.sm90_items(b, hq, hkv, s, d, causal, window, "dq"))
+    assert sorted(code for code, _ in items) == list(range(pairs * -(-s // 64)))
+    for code, cost in items:
+        assert cost == _live_key_tiles(code // pairs, s, causal, window) + 1, code
+    order, starts = tfa.sm90_schedule(b, hq, hkv, s, d, causal, window, 132, "dq")
+    assert sorted(order.tolist()) == list(range(pairs * -(-s // 64)))
