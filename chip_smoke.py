@@ -165,6 +165,26 @@ Phases, each printing its own line of numbers:
      512 tokens from a seeded JSONL, and evaluate --hf-model on a seeded
      shard. The directory is removed after. K1 launches of a-d and K2/K3
      of (c) and (d) are the kernels line's d 256 rows.
+  16. RL, inside phase 15 on its directory: (a) grpo --hf-model, 3
+     on-policy steps of 4 prompts x 8 samples x 32 new tokens (KL 0.04,
+     lr 1e-4, reward_low_ids through --reward-module) with a checkpoint,
+     then a resume to step 4 with 2 inner
+     epochs on the rollout's behavior logprobs: losses, KL and grad norms
+     finite, on-policy ratio exactly 1 and clip 0, step-1 KL <= 1e-3, the
+     off-policy first-epoch ratio within LP_TOL of 1, the checkpoint
+     generate reads equal to the state the resume restored bit for bit,
+     K1/K2/K3 launches counted, rollout and learner seconds a step, peak
+     memory; (b) the lockstep RLFleet (1 actor, B 2, G 4, K 32, 2 learner
+     steps) against the monolithic loop with the same seeds, run first and
+     freed: losses and grad norms within 1e-5 relative (floor 1e-3),
+     every grad norm above 0, no stale drop, the last weight
+     record decoded against the learner's parameters bit for bit, publish
+     seconds and GB/s; (c) rl_pod's learner and actor as two processes on
+     the dir lane at bench-1b (head dim 128), 3 steps of B 4, G 4, K 32,
+     maxWeightLag 1: both exit 0, 12 groups consumed, the actor ends on
+     version 3. The launches of (a) and (b) join the d 256 rows as
+     gemma2_grpo and gemma2_rl_fleet; phase 16's numbers are a JSON line
+     of their own ({"rl": ...}) before the kernels line.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -999,23 +1019,31 @@ def _kernel_profile(trace_json, wall_ms):
                 top=[(n[:70], us / 1e3) for n, us in top], groups=groups)
 
 
-def _run_trainer(argv, tag):
-    """trainer.main(argv) in this process with its spans exported to a
-    fresh trace dir; returns (rc, train spans, trace dir)."""
-    from kubedl_tpu_torch.train import trainer
-
+@contextlib.contextmanager
+def _traced(tag):
+    """An entry point run in this process exports its spans to a fresh
+    trace dir (yielded) under POD_NAME chip-smoke-<tag>."""
     trace_dir = os.path.join(WORK, f"trace-{tag}")
     shutil.rmtree(trace_dir, ignore_errors=True)
     saved = {k: os.environ.get(k) for k in ("KUBEDL_TRACE_DIR", "POD_NAME")}
     os.environ.update(KUBEDL_TRACE_DIR=trace_dir, POD_NAME=f"chip-smoke-{tag}")
     try:
-        rc = trainer.main(argv)
+        yield trace_dir
     finally:
         for k, val in saved.items():
             if val is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = val
+
+
+def _run_trainer(argv, tag):
+    """trainer.main(argv) in this process with its spans exported to a
+    fresh trace dir; returns (rc, train spans, trace dir)."""
+    from kubedl_tpu_torch.train import trainer
+
+    with _traced(tag) as trace_dir:
+        rc = trainer.main(argv)
     steps = [sp for sp in _trace_spans(trace_dir)
              if sp["name"] in ("train.compile", "train.step")]
     steps.sort(key=lambda sp: sp["attrs"]["step"])
@@ -3463,6 +3491,339 @@ def _15d_dpo_eval(path, smi):
                 eval_launches=eval_launches)
 
 
+# phase 16: GRPO on Gemma-2-2B, the in-process fleet on the same weights, and
+# the fleet's pods at bench-1b (head dim 128) as two processes
+# K 32 rather than 64 keeps the whole run nearer its time target; lr 1e-4
+# because Adam's first updates (~lr an element) under ~1e-4 fall below the
+# rounding step of most bf16 weights, and the parameters would not move
+G2_GRPO = dict(prompts=16, prompt_len=64, B=4, G=8, K=32, steps=3, kl=0.04, lr=1e-4)
+G2_FLEET = dict(B=2, G=4, K=32, steps=2, lr=1e-4)
+RL_REWARD = "chip_smoke:reward_low_ids"
+RL_POD = dict(model="bench-1b", steps=3, B=4, G=4, K=32, lag=1)
+RL_LP_TOL = LP_TOL  # 16a's off-policy ratio: behavior logprobs against the training forward
+
+
+def reward_low_ids(prompt_ids, completion_ids):
+    """Phase 16's reward: the share of completion ids in the lower half of
+    Gemma-2's vocabulary. A seeded policy scores about 0.5 with a spread
+    that a group of 8 resolves, so advantages are not all 0 (token-match
+    on one id of 256,000 scores 0 everywhere and trains nothing)."""
+    half = GEMMA2_2B["vocab_size"] // 2
+    return sum(1 for t in completion_ids if t < half) / max(len(completion_ids), 1)
+
+
+def _run_grpo(argv, tag):
+    """grpo.main(argv) in this process with its spans exported to a fresh
+    trace dir; returns (rc, printed text, spans by name)."""
+    from kubedl_tpu_torch.train import grpo
+
+    with _traced(tag) as trace_dir, _captured() as out:
+        rc = grpo.main(argv)
+    spans = {}
+    for sp in _trace_spans(trace_dir):
+        spans.setdefault(sp["name"], []).append(sp)
+    for v in spans.values():
+        v.sort(key=lambda sp: (sp["attrs"]["step"], sp["attrs"].get("epoch", 0)))
+    return rc, out.text(), spans
+
+
+def _grpo_prompts(path, c, vocab):
+    data = os.path.join(path, "grpo-prompts.jsonl")
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(1, vocab, c["prompt_len"]).tolist() for _ in range(c["prompts"])]
+    with open(data, "w") as f:
+        for p in prompts:
+            f.write(json.dumps({"prompt": p}) + "\n")
+    return data, prompts
+
+
+def _16a_grpo(path, smi):
+    """grpo --hf-model DIR: 3 on-policy steps of 4 prompts x 8 samples x 64
+    new tokens with a checkpoint, then a resume to step 4 with two inner
+    epochs on the rollout's behavior logprobs."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.train import checkpoint, generate
+
+    c, n_layers = G2_GRPO, GEMMA2_2B["num_hidden_layers"]
+    data, _ = _grpo_prompts(path, c, GEMMA2_2B["vocab_size"])
+    ckpt = os.path.join(WORK, "ckpt-grpo-gemma2")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--hf-model", path, "--data-path", data, "--prompts-per-step", str(c["B"]),
+            "--group-size", str(c["G"]), "--max-new-tokens", str(c["K"]), "--kl-coef",
+            str(c["kl"]), "--lr", str(c["lr"]), "--reward-module", RL_REWARD, "--log-every", "1",
+            "--checkpoint-path", ckpt]
+    runs = {}
+    for label, extra in (("on_policy", ["--steps", str(c["steps"])]),
+                         ("resume", ["--steps", str(c["steps"] + 1), "--inner-epochs", "2"])):
+        captured = {}
+        if label == "resume":
+            saved = generate.restore_params(ckpt, "policy", device="cpu")  # step 3
+            restore = checkpoint.CheckpointManager.restore
+
+            def keep(self, step, state):
+                state = restore(self, step, state)
+                captured["params"] = llama.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                                    state.params)
+                return state
+
+            checkpoint.CheckpointManager.restore = keep
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rc, text, spans = _run_grpo(argv + extra, f"grpo-{label}")
+        finally:
+            if label == "resume":
+                checkpoint.CheckpointManager.restore = restore
+        runs[label] = dict(rc=rc, text=text, spans=spans, counts=_counts(),
+                           wall_s=time.perf_counter() - t0,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9, **captured)
+    on, res = runs["on_policy"], runs["resume"]
+    for label, r in runs.items():
+        if r["rc"] != 0:
+            raise AssertionError(f"16a: grpo {label} rc {r['rc']}:\n{r['text'][-2000:]}")
+    ups = on["spans"]["grpo.update"] + res["spans"]["grpo.update"]
+    for sp in ups:
+        if not all(math.isfinite(sp["attrs"][k]) for k in ("loss", "kl", "grad_norm")):
+            raise AssertionError(f"16a: non-finite metrics {sp['attrs']}")
+    if not any(sp["attrs"]["grad_norm"] > 0 for sp in ups):
+        raise AssertionError("16a: every gradient is 0 (constant rewards): nothing trained")
+    on_ups = on["spans"]["grpo.update"]
+    if [sp["attrs"]["step"] for sp in on_ups] != [1, 2, 3] or any(
+            sp["attrs"]["ratio_mean"] != 1.0 or sp["attrs"]["clip_frac"] != 0.0
+            for sp in on_ups):
+        raise AssertionError(f"16a: on-policy updates {[sp['attrs'] for sp in on_ups]}")
+    if on_ups[0]["attrs"]["kl"] > 1e-3:
+        raise AssertionError(f"16a: step 1 KL {on_ups[0]['attrs']['kl']} > 1e-3 at the "
+                             f"reference")
+    off = res["spans"]["grpo.update"]
+    if "restored policy checkpoint at step 3" not in res["text"] or \
+            [(sp["attrs"]["step"], sp["attrs"]["epoch"]) for sp in off] != [(4, 0), (4, 1)]:
+        raise AssertionError(f"16a: resume did not restore step 3 and run step 4 twice:\n"
+                             f"{res['text'][-2000:]}")
+    ratio0 = off[0]["attrs"]["ratio_mean"]
+    if abs(ratio0 - 1.0) > RL_LP_TOL:
+        raise AssertionError(f"16a: off-policy first-epoch ratio_mean {ratio0} (limit "
+                             f"{RL_LP_TOL} from 1)")
+    mism = [i for i, (a, b) in enumerate(zip(llama.tree_leaves(saved),
+                                             llama.tree_leaves(res["params"])))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    if mism or len(list(llama.tree_leaves(saved))) != len(list(llama.tree_leaves(res["params"]))):
+        raise AssertionError(f"16a: the checkpoint generate reads differs from the restored "
+                             f"state at leaves {mism[:5]}")
+    per_step = (4 * n_layers, n_layers, n_layers)  # rollout prefill, reference, policy x2
+    want_on = tuple(c["steps"] * x for x in per_step)
+    want_res = (6 * n_layers, 2 * n_layers, 2 * n_layers)
+    if on["counts"] != want_on or res["counts"] != want_res:
+        raise AssertionError(f"16a: launches (fwd, dq, dkv) {on['counts']} and "
+                             f"{res['counts']}, expected {want_on} and {want_res}")
+    steps = on["spans"]["grpo.step"] + res["spans"]["grpo.step"]
+    rolls = on["spans"]["grpo.rollout"] + res["spans"]["grpo.rollout"]
+    tokens = c["B"] * c["G"] * c["K"]
+    roll_s = [sp["dur"] for sp in rolls]
+    learn_s = [sp["dur"] - sp["attrs"]["rollout_s"] for sp in steps]
+    print(f"16a grpo [{smi}]: grpo --hf-model {c['steps']} on-policy steps of {c['B']} prompts "
+          f"x {c['G']} samples x {c['K']} new tokens ({c['B'] * c['G']} rows of "
+          f"{c['prompt_len'] + c['K']}) in {on['wall_s']:.1f} s, resumed at step 3 for one "
+          f"off-policy step of 2 epochs in {res['wall_s']:.1f} s (loads and checkpoints "
+          f"included); losses {', '.join(f'{sp['attrs']['loss']:.4f}' for sp in ups)}; kl "
+          f"{', '.join(f'{sp['attrs']['kl']:.2e}' for sp in ups)}; grad_norm "
+          f"{', '.join(f'{sp['attrs']['grad_norm']:.3f}' for sp in ups)}; on-policy ratio 1, "
+          f"clip 0; off-policy epoch 0 ratio {ratio0:.6f} clip "
+          f"{off[0]['attrs']['clip_frac']:.4f}, epoch 1 ratio {off[1]['attrs']['ratio_mean']:.6f}; "
+          f"rollout s a step {', '.join(f'{x:.2f}' for x in roll_s)} ("
+          f"{', '.join(f'{tokens / x:.0f}' for x in roll_s)} new tok/s); learner s a step "
+          f"{', '.join(f'{x:.2f}' for x in learn_s)}; peak {on['peak_gb']:.2f} / "
+          f"{res['peak_gb']:.2f} GB; the checkpoint read by generate equals the restored "
+          f"state bit for bit; K1/K2/K3 launches {on['counts']} + {res['counts']}", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(losses=[sp["attrs"]["loss"] for sp in ups], kl=[sp["attrs"]["kl"] for sp in ups],
+                grad_norms=[sp["attrs"]["grad_norm"] for sp in ups], off_ratio=ratio0,
+                off_clip=off[0]["attrs"]["clip_frac"], rollout_s=roll_s,
+                rollout_tok_s=[tokens / x for x in roll_s], learner_s=learn_s,
+                peak_gb=[on["peak_gb"], res["peak_gb"]], wall_s=[on["wall_s"], res["wall_s"]],
+                launches=[a + b for a, b in zip(on["counts"], res["counts"])])
+
+
+def _16b_fleet(path, smi):
+    """The in-process lockstep RLFleet on the Gemma-2-2B weights against the
+    port's monolithic loop with the same seeds (tests/test_rl.py's recipe),
+    run first and freed; then the weight record the learner published last
+    decoded against its parameters."""
+    from kubedl_tpu_torch.models import decode, llama
+    from kubedl_tpu_torch.models.import_hf import load_hf
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.rl.actor import ActorConfig
+    from kubedl_tpu_torch.rl.fleet import RLFleet, fleet_goodput_split
+    from kubedl_tpu_torch.rl.learner import LearnerConfig
+    from kubedl_tpu_torch.rl.weights import sorted_leaves
+    from kubedl_tpu_torch.train import grpo, rl
+
+    c, n_layers = G2_FLEET, GEMMA2_2B["num_hidden_layers"]
+    _, prompts = _grpo_prompts(path, G2_GRPO, GEMMA2_2B["vocab_size"])
+    base, config = load_hf(path, device="cuda")
+    reward_fn = grpo.make_reward_fn(grpo.parse_args(["--reward-module", RL_REWARD]))
+    seed, B, G, K, P = 0, c["B"], c["G"], c["K"], G2_GRPO["prompt_len"]
+    t0 = time.perf_counter()
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(c["lr"], weight_decay=0.0))
+    init_state, _, ref_fn, step = rl.make_grpo_step(base, config, tx, kl_coef=0.04)
+    state = init_state(llama.tree_map(lambda t: t.detach().clone(), base))
+    mono, mono_g = [], []
+    for it in range(1, c["steps"] + 1):
+        pick = np.random.default_rng((seed, it)).choice(len(prompts), size=B,
+                                                        replace=len(prompts) < B)
+        tiled = np.repeat(np.array([prompts[i] for i in pick], np.int32), G, axis=0)
+        with torch.no_grad():
+            comp, lps = decode.generate(state.params, torch.from_numpy(tiled).cuda(), config, K,
+                                        temperature=1.0,
+                                        generator=grpo.sampling_generator("cuda", seed, it),
+                                        with_logprobs=True)
+        full, slens, rewards, grid = grpo.completion_rows(
+            comp.cpu().numpy(), tiled, np.full(B * G, P, np.int32), -1, reward_fn, P + K,
+            lps.cpu().numpy())
+        adv = rl.group_advantages(rewards.reshape(B, G)).reshape(-1).cuda()
+        batch = tuple(torch.from_numpy(a).cuda() for a in (full, np.full(B * G, P, np.int32),
+                                                           slens))
+        state, m = step(state, (*batch, adv, torch.from_numpy(grid).cuda(), ref_fn(batch)))
+        mono.append(float(m["loss"]))
+        mono_g.append(float(m["grad_norm"]))
+    mono_params = [t.detach().cpu() for t in sorted_leaves(state.params)]
+    mono_s = time.perf_counter() - t0
+    del state, init_state, ref_fn, step, tx, m, comp, lps, batch, adv
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = RLFleet(
+        base, config, prompts, reward_fn,
+        ActorConfig(seed=seed, group_size=G, prompts_per_step=B, max_new_tokens=K,
+                    max_weight_lag=0, lockstep=True, weight_wait_s=600.0),
+        LearnerConfig(prompts_per_step=B, group_size=G, max_weight_lag=0, lr=c["lr"],
+                      kl_coef=0.04, take_timeout_s=600.0))
+    del base
+    losses, gnorms = [], []
+    _reset_counts()
+    t0 = time.perf_counter()
+    stats = fleet.run(c["steps"], on_step=lambda s, m: (losses.append(m["loss"]),
+                                                         gnorms.append(m["grad_norm"])))
+    torch.cuda.synchronize()
+    fleet_s, counts = time.perf_counter() - t0, _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    learner, caster = fleet.learner, fleet.learner.broadcaster
+    # relative, floored at 1e-3: a group-normalized surrogate is ~0 by
+    # design, a sum of O(1) terms that cancel
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-3)
+                   for a, b in zip(losses + gnorms, mono + mono_g))
+    param_diff = max((a.detach().cpu().float() - b.float()).abs().max().item()
+                     for a, b in zip(sorted_leaves(learner.state.params), mono_params))
+    t1 = time.perf_counter()
+    leaves, version, wstep = fleet.actors[0].receiver.poll(timeout=60.0)
+    decode_s = time.perf_counter() - t1
+    live = sorted_leaves(learner.state.params)
+    bad = [i for i, (a, b) in enumerate(zip(leaves, live))
+           if a.dtype != b.dtype or not torch.equal(a, b.detach().cpu())]
+    publish_s = stats.weight_sync_s / max(caster.version, 1)
+    split = fleet_goodput_split(stats, fleet.actors)
+    want = (c["steps"] * 4 * n_layers, c["steps"] * n_layers, c["steps"] * n_layers)
+    print(f"16b fleet [{smi}]: lockstep RLFleet (1 actor, maxWeightLag 0, B={B}, G={G}, "
+          f"K={K}) {c['steps']} learner steps in {fleet_s:.1f} s against the monolithic loop "
+          f"in {mono_s:.1f} s: losses {', '.join(f'{x:.6f}' for x in losses)} vs "
+          f"{', '.join(f'{x:.6f}' for x in mono)}, grad norms "
+          f"{', '.join(f'{x:.6f}' for x in gnorms)} vs {', '.join(f'{x:.6f}' for x in mono_g)} "
+          f"(max rel diff {loss_rel:.3e}), final params "
+          f"max_abs_diff {param_diff:.3e}; stale drops {stats.stale_dropped}, lag max "
+          f"{stats.max_lag_observed}; weight record v{version} (step {wstep}) "
+          f"{caster.last_payload_bytes / 1e9:.3f} GB, {len(leaves)} leaves decoded bit for bit "
+          f"{'yes' if not bad else f'NO at {bad[:5]}'} in {decode_s:.2f} s; publish "
+          f"{publish_s:.2f} s a version ({caster.last_payload_bytes / 1e9 / publish_s:.2f} "
+          f"GB/s encode + send); rollout {split['rollout_s']:.2f} s, learn "
+          f"{split['learn_s']:.2f} s, actor-starved {split['actor_starved_s']:.2f} s, "
+          f"learner-starved {split['learner_starved_s']:.2f} s; peak {peak:.2f} GB; K1/K2/K3 "
+          f"launches {counts}", flush=True)
+    if loss_rel > 1e-5 or not all(g > 0 for g in gnorms) or stats.stale_dropped or bad or \
+            version != caster.version:
+        raise AssertionError("16b: the fleet disagrees with the monolith, dropped stale "
+                             "groups or published a record that differs from its parameters")
+    if counts != want:
+        raise AssertionError(f"16b: launches (fwd, dq, dkv) {counts}, expected {want}")
+    payload_gb = caster.last_payload_bytes / 1e9
+    del fleet, learner, caster, leaves, live, mono_params
+    return dict(losses=losses, mono_losses=mono, grad_norms=gnorms, mono_grad_norms=mono_g,
+                loss_max_rel=loss_rel,
+                param_max_abs=param_diff, stale_dropped=stats.stale_dropped, fleet_s=fleet_s,
+                mono_s=mono_s, payload_gb=payload_gb, publish_s=publish_s,
+                publish_gb_s=payload_gb / publish_s, decode_s=decode_s, peak_gb=peak,
+                split=split, launches=list(counts))
+
+
+def _16c_pods(smi):
+    """rl_pod as two processes on the card over the dir lane at bench-1b:
+    a learner of 3 steps (B 4, G 4, K 32, maxWeightLag 1, a checkpoint)
+    and its actor."""
+    c = RL_POD
+    root = os.path.join(WORK, "rl-pod")
+    shutil.rmtree(root, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               KUBEDL_RL_QUEUE_DIR=os.path.join(root, "queue"),
+               KUBEDL_RL_GROUP_SIZE=str(c["G"]), KUBEDL_RL_PROMPTS_PER_STEP=str(c["B"]),
+               KUBEDL_RL_MAX_NEW_TOKENS=str(c["K"]), KUBEDL_RL_MAX_WEIGHT_LAG=str(c["lag"]),
+               KUBEDL_TRACE_DIR=os.path.join(root, "trace"), KUBEDL_TRACE_ID="chip-smoke-rl")
+    for k in ("KUBEDL_TRANSPORT", "KUBEDL_RL_ENGINE", "KUBEDL_RL_ACTORS", "KUBEDL_MESH"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.rl_pod", "--model", c["model"],
+           "--steps", str(c["steps"]), "--log-every", "1", "--checkpoint-path",
+           os.path.join(root, "ckpt")]
+    t0 = time.perf_counter()
+    procs = {role: subprocess.Popen(cmd, cwd=here, env=dict(env, KUBEDL_RL_ROLE=role,
+                                                              POD_NAME=f"rl-{role}"),
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for role in ("learner", "actor")}
+    outs = {}
+    try:
+        for role, proc in procs.items():
+            outs[role] = proc.communicate(timeout=600)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    rcs = {role: proc.returncode for role, proc in procs.items()}
+    lout, aout = outs["learner"], outs["actor"]
+    groups = c["steps"] * c["B"]
+    spans = _trace_spans(os.path.join(root, "trace"))
+    learn = [sp["dur"] for sp in spans if sp["name"] == "rl.learn"]
+    rolls = [sp["dur"] for sp in spans if sp["name"] == "rl.rollout"]
+    print(f"16c pods [{smi}]: rl_pod --model {c['model']} learner + actor as two processes on "
+          f"the dir lane ({c['steps']} learner steps, B={c['B']}, G={c['G']}, K={c['K']}, "
+          f"maxWeightLag {c['lag']}) in {wall_s:.1f} s (start-up included): exit codes {rcs}; "
+          f"learn s {', '.join(f'{x:.2f}' for x in learn)}; rollout s "
+          f"{', '.join(f'{x:.2f}' for x in rolls)}; "
+          f"{(re.findall(r'learner: done — .*', lout) or ['learner: ?'])[0]}; "
+          f"{(re.findall(r'actor-0: done — .*', aout) or ['actor-0: ?'])[0]}", flush=True)
+    if rcs != {"learner": 0, "actor": 0} or \
+            f"consumed={groups} stale_dropped=0" not in lout or \
+            f"published_version={c['steps']}" not in lout or \
+            f"final weight version {c['steps']} (step {c['steps']})" not in aout or \
+            not os.path.isdir(os.path.join(root, "ckpt", "learner", str(c["steps"]))):
+        raise AssertionError(f"16c: rl_pod roles failed:\nlearner:\n{lout[-3000:]}\nactor:\n"
+                             f"{aout[-3000:]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(wall_s=wall_s, rcs=rcs, learn_s=learn, rollout_s=rolls, consumed=groups)
+
+
+def phase_rl(path, smi):
+    """16: a) grpo --hf-model on Gemma-2-2B, with a resume; b) the lockstep
+    RLFleet on the same weights against the monolithic loop; c) rl_pod's two
+    roles as processes at bench-1b."""
+    out = {"a_grpo": _16a_grpo(path, smi)}
+    _free("16a")
+    out["b_fleet"] = _16b_fleet(path, smi)
+    _free("16b")
+    out["c_pods"] = _16c_pods(smi)
+    return out
+
+
 def phase_gemma2(smi):
     """15: Gemma-2-2B from a local Hugging Face directory through the d 256
     kernels: a) write and load it, prefill; b) generate and serve; c) the
@@ -3480,18 +3841,25 @@ def phase_gemma2(smi):
         out["c_train"] = _15c_train(path, smi)
         _free("15c")
         out["d_dpo_eval"] = _15d_dpo_eval(path, smi)
+        _free("15d")
+        # phase 16 reuses this directory's Gemma-2-2B
+        out["rl"] = _phase("16 RL: GRPO, the fleet and the pods", phase_rl, path, smi)
     finally:
         shutil.rmtree(path, ignore_errors=True)
     d = out["d_dpo_eval"]
+    g, f = out["rl"]["a_grpo"]["launches"], out["rl"]["b_fleet"]["launches"]
     out["launches"] = {"fwd": {"gemma2_prefill": out["a_load"]["launches"],
                                "gemma2_serving": out["b_serve"]["launches"],
                                "gemma2_train": out["c_train"]["launches"][0],
                                "gemma2_dpo": d["dpo_launches"][0],
-                               "gemma2_eval": d["eval_launches"]},
+                               "gemma2_eval": d["eval_launches"],
+                               "gemma2_grpo": g[0], "gemma2_rl_fleet": f[0]},
                        "dq": {"gemma2_train": out["c_train"]["launches"][1],
-                              "gemma2_dpo": d["dpo_launches"][1]},
+                              "gemma2_dpo": d["dpo_launches"][1],
+                              "gemma2_grpo": g[1], "gemma2_rl_fleet": f[1]},
                        "dkv": {"gemma2_train": out["c_train"]["launches"][2],
-                               "gemma2_dpo": d["dpo_launches"][2]}}
+                               "gemma2_dpo": d["dpo_launches"][2],
+                               "gemma2_grpo": g[2], "gemma2_rl_fleet": f[2]}}
     return out
 
 
@@ -3555,8 +3923,10 @@ def main(argv=None) -> int:
     _free("the serving features")
     lora = _phase("14 LoRA, adapter serving, SSE and /metrics", phase_lora, train, smi)
     _free("LoRA")
-    gemma = _phase("15 Gemma-2-2B from a local Hugging Face directory", phase_gemma2, smi)
+    gemma = _phase("15 Gemma-2-2B from a local Hugging Face directory (and 16, RL)",
+                   phase_gemma2, smi)
     _free("Gemma-2")
+    rl = gemma.pop("rl")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -3675,9 +4045,17 @@ def main(argv=None) -> int:
                            grads=grads, train=train, options=options, moe_grads=moe_grads,
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
-                           serving_features=features, lora=lora, gemma2=gemma,
+                           serving_features=features, lora=lora, gemma2=gemma, rl=rl,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
+    a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
+    print(json.dumps({"rl": {
+        "gemma2_grpo": {k: a[k] for k in ("losses", "kl", "off_ratio", "rollout_s",
+                                          "rollout_tok_s", "learner_s", "peak_gb", "launches")},
+        "gemma2_rl_fleet": {k: b[k] for k in ("loss_max_rel", "param_max_abs", "payload_gb",
+                                              "publish_s", "publish_gb_s", "peak_gb",
+                                              "launches")},
+        "bench1b_rl_pods": {k: c[k] for k in ("wall_s", "consumed", "learn_s")}}}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,9 @@ from kubedl_tpu_torch.models import llama
 NEG_INF = -1e30
 
 
-def _one_device(mesh) -> None:
+def _one_device(mesh, what: str = "DPO") -> None:
     if mesh is not None:
-        raise NotImplementedError("DPO under a mesh is not ported to kubedl_tpu_torch "
+        raise NotImplementedError(f"{what} under a mesh is not ported to kubedl_tpu_torch "
                                   "yet (ROADMAP.md); run it on one device")
 
 
