@@ -55,7 +55,7 @@ Phases, each printing its own line of numbers:
   7. the trainer's options (bench-1b: accumulation, chunked CE, "dots"
      remat, cosine schedule) and its preemption contract: a subprocess
      trainer SIGTERMed after its first checkpoint exits 113, and its rerun
-     resumes from that checkpoint and exits 0.
+     resumes from that checkpoint for 2 steps and exits 0.
   2c. the grouped matmul kernels of gmm_sm90.cu (K6 and its
      transposed-weight use, K7 with f32 and bf16 output, K5 and K8 on bf16
      and int8 weights) against their plain versions at Mixtral-8x7B widths
@@ -89,9 +89,11 @@ Phases, each printing its own line of numbers:
      2 layers, b=2, S=1024, forward and backward against `_dropless_mlp`
      on the same inputs: routing exact, nothing dropped, outputs and
      gradients within phase 8's tolerance, K5, K6 and K7 launched; (c) the
-     gang's preemption contract at bench-1b: a subprocess trainer in a
-     one-rank group SIGTERMed after its first sharded checkpoint exits 113,
-     and its rerun resumes from it and exits 0.
+     gang's preemption contract at `tiny` (cut from bench-1b to pay for
+     phase 17; the trainer takes tiny, bench-1b or llama-7b, and the
+     contract does not depend on the size): a subprocess trainer in a
+     one-rank group SIGTERMed after its first sharded checkpoint exits
+     113, and its rerun resumes from it and exits 0.
   12. tensor-parallel serving and the int8 KV cache, in the same one-rank
      group: full-width, full-depth Llama-7B (fresh init, bf16) on the
      serving engine with phase 4's traffic (8 slots, 1024 positions, 6
@@ -131,12 +133,12 @@ Phases, each printing its own line of numbers:
      checkpoints, one profiled step): losses and grad norms finite, the
      adapter count, the optimizer state's bytes, K1/K2/K3 launches equal to
      phase 6's, the base unchanged bit for bit (init's draws replayed),
-     the merge and the adapters' optimizer alone, then the LoRA step in
-     turns with phase 6's full step on the same init; (b) Llama-7B on
+     the merge and the adapters' optimizer alone, then the LoRA step
+     beside phase 6's full step on the same init, one turn each; (b) Llama-7B on
      ServingEngine with phase 4's traffic, two rank-16 adapters with noise
      in B registered: adapter-0 requests equal the no-adapter engine's
-     tokens bit for bit (in turns, decode ms a tick and kernels a tick
-     beside), each adapter's first-token logits against an engine on the
+     tokens bit for bit (one turn each, decode ms a tick and kernels a
+     tick beside), each adapter's first-token logits against an engine on the
      merged weights (LOGIT_TOL) and the share of greedy tokens that agree;
      (c) serve --adapter with (a)'s checkpoint and POST /adapter of it (ids
      1 and 2 give the same tokens), generate --lora-checkpoint-path against
@@ -185,6 +187,26 @@ Phases, each printing its own line of numbers:
      version 3. The launches of (a) and (b) join the d 256 rows as
      gemma2_grpo and gemma2_rl_fleet; phase 16's numbers are a JSON line
      of their own ({"rl": ...}) before the kernels line.
+  17. the disaggregated serving plane (serving/) on the socket transport
+     plane (transport/): (a) DisaggregatedEngine on full-width, full-depth
+     Llama-7B (bf16, seeded) against the monolithic ServingEngine with
+     phase 4's traffic in turns: tokens equal up to phase 15's near-tie
+     rule, K1 launches equal, decode ms a tick and peak memory of both,
+     the pool's stats; then 32 slots over the [8, 1024] cache's KV bytes
+     in blocks, the most streams decoding at once against 8; (b), inside
+     phase 15 on its directory: RolloutEngine on Gemma-2-2B with 16a's
+     rollout shape, a cold and a warm wave of the same prompts in turns
+     with decode.generate: behavior logprobs within LP_TOL of a
+     teacher-forced sequence_logprobs, the pool's blocks at the tick
+     (G prompt caches cold, one prompt's blocks a group warm), Fwd<256>
+     launches; (c) one PrefillPod and two DecodePods on the 7B weights,
+     every handoff serialized and carried over a SocketChannel pair of two
+     TransportPlanes on 127.0.0.1, one decode pod drained mid-stream:
+     tokens equal to (a)'s monolithic ones up to the near-tie rule, MB a
+     handoff and MB/s of the hop; (d) 16c's pods over the socket plane
+     with KUBEDL_RL_ENGINE=serving and 16c's checks. The launches of (a),
+     (b) and (c) join the kernels line; phase 17's numbers are a JSON line
+     of their own ({"disagg": ...}).
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -1189,14 +1211,17 @@ def phase_options():
     if proc.returncode != 113 or at is None or "preempted: checkpoint saved" not in first_out:
         raise AssertionError(f"SIGTERM: rc={proc.returncode} (expected 113), checkpoint "
                              f"{at}:\n{first_out[-2000:]}")
-    rerun = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
-                           timeout=600)
+    # the rerun resumes for 2 steps: the contract is the restore and the
+    # clean exit, not the remaining 500-step schedule
+    rerun = subprocess.run(cmd[:cmd.index("--steps") + 1] + [str(at + 2)]
+                           + cmd[cmd.index("--steps") + 2:], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
     if rerun.returncode != 0 or f"restored checkpoint at step {at}" not in rerun.stdout \
-            or _latest_ckpt(ckpt) != 500:
+            or _latest_ckpt(ckpt) != at + 2:
         raise AssertionError(f"resume: rc={rerun.returncode}, latest {_latest_ckpt(ckpt)}:\n"
                              f"{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
     print(f"preemption: tiny trainer SIGTERMed, exit 113 with a checkpoint at step {at}; "
-          f"rerun restored step {at}, exit 0, final checkpoint at step 500", flush=True)
+          f"rerun restored step {at}, exit 0, final checkpoint at step {at + 2}", flush=True)
     return dict(bench_1b=dict(losses=losses, grad_norms=gnorms, launches=list(counts)),
                 preempted_at=at)
 
@@ -1406,12 +1431,12 @@ def phase_ep_body():
 
 
 def phase_gang_preemption():
-    """11c: a subprocess trainer in a one-rank group (bench-1b, sharded
+    """11c: a subprocess trainer in a one-rank group (tiny, sharded
     checkpoints) SIGTERMed after its first checkpoint, then resumed."""
-    ckpt = os.path.join(WORK, "ckpt-gang-1b")
+    ckpt = os.path.join(WORK, "ckpt-gang")
     shutil.rmtree(ckpt, ignore_errors=True)
-    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.trainer", "--model", "bench-1b",
-            "--batch", "4", "--seq-len", "512", "--log-every", "1000",
+    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.trainer", "--model", "tiny",
+            "--batch", "4", "--seq-len", "128", "--log-every", "1000",
             "--checkpoint-path", ckpt, "--checkpoint-interval", "5", "--checkpoint-keep", "1"]
     root = os.path.dirname(os.path.abspath(__file__))
 
@@ -1428,7 +1453,7 @@ def phase_gang_preemption():
                 and time.monotonic() < deadline:
             time.sleep(0.05)
         if proc.poll() is not None or _latest_ckpt(ckpt) is None:
-            raise AssertionError(f"bench-1b gang trainer ended or stalled before its first "
+            raise AssertionError(f"tiny gang trainer ended or stalled before its first "
                                  f"checkpoint: rc={proc.poll()}")
         proc.send_signal(signal.SIGTERM)
         first_out = proc.communicate(timeout=300)[0]
@@ -1448,7 +1473,7 @@ def phase_gang_preemption():
             or _latest_ckpt(ckpt) != at + 2:
         raise AssertionError(f"gang resume: rc={rerun.returncode}, latest "
                              f"{_latest_ckpt(ckpt)}:\n{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
-    print(f"gang preemption: bench-1b trainer in a one-rank NCCL group SIGTERMed, exit 113 "
+    print(f"gang preemption: tiny trainer in a one-rank NCCL group SIGTERMed, exit 113 "
           f"with a sharded checkpoint at step {at}; rerun restored step {at}, exit 0, "
           f"final checkpoint at step {at + 2}", flush=True)
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2611,7 +2636,7 @@ def _base_unchanged(base, config):
 def _14a_lora_train(train, smi):
     """trainer --lora-rank 16 on Llama-7B (6 steps, b=4, 1024-token rows,
     checkpoints, one profiled step), the base checked bit for bit after,
-    then the step in turns with phase 6's full step on the same init."""
+    then the step beside phase 6's full step on the same init."""
     from kubedl_tpu_torch.models import llama, lora
     from kubedl_tpu_torch.parallel import optim
 
@@ -2704,7 +2729,7 @@ def _14a_lora_train(train, smi):
     batches = [torch.randint(0, config.vocab_size, (batch, seq), generator=gen, device="cuda",
                              dtype=torch.int32) for _ in range(LORA_TURN_STEPS)]
     turns = {}
-    for label in ("full", "lora", "lora", "full"):
+    for label in ("full", "lora"):  # one turn each: the run's time budget
         turns.setdefault(label, []).append(
             _run_7b_steps(config, batches, lora_rank=LORA_RANK if label == "lora" else 0))
     med = {k: [statistics.median(t[2][1:]) * 1e3 for t in v] for k, v in turns.items()}
@@ -2774,7 +2799,8 @@ def _14b_adapter_serving(smi):
                for n in SERVE_LENGTHS]
     dup = prompts[2]
     turns = {}
-    for label in ("0", "2", "2", "0"):
+    # one turn each: the whole run has to stay within its time budget
+    for label in ("0", "2"):
         turns.setdefault(label, []).append(_drive_engine(engines[label], prompts, dup))
     runs = turns["0"] + turns["2"]
     if any(e for r in runs for e in r["errors"]) or any(r["tokens"] != runs[0]["tokens"]
@@ -2950,11 +2976,12 @@ def phase_lora(train, smi):
     from kubedl_tpu_torch.ops.flash_attention import flash_attention
 
     out = {}
-    out["a_train"], ckpt = _14a_lora_train(train, smi)
-    out["b_serving"] = _14b_adapter_serving(smi)
+    out["a_train"], ckpt = _phase("14a", _14a_lora_train, train, smi)
+    out["b_serving"] = _phase("14b", _14b_adapter_serving, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    out["c_entry_points"], launches_c, gen_prompts, gen_toks = _14c_entry_points(ckpt, smi)
+    out["c_entry_points"], launches_c, gen_prompts, gen_toks = _phase(
+        "14c", _14c_entry_points, ckpt, smi)
     gc.collect()
     torch.cuda.empty_cache()
     with _server(_serve_args("--max-len", "1024", "--lora-checkpoint-path", ckpt,
@@ -3755,27 +3782,40 @@ def _16b_fleet(path, smi):
                 split=split, launches=list(counts))
 
 
-def _16c_pods(smi):
-    """rl_pod as two processes on the card over the dir lane at bench-1b:
-    a learner of 3 steps (B 4, G 4, K 32, maxWeightLag 1, a checkpoint)
-    and its actor."""
+def _16c_pods(smi, lane="dir"):
+    """rl_pod as two processes on the card at bench-1b: a learner of 3
+    steps (B 4, G 4, K 32, maxWeightLag 1, a checkpoint) and its actor, on
+    the dir lane (16c), or (17d, lane="socket") over the authenticated
+    socket plane on loopback addresses with one shared token, the actor
+    rolling out through the serving plane (KUBEDL_RL_ENGINE=serving)."""
     c = RL_POD
-    root = os.path.join(WORK, "rl-pod")
+    root = os.path.join(WORK, f"rl-pod-{lane}")
     shutil.rmtree(root, ignore_errors=True)
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               KUBEDL_RL_QUEUE_DIR=os.path.join(root, "queue"),
                KUBEDL_RL_GROUP_SIZE=str(c["G"]), KUBEDL_RL_PROMPTS_PER_STEP=str(c["B"]),
                KUBEDL_RL_MAX_NEW_TOKENS=str(c["K"]), KUBEDL_RL_MAX_WEIGHT_LAG=str(c["lag"]),
                KUBEDL_TRACE_DIR=os.path.join(root, "trace"), KUBEDL_TRACE_ID="chip-smoke-rl")
-    for k in ("KUBEDL_TRANSPORT", "KUBEDL_RL_ENGINE", "KUBEDL_RL_ACTORS", "KUBEDL_MESH"):
+    for k in ("KUBEDL_TRANSPORT", "KUBEDL_RL_ENGINE", "KUBEDL_RL_ACTORS", "KUBEDL_MESH",
+              "KUBEDL_RL_QUEUE_DIR"):
         env.pop(k, None)
+    role_env = {"learner": {}, "actor": {}}
+    if lane == "dir":
+        env["KUBEDL_RL_QUEUE_DIR"] = os.path.join(root, "queue")
+    else:
+        addrs = {role: f"127.0.0.1:{_free_port()}" for role in role_env}
+        env.update(KUBEDL_TRANSPORT="socket", KUBEDL_TRANSPORT_TOKEN="chip-smoke-17d",
+                   KUBEDL_RL_ENGINE="serving", KUBEDL_RL_LEARNER_ADDR=addrs["learner"],
+                   KUBEDL_RL_ACTOR_ADDRS=addrs["actor"])
+        for role, addr in addrs.items():
+            role_env[role]["KUBEDL_TRANSPORT_BIND"] = addr
     cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.rl_pod", "--model", c["model"],
            "--steps", str(c["steps"]), "--log-every", "1", "--checkpoint-path",
            os.path.join(root, "ckpt")]
     t0 = time.perf_counter()
     procs = {role: subprocess.Popen(cmd, cwd=here, env=dict(env, KUBEDL_RL_ROLE=role,
-                                                              POD_NAME=f"rl-{role}"),
+                                                              POD_NAME=f"rl-{role}",
+                                                              **role_env[role]),
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for role in ("learner", "actor")}
     outs = {}
@@ -3794,8 +3834,11 @@ def _16c_pods(smi):
     spans = _trace_spans(os.path.join(root, "trace"))
     learn = [sp["dur"] for sp in spans if sp["name"] == "rl.learn"]
     rolls = [sp["dur"] for sp in spans if sp["name"] == "rl.rollout"]
-    print(f"16c pods [{smi}]: rl_pod --model {c['model']} learner + actor as two processes on "
-          f"the dir lane ({c['steps']} learner steps, B={c['B']}, G={c['G']}, K={c['K']}, "
+    tag = "16c pods" if lane == "dir" else "17d pods"
+    how = ("on the dir lane" if lane == "dir" else
+           "over the socket plane (loopback, one token) with KUBEDL_RL_ENGINE=serving")
+    print(f"{tag} [{smi}]: rl_pod --model {c['model']} learner + actor as two processes "
+          f"{how} ({c['steps']} learner steps, B={c['B']}, G={c['G']}, K={c['K']}, "
           f"maxWeightLag {c['lag']}) in {wall_s:.1f} s (start-up included): exit codes {rcs}; "
           f"learn s {', '.join(f'{x:.2f}' for x in learn)}; rollout s "
           f"{', '.join(f'{x:.2f}' for x in rolls)}; "
@@ -3805,9 +3848,10 @@ def _16c_pods(smi):
             f"consumed={groups} stale_dropped=0" not in lout or \
             f"published_version={c['steps']}" not in lout or \
             f"final weight version {c['steps']} (step {c['steps']})" not in aout or \
+            (lane == "socket" and "engine=serving" not in aout) or \
             not os.path.isdir(os.path.join(root, "ckpt", "learner", str(c["steps"]))):
-        raise AssertionError(f"16c: rl_pod roles failed:\nlearner:\n{lout[-3000:]}\nactor:\n"
-                             f"{aout[-3000:]}")
+        raise AssertionError(f"{tag}: rl_pod roles failed:\nlearner:\n{lout[-3000:]}\n"
+                             f"actor:\n{aout[-3000:]}")
     shutil.rmtree(root, ignore_errors=True)
     return dict(wall_s=wall_s, rcs=rcs, learn_s=learn, rollout_s=rolls, consumed=groups)
 
@@ -3842,8 +3886,10 @@ def phase_gemma2(smi):
         _free("15c")
         out["d_dpo_eval"] = _15d_dpo_eval(path, smi)
         _free("15d")
-        # phase 16 reuses this directory's Gemma-2-2B
+        # phases 16 and 17b reuse this directory's Gemma-2-2B
         out["rl"] = _phase("16 RL: GRPO, the fleet and the pods", phase_rl, path, smi)
+        _free("16")
+        out["rollout"] = _phase("17b serving-plane rollout at d 256", _17b_rollout, path, smi)
     finally:
         shutil.rmtree(path, ignore_errors=True)
     d = out["d_dpo_eval"]
@@ -3853,7 +3899,8 @@ def phase_gemma2(smi):
                                "gemma2_train": out["c_train"]["launches"][0],
                                "gemma2_dpo": d["dpo_launches"][0],
                                "gemma2_eval": d["eval_launches"],
-                               "gemma2_grpo": g[0], "gemma2_rl_fleet": f[0]},
+                               "gemma2_grpo": g[0], "gemma2_rl_fleet": f[0],
+                               "gemma2_serving_rollout": out["rollout"]["launches"]},
                        "dq": {"gemma2_train": out["c_train"]["launches"][1],
                               "gemma2_dpo": d["dpo_launches"][1],
                               "gemma2_grpo": g[1], "gemma2_rl_fleet": f[1]},
@@ -3862,6 +3909,355 @@ def phase_gemma2(smi):
                                "gemma2_grpo": g[2], "gemma2_rl_fleet": f[2]}}
     return out
 
+
+
+
+# -- phase 17: the disaggregated serving plane (serving/) on the socket
+# transport plane (transport/) -----------------------------------------------
+
+PAGED_BLOCK = 16          # KV rows a block of the paged pool
+PAGED_TURNS = ("mono", "paged", "paged", "mono")
+PAGED_PROBE_SLOTS = 32    # 17a: slots over a pool of the [8, 1024] cache's KV bytes
+ROUTER_K, ROUTER_DRAIN_AFTER = 8, 4   # 17c: ticks a round; rounds before the drain
+
+
+def _drive_any(engine, prompts, dup):
+    """Phase 4's traffic (every prompt at once, then `dup` twice) through
+    step_block(8) of a ServingEngine or a DisaggregatedEngine: tokens, K1
+    launches, decode ms a tick (median over the blocks that ticked), peak
+    memory above the engine's resident state."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    _reset_counts()
+    t0 = time.perf_counter()
+    per_tick, reqs = [], []
+    for wave in (prompts, [dup, dup]):
+        batch = [engine.submit(p, SERVE_NEW) for p in wave]
+        reqs += batch
+        while not all(r.done for r in batch):
+            st = engine.stats()
+            ticks, dec = st["ticks"], st["decode_time_s"]
+            engine.step_block(8)
+            st = engine.stats()
+            if st["ticks"] > ticks:
+                per_tick.append((st["decode_time_s"] - dec) / (st["ticks"] - ticks))
+    torch.cuda.synchronize()
+    return dict(tokens=[r.tokens for r in reqs], errors=[r.error for r in reqs],
+                launches=flash_attention.launches, wall_s=time.perf_counter() - t0,
+                tick_ms=statistics.median(per_tick) * 1e3,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                transient_gb=(torch.cuda.max_memory_allocated() - resident) / 1e9)
+
+
+def _near_ties_only(params, config, prompts, want, got, what):
+    """Phase 15's rule: two bf16 paths may part only where the two tokens'
+    logits lie within LOGIT_TOL of max|logit|. Returns the split points."""
+    splits = _first_splits(params, config, prompts, want, got)
+    far = [sp for sp in splits if sp[2] > LOGIT_TOL * sp[3]]
+    if far:
+        raise AssertionError(f"{what}: tokens part away from a near-tie: {far}")
+    return splits
+
+
+def _17a_facade(smi):
+    """DisaggregatedEngine on Llama-7B (full width and depth, bf16, seeded)
+    against the monolithic ServingEngine with phase 4's traffic, in turns;
+    then the paged pool's concurrency at the contiguous cache's KV bytes."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.serving import DisaggregatedEngine
+
+    config = llama.LlamaConfig.llama_7b()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+               for n in SERVE_LENGTHS]
+    dup = prompts[2]
+    every = prompts + [dup, dup]
+    engines = {"mono": ServingEngine(params, config, slots=8, max_len=1024),
+               # prefix sharing off: the repeated prompt prefills as a wave,
+               # as the monolithic engine's does (a matched prefix appends
+               # its suffix in block steps, which launch no K1)
+               "paged": DisaggregatedEngine(params, config, slots=8, max_len=1024,
+                                            block_size=PAGED_BLOCK, share_prefixes=False)}
+    turns = {}
+    for label in PAGED_TURNS:
+        turns.setdefault(label, []).append(_drive_any(engines[label], prompts, dup))
+    for label, runs in turns.items():
+        if any(e for r in runs for e in r["errors"]) or runs[0]["tokens"] != runs[1]["tokens"]:
+            raise AssertionError(f"17a: the {label} engine's turns differ or failed")
+    mono, paged = turns["mono"][0], turns["paged"][0]
+    if paged["launches"] != mono["launches"] or paged["launches"] < config.n_layers:
+        raise AssertionError(f"17a: K1 launches paged {paged['launches']}, monolithic "
+                             f"{mono['launches']}")
+    pool = engines["paged"].stats()
+    pool = {k: pool[k] for k in ("num_blocks", "block_size", "blocks_free", "blocks_in_use",
+                                 "alloc_count", "cow_copies", "handoffs", "evictions")}
+    splits = _near_ties_only(params, config, every, mono["tokens"], paged["tokens"], "17a")
+    equal = sum(a == b for a, b in zip(mono["tokens"], paged["tokens"]))
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the concurrency probe: PAGED_PROBE_SLOTS slots over the blocks of the
+    # [8, 1024] cache (+ the trash block), phase 4's lengths cycled
+    num_blocks = 8 * (1024 // PAGED_BLOCK) + 1
+    probe = DisaggregatedEngine(params, config, slots=PAGED_PROBE_SLOTS, max_len=1024,
+                                block_size=PAGED_BLOCK, num_blocks=num_blocks,
+                                share_prefixes=False)
+    reqs = [probe.submit(prompts[i % len(prompts)], SERVE_NEW)
+            for i in range(PAGED_PROBE_SLOTS)]
+    streams = []
+    for _ in range(3):
+        probe.step_block(8)
+        streams.append(probe.stats()["slots_busy"])
+    most = max(streams)
+    probe_stats = probe.stats()
+    for r in reqs:
+        probe.cancel(r)
+    del probe, reqs
+    ticks = {k: [r["tick_ms"] for r in v] for k, v in turns.items()}
+    peaks = {k: [r["peak_gb"] for r in v] for k, v in turns.items()}
+    trans = {k: [r["transient_gb"] for r in v] for k, v in turns.items()}
+    print(f"17a facade [{smi}]: llama-7b bf16, 8 slots, 1024 positions, phase 4's traffic "
+          f"(block {PAGED_BLOCK}, prefix sharing off); turns {'/'.join(PAGED_TURNS)}: "
+          f"{equal}/{len(every)} rows equal to the monolithic engine's, rows that part at "
+          f"(row, position, logit gap, max |logit|) "
+          f"{[(i, j, round(g, 4), round(m, 3)) for i, j, g, m in splits]}; K1 launches "
+          f"{paged['launches']} both; decode ms a tick (median) paged "
+          f"{', '.join(f'{x:.2f}' for x in ticks['paged'])}, contiguous "
+          f"{', '.join(f'{x:.2f}' for x in ticks['mono'])}; peak allocated GB paged "
+          f"{', '.join(f'{x:.2f}' for x in peaks['paged'])} (above resident "
+          f"{', '.join(f'{x:.2f}' for x in trans['paged'])}), contiguous "
+          f"{', '.join(f'{x:.2f}' for x in peaks['mono'])} (above resident "
+          f"{', '.join(f'{x:.2f}' for x in trans['mono'])}); pool {pool}", flush=True)
+    print(f"17a concurrency [{smi}]: {PAGED_PROBE_SLOTS} slots over {num_blocks} blocks of "
+          f"{PAGED_BLOCK} rows (the [8, 1024] cache's KV bytes + the trash block), phase 4's "
+          f"lengths cycled, {SERVE_NEW} new tokens each: streams decoding after each of 3 "
+          f"blocks {streams}, most {most} against 8 contiguous slots (ratio "
+          f"{most / 8:.3f}); evictions {probe_stats['evictions']}, requeues "
+          f"{probe_stats['requeues']}", flush=True)
+    if most <= 8:
+        raise AssertionError(f"17a: the paged pool decoded at most {most} streams at the "
+                             f"contiguous cache's KV bytes")
+    out = dict(rows_equal=equal, splits=splits, launches=paged["launches"], tick_ms=ticks,
+               peak_gb=peaks, transient_gb=trans, pool=pool, wall_s={
+                   k: [r["wall_s"] for r in v] for k, v in turns.items()},
+               probe_streams=streams, probe_most=most, concurrency_ratio=most / 8,
+               probe_evictions=probe_stats["evictions"])
+    return out, params, config, every, mono["tokens"]
+
+
+class _Hop:
+    """The cross-pod hop as two planes: the prefill side's channel sends to
+    the decode side's plane, whose inbox receives. Times each half."""
+
+    def __init__(self, send_ch, recv_ch):
+        self.send_ch, self.recv_ch = send_ch, recv_ch
+        self.seconds = 0.0
+
+    def send(self, tag, data):
+        t0 = time.perf_counter()
+        self.send_ch.send(tag, data)
+        self.seconds += time.perf_counter() - t0
+
+    def recv(self, tag, timeout=60.0):
+        t0 = time.perf_counter()
+        data = self.recv_ch.recv(tag, timeout)
+        self.seconds += time.perf_counter() - t0
+        return data
+
+
+def _17c_router(params, config, every, want, smi):
+    """One PrefillPod and two DecodePods in this process, every handoff
+    serialized and carried over a SocketChannel pair of two
+    TransportPlanes on 127.0.0.1; one decode pod drained mid-stream."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+    from kubedl_tpu_torch.serving import router as rt
+    from kubedl_tpu_torch.transport import TransportPlane, transport_metrics
+
+    transport_metrics.reset()
+    prefill_side = TransportPlane(token="chip-smoke-17c", service="prefill-pod")
+    decode_side = TransportPlane(token="chip-smoke-17c", service="decode-pods")
+    timed = {"serialize": 0.0, "deserialize": 0.0}
+    real = (rt.serialize_item, rt.deserialize_item)
+
+    def timing(name, fn):
+        def wrapped(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            timed[name] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    rt.serialize_item = timing("serialize", real[0])
+    rt.deserialize_item = timing("deserialize", real[1])
+    try:
+        addr = decode_side.listen("127.0.0.1:0")
+        hop = _Hop(prefill_side.channel("kv", peer_addr=addr), decode_side.channel("kv"))
+        router = rt.ServingRouter(
+            [rt.PrefillPod("p0", params, config, max_len=1024)],
+            [rt.DecodePod(n, params, config, slots=8, max_len=1024, block_size=PAGED_BLOCK)
+             for n in ("d0", "d1")], cross_pod=True, transport=hop)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, SERVE_NEW) for p in every]
+        for _ in range(ROUTER_DRAIN_AFTER):
+            router.step_all(k=ROUTER_K)
+        victim = max(router.decode_pods, key=lambda p: len(p.in_flight()))
+        moved_ids = {r.request_id for r in victim.in_flight()}
+        moved = router.drain(victim.name)
+        while not all(r.done for r in reqs):
+            router.step_all(k=ROUTER_K)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = flash_attention.launches
+        st = router.stats()
+    finally:
+        rt.serialize_item, rt.deserialize_item = real
+        prefill_side.close()
+        decode_side.close()
+    got = [r.tokens for r in reqs]
+    if any(r.error for r in reqs) or moved <= 0 or victim.in_flight():
+        raise AssertionError(f"17c: errors {[r.error for r in reqs]}, moved {moved}")
+    splits = _near_ties_only(params, config, every, want, got, "17c")
+    equal = sum(a == b for a, b in zip(want, got))
+    migrated_equal = sum(a == b for r, a, b in zip(reqs, want, got) if r.request_id in moved_ids)
+    hops = st["handoffs_total"]
+    mb = st["serialized_bytes"] / 1e6
+    hop_s = timed["serialize"] + timed["deserialize"] + hop.seconds
+    wire = transport_metrics.snapshot()
+    if hops != len(every) + moved or wire["messages_total"].get("kv/recv") != hops:
+        raise AssertionError(f"17c: {hops} handoffs for {len(every)} requests + {moved} "
+                             f"migrations; the plane carried {wire['messages_total']}")
+    if launches < hops * config.n_layers:
+        raise AssertionError(f"17c: K1 launched {launches} times for {hops} prefills")
+    print(f"17c router [{smi}]: llama-7b, 1 prefill pod + 2 decode pods (8 slots, block "
+          f"{PAGED_BLOCK}), cross_pod over a SocketChannel pair of two TransportPlanes on "
+          f"127.0.0.1, phase 4's traffic; {victim.name} drained after {ROUTER_DRAIN_AFTER} "
+          f"rounds of k={ROUTER_K}: {moved} streams migrated, {migrated_equal}/{moved} of them "
+          f"equal to 17a's monolithic tokens; {equal}/{len(every)} rows equal overall, rows "
+          f"that part at {[(i, j, round(g, 4), round(m, 3)) for i, j, g, m in splits]}; "
+          f"{hops} handoffs, {mb:.1f} MB serialized ({mb / hops:.1f} MB a handoff), hop "
+          f"{hop_s:.2f} s (serialize {timed['serialize']:.2f}, socket {hop.seconds:.2f}, "
+          f"deserialize {timed['deserialize']:.2f}) = {mb / hop_s:.0f} MB/s; K1 launches "
+          f"{launches}; wall {wall_s:.1f} s", flush=True)
+    return dict(rows_equal=equal, migrated=moved, migrated_equal=migrated_equal, splits=splits,
+                handoffs=hops, serialized_mb=mb, mb_per_handoff=mb / hops, hop_s=hop_s,
+                serialize_s=timed["serialize"], socket_s=hop.seconds,
+                deserialize_s=timed["deserialize"], hop_mb_s=mb / hop_s, launches=launches,
+                wall_s=wall_s)
+
+
+def _17b_rollout(path, smi):
+    """RolloutEngine on phase 15's Gemma-2-2B (d 256): 16a's rollout shape
+    (4 prompts x G 8 x 32 new tokens), a cold wave and a warm wave of the
+    same prompts, in turns with decode.generate's rollout of the same rows;
+    behavior logprobs against a teacher-forced sequence_logprobs."""
+    from kubedl_tpu_torch.models import decode
+    from kubedl_tpu_torch.models.import_hf import load_hf
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+    from kubedl_tpu_torch.serving import RolloutEngine
+    from kubedl_tpu_torch.train.grpo import sampling_generator
+    from kubedl_tpu_torch.train.preference import sequence_logprobs
+
+    c = G2_GRPO
+    B, G, K, P = c["B"], c["G"], c["K"], c["prompt_len"]
+    _, prompts = _grpo_prompts(path, c, GEMMA2_2B["vocab_size"])
+    prompts = prompts[:B]
+    params, config = load_hf(path, device="cuda")
+    eng = RolloutEngine(params, config, slots=B * G, max_len=P + K, temperature=1.0, seed=0,
+                        block_size=PAGED_BLOCK)
+    decode_eng = eng.engine.decode
+    at_tick = []
+    inner = decode_eng.tick_block
+
+    def tick_block(k, generator=None):
+        at_tick.append(decode_eng.pool.blocks_in_use)  # capacity for k ticks allocated
+        return inner(k, generator)
+
+    decode_eng.tick_block = tick_block
+    tiled = torch.tensor(np.repeat(np.array(prompts, np.int32), G, axis=0), device="cuda")
+    runs, waves = {"generate": [], "serving": []}, []
+    for label in ("generate", "serving", "serving", "generate"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        at_tick.clear()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if label == "generate":
+                toks, lps = decode.generate(params, tiled, config, K, temperature=1.0,
+                                            generator=sampling_generator(tiled.device, 0, 1),
+                                            with_logprobs=True)
+                rows = [(toks[i].tolist(), lps[i].tolist()) for i in range(B * G)]
+            else:
+                rows = [r for grp in eng.rollout(prompts, G, K) for r in grp]
+        torch.cuda.synchronize()
+        runs[label].append(dict(s=time.perf_counter() - t0, launches=flash_attention.launches,
+                                blocks=max(at_tick, default=0)))
+        if label == "serving":
+            waves.append((rows, eng.stats()))
+    worst = 0.0
+    for rows, _ in waves:
+        full = torch.tensor([prompts[i // G] + rows[i][0] for i in range(B * G)],
+                            dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            (grid, _), _ = sequence_logprobs(
+                params, full, torch.full((B * G,), P, device="cuda"),
+                torch.full((B * G,), P + K, device="cuda"), config, with_aux=True,
+                per_token=True)
+        lp = torch.tensor([r[1] for r in rows], device="cuda")
+        worst = max(worst, (grid[:, P - 1:P - 1 + K].float() - lp).abs().max().item())
+        if any(len(r[0]) != K for r in rows):
+            raise AssertionError("17b: a completion is not K tokens long")
+    per_req = -(-(P + K) // PAGED_BLOCK)
+    cold_want = 1 + B * G * per_req
+    indexed = B * (P // PAGED_BLOCK)
+    matched = (P - 1) // PAGED_BLOCK
+    warm_want = 1 + indexed + B * G * (per_req - matched)
+    cold, warm = (r["blocks"] for r in runs["serving"])
+    hits = waves[1][1]["prefix_hit_tokens"] - waves[0][1]["prefix_hit_tokens"]
+    launches = runs["serving"][0]["launches"]
+    gen_s = [r["s"] for r in runs["generate"]]
+    srv_s = [r["s"] for r in runs["serving"]]
+    print(f"17b rollout [{smi}]: gemma-2-2b (d 256) RolloutEngine, {B} prompts of {P} x G {G} "
+          f"x {K} new tokens ({B * G} slots, block {PAGED_BLOCK}), turns generate/serving/"
+          f"serving/generate: rollout s serving {', '.join(f'{x:.2f}' for x in srv_s)} "
+          f"(cold, warm) against decode.generate {', '.join(f'{x:.2f}' for x in gen_s)}; "
+          f"behavior logprobs against teacher-forced sequence_logprobs max |diff| "
+          f"{worst:.4f} (limit {LP_TOL}); pool blocks in use at the tick cold {cold} "
+          f"(G prompt caches: {cold_want}), warm {warm} (one prompt's blocks a group + the "
+          f"tails: {warm_want}), warm prefix hits {hits} tokens; Fwd<256> launches a wave "
+          f"{launches} (decode.generate {runs['generate'][0]['launches']})", flush=True)
+    if worst > LP_TOL:
+        raise AssertionError(f"17b: behavior logprobs {worst} from the teacher-forced ones")
+    if (cold, warm) != (cold_want, warm_want) or hits != B * G * matched * PAGED_BLOCK:
+        raise AssertionError(f"17b: pool blocks cold {cold} warm {warm} (expected "
+                             f"{cold_want}, {warm_want}), warm hits {hits}")
+    if launches != config.n_layers:  # one wave prefill of the B*G rows
+        raise AssertionError(f"17b: Fwd<256> launched {launches} times in a cold wave")
+    del eng, decode_eng, params
+    return dict(serving_s=srv_s, generate_s=gen_s, lp_max_diff=worst, blocks_cold=cold,
+                blocks_warm=warm, warm_hit_tokens=hits, launches=launches,
+                warm_launches=runs["serving"][1]["launches"])
+
+
+def phase_disagg(smi, rollout):
+    """17: a) the facade on Llama-7B against the monolithic engine, and the
+    paged pool's concurrency; c) the router across pods over loopback
+    sockets with a drain; d) rl_pod over sockets with the serving engine.
+    (b), the rollout at d 256, ran inside phase 15 on its directory."""
+    out = {"b_rollout": rollout}
+    out["a_facade"], params, config, every, want = _phase("17a", _17a_facade, smi)
+    out["c_router"] = _phase("17c", _17c_router, params, config, every, want, smi)
+    del params
+    _free("17a-c")
+    out["d_pods"] = _phase("17d", _16c_pods, smi, "socket")
+    return out
 
 
 def _phase(label, fn, *args):
@@ -3927,6 +4323,9 @@ def main(argv=None) -> int:
                    phase_gemma2, smi)
     _free("Gemma-2")
     rl = gemma.pop("rl")
+    disagg = _phase("17 the disaggregated serving plane and the socket plane (a, c, d)",
+                    phase_disagg, smi, gemma.pop("rollout"))
+    _free("the serving plane")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -4028,7 +4427,9 @@ def main(argv=None) -> int:
                              "moe_int8_serving": moe_serve["flash_launches"],
                              "7b_tp_serving": tp["launches_mesh"],
                              "7b_int8_kv_serving": tp["launches_int8"],
-                             **features["launches"], **lora["launches"]},
+                             **features["launches"], **lora["launches"],
+                             "7b_disagg_serving": disagg["a_facade"]["launches"],
+                             "7b_router_cross_pod": disagg["c_router"]["launches"]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
                            if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
@@ -4046,6 +4447,7 @@ def main(argv=None) -> int:
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
+                           disagg=disagg,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -4056,6 +4458,17 @@ def main(argv=None) -> int:
                                               "publish_s", "publish_gb_s", "peak_gb",
                                               "launches")},
         "bench1b_rl_pods": {k: c[k] for k in ("wall_s", "consumed", "learn_s")}}}), flush=True)
+    fa, ro, rc_, pd = (disagg[k] for k in ("a_facade", "b_rollout", "c_router", "d_pods"))
+    print(json.dumps({"disagg": {
+        "llama7b_facade": {k: fa[k] for k in ("rows_equal", "launches", "tick_ms", "peak_gb",
+                                              "transient_gb", "probe_most",
+                                              "concurrency_ratio")},
+        "gemma2_rollout": {k: ro[k] for k in ("serving_s", "generate_s", "lp_max_diff",
+                                              "blocks_cold", "blocks_warm", "launches")},
+        "llama7b_router": {k: rc_[k] for k in ("rows_equal", "migrated", "migrated_equal",
+                                               "mb_per_handoff", "hop_mb_s", "launches")},
+        "bench1b_rl_pods_socket": {k: pd[k] for k in ("wall_s", "consumed", "learn_s")}}}),
+        flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,13 @@ a prompt with the behavior log-probs captured at sample time, score them
 with the reward, and emit each group as an exactly-once trajectory.
 
 The rollout engine is models/decode.py `generate(with_logprobs=True)`,
-numerically the monolithic train/grpo.py path. The reference's
-"serving" engine (paged-KV rollouts on the serving plane) is not ported
-yet (ROADMAP.md). Sampling draws from a torch.Generator seeded from
-(seed, it), or (seed, 1000 + actor index, it) when the fleet has several
-actors (train/grpo.py `sampling_generator`).
+numerically the monolithic train/grpo.py path, drawing from a
+torch.Generator seeded from (seed, it), or (seed, 1000 + actor index, it)
+when the fleet has several actors (train/grpo.py `sampling_generator`).
+With engine="serving" it is the paged serving plane instead
+(serving/rollout.py `RolloutEngine`, B * G slots, max_len the longest
+prompt plus K), whose engine draws from one generator seeded with
+seed + actor index for the actor's lifetime.
 
 Off-policy guard: after ``max_weight_lag + 1`` generations at one version
 the actor PARKS until the next broadcast (rl.idle cause=learner_starved)
@@ -51,7 +53,7 @@ class ActorConfig:
     eos_id: int = -1              # >= 0: completions end at first occurrence
     max_weight_lag: int = 1
     lockstep: bool = False        # strict on-policy (parity oracle config)
-    engine: str = "decode"        # decode (serving: not ported yet)
+    engine: str = "decode"        # decode | serving
     job: str = "rl"
     weight_wait_s: float = 120.0  # park budget before failing loud
 
@@ -84,11 +86,7 @@ class ActorRuntime:
                              "the baseline)")
         if not prompts:
             raise ValueError("actor needs >= 1 prompt")
-        if cfg.engine == "serving":
-            raise NotImplementedError(
-                "rollout engine 'serving' (serving/rollout.py) is not ported to "
-                "kubedl_tpu_torch yet (ROADMAP.md); use engine='decode'")
-        if cfg.engine != "decode":
+        if cfg.engine not in ("decode", "serving"):
             raise ValueError(
                 f"unknown rollout engine {cfg.engine!r} (decode | serving)")
         self.config = config
@@ -108,6 +106,18 @@ class ActorRuntime:
         self.device = next(iter(llama.tree_leaves(self._params))).device
         self.pad_to = max(len(p) for p in prompts)
         self._uniform = len({len(p) for p in prompts}) == 1
+        self._serving = None
+        if cfg.engine == "serving":
+            from kubedl_tpu_torch.serving.rollout import RolloutEngine
+
+            self._serving = RolloutEngine(
+                self._params, config, slots=cfg.group_size * cfg.prompts_per_step,
+                max_len=self.pad_to + cfg.max_new_tokens,
+                temperature=cfg.temperature,
+                # per-actor sampling stream: same-seed engines on two
+                # actors would emit duplicate groups whenever their prompt
+                # picks collide
+                seed=cfg.seed + cfg.actor_index)
 
     @property
     def params(self):
@@ -117,6 +127,10 @@ class ActorRuntime:
 
     def _adopt(self, got) -> None:
         leaves, version, step = got
+        if self._serving is not None:
+            # the engine shares this tree: the copy below is the swap, so
+            # the generation-boundary check runs first
+            self._serving.swap_params(self._params)
         copy_leaves_into(self._params, leaves)
         self.weight_version = version
         self.weight_step = step
@@ -204,6 +218,22 @@ class ActorRuntime:
         """[(B*G), K] completions + sampling-time logprobs, on the host."""
         from kubedl_tpu_torch.models import decode
 
+        if self._serving is not None:
+            B, G, K = (self.cfg.prompts_per_step, self.cfg.group_size,
+                       self.cfg.max_new_tokens)
+            prompts = [list(tiled[i * G][:tiled_plens[i * G]]) for i in range(B)]
+            with torch.no_grad():
+                waves = self._serving.rollout(
+                    prompts, G, K,
+                    eos_id=self.cfg.eos_id if self.cfg.eos_id >= 0 else None)
+            comp = np.zeros((B * G, K), np.int32)
+            lps = np.zeros((B * G, K), np.float32)
+            for b, grp in enumerate(waves):
+                for g, (toks, lp) in enumerate(grp):
+                    row = b * G + g
+                    comp[row, :len(toks)] = toks
+                    lps[row, :len(lp)] = lp
+            return comp, lps
         with torch.no_grad():
             toks, lps = decode.generate(
                 self._params, torch.from_numpy(tiled).to(self.device), self.config,

@@ -13,11 +13,19 @@ actors)`` generation iterations (one iteration emits ``promptsPerStep``
 trajectory groups, the learner's batch), then waits for the learner's
 last broadcast and adopts it, so it ends on the final policy.
 
-Transport: DirChannel edges under ``KUBEDL_RL_QUEUE_DIR`` (the checkpoint
-volume's ``.rl`` dir), which the local executor runs. The socket plane of
-kube mode (``KUBEDL_TRANSPORT=socket``) is not ported yet: the pod exits 2
-naming ROADMAP.md. Each side purges the dirs it receives on at start, so
-a crashed incarnation's messages are never read as current data.
+Transports: DirChannel edges under ``KUBEDL_RL_QUEUE_DIR`` (the
+checkpoint volume's ``.rl`` dir) on the local executor, each side purging
+the dirs it receives on at start, so a crashed incarnation's messages are
+never read as current data; the authenticated socket plane
+(``KUBEDL_TRANSPORT=socket``, transport/plane.py: actors dial
+``KUBEDL_RL_LEARNER_ADDR``, the learner dials ``KUBEDL_RL_ACTOR_ADDRS``) in
+kube mode. The same record bytes either way. Fleet planes keep the boot-id
+latch: a restarted peer is refused loudly and the pod exits retryable, so
+the whole gang restarts from the learner's checkpoint.
+
+The actors roll out through models/decode.py `generate` or, with
+``KUBEDL_RL_ENGINE=serving``, through the paged serving plane
+(serving/rollout.py).
 
 Both roles init the base policy from the same seed, so version 0 is
 identical fleet-wide without a broadcast; the learner restores its
@@ -34,9 +42,6 @@ import os
 import signal
 import sys
 from typing import Dict, List, Optional, Tuple
-
-ENV_TRANSPORT = "KUBEDL_TRANSPORT"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("kubedl-rl-pod-torch")
@@ -104,16 +109,37 @@ def _rl_env_config(args):
 
 
 def channels_from_env(role: str, actor_ids: List[str], env: Optional[Dict[str, str]] = None):
-    """The role's channels from the injected transport env. Actor:
-    ``(traj_send_channel, weight_recv_channel)``. Learner: ``({actor:
-    traj_recv_channel}, [weight_send_channel per actor])``. The socket
-    plane is not ported (NotImplementedError naming ROADMAP.md)."""
+    """(plane, role-side channels) from the injected transport env.
+
+    Actor: ``(plane, traj_send_channel, weight_recv_channel)``. Learner:
+    ``(plane, {actor: traj_recv_channel}, [weight_send_channel per
+    actor])``. ``plane`` is None on the dir lane (close it on the socket
+    lane when done)."""
     env = os.environ if env is None else env
+    from kubedl_tpu_torch.rl.trajectory import TRAJECTORY_CHANNEL
+    from kubedl_tpu_torch.rl.weights import WEIGHT_CHANNEL
+    from kubedl_tpu_torch.transport.plane import ENV_TRANSPORT, plane_from_env
+
     if env.get(ENV_TRANSPORT, "") == "socket":
-        raise NotImplementedError(
-            f"{ENV_TRANSPORT}=socket: the socket transport plane is not ported to "
-            f"kubedl_tpu_torch yet (ROADMAP.md); use the dir lane "
-            f"(KUBEDL_RL_QUEUE_DIR)")
+        if role == "actor" and not env.get("KUBEDL_RL_LEARNER_ADDR", ""):
+            raise ValueError(
+                "KUBEDL_TRANSPORT=socket actor needs KUBEDL_RL_LEARNER_ADDR")
+        addrs = [a for a in env.get("KUBEDL_RL_ACTOR_ADDRS", "").split(",") if a]
+        if role != "actor" and len(addrs) != len(actor_ids):
+            raise ValueError(
+                f"KUBEDL_RL_ACTOR_ADDRS has {len(addrs)} entries for "
+                f"{len(actor_ids)} actors")
+        service = env.get("POD_NAME", "") or f"rl-{role}"
+        plane = plane_from_env(service=service, latch=True, env=env)
+        if role == "actor":
+            me = actor_ids[0]
+            return (plane,
+                    plane.channel(f"{TRAJECTORY_CHANNEL}.{me}",
+                                  peer_addr=env["KUBEDL_RL_LEARNER_ADDR"]),
+                    plane.channel(WEIGHT_CHANNEL))
+        traj = {a: plane.channel(f"{TRAJECTORY_CHANNEL}.{a}") for a in actor_ids}
+        weights = [plane.channel(WEIGHT_CHANNEL, peer_addr=addr) for addr in addrs]
+        return plane, traj, weights
     root = env.get("KUBEDL_RL_QUEUE_DIR", "")
     if not root:
         raise ValueError(
@@ -137,11 +163,12 @@ def channels_from_env(role: str, actor_ids: List[str], env: Optional[Dict[str, s
 
     if role == "actor":
         me = actor_ids[0]
-        return (DirChannel(os.path.join(root, f"traj-{me}")),
+        return (None,
+                DirChannel(os.path.join(root, f"traj-{me}")),
                 recv_dir(os.path.join(root, f"weights-{me}")))
     traj = {a: recv_dir(os.path.join(root, f"traj-{a}")) for a in actor_ids}
     weights = [DirChannel(os.path.join(root, f"weights-{a}")) for a in actor_ids]
-    return traj, weights
+    return None, traj, weights
 
 
 def _base_model(args, device) -> Tuple:
@@ -189,11 +216,7 @@ def _job() -> str:
 
 
 def actor_main(args, cfg, device) -> int:
-    from kubedl_tpu_torch.obs.trace import tracer_from_env
-    from kubedl_tpu_torch.rl.actor import ActorConfig, ActorRuntime
-    from kubedl_tpu_torch.rl.trajectory import TrajectoryProducer
-    from kubedl_tpu_torch.rl.weights import WeightReceiver
-    from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED
+    from kubedl_tpu_torch.rl.actor import ActorConfig
 
     job = _job()
     acfg = ActorConfig(
@@ -205,7 +228,22 @@ def actor_main(args, cfg, device) -> int:
         max_weight_lag=cfg["max_weight_lag"],
         lockstep=(cfg["n_actors"] == 1 and cfg["max_weight_lag"] == 0),
         engine=cfg["engine"], job=job)
-    traj_ch, weight_ch = channels_from_env("actor", [acfg.actor_id])
+    plane, traj_ch, weight_ch = channels_from_env("actor", [acfg.actor_id])
+    try:
+        return _act(args, cfg, device, acfg, job, traj_ch, weight_ch)
+    finally:
+        if plane is not None:
+            plane.close()
+
+
+def _act(args, cfg, device, acfg, job, traj_ch, weight_ch) -> int:
+    from kubedl_tpu_torch.obs.trace import tracer_from_env
+    from kubedl_tpu_torch.rl.actor import ActorRuntime
+    from kubedl_tpu_torch.rl.trajectory import TrajectoryProducer
+    from kubedl_tpu_torch.rl.weights import WeightReceiver
+    from kubedl_tpu_torch.transport.plane import TransportError
+    from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED
+
     config, base = _base_model(args, device)
     tracer = tracer_from_env()
     actor = ActorRuntime(
@@ -230,9 +268,10 @@ def actor_main(args, cfg, device) -> int:
                       f"exiting retryable", flush=True)
                 return EXIT_TPU_PREEMPTED
         actor.finish(last_step)
-    except TimeoutError as e:
-        # a starved broadcast: the fleet is torn -- exit retryable so the
-        # WHOLE gang restarts from the learner's checkpoint
+    except (TransportError, TimeoutError) as e:
+        # a refused incarnation or a starved broadcast: the fleet is torn
+        # -- exit retryable so the WHOLE gang restarts from the learner's
+        # checkpoint
         print(f"{acfg.actor_id}: transport failure: {e}", file=sys.stderr, flush=True)
         return EXIT_TPU_PREEMPTED
     finally:
@@ -244,6 +283,17 @@ def actor_main(args, cfg, device) -> int:
 
 
 def learner_main(args, cfg, device) -> int:
+    job = _job()
+    actor_ids = [f"actor-{i}" for i in range(cfg["n_actors"])]
+    plane, traj_channels, weight_channels = channels_from_env("learner", actor_ids)
+    try:
+        return _learn(args, cfg, device, job, traj_channels, weight_channels)
+    finally:
+        if plane is not None:
+            plane.close()
+
+
+def _learn(args, cfg, device, job, traj_channels, weight_channels) -> int:
     import time
 
     from kubedl_tpu_torch.obs.trace import tracer_from_env
@@ -251,11 +301,9 @@ def learner_main(args, cfg, device) -> int:
     from kubedl_tpu_torch.rl.trajectory import TrajectoryConsumer
     from kubedl_tpu_torch.rl.weights import WeightBroadcaster
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
+    from kubedl_tpu_torch.transport.plane import TransportError
     from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED
 
-    job = _job()
-    actor_ids = [f"actor-{i}" for i in range(cfg["n_actors"])]
-    traj_channels, weight_channels = channels_from_env("learner", actor_ids)
     config, base = _base_model(args, device)
     tracer = tracer_from_env()
     lcfg = LearnerConfig(
@@ -316,7 +364,7 @@ def learner_main(args, cfg, device) -> int:
 
     try:
         stats = learner.run(args.steps - start_step, start=start_step + 1, on_step=on_step)
-    except (TimeoutError, RuntimeError) as e:
+    except (TransportError, TimeoutError, RuntimeError) as e:
         print(f"learner: fleet failure: {e}", file=sys.stderr, flush=True)
         save(done["step"], final=True)
         return EXIT_TPU_PREEMPTED
@@ -344,15 +392,6 @@ def main(argv=None) -> int:
         cfg = _rl_env_config(args)
     except ValueError as e:
         print(f"rl config invalid: {e}", file=sys.stderr)
-        return 2
-    if os.environ.get(ENV_TRANSPORT, "") == "socket":
-        print(f"{ENV_TRANSPORT}=socket: the socket transport plane is not ported to "
-              f"kubedl_tpu_torch yet (ROADMAP.md); use the dir lane (KUBEDL_RL_QUEUE_DIR)",
-              file=sys.stderr)
-        return 2
-    if cfg["engine"] != "decode":
-        print(f"rollout engine {cfg['engine']!r} is not ported to kubedl_tpu_torch yet "
-              f"(ROADMAP.md); use decode", file=sys.stderr)
         return 2
     from kubedl_tpu_torch.utils.device import resolve_device
 

@@ -1,7 +1,9 @@
 """kubedl_tpu_torch stands alone: no module of it, nor chip_smoke.py,
 imports JAX, optax, orbax or anything of kubedl_tpu, and every module (the
-trainer included) imports with those made unimportable. Entry points never
-pick the CPU on their own."""
+trainer, the transport plane and the serving plane included) imports with
+those and ml_dtypes made unimportable; the transport and serving planes
+import no ml_dtypes at all (bf16 crosses as raw words viewed through
+torch). Entry points never pick the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -37,13 +39,13 @@ def test_every_module_imports_without_jax():
             for p in PORT_FILES if p.name != "chip_smoke.py"]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'kubedl_tpu', 'optax', 'orbax'):\n"
+            "for name in ('jax', 'jaxlib', 'kubedl_tpu', 'optax', 'orbax', 'ml_dtypes'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.startswith(('jax', 'kubedl_tpu.', 'optax',"
-            " 'orbax')) and sys.modules[m] is not None]\n"
+            " 'orbax', 'ml_dtypes')) and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok', len([m for m in sys.modules if m.startswith('kubedl_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -51,6 +53,26 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+PLANE_FILES = [ROOT / "kubedl_tpu_torch" / sub / f"{n}.py"
+               for sub, names in (("transport", ("__init__", "plane", "metrics")),
+                                  ("serving", ("__init__", "kv_pool", "handoff",
+                                               "engine_prefill", "engine_decode",
+                                               "disaggregated", "router", "rollout")))
+               for n in names]
+
+
+def test_the_planes_are_walked():
+    """The transport and serving planes are among the files both checks
+    above cover."""
+    assert set(PLANE_FILES) <= set(PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PLANE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_planes_never_import_ml_dtypes(path):
+    bad = [m for m in _imports(path) if m == "ml_dtypes" or m.startswith("ml_dtypes.")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

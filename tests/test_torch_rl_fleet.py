@@ -5,7 +5,10 @@ hold to the JAX learner's on the same groups; the lockstep in-process
 fleet equals the port's own monolithic GRPO loop bit for bit (the recipe
 of tests/test_rl.py); stale trajectories are dropped and counted; a failed
 actor channel leaves the rotation; the behavior logprobs equal the
-training forward's recompute; the serving engine is refused."""
+training forward's recompute, with the decode engine and with the serving
+plane (engine="serving", whose later waves share prompt blocks); a JAX
+learner and a port actor train over one socket pair of the two packages'
+transport planes."""
 import dataclasses
 
 import jax
@@ -238,14 +241,97 @@ def test_behavior_logprobs_equal_the_recompute(model):
 
 
 def test_engines_refused(model):
+    """Unknown engines and degenerate sampling are refused; "serving"
+    builds the paged rollout engine (B * G slots, max_len the longest
+    prompt plus K, seed + actor index)."""
     jcfg, jp, tcfg = model
     mk = lambda **kw: ActorRuntime(_tp(jp), tcfg, ActorConfig(**kw), [[1, 2, 3]],  # noqa: E731
                                    _reward_token5, producer=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mk(engine="serving")
+    eng = mk(engine="serving", group_size=4, prompts_per_step=2, max_new_tokens=13,
+             actor_index=1, seed=5)._serving.engine
+    assert (eng.slots, eng.max_len, eng.temperature) == (8, 16, 1.0)
+    assert mk()._serving is None
     with pytest.raises(ValueError, match="unknown rollout engine"):
         mk(engine="vllm")
     with pytest.raises(ValueError, match="temperature"):
         mk(temperature=0.0)
     with pytest.raises(ValueError, match="group_size"):
         mk(group_size=1)
+
+
+def test_serving_engine_actor_logprobs_and_shared_prompt_blocks(model):
+    """engine="serving": the behavior logprobs equal the training
+    forward's recompute within 1e-4 (f32), and the second iteration's
+    groups are admitted on the prompt blocks the first one indexed."""
+    jcfg, jp, tcfg = model
+    prompts = _prompts(tcfg, n=2, p=20, seed=4)
+    actor = ActorRuntime(_tp(jp), tcfg, ActorConfig(seed=1, group_size=2, prompts_per_step=2,
+                                                    max_new_tokens=12, engine="serving"),
+                         prompts, _reward_token5,
+                         producer=TrajectoryProducer(QueueChannel(), "actor-0"))
+    for it in (1, 2):
+        for traj in actor.step(it):
+            g = traj.tokens.shape[0]
+            (lp, mask), _ = sequence_logprobs(
+                actor.params, torch.from_numpy(traj.tokens), torch.full((g,), traj.prompt_len),
+                torch.from_numpy(traj.seq_lens), tcfg, with_aux=True, per_token=True)
+            np.testing.assert_allclose(traj.behavior_logprobs, (lp * mask).detach().numpy(),
+                                       rtol=0, atol=1e-4)
+            assert not traj.behavior_logprobs[mask.numpy() == 0].any()
+        st = actor._serving.stats()
+        # 20-token prompts, 16-token blocks: one full block a prompt
+        assert st["prefix_entries"] == 2
+        assert st["prefix_hit_tokens"] == (0 if it == 1 else 2 * 2 * 16)
+    assert actor.tokens_generated == 2 * 2 * 2 * 12
+
+
+def test_jax_learner_and_port_actor_over_one_socket_pair(model):
+    """The port's ActorRuntime (lockstep, on its socket plane) sends groups
+    to the JAX LearnerRuntime (on the JAX plane), which broadcasts each
+    version back: 2 steps, every group consumed once, and the actor ends
+    on the JAX learner's final parameters bit for bit."""
+    import threading
+
+    from kubedl_tpu.rl import weights as jweights
+    from kubedl_tpu.transport import TransportPlane as JaxPlane
+    from kubedl_tpu_torch.rl.weights import WeightReceiver
+    from kubedl_tpu_torch.transport import TransportPlane
+
+    jcfg, jp, tcfg = model
+    B, G, K, steps = 2, 2, 4, 2
+    jplane, tplane = JaxPlane(token="rl-pair", service="learner"),         TransportPlane(token="rl-pair", service="actor-0")
+    try:
+        j_addr, t_addr = jplane.listen("127.0.0.1:0"), tplane.listen("127.0.0.1:0")
+        learner = jlearner.LearnerRuntime(
+            jp, jcfg, jlearner.LearnerConfig(prompts_per_step=B, group_size=G,
+                                             max_weight_lag=0, lr=LR, clip_eps=CLIP_EPS,
+                                             kl_coef=KL, take_timeout_s=60.0),
+            consumer=jtraj.TrajectoryConsumer(
+                {"actor-0": jplane.channel("rl-traj.actor-0")}),
+            broadcaster=jweights.WeightBroadcaster(
+                [jplane.channel("rl-weights", peer_addr=t_addr)]),
+            mesh=build_mesh({"data": 4, "tensor": 2}))
+        actor = ActorRuntime(
+            _tp(jp), tcfg, ActorConfig(seed=0, group_size=G, prompts_per_step=B,
+                                       max_new_tokens=K, max_weight_lag=0, lockstep=True,
+                                       weight_wait_s=60.0),
+            _prompts(tcfg), _reward_token5,
+            producer=TrajectoryProducer(tplane.channel("rl-traj.actor-0", peer_addr=j_addr),
+                                        "actor-0"),
+            receiver=WeightReceiver(tplane.channel("rl-weights")))
+        out = {}
+        thread = threading.Thread(target=lambda: out.update(stats=learner.run(steps)))
+        thread.start()
+        for it in range(1, steps + 1):
+            actor.step(it)
+        actor.finish(steps)
+        thread.join(timeout=120)
+        assert not thread.is_alive() and out["stats"].consumed == B * steps
+        assert out["stats"].stale_dropped == 0
+        assert (actor.weight_version, actor.weight_step) == (2, 2)
+        for a, b in zip(sorted_leaves(actor.params),
+                        jax.tree_util.tree_leaves(jax.device_get(learner.state.params))):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    finally:
+        jplane.close()
+        tplane.close()

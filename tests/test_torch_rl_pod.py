@@ -1,11 +1,13 @@
 """The port's RL fleet pod entry point (kubedl_tpu_torch/train/rl_pod.py) on
-the CPU: the roleless, socket-lane and serving-engine refusals; the
-injected fleet shape validated with the JAX package's messages
-(api/validation.py against kubedl_tpu's over the spec.rl validation
-matrix); an actor and a learner as two processes on the dir lane at
-`tiny`, their spans under one trace id; SIGTERM to the learner -> a
-checkpoint and exit 113, and the rerun resumes from it; the purge of a
-crashed incarnation's messages."""
+the CPU: the roleless and invalid-config refusals; the socket lane's
+channels from the injected env and its refusals (no learner address, an
+actor address list of the wrong length, no token); the injected fleet
+shape validated with the JAX package's messages (api/validation.py
+against kubedl_tpu's over the spec.rl validation matrix); an actor and a
+learner as two processes on the dir lane at `tiny`, their spans under one
+trace id, and over loopback sockets with the serving rollout engine;
+SIGTERM to the learner -> a checkpoint and exit 113, and the rerun
+resumes from it; the purge of a crashed incarnation's messages."""
 import json
 import os
 import signal
@@ -40,21 +42,77 @@ def test_roleless_invocation_exits_2(capsys):
 
 
 @pytest.mark.parametrize("env,want", [
-    ({"KUBEDL_TRANSPORT": "socket"}, "socket transport plane is not ported"),
-    ({"KUBEDL_RL_ENGINE": "serving"}, "rollout engine 'serving' is not ported"),
     ({"KUBEDL_RL_GROUP_SIZE": "1"}, "rl config invalid: KUBEDL_RL.groupSize"),
+    ({"KUBEDL_RL_ENGINE": "vllm"}, "rl config invalid: KUBEDL_RL.rolloutEngine"),
 ])
 def test_refusals_exit_2(monkeypatch, capsys, env, want):
     monkeypatch.setenv("KUBEDL_RL_ROLE", "actor")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert rl_pod.main(["--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert want in err
-    if "config" not in want:
-        assert "ROADMAP.md" in err
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rl_pod.channels_from_env("actor", ["actor-0"], env={"KUBEDL_TRANSPORT": "socket"})
+    assert want in capsys.readouterr().err
+
+
+def test_serving_engine_and_socket_transport_accepted(monkeypatch):
+    """KUBEDL_RL_ENGINE=serving and KUBEDL_TRANSPORT=socket pass the env
+    config as the JAX pod's do."""
+    monkeypatch.setenv("KUBEDL_RL_ENGINE", "serving")
+    monkeypatch.setenv("KUBEDL_TRANSPORT", "socket")
+    cfg = rl_pod._rl_env_config(rl_pod.parse_args([]))
+    assert cfg == jrl_pod._rl_env_config(jrl_pod.parse_args([]))
+    assert cfg["engine"] == "serving"
+
+
+SOCKET_ENV = {"KUBEDL_TRANSPORT": "socket", "KUBEDL_TRANSPORT_TOKEN": "tok",
+              "KUBEDL_TRANSPORT_BIND": "127.0.0.1:0"}
+
+
+@pytest.mark.parametrize("role,env,match", [
+    ("actor", {}, "KUBEDL_RL_LEARNER_ADDR"),
+    ("learner", {"KUBEDL_RL_ACTOR_ADDRS": "127.0.0.1:1"}, "has 1 entries for 2 actors"),
+    ("learner", {}, "has 0 entries for 2 actors"),
+    ("actor", {"KUBEDL_RL_LEARNER_ADDR": "127.0.0.1:1", "KUBEDL_TRANSPORT_TOKEN": ""},
+     "KUBEDL_TRANSPORT_TOKEN"),
+])
+def test_socket_lane_refusals(role, env, match):
+    ids = ["actor-0"] if role == "actor" else ["actor-0", "actor-1"]
+    with pytest.raises(ValueError, match=match):
+        rl_pod.channels_from_env(role, ids, env={**SOCKET_ENV, **env})
+
+
+def test_socket_lane_channels():
+    """The socket lane: the actor sends trajectories to the learner's
+    address and receives weights on its own plane; the learner receives
+    each actor's trajectories and dials every actor's address. The
+    channel names are the JAX pod's, so either package's pod can sit on
+    either end."""
+    from kubedl_tpu_torch.transport import SocketChannel, TransportPlane
+
+    plane, traj, weights = rl_pod.channels_from_env(
+        "actor", ["actor-0"], env={**SOCKET_ENV, "KUBEDL_RL_LEARNER_ADDR": "10.0.0.1:7000",
+                                   "POD_NAME": "rl-actor-0"})
+    try:
+        assert isinstance(plane, TransportPlane) and plane.bound_addr
+        assert plane.service == "rl-actor-0"
+        assert isinstance(traj, SocketChannel) and isinstance(weights, SocketChannel)
+        assert (traj.name, traj.peer_addr) == ("rl-traj.actor-0", "10.0.0.1:7000")
+        assert (weights.name, weights.peer_addr) == ("rl-weights", "")
+    finally:
+        plane.close()
+    plane, traj, weights = rl_pod.channels_from_env(
+        "learner", ["actor-0", "actor-1"],
+        env={**SOCKET_ENV, "KUBEDL_RL_ACTOR_ADDRS": "10.0.0.2:1,10.0.0.3:2"})
+    try:
+        assert plane.service == "rl-learner"
+        assert {a: c.name for a, c in traj.items()} == {
+            "actor-0": "rl-traj.actor-0", "actor-1": "rl-traj.actor-1"}
+        assert [(w.name, w.peer_addr) for w in weights] == [
+            ("rl-weights", "10.0.0.2:1"), ("rl-weights", "10.0.0.3:2")]
+    finally:
+        plane.close()
+    plane, traj, weights = rl_pod.channels_from_env(
+        "actor", ["actor-0"], env={"KUBEDL_RL_QUEUE_DIR": "/nonexistent-q"})
+    assert plane is None
 
 
 # the shape cases of tests/test_rl.py's spec.rl validation matrix, as the
@@ -132,9 +190,10 @@ def _pod(role, tmp_path, steps, trace_id="rl-trace", **extra):
                KUBEDL_RL_GROUP_SIZE="2", KUBEDL_RL_PROMPTS_PER_STEP="2",
                KUBEDL_RL_MAX_NEW_TOKENS="4", KUBEDL_RL_MAX_WEIGHT_LAG="1",
                KUBEDL_TRACE_DIR=str(tmp_path / "trace"), KUBEDL_TRACE_ID=trace_id,
-               POD_NAME=f"rl-{role}", OMP_NUM_THREADS="1", **extra)
+               POD_NAME=f"rl-{role}", OMP_NUM_THREADS="1")
     for k in ("KUBEDL_TRANSPORT", "KUBEDL_RL_ENGINE", "KUBEDL_RL_ACTORS"):
         env.pop(k, None)
+    env.update(extra)
     cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.rl_pod", "--device", "cpu",
            "--model", "tiny", "--steps", str(steps), "--log-every", "1", "--lr", "1e-4",
            "--checkpoint-path", str(tmp_path / "ckpt")]
@@ -231,3 +290,30 @@ def test_sigterm_learner_checkpoints_exits_113_and_resumes(tmp_path):
     assert "learner: done — 3 steps" in lout and "consumed=6" in lout
     assert "final weight version 3 (step 4)" in aout
     assert sorted(os.listdir(tmp_path / "ckpt" / "learner")) == ["1", "4"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_two_process_fleet_over_sockets_with_the_serving_engine(tmp_path):
+    """The kube-mode lane: KUBEDL_TRANSPORT=socket with one shared token,
+    the actor dialing the learner's address and the learner the actor's,
+    and the actor rolling out through the paged serving plane
+    (KUBEDL_RL_ENGINE=serving). 3 learner steps: every group consumed
+    once, none stale, the actor ends on the learner's last version."""
+    l_addr, a_addr = f"127.0.0.1:{_free_port()}", f"127.0.0.1:{_free_port()}"
+    common = dict(KUBEDL_TRANSPORT="socket", KUBEDL_TRANSPORT_TOKEN="fleet-tok",
+                  KUBEDL_RL_ENGINE="serving", KUBEDL_RL_MAX_NEW_TOKENS="16",
+                  KUBEDL_RL_LEARNER_ADDR=l_addr, KUBEDL_RL_ACTOR_ADDRS=a_addr)
+    learner = _pod("learner", tmp_path, 3, KUBEDL_TRANSPORT_BIND=l_addr, **common)
+    actor = _pod("actor", tmp_path, 3, KUBEDL_TRANSPORT_BIND=a_addr, **common)
+    lout, aout = _finish(learner, actor)
+    assert (learner.returncode, actor.returncode) == (0, 0), lout + aout
+    assert "consumed=6 stale_dropped=0" in lout and "published_version=3" in lout
+    assert "engine=serving" in aout and "final weight version 3 (step 3)" in aout
+    assert not (tmp_path / "q").exists()  # nothing rode the dir lane
