@@ -13,7 +13,9 @@ Phases, each printing its own line of numbers:
      model can ask for (GQA, window, softcap, d=64, a long sequence) and
      phase 13's one-pass prefills (GQA with a window at S=8192, S=4096) and
      phase 15's Gemma-2-2B prefills at d 256 (GQA 8/4, softcap 50, window
-     4096 at S=5000 where it binds, and the twin without the softcap): the
+     4096 at S=5000 where it binds, and the twin without the softcap) and
+     phase 18's ViT-B/16 attention (not causal: b 128, 12 heads, S 197, d
+     64, with a non-ragged twin at S 1024, d 128): the
      kernel kernel_source routes to (flash_fwd_sm90.cu at every head dim,
      its Fwd<256> geometry at d 256), rerun bit for bit, the mma.sync
      kernel of flash_fwd.cu at the same shape, and the library
@@ -24,7 +26,8 @@ Phases, each printing its own line of numbers:
      after 2 warm-ups), beside the least time the card could take. On the
      softcap rows q is scaled x8 so that the scores reach the cap, and on
      every row with a softcap or a binding window the kernel run without
-     it must fail the check (a planted fault the check has to see);
+     it, and on a non-causal row the kernel run causal, must fail the check
+     (a planted fault the check has to see);
   3. full-width, full-depth Llama-7B, fresh init on the card: one
      1000-token prefill through the kernel and through plain attention,
      last-token logits compared;
@@ -36,7 +39,7 @@ Phases, each printing its own line of numbers:
      7B training shapes and the variants (GQA, window, softcap, d=64,
      d=256, a long sequence, and phase 15c's Gemma-2-2B shape at d 256 with
      GQA 8/4 and softcap 50, the same with window 4096 at S=5000, and its
-     twin without the softcap): the sources bwd_kernel_source routes each
+     twin without the softcap, and phase 2's two non-causal rows): the sources bwd_kernel_source routes each
      kernel to (flash_bwd_sm90.cu's dq and dkv at every head dim, its
      Dq256 and Dkv256 kernels at d 256) and flash_bwd.cu's mma.sync
      kernels at the same shape, each two
@@ -207,6 +210,20 @@ Phases, each printing its own line of numbers:
      with KUBEDL_RL_ENGINE=serving and 16c's checks. The launches of (a),
      (b) and (c) join the kernels line; phase 17's numbers are a JSON line
      of their own ({"disagg": ...}).
+  18. the one-card workload programs: (a) ViT-B/16 (full width and depth,
+     bf16, seeded): a forward and one step's gradients at b 128 through the
+     non-causal flash kernels against use_flash=False on the same tree and
+     batch (logits within LOGIT_TOL, every gradient within GRAD_TOL, 12
+     launches of K1 a forward and of K1/K2/K3 a step), then train.vision
+     --model vit-b16 --batch 128 --steps 10 (step ms, img/s, peak memory,
+     the launch counts asserted); (b) train.sparse at the full
+     FEATURE_DEFS vocabularies, batch 4096, hidden 512, 20 steps (step ms,
+     lookups/s, peak), and a --vocab-scale 100 run on the card against
+     the same run on the CPU (every loss within SPARSE_LOSS_TOL); (c)
+     train.mnist --steps 200 --batch 256 (step/s, BASELINE.json's metric)
+     and its losses against the same run on the CPU. The launches of (a)'s
+     program run are the kernels line's non-causal rows; phase 18's numbers
+     are a JSON line of their own ({"workloads": ...}).
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -244,6 +261,7 @@ SERVE_NEW = 32
 MAIN_SHAPE = "7b_b4_s1024"
 # the training path's attention: --batch 4 --seq-len 1024 feeds tokens[:, :-1]
 MAIN_BWD_SHAPE = "7b_b4_s1023"
+MAIN_VIT = "vit_b16_s197"  # phase 18a's attention: the non-causal rows of phases 2 and 2b
 MAIN_D256, MAIN_BWD_D256 = "gemma2_s1024", "gemma2_s1023"  # phase 15's shapes at d 256
 # the kernels phase 15 runs at d 256: K1, K2, K3
 D256_NAMES = ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu dq", "flash_bwd_sm90.cu dkv")
@@ -359,11 +377,23 @@ def _flex(s, causal, window, softcap, gqa):
                                 block_mask=block_mask, enable_gqa=gqa, return_lse=True)
 
 
-def _dropped(s, window, softcap):
-    """The options a kernel could drop unseen at this shape: the softcap,
-    and the window where it masks a key (window < s)."""
-    return [o for o, on in (("softcap", softcap is not None),
-                            ("window", window is not None and window < s)) if on]
+def _dropped(s, window, softcap, causal=True):
+    """The planted faults a check must see at this shape, as {name: the
+    options changed}: the softcap dropped, the window dropped where it
+    masks a key (window < s), and a non-causal shape run causal (the
+    kernel ignoring its flag)."""
+    faults = {}
+    if softcap is not None:
+        faults["softcap"] = {"softcap": None}
+    if window is not None and window < s:
+        faults["window"] = {"window": None}
+    if not causal:
+        faults["causal"] = {"causal": True}
+    return faults
+
+
+def _fault_label(opt):
+    return "causal_on" if opt == "causal" else f"no_{opt}"
 
 
 def phase_device():
@@ -396,9 +426,9 @@ def phase_device():
     return name, smi, build
 
 
-def phase_kernels():
+def phase_kernels(only=None):
     """The flash forward vs its plain version on the card; returns {shape
-    name: numbers}."""
+    name: numbers}. `only`: the shape names to run (all by default)."""
     import torch.nn.functional as F
 
     from kubedl_tpu_torch.ops import flash_attention as fa
@@ -426,10 +456,17 @@ def phase_kernels():
         MAIN_D256: (4, 8, 4, 1024, 256, True, None, 50.0),
         "gemma2_w4096_b1_s5000": (1, 8, 4, G2_PREFILL, 256, True, 4096, 50.0),
         "d256_gqa_s1024": (4, 8, 4, 1024, 256, True, None, None),
+        # phase 18's ViT-B/16 (the one non-causal path): b 128, 12 heads of
+        # 64, S 197 ragged inside 128-row items; and a non-ragged twin, so
+        # that a fault shows whether it is the tail's or the flag's
+        MAIN_VIT: (128, 12, 12, 197, 64, False, None, None),
+        "noncausal_s1024": (4, 32, 32, 1024, 128, False, None, None),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for name, (b, hq, hkv, s, d, causal, window, softcap) in shapes.items():
+        if only is not None and name not in only:
+            continue
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
@@ -449,14 +486,14 @@ def phase_kernels():
         # a planted fault: the kernel without one of its options must fail
         # the same check, or the check could not see that option dropped
         dropped = {}
-        for opt in _dropped(s, window, softcap):
-            bad, bad_lse = fa.flash_attention_fwd(q, k, v, **dict(kw, **{opt: None}))
+        for opt, change in _dropped(s, window, softcap, causal).items():
+            bad, bad_lse = fa.flash_attention_fwd(q, k, v, **dict(kw, **change))
             dropped[opt] = max((bad.float() - ref).abs().max().item() / OUT_TOL,
                                (bad_lse - ref_lse).abs().max().item() / LSE_TOL)
             del bad, bad_lse
             if dropped[opt] <= 1:
-                raise AssertionError(f"phase 2 cannot see a kernel that drops its {opt} at "
-                                     f"{name}: it reads {dropped[opt]:.3f} of the tolerance")
+                raise AssertionError(f"phase 2 cannot see the planted fault {_fault_label(opt)} "
+                                     f"at {name}: it reads {dropped[opt]:.3f} of the tolerance")
         library, library_err = "sdpa", None
         if softcap is not None:
             library, flex = "flex_attention", _flex(s, causal, window, softcap, hq != hkv)
@@ -509,7 +546,7 @@ def phase_kernels():
         lib = f"{library_ms:.4f} ({library})"
         old = "n/a" if mma_sync_ms is None else \
             f"{mma_sync_ms:.4f} (x{r['speedup_vs_mma_sync']:.2f}, err {mma_sync_err:.2e})"
-        faults = "".join(f" no_{o}_reads={x:.1f}xtol" for o, x in dropped.items())
+        faults = "".join(f" {_fault_label(o)}_reads={x:.1f}xtol" for o, x in dropped.items())
         print(f"kernel {name} [{source}.cu]: kernel_ms={kernel_ms:.4f} "
               f"wrapper_ms={wrapper_ms:.4f} mma_sync_ms={old} plain_ms={plain_ms:.4f} "
               f"library_ms={lib} bound_ms={bound_ms:.4f} ({r['bound_by']}) "
@@ -788,11 +825,12 @@ def _executed_share(sources, b, hq, s, d, causal, window):
     return 10 * d * _attended_pairs(s, causal, window) / run
 
 
-def phase_bwd_kernels():
+def phase_bwd_kernels(only=None):
     """The dq and dkv kernels against the f32 plain backward; returns
     {shape name: numbers}: the routed kernels' at the top level (their
     sources under "sources"), flash_bwd.cu's mma.sync kernels' at the same
-    shape under "mma_sync"."""
+    shape under "mma_sync". `only`: the shape names to run (all by
+    default)."""
     import torch.nn.functional as F
 
     from kubedl_tpu_torch.ops import flash_attention as fa
@@ -815,10 +853,15 @@ def phase_bwd_kernels():
         MAIN_BWD_D256: (4, 8, 4, 1023, 256, True, None, 50.0),
         "gemma2_w4096_b1_s5000": (1, 8, 4, G2_PREFILL, 256, True, 4096, 50.0),
         "d256_gqa_s1023": (4, 8, 4, 1023, 256, True, None, None),
+        # phase 18a's ViT-B/16 step and the non-ragged twin, both not causal
+        MAIN_VIT: (128, 12, 12, 197, 64, False, None, None),
+        "noncausal_s1024": (4, 32, 32, 1024, 128, False, None, None),
     }
     gen = torch.Generator(device="cuda").manual_seed(3)
     results = {}
     for name, (b, hq, hkv, s, d, causal, window, softcap) in shapes.items():
+        if only is not None and name not in only:
+            continue
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
@@ -862,14 +905,15 @@ def phase_bwd_kernels():
         # a planted fault: the routed kernels without one of their options
         # (the forward's out and lse kept) must fail the same check
         dropped = {}
-        for opt in _dropped(s, window, softcap):
-            bad = fa.flash_attention_bwd(q, k, v, out, lse, dout, **dict(kw, **{opt: None}))
+        for opt, change in _dropped(s, window, softcap, causal).items():
+            bad = fa.flash_attention_bwd(q, k, v, out, lse, dout, **dict(kw, **change))
             dropped[opt] = max(((g.float() - r).abs().max() / r.abs().max()).item()
                                for g, r in zip(bad, ref)) / BWD_TOL
             del bad
             if dropped[opt] <= 1:
-                raise AssertionError(f"phase 2b cannot see backward kernels that drop their "
-                                     f"{opt} at {name}: {dropped[opt]:.3f} of the tolerance")
+                raise AssertionError(f"phase 2b cannot see the planted fault "
+                                     f"{_fault_label(opt)} at {name}: {dropped[opt]:.3f} of "
+                                     f"the tolerance")
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
         if softcap is None and window is None:
             library, library_err = "sdpa", None
@@ -933,7 +977,8 @@ def phase_bwd_kernels():
               f"executed_work_share={r['executed_work_share']:.3f} tflops={r['tflops']:.1f} "
               f"rel_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
               f"deterministic={r['deterministic']}"
-              + "".join(f" no_{o}_reads={x:.1f}xtol" for o, x in dropped.items()), flush=True)
+              + "".join(f" {_fault_label(o)}_reads={x:.1f}xtol" for o, x in dropped.items()),
+              flush=True)
         del q, k, v, out, lse, dout
     return results
 
@@ -4260,6 +4305,232 @@ def phase_disagg(smi, rollout):
     return out
 
 
+# -- phase 18: the one-card workload programs (ViT-B/16, the sparse CTR
+# model, MNIST) ---------------------------------------------------------------
+
+VIT_BATCH, VIT_STEPS = 128, 10
+SPARSE_ARGS = ["--batch", "4096", "--hidden", "512"]
+SPARSE_STEPS, SPARSE_CHECK_SCALE, SPARSE_CHECK_STEPS = 20, 100, 5
+# card against CPU, same seed and batch: each loss's relative difference.
+# The deep tower and the MLP compute in bf16, where cuBLAS and the CPU's
+# GEMMs sum in other orders and one product may round one bf16 step (2^-8)
+# apart; Adam or Adagrad then carries that along the run (225 MNIST steps,
+# 6 sparse ones).
+SPARSE_LOSS_TOL, MNIST_LOSS_TOL = 1e-2, 5e-2
+MNIST_ARGS = ["--steps", "200", "--batch", "256"]
+
+
+def _profile_step(tag, step, warm=2):
+    """One call of step() under torch.profiler after `warm` calls: device
+    busy time, idle share and time by kind (`_kernel_profile`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, f"profile-{tag}.json")
+    prof.export_chrome_trace(path)
+    out = _kernel_profile(path, wall_ms)
+    os.remove(path)
+    share = "not measured" if out["idle_share"] is None else f"{out['idle_share']:.3f}"
+    print(f"profile {tag} step: wall {wall_ms:.2f} ms (profiled), device busy "
+          f"{out['device_busy_ms']:.2f} ms, idle share {share}, {out['kernels']} kernels; "
+          "by kind: " + "; ".join(f"{k} {ms:.2f} ms" for k, ms in out["groups"].items())
+          + "; top: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in out["top"]), flush=True)
+    return out
+
+
+def _line_numbers(text, keys):
+    """{key: float} of the last printed line holding `key=`."""
+    line = [ln for ln in text.splitlines() if f"{keys[0]}=" in ln][-1]
+    return {k: float(re.search(rf"\b{re.escape(k)}=(\S+)", line).group(1)) for k in keys}
+
+
+def _18a_vit(smi):
+    """ViT-B/16 at full width and depth (bf16): a forward and one step's
+    gradients through the non-causal kernels against use_flash=False on
+    one tree and batch, with the launch counts; then the vision program."""
+    from kubedl_tpu_torch.models import llama, vit
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import vision
+
+    cfg = vit.ViTConfig.base()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = vit.init(cfg, gen, device="cuda")
+    images = torch.rand((VIT_BATCH, cfg.image_size, cfg.image_size, cfg.n_channels),
+                        generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.n_classes, (VIT_BATCH,), generator=gen, device="cuda")
+    n = cfg.n_layers
+    out = {}
+    for label, c in (("kernel", cfg), ("plain", dataclasses.replace(cfg, use_flash=False))):
+        _reset_counts()
+        with torch.no_grad():
+            logits = vit.forward(params, images, c)
+        fwd_counts = _counts()
+        tree = llama.tree_map(lambda x: x.detach().requires_grad_(True), params)
+        _reset_counts()
+        loss = vit.loss_fn(tree, (images, labels), c)
+        grads = torch.autograd.grad(loss, list(llama.tree_leaves(tree)))
+        torch.cuda.synchronize()
+        out[label] = (logits, loss.item(), grads, fwd_counts, _counts())
+        del tree, loss
+    (lk, sk, gk, fk, ck), (lp, sp, gp, fp, cp) = out["kernel"], out["plain"]
+    del out
+    if fk != (n, 0, 0) or ck != (n, n, n) or fp != (0, 0, 0) or cp != (0, 0, 0):
+        raise AssertionError(f"18a ViT launches (fwd, dq, dkv): forward {fk}, step {ck} "
+                             f"(expected {(n, 0, 0)} and {(n, n, n)}); plain {fp}, {cp}")
+    finite = bool(torch.isfinite(lk).all()) and all(bool(torch.isfinite(g.float()).all())
+                                                    for g in gk)
+    logit_rel = _rel(lk, lp)
+    errs = {}
+    for nm, a, b in zip(_leaf_names(params), gk, gp):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"18a gradient {nm}: dtype {a.dtype} vs {b.dtype}")
+        errs[nm] = _rel(a, b)
+    worst = max(errs, key=errs.get)
+    n_params = vit.param_count(params)
+    del lp, gp
+    loss_rel = abs(sk - sp) / abs(sp)
+    print(f"18a vit-b16: b={VIT_BATCH} S={cfg.n_patches + 1} d_head {cfg.head_dim}, "
+          f"{n} layers: logits rel {logit_rel:.3e} (tol {LOGIT_TOL}); loss kernel {sk:.6f} "
+          f"plain {sp:.6f} (rel {loss_rel:.2e}); worst gradient {worst} rel "
+          f"{errs[worst]:.3e} over {len(errs)} leaves (tol {GRAD_TOL}); launches fwd/dq/dkv "
+          f"forward {fk} step {ck}", flush=True)
+    if not finite or logit_rel > LOGIT_TOL or loss_rel > 1e-2 or errs[worst] > GRAD_TOL:
+        raise AssertionError("18a: ViT-B/16 through the non-causal kernels disagrees with "
+                             "plain attention")
+    del lk, gk
+    init_state, train_step = make_train_step(lambda p, b: vit.loss_fn(p, b, cfg),
+                                             optim.adamw(1e-3, weight_decay=1e-4))
+    state = init_state(params)
+    prof = _profile_step("vit_b16", lambda: train_step(state, (images, labels)))
+    del state, params, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    argv = ["--model", "vit-b16", "--batch", str(VIT_BATCH), "--steps", str(VIT_STEPS)]
+    with _captured() as tee:
+        rc = vision.main(argv)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = _line_numbers(tee.text(), ["steps", "loss", "step/sec", "img/sec", "params"])
+    want = tuple([(VIT_STEPS + 1) * n] * 3)  # the warm-up step and the timed ones
+    if rc != 0 or counts != want or not math.isfinite(got["loss"]) or \
+            got["params"] != n_params:
+        raise AssertionError(f"18a vision: rc {rc}, launches {counts} (expected {want}), "
+                             f"{got}")
+    step_ms = 1e3 / got["step/sec"]
+    print(f"18a vision --model vit-b16 --batch {VIT_BATCH} --steps {VIT_STEPS}: step "
+          f"{step_ms:.2f} ms, {got['img/sec']:.0f} img/s, loss {got['loss']:.4f}, peak "
+          f"allocated {peak_gb:.2f} GB, launches fwd/dq/dkv {counts} [{smi}]", flush=True)
+    return dict(logit_rel=logit_rel, loss_kernel=sk, loss_plain=sp, grad_rel_err=errs,
+                launches_step=list(ck), launches_forward=list(fk), step_ms=step_ms,
+                img_s=got["img/sec"], loss=got["loss"], peak_gb=peak_gb,
+                launches=list(counts), argv=argv, profile=prof)
+
+
+def _18b_sparse(smi):
+    """train.sparse at the full FEATURE_DEFS vocabularies, then a
+    --vocab-scale run on the card against the same run on the CPU."""
+    from kubedl_tpu_torch.train import coordinator, sparse
+
+    torch.cuda.reset_peak_memory_stats()
+    argv = SPARSE_ARGS + ["--steps", str(SPARSE_STEPS)]
+    with _captured() as tee:
+        rc = sparse.main(argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = _line_numbers(tee.text(), ["steps", "batch", "loss", "step/sec", "lookups/sec"])
+    if rc != 0 or not math.isfinite(got["loss"]):
+        raise AssertionError(f"18b sparse: rc {rc}, {got}")
+    rows = sum(v for _, v, _, _, _ in sparse.FEATURE_DEFS)
+    info = coordinator.process_info()
+    axes, refused = sparse._mesh_axes(info)
+    if refused:
+        raise AssertionError(refused)
+    args = sparse.parse_args(argv)
+    features = sparse.features_for()
+    init_state, train_step = sparse.make_step(features, args.lr)
+    dev = torch.device("cuda")
+    state = init_state(sparse.init_params(features, args.hidden, device=dev))
+    ids, labels = sparse.draw_batch(np.random.default_rng(0), features, args.batch)
+    batch = ({k: torch.from_numpy(v).to(dev) for k, v in ids.items()},
+             torch.from_numpy(labels).to(dev))
+    prof = _profile_step("sparse", lambda: train_step(state, batch))
+    del state, batch
+    args = sparse.parse_args(SPARSE_ARGS + ["--steps", str(SPARSE_CHECK_STEPS),
+                                            "--vocab-scale", str(SPARSE_CHECK_SCALE)])
+    card = sparse.run(args, info, axes, torch.device("cuda"))["losses"]
+    cpu = sparse.run(args, info, axes, torch.device("cpu"))["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    step_ms = 1e3 / got["step/sec"]
+    print(f"18b sparse {' '.join(argv)}: {rows} table rows, step {step_ms:.3f} ms, "
+          f"{got['lookups/sec']:.3g} lookups/s, loss {got['loss']:.4f}, peak allocated "
+          f"{peak_gb:.2f} GB; --vocab-scale {SPARSE_CHECK_SCALE}: losses card "
+          f"{', '.join(f'{x:.6f}' for x in card)} against CPU "
+          f"{', '.join(f'{x:.6f}' for x in cpu)} (max rel {loss_rel:.2e}, tol "
+          f"{SPARSE_LOSS_TOL}) [{smi}]", flush=True)
+    if loss_rel > SPARSE_LOSS_TOL or not all(math.isfinite(x) for x in card):
+        raise AssertionError("18b: the sparse model on the card disagrees with the CPU run")
+    return dict(step_ms=step_ms, lookups_s=got["lookups/sec"], loss=got["loss"],
+                peak_gb=peak_gb, table_rows=rows, losses_card=card, losses_cpu=cpu,
+                loss_rel=loss_rel, argv=argv, profile=prof)
+
+
+def _18c_mnist(smi):
+    """train.mnist as BASELINE.json's metric names it (step/s), its losses
+    on the card against the same run on the CPU."""
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import mnist
+
+    with _captured() as tee:
+        rc = mnist.main(MNIST_ARGS)
+    got = _line_numbers(tee.text(), ["steps", "loss", "step/sec"])
+    if rc != 0 or not math.isfinite(got["loss"]):
+        raise AssertionError(f"18c mnist: rc {rc}, {got}")
+    args = mnist.parse_args(MNIST_ARGS)
+    init_state, train_step = make_train_step(mnist.loss_fn, optim.adam(args.lr))
+    dev = torch.device("cuda")
+    state = init_state(mnist.init_params(args.hidden, device=dev))
+    xs, ys = mnist.draw_batches(np.random.default_rng(0), 1, args.batch)
+    batch = (torch.from_numpy(xs[0]).to(dev), torch.from_numpy(ys[0]).to(dev))
+    prof = _profile_step("mnist", lambda: train_step(state, batch))
+    del state, batch
+    card = mnist.run(args, 0, dev)
+    cpu = mnist.run(args, 0, torch.device("cpu"))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    print(f"18c mnist {' '.join(MNIST_ARGS)}: {got['step/sec']:.1f} step/s (again "
+          f"{card['steps'] / card['seconds']:.1f}), loss {got['loss']:.4f}; "
+          f"{len(card['losses'])} losses card against CPU: final {card['losses'][-1]:.6f} / "
+          f"{cpu['losses'][-1]:.6f}, max rel {loss_rel:.2e} (tol {MNIST_LOSS_TOL}); CPU "
+          f"{cpu['steps'] / cpu['seconds']:.1f} step/s [{smi}]", flush=True)
+    if loss_rel > MNIST_LOSS_TOL:
+        raise AssertionError("18c: MNIST on the card disagrees with the CPU run")
+    return dict(step_s=got["step/sec"], step_s_again=card["steps"] / card["seconds"],
+                loss=got["loss"], final_card=card["losses"][-1], final_cpu=cpu["losses"][-1],
+                loss_rel=loss_rel, cpu_step_s=cpu["steps"] / cpu["seconds"], argv=MNIST_ARGS,
+                profile=prof)
+
+
+def phase_workloads(smi):
+    """18: a) ViT-B/16 through the non-causal flash kernels; b) the sparse
+    CTR model at its full vocabularies; c) MNIST."""
+    out = {"a_vit": _phase("18a", _18a_vit, smi)}
+    _free("18a")
+    out["b_sparse"] = _phase("18b", _18b_sparse, smi)
+    _free("18b")
+    out["c_mnist"] = _phase("18c", _18c_mnist, smi)
+    return out
+
+
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4326,6 +4597,9 @@ def main(argv=None) -> int:
     disagg = _phase("17 the disaggregated serving plane and the socket plane (a, c, d)",
                     phase_disagg, smi, gemma.pop("rollout"))
     _free("the serving plane")
+    workloads = _phase("18 the workload programs: ViT-B/16, the sparse CTR model, MNIST",
+                       phase_workloads, smi)
+    _free("the workload programs")
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -4414,6 +4688,42 @@ def main(argv=None) -> int:
             "sdpa_twin_ms": bwd["d256_gqa_s1023"]["library_ms"],
             "mma_sync_ms": b256["mma_sync"][f"{part}_ms"],
         })
+    # the non-causal kernels on phase 18a's ViT-B/16 path, at its shape
+    kv, bv = kernels[MAIN_VIT], bwd[MAIN_VIT]
+    vit_launches = workloads["a_vit"]["launches"]
+    vit_rows = [{
+        "name": "flash_fwd_noncausal",
+        "route": "cuda",
+        "source": f"kubedl_tpu_torch/ops/csrc/{kv['source']}",
+        "replaces": "kubedl_tpu/ops/flash_attention.py:107",
+        "launches": vit_launches[0],
+        "launches_by_path": {"vit_b16_train": vit_launches[0]},
+        "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values() if not r["causal"]),
+        "ms": kv["kernel_ms"],
+        "plain_ms": kv["plain_ms"],
+        "bound_ms": kv["bound_ms"],
+        "bound_by": kv["bound_by"],
+        "library_ms": kv["library_ms"],
+        "mma_sync_ms": kv["mma_sync_ms"],
+    }]
+    for i, (part, gname, line) in enumerate((("dq", ("dq",), 291),
+                                             ("dkv", ("dk", "dv"), 336)), start=1):
+        vit_rows.append({
+            "name": f"flash_bwd_{part}_noncausal",
+            "route": "cuda",
+            "source": f"kubedl_tpu_torch/ops/csrc/{bv['sources'][part]}",
+            "replaces": f"kubedl_tpu/ops/flash_attention.py:{line}",
+            "launches": vit_launches[i],
+            "launches_by_path": {"vit_b16_train": vit_launches[i]},
+            "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
+                               if not r["causal"] for g in gname),
+            "ms": bv[f"{part}_ms"],
+            "plain_ms": bv["plain_ms"],
+            "bound_ms": bv[f"{part}_bound_ms"],
+            "bound_by": bv[f"{part}_bound_by"],
+            "library_ms": bv["library_ms"],
+            "mma_sync_ms": bv["mma_sync"][f"{part}_ms"],
+        })
     report = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -4437,7 +4747,7 @@ def main(argv=None) -> int:
         "bound_ms": main_k["bound_ms"],
         "bound_by": main_k["bound_by"],
         "library_ms": main_k["library_ms"],
-    }] + bwd_rows + d256_rows + gmm_rows}
+    }] + bwd_rows + d256_rows + vit_rows + gmm_rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4447,7 +4757,7 @@ def main(argv=None) -> int:
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
-                           disagg=disagg,
+                           disagg=disagg, workloads=workloads,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -4469,6 +4779,16 @@ def main(argv=None) -> int:
                                                "mb_per_handoff", "hop_mb_s", "launches")},
         "bench1b_rl_pods_socket": {k: pd[k] for k in ("wall_s", "consumed", "learn_s")}}}),
         flush=True)
+    va, sb, mc = (workloads[k] for k in ("a_vit", "b_sparse", "c_mnist"))
+    print(json.dumps({"workloads": {
+        "vit_b16_train": {**{k: va[k] for k in ("step_ms", "img_s", "peak_gb", "launches",
+                                                "logit_rel")},
+                          "idle_share": va["profile"]["idle_share"]},
+        "sparse_full_vocab": {**{k: sb[k] for k in ("step_ms", "lookups_s", "peak_gb",
+                                                    "loss_rel")},
+                              "idle_share": sb["profile"]["idle_share"]},
+        "mnist": {**{k: mc[k] for k in ("step_s", "loss", "loss_rel")},
+                  "idle_share": mc["profile"]["idle_share"]}}}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -546,6 +546,12 @@ class _Par:
                     f"{rules.axes('heads')}: the port's tensor parallelism needs one axis set")
         self.n_tp = axes_size(mesh, self.tp)
         self.tp_index = axes_index(mesh, self.tp)
+        self.check(config)
+        self.tok_index, self.n_tok = token_index(mesh, rules)
+        self._layouts = {}
+
+    def check(self, config: LlamaConfig) -> None:
+        """Raise unless the config's heads and widths split over the tensor axis."""
         nkv, nq = config.n_kv_heads, config.n_heads
         if nkv % self.n_tp or nq % self.n_tp:
             raise ValueError(
@@ -554,8 +560,6 @@ class _Par:
         for name, n in (("d_ff", config.d_ff), ("vocab_size", config.vocab_size)):
             if n % self.n_tp:
                 raise ValueError(f"{name} {n} not divisible by the tensor axis {self.n_tp}")
-        self.tok_index, self.n_tok = token_index(mesh, rules)
-        self._layouts = {}
 
     def view(self, p, *dims):
         layout = self._layouts.get(dims)

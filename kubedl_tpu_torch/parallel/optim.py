@@ -8,6 +8,10 @@ Each function computes what its optax namesake computes:
   decoupled decay on every leaf (norms and embedding included), moments
   kept in the parameter's dtype; the learning rate is a float or a
   schedule of the applied-update count;
+* `adam`: ``optax.adam(lr)`` -- `adamw` without the decay;
+* `adagrad`: ``optax.adagrad(lr)`` -- the running sum of squared gradients
+  (from 0.1), each gradient times rsqrt(sum + 1e-7), scaled by
+  -learning_rate;
 * `clip_by_global_norm`, `global_norm`;
 * `linear_schedule`, `cosine_decay_schedule`, `warmup_cosine_decay_schedule`;
 * `chain` and `MultiSteps` (the running mean of k micro-step gradients;
@@ -36,6 +40,7 @@ import torch
 Schedule = Callable[[int], float]
 Leaves = List[torch.Tensor]
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, the trainer's values
+ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7  # optax.adagrad's defaults
 
 
 def _as_dtype(x: float, dtype: torch.dtype) -> float:
@@ -199,8 +204,45 @@ class adamw(Transform):
         nu.mul_(_as_dtype(B2, dt)).add_((u * u).mul_(_as_dtype(1 - B2, dt)))
         upd = mu / _as_dtype(ctx["bc1"], dt)
         den = (nu / _as_dtype(ctx["bc2"], dt)).sqrt_().add_(_as_dtype(EPS, dt))
-        upd.div_(den).add_(p * _as_dtype(self.weight_decay, dt))
+        upd.div_(den)
+        if self.weight_decay:
+            upd.add_(p * _as_dtype(self.weight_decay, dt))
         return upd.mul_(_as_dtype(-ctx["lr"], dt))
+
+    def end(self, state, ctx):
+        state["count"] = ctx["count"]
+
+
+class adam(adamw):
+    """Adam, scaled by -learning_rate (optax.adam: no weight decay)."""
+
+    def __init__(self, learning_rate: Union[float, Schedule]):
+        super().__init__(learning_rate, weight_decay=0.0)
+
+
+class adagrad(Transform):
+    """Adagrad, scaled by -learning_rate (optax.adagrad: scale_by_rss,
+    then the learning rate). The accumulator starts at 0.1 in the
+    parameter's dtype, so it is never 0 (optax's guard for a zero sum
+    never fires), and a zero gradient moves nothing."""
+
+    def __init__(self, learning_rate: Union[float, Schedule]):
+        self.lr = learning_rate
+
+    def init(self, leaves):
+        return {"count": 0,
+                "sum_of_squares": [torch.full_like(p, ADAGRAD_INIT) for p in leaves]}
+
+    def begin(self, grads, state):
+        lr = self.lr(state["count"]) if callable(self.lr) else self.lr
+        return {"count": state["count"] + 1, "lr": lr}
+
+    def leaf(self, i, u, p, state, ctx):
+        dt = u.dtype
+        acc = _local(state["sum_of_squares"][i])
+        acc.add_(u * u)
+        return (torch.rsqrt(acc + _as_dtype(ADAGRAD_EPS, dt)) * u).mul_(
+            _as_dtype(-ctx["lr"], dt))
 
     def end(self, state, ctx):
         state["count"] = ctx["count"]

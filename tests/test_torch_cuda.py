@@ -196,6 +196,8 @@ SM90_CASES = [
     (2, 4, 2, 260, 256, False, None, None),     # not causal
     (1, 4, 4, 300, 200, True, None, None),      # d 200 padded to 256
     (1, 2, 2, 130, 250, True, None, None),      # d 250: O written element by element
+    (4, 12, 12, 197, 64, False, None, None),    # ViT-B/16: not causal, S 197 ragged in 128
+    (2, 8, 8, 1024, 128, False, None, None),    # its non-ragged twin, not causal
 ]
 
 
@@ -270,6 +272,8 @@ SM90_BWD_CASES = KERNEL_CASES + [
     (2, 4, 2, 260, 256, False, None, None),     # not causal
     (1, 4, 4, 300, 200, True, None, None),      # d 200 padded to 256
     (1, 2, 2, 130, 250, True, None, None),      # d 250: dK, dV written element by element
+    (4, 12, 12, 197, 64, False, None, None),    # ViT-B/16: not causal, every item's tail tile
+    (2, 8, 8, 1024, 128, False, None, None),    # its non-ragged twin, not causal
 ]
 
 
@@ -422,6 +426,37 @@ def test_loss_grads_through_kernels_match_plain_attention(dev, tiny_bf16):
         out[label] = (loss.item(), grads, tuple(b - a for a, b in zip(n0, n1)))
     n = cfg.n_layers
     assert out["kernel"][2] == (2 * n, n, n) and out["plain"][2] == (0, 0, 0)
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-2 * abs(out["plain"][0])
+    for g, r in zip(out["kernel"][1], out["plain"][1]):
+        assert g.dtype == r.dtype and torch.isfinite(g.float()).all()
+        assert _rel_err(g, r) <= 5e-2
+
+
+def test_vit_step_through_the_kernels_matches_plain_attention(dev):
+    """ViT-tiny (bf16, head dim 16 padded to 64, S 17): the loss and every
+    gradient with non-causal attention through the kernels (one forward,
+    dq and dkv launch a layer: no remat) against use_flash=False."""
+    import dataclasses
+
+    from kubedl_tpu_torch.models import llama, vit
+
+    cfg = vit.ViTConfig.tiny()
+    params = vit.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = (torch.rand((4, 32, 32, 3), generator=gen, device=dev),
+             torch.randint(0, cfg.n_classes, (4,), generator=gen, device=dev))
+    out = {}
+    for label, c in (("kernel", cfg), ("plain", dataclasses.replace(cfg, use_flash=False))):
+        tree = llama.tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
+        n0 = (fa.flash_attention.launches, fa.flash_attention.bwd_dq_launches,
+              fa.flash_attention.bwd_dkv_launches)
+        loss = vit.loss_fn(tree, batch, c)
+        grads = torch.autograd.grad(loss, list(llama.tree_leaves(tree)))
+        n1 = (fa.flash_attention.launches, fa.flash_attention.bwd_dq_launches,
+              fa.flash_attention.bwd_dkv_launches)
+        out[label] = (loss.item(), grads, tuple(b - a for a, b in zip(n0, n1)))
+    n = cfg.n_layers
+    assert out["kernel"][2] == (n, n, n) and out["plain"][2] == (0, 0, 0)
     assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-2 * abs(out["plain"][0])
     for g, r in zip(out["kernel"][1], out["plain"][1]):
         assert g.dtype == r.dtype and torch.isfinite(g.float()).all()

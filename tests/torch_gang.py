@@ -30,7 +30,17 @@ A case with kind "decode" (prompt, optional lengths, new_tokens, max_len,
 kv_dtype, and temperature/seed for a sampled run beside the greedy one)
 runs `decode.generate` on the sharded tree; kind "serving" (prompts,
 slots, max_len, new_tokens, kv_dtype) runs a `ServingEngine` on it. Every
-rank runs the whole batch, and every rank's tokens come back. This module
+rank runs the whole batch, and every rank's tokens come back.
+
+A case with kind "vit" (config: ViTConfig fields, params, images, labels,
+lr) runs one models/vit.py step of `make_train_step` with AdamW (decay
+1e-4) on the mesh, and returns the loss, grad norm, gradients and the
+parameters after, gathered to their full shapes. Kind "lookup" (table,
+ids, weights, cotangent: global numpy arrays) runs models/embedding.py
+`sparse_lookup` on the mesh for the sum, the weighted mean and the
+unpooled lookup, and returns each output gathered to the global batch,
+each table gradient of sum(output * cotangent) gathered to the table's
+shape, and whether a table whose rows do not divide raised. This module
 imports no JAX.
 """
 from __future__ import annotations
@@ -184,9 +194,99 @@ def _lora_case(case):
     return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
 
 
+def _local_rows(x, mesh, rules):
+    """This rank's token block of a global numpy batch, as a tensor."""
+    import numpy as np
+    import torch
+
+    from kubedl_tpu_torch.parallel.mesh import token_index
+
+    tok, n_tok = token_index(mesh, rules)
+    rows = x.shape[0] // n_tok
+    return torch.from_numpy(np.ascontiguousarray(x[tok * rows:(tok + 1) * rows]))
+
+
+def _gathered_rows(x, mesh, rules):
+    """Every token block's rows of x, in block order (numpy)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.parallel.mesh import token_index
+
+    blocks = [None] * dist.get_world_size()
+    dist.all_gather_object(blocks, (token_index(mesh, rules)[0], x.detach().numpy()))
+    return np.concatenate([b for _, b in sorted(dict(blocks).items())])
+
+
+def _vit_case(case):
+    import torch
+
+    from kubedl_tpu_torch.models import llama, vit
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.utils.convert import params_from_numpy, torch_dtype
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = vit.ViTConfig(**dict(case["config"], dtype=torch_dtype(case["config"]["dtype"])))
+    batch = (_local_rows(case["images"], mesh, rules), _local_rows(case["labels"], mesh, rules))
+
+    def loss(p, b):
+        return vit.loss_fn(p, b, cfg, mesh=mesh, rules=rules)
+
+    init_state, train_step = make_train_step(
+        loss, optim.adamw(case["lr"], weight_decay=1e-4), mesh, vit.param_specs(cfg, rules),
+        (rules.spec("batch", None, None, None), rules.spec("batch")), rules)
+    state = init_state(params_from_numpy(case["params"]))
+    leaves = list(llama.tree_leaves(state.params))
+    with torch.enable_grad():
+        grads = torch.autograd.grad(loss(state.params, batch), leaves)
+    full = [g.full_tensor().numpy() for g in grads]
+    state, m = train_step(state, batch)
+    params = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": _like(case["params"], full), "params": _like(case["params"], params),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
+def _lookup_case(case):
+    import torch
+
+    from kubedl_tpu_torch.models import embedding
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tensor
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    ids, weights = (_local_rows(case[k], mesh, rules) for k in ("ids", "weights"))
+    out = {"out": {}, "grad": {}}
+    for name, combiner, w in (("sum", "sum", None), ("mean", "mean", weights),
+                              ("unpooled", None, None)):
+        table = shard_tensor(torch.from_numpy(case["table"]), mesh,
+                             embedding.table_spec()).requires_grad_(True)
+        got = embedding.sparse_lookup(table, ids, mesh, weights=w, combiner=combiner)
+        cot = _local_rows(case["cotangent"][name], mesh, rules)
+        with torch.enable_grad():
+            (grad,) = torch.autograd.grad((got * cot).sum(), [table])
+        out["out"][name] = _gathered_rows(got, mesh, rules)
+        out["grad"][name] = grad.full_tensor().numpy()
+    try:
+        unpadded = torch.zeros((case["table"].shape[0] - 1, case["table"].shape[1]))
+        embedding.sparse_lookup(unpadded, ids, mesh)
+        out["unpadded_raises"] = False
+    except ValueError as e:
+        out["unpadded_raises"] = "not divisible" in str(e)
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return out
+
+
 def _case(case):
     if case.get("kind") == "lora":
         return _lora_case(case)
+    if case.get("kind") == "vit":
+        return _vit_case(case)
+    if case.get("kind") == "lookup":
+        return _lookup_case(case)
     if case.get("kind"):
         return _inference_case(case)
     import numpy as np
