@@ -224,6 +224,24 @@ Phases, each printing its own line of numbers:
      and its losses against the same run on the CPU. The launches of (a)'s
      program run are the kernels line's non-causal rows; phase 18's numbers
      are a JSON line of their own ({"workloads": ...}).
+  19. pipeline parallelism, the MPMD stage programs: (a) MPMDPipeline
+     (two stage programs on QueueChannels, a thread each) at Llama-7B
+     widths, 4 layers, bf16, b 4 x 1024, M 4, against loss_fn on the same
+     parameters over the same four microbatches (loss within 1e-2
+     relative, each stage's gradients within GRAD_TOL of the one-program
+     gradients split by split_stage_params, K1/K2/K3 launches as
+     `_pp_launches` derives them), and stage 0 on a zeroed received
+     gradient, which must miss the check by more than 10x; (b) two
+     pipeline_trainer processes on the card over DirChannel at full depth
+     (16 layers a stage), 6 steps: both exit 0, losses finite, the first
+     within 1.5 of ln 32000, launches summed over both as derived; step
+     and wait of each stage, its boundary bytes and send MB/s, each process's
+     peak; then the one-process trainer at the same depth, one turn each;
+     (c) two tiny stage processes over the socket plane SIGTERMed: both
+     exit 113 with a checkpoint at the same step, the rerun resumes it. The
+     SPMD stage axis above 1 needs several cards (the CPU gang holds it).
+     The launches of (a) and (b) join the kernels line; phase 19's numbers
+     are a JSON line of their own ({"pipeline": ...}).
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -4531,6 +4549,313 @@ def phase_workloads(smi):
     return out
 
 
+# -- phase 19: pipeline parallelism -- the MPMD stage programs on one card ------
+
+PP_MICRO = 4              # microbatches of a step (19a, 19b): b 4 -> 4 x b 1
+PP_BATCH, PP_SEQ, PP_STEPS = 4, 1024, 6
+
+
+def _pp_launches(n_layers, n_stages, n_micro, steps=1):
+    """(K1, K2, K3) launches of the 1F1B stage programs under full remat.
+    A stage that is not last runs each microbatch's forward without
+    autograd (L_s K1), then its backward recomputes the forward under
+    autograd with every layer checkpointed (L_s K1) and each layer's
+    backward recomputes that layer (L_s K1) before its dq and dkv (L_s K2,
+    L_s K3): 3 L_s K1. The last stage runs the forward under autograd (L_s
+    K1) and the backward (L_s K1 again, L_s K2, L_s K3): 2 L_s K1. So a
+    step makes M * L_s * (3 (S-1) + 2) K1 and M * L K2 and K3."""
+    per = n_layers // n_stages
+    k1 = n_micro * per * (3 * (n_stages - 1) + 2)
+    return (steps * k1, steps * n_micro * n_layers, steps * n_micro * n_layers)
+
+
+def _pp_grad_errs(got_tree, want_tree):
+    """{leaf name: max|got - want| / max|want|} over two trees of one shape."""
+    from kubedl_tpu_torch.models import llama
+
+    names = _leaf_names(want_tree)
+    out = {}
+    for nm, a, b in zip(names, llama.tree_leaves(got_tree), llama.tree_leaves(want_tree)):
+        if not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"19a gradient {nm} not finite")
+        out[nm] = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+    return out
+
+
+def _19a_mpmd(smi):
+    """The in-process MPMD pipeline (two stage programs on QueueChannels,
+    each on its thread) at Llama-7B widths, 4 layers, against loss_fn on
+    the same parameters over the same four microbatches; then stage 0 on a
+    zeroed received gradient, a fault the gradient check must see."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.pipeline_mpmd import split_stage_params
+    from kubedl_tpu_torch.train.pipeline_runtime import MPMDPipeline
+
+    n_layers, n_stages = 4, 2
+    config = dataclasses.replace(llama.LlamaConfig.llama_7b(), n_layers=n_layers)
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, config.vocab_size, (PP_BATCH, PP_SEQ), device="cuda",
+                           dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(11))
+    mb = PP_BATCH // PP_MICRO
+    tree = llama.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    leaves = list(llama.tree_leaves(tree))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = sum(llama.loss_fn(tree, tokens[i * mb:(i + 1) * mb], config)
+               for i in range(PP_MICRO)) / PP_MICRO
+    it = iter(torch.autograd.grad(loss, leaves))
+    want = llama.tree_map(lambda _: next(it), tree)
+    loss_ref = loss.item()
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    del loss, tree, leaves
+    mp = MPMDPipeline(config, params, optim.sgd(0.0), n_stages=n_stages,
+                      n_microbatches=PP_MICRO)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = mp.step(tokens)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        expected = _pp_launches(n_layers, n_stages, PP_MICRO)
+        errs = {}
+        for s in range(n_stages):
+            ref = split_stage_params(want, mp.plan, s)
+            errs.update({f"stage{s}.{k}": v
+                         for k, v in _pp_grad_errs(mp.stages[s].last_grads, ref).items()})
+        worst = max(errs, key=errs.get)
+        loss_rel = abs(out["loss"] - loss_ref) / abs(loss_ref)
+        # planted fault: stage 0's backward on a zeroed received gradient
+        st0 = mp.stages[0]
+        real = st0._recv_grad
+        st0._recv_grad = lambda step, i: torch.zeros_like(real(step, i))
+        mp.step(tokens)
+        st0._recv_grad = real
+        fault = max(_pp_grad_errs(st0.last_grads, split_stage_params(want, mp.plan, 0)).values())
+    finally:
+        mp.close()
+    print(f"19a MPMD [{smi}]: llama-7b width, {n_layers} layers over {n_stages} stage programs "
+          f"(QueueChannels, one thread each), b {PP_BATCH} x {PP_SEQ}, M {PP_MICRO}, bf16: loss "
+          f"{out['loss']:.6f} against loss_fn's {loss_ref:.6f} (rel {loss_rel:.2e}, tol 1e-2); "
+          f"worst gradient {worst} rel {errs[worst]:.3e} over {len(errs)} leaves (tol "
+          f"{GRAD_TOL}); launches fwd/dq/dkv {counts} (expected {expected}); step {step_ms:.1f} "
+          f"ms (first), one-program forward+backward {ref_ms:.1f} ms; {out['serialized_bytes'] / 1e6:.1f} "
+          f"MB serialized; planted fault (stage 0 on a zeroed gradient) reads "
+          f"{fault / GRAD_TOL:.1f}x the tolerance", flush=True)
+    if loss_rel > 1e-2 or errs[worst] > GRAD_TOL:
+        raise AssertionError("19a: the MPMD stages disagree with the one-program loss_fn")
+    if counts != expected:
+        raise AssertionError(f"19a launches (fwd, dq, dkv) {counts}, expected {expected}")
+    if fault <= 10 * GRAD_TOL:
+        raise AssertionError(f"19a cannot see the planted fault: {fault:.3e}")
+    del params, want, mp
+    return dict(loss=out["loss"], loss_ref=loss_ref, loss_rel=loss_rel, grad_rel_err=errs,
+                launches=list(counts), step_ms=step_ms, ref_ms=ref_ms,
+                fault_over_tol=fault / GRAD_TOL, serialized_mb=out["serialized_bytes"] / 1e6)
+
+
+def _pp_env(**kw):
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                KUBEDL_PP_STAGES="2", KUBEDL_PP_MICROBATCHES=str(PP_MICRO), **kw)
+
+
+def _pp_run(envs, argv, tag, timeout=600, stop_after=None):
+    """The two stage processes (`pipeline_trainer`), output to files under
+    WORK; with `stop_after` (a line the last stage prints), both are
+    SIGTERMed once it appears. Returns (rcs, outputs, seconds from the
+    start to each stage's plan line (its set-up done), to the last stage's
+    first step line, to the SIGTERM (None without one) and to each exit)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(WORK, exist_ok=True)
+    logs = [os.path.join(WORK, f"{tag}-stage{s}.log") for s in range(2)]
+    cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.pipeline_trainer"] + argv
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env=env, stdout=open(log, "w"),
+                              stderr=subprocess.STDOUT) for env, log in zip(envs, logs)]
+    term_s, exit_s, ready_s, first_s = None, [None, None], [None, None], None
+
+    def watch():
+        nonlocal first_s
+        now = time.perf_counter() - t0
+        texts = [open(x).read() for x in logs]
+        for s in range(2):
+            if ready_s[s] is None and f"stage {s}/2:" in texts[s]:
+                ready_s[s] = now
+            if exit_s[s] is None and procs[s].poll() is not None:
+                exit_s[s] = now
+        if first_s is None and "step 0:" in texts[1]:
+            first_s = now
+        return texts
+
+    try:
+        deadline = time.monotonic() + timeout
+        if stop_after is not None:
+            while stop_after not in watch()[1]:
+                if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+                    raise AssertionError(f"{tag}: no {stop_after!r} before the stages ended:\n"
+                                         + "\n".join(open(x).read()[-1500:] for x in logs))
+                time.sleep(0.02)
+            term_s = time.perf_counter() - t0
+            for p in procs:
+                p.send_signal(signal.SIGTERM)
+        while any(s is None for s in exit_s) and time.monotonic() < deadline:
+            watch()
+            time.sleep(0.02)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [open(x).read() for x in logs]
+    return [p.returncode for p in procs], outs, dict(ready_s=ready_s, first_step_s=first_s,
+                                                     term_s=term_s, exit_s=exit_s)
+
+
+def _19b_stage_trainers(smi):
+    """Two pipeline_trainer processes on the card over DirChannel, Llama-7B
+    at full depth (16 layers a stage), then the one-process trainer at the
+    same depth and batch, one turn each."""
+    from kubedl_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama_7b()
+    bdir, trace = os.path.join(WORK, "pp-boundary"), os.path.join(WORK, "trace-pp")
+    for d in (bdir, trace):
+        shutil.rmtree(d, ignore_errors=True)
+    envs = [_pp_env(KUBEDL_PP_STAGE=str(s), KUBEDL_PP_BOUNDARY_DIR=bdir,
+                    KUBEDL_TRACE_DIR=trace, POD_NAME=f"pp-stage-{s}") for s in range(2)]
+    t0 = time.perf_counter()
+    rcs, outs, times = _pp_run(envs, ["--model", "llama-7b", "--batch", str(PP_BATCH),
+                                  "--seq-len", str(PP_SEQ), "--steps", str(PP_STEPS),
+                                  "--log-every", "1"], "pp-7b")
+    wall_s = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        raise AssertionError(f"19b stage trainers exit {rcs}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    losses = [float(x) for x in re.findall(r"step \d+: loss=([0-9.naif-]+)", outs[1])]
+    if len(losses) != PP_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"19b losses {losses}")
+    if abs(losses[0] - math.log(config.vocab_size)) > 1.5:
+        raise AssertionError(f"19b first loss {losses[0]} not within 1.5 of ln 32000")
+    peaks, launches = [], [0, 0, 0]
+    for s, o in enumerate(outs):
+        m = re.search(r"stage \d: memory: peak allocated ([0-9.]+) GB; flash launches "
+                      r"fwd/dq/dkv \((\d+), (\d+), (\d+)\)", o)
+        peaks.append(float(m.group(1)))
+        launches = [a + int(b) for a, b in zip(launches, m.groups()[1:])]
+    expected = _pp_launches(config.n_layers, 2, PP_MICRO, PP_STEPS)
+    if tuple(launches) != expected:
+        raise AssertionError(f"19b launches (fwd, dq, dkv) {launches}, expected {expected}")
+    spans = [sp for sp in _trace_spans(trace) if sp["name"] in ("train.compile", "pipeline.step")]
+    step_ms, wait_ms, msg_mb, send_mb_s = {}, {}, {}, {}
+    for s in range(2):
+        mine = sorted((sp for sp in spans if sp["attrs"].get("stage") == s),
+                      key=lambda sp: sp["attrs"]["step"])
+        if len(mine) != PP_STEPS:
+            raise AssertionError(f"19b stage {s}: {len(mine)} step spans of {PP_STEPS}")
+        step_ms[s] = statistics.median(sp["dur"] for sp in mine[1:]) * 1e3
+        wait_ms[s] = statistics.median(sp["attrs"]["wait_s"] for sp in mine[1:]) * 1e3
+        # the stage's own boundary counters over steps 2-6: the bytes it sent
+        # (M messages a step) and its sender thread's seconds in DirChannel's
+        # write + fsync, which overlap the compute
+        a, b = mine[0]["attrs"], mine[-1]["attrs"]
+        sent = b["sent_bytes"] - a["sent_bytes"]
+        msg_mb[s] = sent / ((PP_STEPS - 1) * PP_MICRO) / 1e6
+        send_mb_s[s] = sent / (b["send_s"] - a["send_s"]) / 1e6
+    # the one-process trainer at the same depth, batch and optimizer (no clip)
+    torch.cuda.reset_peak_memory_stats()
+    rc, one, _ = _run_trainer(["--model", "llama-7b", "--batch", str(PP_BATCH), "--seq-len",
+                               str(PP_SEQ), "--steps", "3", "--log-every", "1"], "pp-1proc")
+    if rc != 0 or len(one) != 3:
+        raise AssertionError(f"19b one-process trainer rc={rc}, {len(one)} step spans")
+    one_ms = statistics.median(sp["dur"] for sp in one[1:]) * 1e3
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = PP_BATCH * (PP_SEQ - 1)
+    pp_ms = max(step_ms.values())
+    print(f"19b stage trainers [{smi}]: llama-7b, 32 layers, 16 a stage, two processes on one "
+          f"card over DirChannel, b {PP_BATCH} x {PP_SEQ}, M {PP_MICRO}, {PP_STEPS} steps in "
+          f"{wall_s:.1f} s (start-up included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"step {step_ms[0]:.1f} / {step_ms[1]:.1f} ms (stage 0 / 1, median of steps 2-"
+          f"{PP_STEPS}), {tokens / pp_ms * 1e3:.0f} tok/s; wait {wait_ms[0]:.1f} / "
+          f"{wait_ms[1]:.1f} ms a step; boundary {msg_mb[0]:.2f} / {msg_mb[1]:.2f} MB a "
+          f"message, sent at {send_mb_s[0]:.0f} / {send_mb_s[1]:.0f} MB/s (the sender "
+          f"threads' DirChannel write + fsync, steps 2-{PP_STEPS}); "
+          f"peak allocated {peaks[0]:.2f} + {peaks[1]:.2f} GB; launches fwd/dq/dkv "
+          f"{tuple(launches)} (expected {expected}); set-up done at {times['ready_s'][0]:.1f} / "
+          f"{times['ready_s'][1]:.1f} s, first step line at {times['first_step_s']:.1f} s; "
+          f"one-process trainer at the same depth "
+          f"in turn: step {one_ms:.1f} ms, peak {one_peak:.2f} GB (ratio pipeline / one "
+          f"process {pp_ms / one_ms:.3f})", flush=True)
+    shutil.rmtree(bdir, ignore_errors=True)
+    boundary = dict(mb_per_msg=[msg_mb[0], msg_mb[1]], send_mb_s=[send_mb_s[0], send_mb_s[1]])
+    return dict(losses=losses, step_ms=[step_ms[0], step_ms[1]],
+                wait_ms=[wait_ms[0], wait_ms[1]], boundary=boundary, peak_gb=peaks,
+                launches=launches, one_process_step_ms=one_ms, one_process_peak_gb=one_peak,
+                ratio=pp_ms / one_ms, tok_s=tokens / pp_ms * 1e3, wall_s=wall_s, times=times)
+
+
+def _19c_socket_preemption(smi):
+    """Two tiny stage processes over the socket plane on 127.0.0.1,
+    SIGTERMed mid-run: both exit 113 with a checkpoint at the same step;
+    the rerun restores it on both and exits 0."""
+    ckpt = os.path.join(WORK, "ckpt-pp-socket")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def envs():
+        ports = [_free_port(), _free_port()]
+        base = dict(KUBEDL_TRANSPORT="socket", KUBEDL_TRANSPORT_TOKEN="chip-smoke-pp")
+        return [_pp_env(KUBEDL_PP_STAGE="0", KUBEDL_TRANSPORT_BIND=f"127.0.0.1:{ports[0]}",
+                        KUBEDL_PP_NEXT_ADDR=f"127.0.0.1:{ports[1]}", **base),
+                _pp_env(KUBEDL_PP_STAGE="1", KUBEDL_TRANSPORT_BIND=f"127.0.0.1:{ports[1]}",
+                        KUBEDL_PP_PREV_ADDR=f"127.0.0.1:{ports[0]}", **base)]
+
+    argv = ["--model", "tiny", "--batch", "8", "--seq-len", "128", "--log-every", "1",
+            "--checkpoint-path", ckpt]
+    rcs, outs, first = _pp_run(envs(), argv + ["--steps", "100000"], "pp-sigterm",
+                               timeout=300, stop_after="step 1:")
+    saved = [re.findall(r"stage \d: saved final checkpoint at step (\d+)", o) for o in outs]
+    if rcs != [113, 113] or len(saved[0]) != 1 or saved[0] != saved[1]:
+        raise AssertionError(f"19c SIGTERM: exits {rcs} (expected 113, 113), saved {saved}:\n"
+                             + "\n".join(o[-2000:] for o in outs))
+    at = int(saved[0][0])
+    rcs, outs, second = _pp_run(envs(), argv + ["--steps", str(at + 1)], "pp-resume",
+                                timeout=300)
+    restored = all(f"stage {s}: restored gang-common checkpoint at step {at}" in outs[s]
+                   and f"stage {s}: done at step {at + 1}" in outs[s] for s in range(2))
+    if rcs != [0, 0] or not restored:
+        raise AssertionError(f"19c resume: exits {rcs}, restored {restored}:\n"
+                             + "\n".join(o[-2000:] for o in outs))
+    print(f"19c socket preemption [{smi}]: two tiny stage processes over the socket plane on "
+          f"127.0.0.1 SIGTERMed, both exit 113 with a checkpoint at step {at}; the rerun "
+          f"restored step {at} on both, exit 0 at step {at + 1}; set-up done at "
+          f"{first['ready_s'][0]:.1f} / {first['ready_s'][1]:.1f} s, first step line at "
+          f"{first['first_step_s']:.1f} s, SIGTERM at "
+          f"{first['term_s']:.1f} s, exits at {first['exit_s'][0]:.1f} / "
+          f"{first['exit_s'][1]:.1f} s; the rerun's exits at {second['exit_s'][0]:.1f} / "
+          f"{second['exit_s'][1]:.1f} s", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(preempted_at=at, first=first, second=second)
+
+
+def phase_pipeline(smi):
+    """19: the MPMD pipeline -- (a) in process at Llama-7B widths against
+    loss_fn, (b) two stage processes at full depth beside the one-process
+    trainer, (c) preemption over the socket plane. The SPMD stage axis
+    above 1 needs a group of several cards: the CPU gloo gang holds it."""
+    out = {"a_mpmd": _phase("19a", _19a_mpmd, smi)}
+    _free("19a")
+    out["b_trainers"] = _phase("19b", _19b_stage_trainers, smi)
+    _free("19b")
+    out["c_socket"] = _phase("19c", _19c_socket_preemption, smi)
+    print("19: the SPMD stage axis above 1 (parallel/pipeline.py) is not run here: one card "
+          "cannot form a group of two stage ranks; tests/test_torch_pipeline_spmd.py holds it "
+          "against JAX on a CPU gloo gang of 8", flush=True)
+    return out
+
+
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4547,6 +4872,18 @@ def _free(after):
         raise AssertionError(f"{left / 1e9:.2f} GB still allocated after {after}")
 
 
+def _keep_bytecode():
+    """Cache Python's bytecode under build/ for this process and the ones it
+    starts. Where the environment sets PYTHONDONTWRITEBYTECODE (or
+    site-packages is read-only), every fresh process would compile torch
+    from source again, and torch._dynamo too, which torch.utils.checkpoint
+    imports at its first call: seconds at each trainer, stage or pod start."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None,
@@ -4556,6 +4893,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 1
+    _keep_bytecode()
     t_start = time.perf_counter()
     name, smi, build = _phase("1 device and build", phase_device)
     kernels = _phase("2 flash forward kernel", phase_kernels)
@@ -4600,6 +4938,9 @@ def main(argv=None) -> int:
     workloads = _phase("18 the workload programs: ViT-B/16, the sparse CTR model, MNIST",
                        phase_workloads, smi)
     _free("the workload programs")
+    pipe = _phase("19 pipeline parallelism: the MPMD stage programs", phase_pipeline, smi)
+    _free("the pipeline")
+    pp_a, pp_b = pipe["a_mpmd"]["launches"], pipe["b_trainers"]["launches"]
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
     for part, gname, line in (("dq", ("dq",), 291), ("dkv", ("dk", "dv"), 336)):
@@ -4611,7 +4952,9 @@ def main(argv=None) -> int:
             "launches": train["launches"][1 if part == "dq" else 2],
             "launches_by_path": {"7b_train": train["launches"][1 if part == "dq" else 2],
                                  "7b_lora_train": lora["a_train"]["launches"][
-                                     1 if part == "dq" else 2]},
+                                     1 if part == "dq" else 2],
+                                 "7b_mpmd_4l": pp_a[1 if part == "dq" else 2],
+                                 "7b_stage_trainers": pp_b[1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
                                if r["sources"][part] == main_b["sources"][part]
                                and r["shape"][4] <= 128 for g in gname),
@@ -4739,7 +5082,8 @@ def main(argv=None) -> int:
                              "7b_int8_kv_serving": tp["launches_int8"],
                              **features["launches"], **lora["launches"],
                              "7b_disagg_serving": disagg["a_facade"]["launches"],
-                             "7b_router_cross_pod": disagg["c_router"]["launches"]},
+                             "7b_router_cross_pod": disagg["c_router"]["launches"],
+                             "7b_mpmd_4l": pp_a[0], "7b_stage_trainers": pp_b[0]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
                            if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
@@ -4757,7 +5101,7 @@ def main(argv=None) -> int:
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
-                           disagg=disagg, workloads=workloads,
+                           disagg=disagg, workloads=workloads, pipeline=pipe,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -4789,6 +5133,14 @@ def main(argv=None) -> int:
                               "idle_share": sb["profile"]["idle_share"]},
         "mnist": {**{k: mc[k] for k in ("step_s", "loss", "loss_rel")},
                   "idle_share": mc["profile"]["idle_share"]}}}), flush=True)
+    pa, pb = pipe["a_mpmd"], pipe["b_trainers"]
+    print(json.dumps({"pipeline": {
+        "llama7b_mpmd_4l": {k: pa[k] for k in ("loss_rel", "launches", "step_ms", "ref_ms",
+                                               "fault_over_tol")},
+        "llama7b_stage_trainers": {k: pb[k] for k in ("step_ms", "wait_ms", "boundary",
+                                                      "peak_gb", "launches", "tok_s",
+                                                      "one_process_step_ms", "ratio")}}}),
+        flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The RL fleet's shape rules (the port's copy of `validate_rl_shapes`,
+"""The shape rules the port's programs share (the port's copies of
+`validate_pipeline_shapes`, `PIPELINE_SCHEDULES`, `validate_rl_shapes`,
 `RL_REWARDS` and `RL_ROLLOUT_ENGINES` of kubedl_tpu/api/validation.py,
 with the same error strings). The rest of that module validates job
 manifests for the operator, which is not part of the port.
@@ -6,6 +7,55 @@ manifests for the operator, which is not part of the port.
 from __future__ import annotations
 
 from typing import List
+
+PIPELINE_SCHEDULES = ("gpipe", "1f1b")
+
+
+def validate_pipeline_shapes(
+    n_stages: int,
+    n_microbatches: int,
+    interleave: int = 1,
+    n_layers: int = None,
+    schedule: str = None,
+    path: str = "spec.pipeline",
+) -> List[str]:
+    """Pipeline shape sanity -- the ONE rule set the schedules
+    (parallel/pipeline.py), the stage plan (parallel/pipeline_mpmd.py) and
+    both trainers share, as JAXJob submit validation applies it: a shape
+    the trainer would reject minutes into a job is already rejected at
+    apply time. Pure arithmetic. `n_layers=None` skips the divisibility
+    rule (unknown at submit unless declared); `schedule=None` skips the
+    schedule-name/interleave pairing rules (callers that already resolved
+    a schedule pass it, so a schedule added in one place cannot drift past
+    the other). Every message is the reference's."""
+    errs: List[str] = []
+    if schedule is not None:
+        if schedule not in PIPELINE_SCHEDULES:
+            errs.append(
+                f"{path}.schedule: unknown {schedule!r} "
+                f"({', '.join(PIPELINE_SCHEDULES)})")
+        elif interleave > 1 and schedule != "1f1b":
+            errs.append(
+                f"{path}.interleave > 1 requires schedule '1f1b' "
+                f"(GPipe has no virtual stages)")
+    if n_stages < 1:
+        errs.append(f"{path}.stages: must be >= 1, got {n_stages}")
+    if interleave < 1:
+        errs.append(f"{path}.interleave: must be >= 1, got {interleave}")
+    if n_stages >= 1 and n_microbatches < n_stages:
+        # fewer microbatches than stages can never fill the pipeline —
+        # the schedule would deadlock on (or garbage-feed) empty slots
+        errs.append(
+            f"{path}.microbatches: need >= stages ({n_stages}) to fill "
+            f"the pipeline, got {n_microbatches}")
+    if (n_layers is not None and n_stages >= 1 and interleave >= 1
+            and n_layers % (n_stages * interleave)):
+        errs.append(
+            f"{path}: layer count {n_layers} not divisible by stages x "
+            f"interleave = {n_stages} x {interleave} (every rank must "
+            f"hold {interleave} equal layer chunks)")
+    return errs
+
 
 RL_REWARDS = ("token-match", "length")
 RL_ROLLOUT_ENGINES = ("decode", "serving")

@@ -30,7 +30,13 @@ axis follows `wo` and `w2`. The embedding and the LM head are sharded over
 the vocabulary, with the cross-entropy computed over the sharded logits.
 MoE layers take the expert-parallel routes of models/moe.py.
 
-Not ported yet: context parallelism and the pipelined forward (ROADMAP.md).
+Pipelined (`loss_fn_pp`, the "stage" mesh axis): the layers stacked on a
+leading dim (`stack_params`, specs `param_specs_pp`) run the GPipe or the
+interleaved 1F1B schedule of parallel/pipeline.py, each stage its own
+layers through the same `pipeline_layer_fn` body the MPMD stage programs
+(train/pipeline_runtime.py) run.
+
+Not ported yet: context parallelism (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,13 +51,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from kubedl_tpu_torch.api.validation import validate_pipeline_shapes
 from kubedl_tpu_torch.models.moe import moe_init, moe_mlp, moe_param_specs
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
-from kubedl_tpu_torch.parallel import collectives
-from kubedl_tpu_torch.parallel.mesh import (ShardingRules, axes_index, axes_size,
-                                            live_axes, local_view, token_axes,
-                                            token_index, view_placements)
+from kubedl_tpu_torch.parallel import collectives, pipeline
+from kubedl_tpu_torch.parallel.mesh import (P, ShardingRules, axes_index, axes_size,
+                                            axis_size, live_axes, local_view, mesh_shape,
+                                            token_axes, token_index, view_placements)
 from kubedl_tpu_torch.utils.device import resolve_device
 
 
@@ -532,8 +539,10 @@ class _Par:
     and `psum` open and close a tensor-parallel region, and the token
     axes sum each rank's part of the loss."""
 
-    def __init__(self, mesh, rules: ShardingRules, config: LlamaConfig):
+    def __init__(self, mesh, rules: ShardingRules, config: LlamaConfig,
+                 partial_axes: tuple = ()):
         self.mesh, self.rules = mesh, rules
+        self.partial_axes = partial_axes  # views' gradients are parts over these too
         if live_axes(mesh, rules.axes("seq")):
             raise NotImplementedError(
                 "context parallelism (a mesh context axis > 1) is not ported to "
@@ -564,7 +573,8 @@ class _Par:
     def view(self, p, *dims):
         layout = self._layouts.get(dims)
         if layout is None:
-            layout = self._layouts[dims] = view_placements(self.mesh, self.rules, dims)
+            layout = self._layouts[dims] = view_placements(self.mesh, self.rules, dims,
+                                                           self.partial_axes)
         return local_view(p, self.mesh, self.rules, *dims, layout=layout)
 
     def enter(self, x):
@@ -776,3 +786,150 @@ def _warn_ce_chunks_ignored(tensor_size: int) -> None:
         f"head's vocab dim, so the full-logits loss path applies",
         stacklevel=3,
     )
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-parallel path (the "stage" mesh axis)
+# ---------------------------------------------------------------------------
+
+
+def param_specs_pp(config: LlamaConfig, rules: Optional[ShardingRules] = None) -> Dict:
+    """Spec tree matching stack_params(): layer leaves gain a leading
+    layer dim sharded over "stage"."""
+    r = rules or ShardingRules()
+    base = param_specs(config, r)
+    base["layers"] = _stacked_specs(base["layers"][0], r.rules["layers"])
+    return base
+
+
+def _stacked_specs(layer: Dict, lead: tuple) -> Dict:
+    """A layer's spec tree with `lead` before each spec (a spec is a
+    tuple, so `tree_map` would walk into it)."""
+    return {k: _stacked_specs(v, lead) if isinstance(v, dict) else P(*(lead + tuple(v)))
+            for k, v in layer.items()}
+
+
+def stack_params(params: Dict) -> Dict:
+    """Per-layer list of dicts -> stacked leaves [n_layers, ...] for the
+    pipelined forward (parallel/pipeline.py layout)."""
+    out = dict(params)
+    out["layers"] = pipeline.stack_layers(params["layers"])
+    return out
+
+
+def pipeline_layer_fn(config: LlamaConfig, t: int, rules: Optional[ShardingRules] = None):
+    """The ONE per-layer body every pipelined path applies -- the GPipe
+    oracle, the interleaved 1F1B schedule and the MPMD stage programs all
+    run this closure, so schedule parity can never drift into layer-math
+    drift. `layer_fn(act, layer) -> (act, aux)`: aux the layer's MoE
+    load-balance loss, 0.0 for a dense layer; `t` is the sequence length.
+    A MoE layer takes the local route (experts replicated per stage).
+    `rules` is the reference's signature: tensor and context are 1 on a
+    pipelined mesh, so the body shards nothing."""
+
+    def layer_fn(a, layer):
+        pos = torch.arange(t, dtype=torch.int32, device=a.device)[None].expand(a.shape[0], t)
+        a = _attention_block(a, layer, config, pos, window=config.sliding_window)
+        return _mlp_block(a, layer, config)
+
+    return layer_fn
+
+
+def _check_pipelined(config: LlamaConfig, mesh, n_microbatches: int, schedule: str,
+                     interleave: int) -> None:
+    if config.layer_windows is not None:
+        # the pipeline runs ONE layer body over the stacked layers; a
+        # per-layer window cannot vary inside it
+        raise ValueError("pipelined path requires a uniform window "
+                         "(layer_windows unsupported)")
+    shape = mesh_shape(mesh)
+    for ax in ("tensor", "context", "expert"):
+        if shape.get(ax, 1) != 1:
+            raise ValueError(f"pipelined mesh must have {ax}=1, got {shape[ax]}")
+    # the schedule-name/interleave pairing rules live in the shared
+    # validator; the shape rules re-check inside the schedules
+    errs = validate_pipeline_shapes(shape.get("stage", 1), n_microbatches, interleave,
+                                    schedule=schedule, path="forward_pipelined")
+    if errs:
+        raise ValueError("; ".join(errs))
+
+
+def _pipelined_backbone(params, tokens, config: LlamaConfig, mesh, rules,
+                        n_microbatches: int, schedule: str, interleave: int):
+    """(pre-final-norm activations [b, t, d]: the model's on the last stage,
+    a buffer no loss reads elsewhere; the aux total; the `_Par`; whether
+    this rank is the last stage)."""
+    _check_pipelined(config, mesh, n_microbatches, schedule, interleave)
+    stage_axis = rules.axes("layers")[0]
+    par = _Par(mesh, rules, config, partial_axes=(stage_axis,))
+    layer_fn = pipeline_layer_fn(config, tokens.shape[1], rules)
+    x = pipeline.microbatch(_embed(params, tokens, config, par), n_microbatches)
+    y, aux = pipeline.pipeline_apply_1f1b(
+        params["layers"], x, layer_fn, mesh=mesh,
+        interleave=interleave if schedule == "1f1b" else 1, stage_axis=stage_axis,
+        batch_axes=rules.axes("batch"), remat=config.remat)
+    n_stages = axis_size(mesh, stage_axis)
+    last = n_stages == 1 or mesh.get_local_rank(stage_axis) == n_stages - 1
+    return pipeline.unmicrobatch(y), aux, par, last
+
+
+def forward_pipelined_and_aux(
+    params: Dict,  # stacked layout (stack_params)
+    tokens,
+    config: LlamaConfig,
+    mesh,
+    rules: Optional[ShardingRules] = None,
+    n_microbatches: int = 4,
+    schedule: str = "gpipe",
+    interleave: int = 1,
+):
+    """Pipelined forward over the mesh's "stage" axis: (logits of this
+    rank's rows, the same on every stage; the summed MoE aux loss, 0 when
+    dense). `schedule` picks the loop: "gpipe" or "1f1b" with `interleave`
+    virtual stages a rank (parallel/pipeline.py). `tokens` are this rank's
+    rows (parallel/pipeline.py `local_rows` for the reference's split).
+    The embedding runs on every stage and counts on stage 0 (a select
+    drops it elsewhere); every stage runs the head on its own buffer and
+    the last stage's logits are broadcast, so the head's gradient reaches
+    the last stage only, and the endcaps' gradients are summed over the
+    stage axis. `loss_fn_pp` runs the head on the last stage alone. Unlike
+    the reference's pipelined path, the embedding is scaled by
+    `embed_scale` here, as `loss_fn` scales it. Composes with data
+    parallelism and MoE; tensor, context and expert must be size 1 on a
+    pipelined mesh."""
+    rules = rules or ShardingRules()
+    y, aux, par, _ = _pipelined_backbone(params, tokens, config, mesh, rules,
+                                         n_microbatches, schedule, interleave)
+    logits = _lm_head(y, _local_head(params, par), config, par)
+    stage_axis = rules.axes("layers")[0]
+    return collectives.broadcast_from(logits, mesh, stage_axis,
+                                      axis_size(mesh, stage_axis) - 1), aux
+
+
+def forward_pipelined(params: Dict, tokens, config: LlamaConfig, mesh, rules=None,
+                      n_microbatches: int = 4, schedule: str = "gpipe", interleave: int = 1):
+    return forward_pipelined_and_aux(
+        params, tokens, config, mesh, rules=rules, n_microbatches=n_microbatches,
+        schedule=schedule, interleave=interleave)[0]
+
+
+def loss_fn_pp(params, tokens, config: LlamaConfig, mesh, rules=None,
+               n_microbatches: int = 4, schedule: str = "gpipe", interleave: int = 1):
+    """`loss_fn` through the pipelined forward: the global batch's next-token
+    cross entropy plus moe_aux_coef times the aux, the same on every rank;
+    `tokens` are this rank's rows [b, t]. The head and the cross entropy
+    count on the last stage, whose loss is broadcast over the stage axis;
+    the other stages run them on one position of their own buffer, so
+    every rank's graph holds the same views and collectives, and the
+    broadcast passes them a zero cotangent."""
+    rules = rules or ShardingRules()
+    y, aux, par, last = _pipelined_backbone(params, tokens[:, :-1], config, mesh, rules,
+                                            n_microbatches, schedule, interleave)
+    n = y.shape[1] if last else 1
+    logits = _lm_head(y[:, :n], _local_head(params, par), config, par)
+    ce = _next_token_ce(logits, tokens[:, 1:n + 1])
+    tok = token_axes(rules)
+    ce = collectives.psum(ce / axes_size(mesh, live_axes(mesh, tok)), mesh, tok)
+    stage_axis = rules.axes("layers")[0]
+    ce = collectives.broadcast_from(ce, mesh, stage_axis, axis_size(mesh, stage_axis) - 1)
+    return ce + config.moe_aux_coef * aux

@@ -14,6 +14,11 @@ Two conventions meet in the sharded model, one per kind of axis:
 `psum` also turns per-rank parts of a value that every rank then uses
 alike (the loss, the routers' mean probabilities) into that value. Every
 function is the identity when no axis of `axes` has more than one rank.
+
+The pipeline's stage axis (parallel/pipeline.py) moves activations one hop
+with `ppermute`, whose gradient takes the reverse permutation, and hands
+the last stage's loss to every stage with `broadcast_from`, whose gradient
+goes back to the source once, not summed over the peers.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-from kubedl_tpu_torch.parallel.mesh import live_axes
+from kubedl_tpu_torch.parallel.mesh import axis_size, live_axes
 
 
 def _groups(mesh, axes: Sequence[str]):
@@ -131,3 +136,73 @@ def pmax(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Elementwise max over `axes`, outside autograd."""
     groups = _groups(mesh, axes) if mesh is not None else []
     return _all_reduce(x.detach(), groups, dist.ReduceOp.MAX) if groups else x.detach()
+
+
+def _peer(group, index: int) -> int:
+    """The global rank of coordinate `index` of a mesh axis's group."""
+    return dist.get_global_rank(group, index)
+
+
+def _permute(x, group, perm):
+    """Send x to each destination of this rank's (src, dst) pairs and take
+    the value from its source; zeros where no pair names this rank as the
+    destination (JAX's ppermute). Sends and receives are posted together
+    (`batch_isend_irecv`), so a ring never deadlocks."""
+    me = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x, _peer(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, _peer(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _permute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, [(d, s) for s, d in ctx.perm]), None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.keep = dist.get_rank(group) == src
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=_peer(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over `axis`: `perm` lists (source, destination)
+    coordinates; a rank that no pair sends to gets zeros. The gradient is
+    the reverse permutation."""
+    if mesh is None or axis_size(mesh, axis) == 1:
+        return x if any(s == d for s, d in perm) else torch.zeros_like(x)
+    return _Ppermute.apply(x, mesh.get_group(axis), [tuple(p) for p in perm])
+
+
+def broadcast_from(x: torch.Tensor, mesh, axis: str, index: int) -> torch.Tensor:
+    """Every rank of `axis` gets the value of the rank at coordinate `index`.
+    The peers then use it alike, each with the full cotangent: the
+    gradient goes to the source as it is (not summed over the peers), and
+    the other ranks' x gets zeros."""
+    if mesh is None or axis_size(mesh, axis) == 1:
+        return x
+    return _Broadcast.apply(x, mesh.get_group(axis), index)

@@ -356,13 +356,16 @@ def shard_tree(tree, mesh, spec_tree):
     return _map_specs(lambda x, s: shard_tensor(x, mesh, s), tree, spec_tree)
 
 
-def view_placements(mesh, rules: ShardingRules, dims) -> Tuple[tuple, tuple]:
+def view_placements(mesh, rules: ShardingRules, dims,
+                    partial_axes: Sequence[str] = ()) -> Tuple[tuple, tuple]:
     """(placements of the logical `dims`, those of the view's gradient):
-    Partial on every live token axis the view is not sharded on."""
+    Partial on every live token axis the view is not sharded on, and on
+    the live `partial_axes` (the pipeline's stage axis, whose ranks each
+    hold a part of an endcap's gradient)."""
     from torch.distributed.tensor import Partial, Replicate
 
     target = tuple(placements(mesh, rules.spec(*dims)))
-    tok = set(live_axes(mesh, token_axes(rules)))
+    tok = set(live_axes(mesh, tuple(token_axes(rules)) + tuple(partial_axes)))
     grad = tuple(Partial() if name in tok and isinstance(t, Replicate) else t
                  for name, t in zip(mesh.mesh_dim_names, target))
     return target, grad

@@ -9,6 +9,7 @@ Each function computes what its optax namesake computes:
   kept in the parameter's dtype; the learning rate is a float or a
   schedule of the applied-update count;
 * `adam`: ``optax.adam(lr)`` -- `adamw` without the decay;
+* `sgd`: ``optax.sgd(lr)`` without momentum;
 * `adagrad`: ``optax.adagrad(lr)`` -- the running sum of squared gradients
   (from 0.1), each gradient times rsqrt(sum + 1e-7), scaled by
   -learning_rate;
@@ -218,6 +219,28 @@ class adam(adamw):
 
     def __init__(self, learning_rate: Union[float, Schedule]):
         super().__init__(learning_rate, weight_decay=0.0)
+
+
+class sgd(Transform):
+    """optax.sgd(lr) without momentum: the gradient scaled by
+    -learning_rate (lr 0 leaves the parameters as they are, as the MPMD
+    pipeline's parity runs want)."""
+
+    def __init__(self, learning_rate: Union[float, Schedule]):
+        self.lr = learning_rate
+
+    def init(self, leaves):
+        return {"count": 0}
+
+    def begin(self, grads, state):
+        lr = self.lr(state["count"]) if callable(self.lr) else self.lr
+        return {"count": state["count"] + 1, "lr": lr}
+
+    def leaf(self, i, u, p, state, ctx):
+        return u * _as_dtype(-ctx["lr"], u.dtype)
+
+    def end(self, state, ctx):
+        state["count"] = ctx["count"]
 
 
 class adagrad(Transform):

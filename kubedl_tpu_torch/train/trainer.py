@@ -34,8 +34,15 @@ replicated, the base sharded): the optimizer state and the checkpoints hold
 the adapters alone, which generate and serve merge or register with
 --lora-checkpoint-path / --adapter.
 
-Refused with exit 2, until ported (ROADMAP.md): pipeline
-stages (KUBEDL_PP_STAGES > 1, KUBEDL_PP_MPMD), live reshard
+Pipeline parallelism (KUBEDL_PP_STAGES > 1, with KUBEDL_PP_MICROBATCHES,
+KUBEDL_PP_SCHEDULE gpipe|1f1b and KUBEDL_PP_INTERLEAVE): the mesh's stage
+axis must equal KUBEDL_PP_STAGES; the layers are stacked and sharded over
+it (models/llama.py `stack_params`, `param_specs_pp`) and the step runs
+`loss_fn_pp` (parallel/pipeline.py schedules). Stage peers feed the same
+rows. KUBEDL_PP_MPMD=1 pods run the stage program instead
+(train/pipeline_trainer.py) and exit 2 here.
+
+Refused with exit 2, until ported (ROADMAP.md): live reshard
 (KUBEDL_LIVE_RESHARD=1) and a mesh context axis above 1 (context
 parallelism).
 """
@@ -130,12 +137,9 @@ def _refused(args, info) -> Optional[str]:
     """The message for an option this slice of the port refuses, or None."""
     if os.environ.get("KUBEDL_PP_MPMD") == "1":
         return ("spec.pipeline.mpmd pods must run the stage program: "
-                "python -m kubedl_tpu.train.pipeline_trainer (this SPMD "
+                "python -m kubedl_tpu_torch.train.pipeline_trainer (this SPMD "
                 "trainer would train the full model un-pipelined)")
     later = "is not ported to kubedl_tpu_torch yet (ROADMAP.md, trainer options refused)"
-    if int(os.environ.get("KUBEDL_PP_STAGES", "1")) > 1:
-        return (f"KUBEDL_PP_STAGES={os.environ['KUBEDL_PP_STAGES']}: pipeline "
-                f"parallelism {later}")
     if info.live_reshard:
         return f"KUBEDL_LIVE_RESHARD=1: live reshard {later}"
     return None
@@ -154,6 +158,12 @@ def _gang_mesh(info) -> "tuple[Optional[dict], Optional[str]]":
     if axes["context"] > 1:
         return None, (f"mesh context={axes['context']}: context parallelism is not "
                       f"ported to kubedl_tpu_torch yet (ROADMAP.md)")
+    pp_stages = int(os.environ.get("KUBEDL_PP_STAGES", "1"))
+    if pp_stages > 1 and axes["stage"] != pp_stages:
+        # the stacked layers shard over the mesh's stage axis
+        return None, (f"KUBEDL_PP_STAGES={pp_stages} but the mesh stage axis "
+                      f"is {axes['stage']} (spec.mesh.stage must "
+                      f"match spec.pipeline.stages)")
     if info.num_processes > 1 and info.coordinator_address is None:
         return None, (f"KUBEDL_NUM_PROCESSES={info.num_processes} without "
                       f"KUBEDL_COORDINATOR_ADDRESS: the gang cannot meet")
@@ -245,10 +255,44 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     if args.ce_chunks > 1:
         config = dataclasses.replace(config, ce_chunks=args.ce_chunks)
     model_name = args.hf_model or args.model
+
+    # pipeline parallelism: the operator-injected KUBEDL_PP_*, checked with
+    # the shared shape rules (the stage axis was checked before the
+    # rendezvous)
+    pp_stages = int(os.environ.get("KUBEDL_PP_STAGES", "1"))
+    pipelined = pp_stages > 1
+    pp_micro = int(os.environ.get("KUBEDL_PP_MICROBATCHES", str(pp_stages)))
+    pp_schedule = os.environ.get("KUBEDL_PP_SCHEDULE", "1f1b")
+    pp_interleave = int(os.environ.get("KUBEDL_PP_INTERLEAVE", "1"))
+    if pipelined:
+        from kubedl_tpu_torch.api.validation import validate_pipeline_shapes
+
+        errs = validate_pipeline_shapes(pp_stages, pp_micro, pp_interleave,
+                                        n_layers=config.n_layers)
+        if args.batch % pp_micro:
+            errs.append(f"--batch {args.batch} not divisible by "
+                        f"{pp_micro} microbatches")
+        if args.lora_rank > 0:
+            errs.append("--lora-rank is unsupported on the pipelined "
+                        "path (adapters target unstacked projections)")
+        if errs:
+            print("pipeline config invalid: " + "; ".join(errs), file=sys.stderr)
+            return 2  # permanent config error
     say(f"mesh: {axes} devices={world} model={model_name} "
         f"params≈{config.n_layers}L/{config.d_model}d", flush=True)
+    if pipelined:
+        from kubedl_tpu_torch.parallel.pipeline import bubble_fraction
+
+        say(f"pipeline: {pp_schedule} stages={pp_stages} "
+            f"microbatches={pp_micro} interleave={pp_interleave} "
+            f"(bubble {bubble_fraction(pp_micro, pp_stages, pp_interleave):.3f})",
+            flush=True)
 
     def loss(params, batch):
+        if pipelined:
+            return llama.loss_fn_pp(params, batch, config, mesh, rules=rules,
+                                    n_microbatches=pp_micro, schedule=pp_schedule,
+                                    interleave=pp_interleave)
         return llama.loss_fn(params, batch, config, mesh=mesh, rules=rules)
 
     if args.lr_schedule == "cosine":
@@ -290,9 +334,15 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
                     "to evaluate the merged model)", flush=True)
                 args.eval_every = 0
         else:
+            specs = None
+            if pipelined:  # the stacked layout the stage axis shards
+                params = llama.stack_params(params)
+                specs = llama.param_specs_pp(config, rules)
+            elif mesh is not None:
+                specs = llama.param_specs(config, rules)
             init_state, train_step = make_train_step(
-                loss, tx, mesh, llama.param_specs(config, rules) if mesh is not None else None,
-                rules.spec("batch", None), rules, accum_steps=args.accum_steps)
+                loss, tx, mesh, specs, rules.spec("batch", None), rules,
+                accum_steps=args.accum_steps)
             state = init_state(params)
         del params
     except (torch.OutOfMemoryError, _build.BuildError) as e:

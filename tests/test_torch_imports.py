@@ -69,6 +69,17 @@ def test_the_planes_are_walked():
     assert set(PLANE_FILES) <= set(PORT_FILES)
 
 
+PIPELINE_FILES = [ROOT / "kubedl_tpu_torch" / f for f in (
+    "parallel/pipeline.py", "parallel/pipeline_mpmd.py", "train/pipeline_runtime.py",
+    "train/pipeline_trainer.py")]
+
+
+def test_the_pipeline_modules_are_walked():
+    """The pipeline's modules are among the files both checks above cover."""
+    assert all(p.is_file() for p in PIPELINE_FILES)
+    assert set(PIPELINE_FILES) <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("path", PLANE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_planes_never_import_ml_dtypes(path):
     bad = [m for m in _imports(path) if m == "ml_dtypes" or m.startswith("ml_dtypes.")]

@@ -180,7 +180,11 @@ def test_profile_window_writes_a_trace(tmp_path, capsys):
 # process), refused before any rendezvous with build_mesh's messages.
 # "lora" was refused until LoRA was ported, "hf_model" until Hugging Face
 # import was; their cases now check that the same flags train
-# (tests/test_torch_lora.py holds the step to JAX's)
+# (tests/test_torch_lora.py holds the step to JAX's). "pp_stages" was
+# refused until pipeline parallelism was ported; one process has a stage
+# axis of 1, which the reference's message refuses
+# (tests/test_torch_pipeline_trainer.py trains a stage mesh). "pp_mpmd"
+# names the port's stage program.
 REFUSED = {
     "lora": (["--lora-rank", "4"], {}),
     "hf_model": (["--hf-model", "/models/llama"], {}),
@@ -225,7 +229,10 @@ def test_refused_options_exit_2(name, monkeypatch, capsys, tmp_path):
         return
     assert rc == 2
     if name == "pp_mpmd":  # the JAX trainer's message: run the stage program
-        assert "pipeline_trainer" in err
+        assert "python -m kubedl_tpu_torch.train.pipeline_trainer" in err
+    elif name == "pp_stages":
+        assert ("KUBEDL_PP_STAGES=2 but the mesh stage axis is 1 (spec.mesh.stage "
+                "must match spec.pipeline.stages)") in err
     elif name in MISMATCH:
         assert MISMATCH[name] in err and "one device per process" in err
     else:

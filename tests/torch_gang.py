@@ -40,8 +40,14 @@ ids, weights, cotangent: global numpy arrays) runs models/embedding.py
 `sparse_lookup` on the mesh for the sum, the weighted mean and the
 unpooled lookup, and returns each output gathered to the global batch,
 each table gradient of sum(output * cotangent) gathered to the table's
-shape, and whether a table whose rows do not divide raised. This module
-imports no JAX.
+shape, and whether a table whose rows do not divide raised.
+
+A case with kind "pipeline" (config, params: the per-layer tree, batch: a
+global [B, T] array, microbatches, schedule, interleave, lr, clip) runs
+one models/llama.py `loss_fn_pp` step of `make_train_step` on the stacked
+parameters of its stage mesh, each rank on its part of the reference's
+microbatches, and returns the loss, grad norm, gradients and parameters
+after, gathered to their full stacked shapes. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -280,7 +286,57 @@ def _lookup_case(case):
     return out
 
 
+def _pipeline_case(case):
+    """One models/llama.py `loss_fn_pp` step of `make_train_step` on the
+    case's stage mesh, and `forward_pipelined`'s logits before it: the
+    rank's rows are its part of each of the reference's microbatches
+    (parallel/pipeline.py `local_rows`)."""
+    import numpy as np
+    import torch
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim, pipeline
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, token_index
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    tok, n_tok = token_index(mesh, rules)
+    n_micro = case["microbatches"]
+    batch = case["batch"]
+    rows = pipeline.local_rows(batch.shape[0], n_micro, tok, n_tok)
+    local = torch.from_numpy(np.ascontiguousarray(batch[rows]))
+
+    def loss(p, b):
+        return llama.loss_fn_pp(p, b, cfg, mesh, rules=rules, n_microbatches=n_micro,
+                                schedule=case["schedule"], interleave=case["interleave"])
+
+    tx = optim.chain(optim.clip_by_global_norm(case["clip"]),
+                     optim.adamw(case["lr"], weight_decay=0.01))
+    init_state, train_step = make_train_step(loss, tx, mesh, llama.param_specs_pp(cfg, rules),
+                                             rules.spec("batch", None), rules)
+    state = init_state(llama.stack_params(params_from_numpy(case["params"])))
+    with torch.no_grad():  # the last stage's logits of this rank's rows, on every stage
+        logits = llama.forward_pipelined(state.params, local[:, :-1], cfg, mesh, rules=rules,
+                                         n_microbatches=n_micro, schedule=case["schedule"],
+                                         interleave=case["interleave"])
+    leaves = list(llama.tree_leaves(state.params))
+    with torch.enable_grad():
+        grads = torch.autograd.grad(loss(state.params, local), leaves)
+    full = [g.full_tensor().numpy() for g in grads]
+    state, m = train_step(state, local)
+    params = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
+    return {"loss": [float(m["loss"])], "grad_norm": [float(m["grad_norm"])],
+            "grads": _like(state.params, full), "params": _like(state.params, params),
+            "logits": logits.numpy(), "rows": rows,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
 def _case(case):
+    if case.get("kind") == "pipeline":
+        return _pipeline_case(case)
     if case.get("kind") == "lora":
         return _lora_case(case)
     if case.get("kind") == "vit":
