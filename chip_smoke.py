@@ -95,8 +95,10 @@ Phases, each printing its own line of numbers:
      gang's preemption contract at `tiny` (cut from bench-1b to pay for
      phase 17; the trainer takes tiny, bench-1b or llama-7b, and the
      contract does not depend on the size): a subprocess trainer in a
-     one-rank group SIGTERMed after its first sharded checkpoint exits
-     113, and its rerun resumes from it and exits 0.
+     one-rank group, started through train/launch.py (one child for the
+     one card), SIGTERMed at the launcher after its first sharded
+     checkpoint: the child and the launcher exit 113, and the rerun
+     resumes from it and exits 0.
   12. tensor-parallel serving and the int8 KV cache, in the same one-rank
      group: full-width, full-depth Llama-7B (fresh init, bf16) on the
      serving engine with phase 4's traffic (8 slots, 1024 positions, 6
@@ -242,6 +244,24 @@ Phases, each printing its own line of numbers:
      SPMD stage axis above 1 needs several cards (the CPU gang holds it).
      The launches of (a) and (b) join the kernels line; phase 19's numbers
      are a JSON line of their own ({"pipeline": ...}).
+  20. context parallelism: (a) two processes of this script share the card
+     in a gloo group (printed; an nccl group fails the phase) whose mesh is
+     {"context": 2} with device type cuda, at Llama-7B widths, 2 layers,
+     bf16, full remat, b 1 x 4,097 seeded tokens (4,096 positions, 2,048 a
+     rank). One value-and-grad step of loss_fn with context_parallel
+     "ring" and one with "ulysses" against rank 0's one-process loss_fn on
+     the whole sequence with the same weights: the loss within 1e-2
+     relative, each position's loss within LOGIT_TOL of the max (phase 3's
+     bound), layer 0's wq, wk and w2 gradients summed over the ranks
+     within GRAD_TOL by relative norm; per strategy and rank the step ms
+     (a second step), peak GB, the bytes staged through the host against
+     the count the hops imply (equal), and the K1/K2/K3 launches: Ulysses
+     2/1/1 a layer (forward and remat recompute), the ring none. The ring
+     with every rank's offset set to 0 must miss the per-position bound.
+     Ulysses' launches join the kernels line; phase 20's numbers are a JSON
+     line of their own ({"context": ...}). Across cards (NCCL) the context
+     axis is not run here: tests/test_torch_context.py holds it against
+     JAX on a CPU gloo gang of 8.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -1498,7 +1518,9 @@ def phase_gang_preemption():
     checkpoints) SIGTERMed after its first checkpoint, then resumed."""
     ckpt = os.path.join(WORK, "ckpt-gang")
     shutil.rmtree(ckpt, ignore_errors=True)
-    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.trainer", "--model", "tiny",
+    # the pod's command: the launcher, one trainer child a visible card
+    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.launch", "--",
+            "kubedl_tpu_torch.train.trainer", "--model", "tiny",
             "--batch", "4", "--seq-len", "128", "--log-every", "1000",
             "--checkpoint-path", ckpt, "--checkpoint-interval", "5", "--checkpoint-keep", "1"]
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1527,18 +1549,20 @@ def phase_gang_preemption():
     at = _latest_ckpt(ckpt)
     sharded = at is not None and os.path.isfile(os.path.join(ckpt, str(at), ".metadata"))
     if proc.returncode != 113 or not sharded or "preempted: checkpoint saved" not in first_out \
-            or "devices=1" not in first_out:
+            or "devices=1" not in first_out or "launch: rank 0 exited 113" not in first_out:
         raise AssertionError(f"gang SIGTERM: rc={proc.returncode} (expected 113), sharded "
                              f"checkpoint {at} {sharded}:\n{first_out[-2000:]}")
     rerun = subprocess.run(argv + ["--steps", str(at + 2)], cwd=root, env=env(),
                            capture_output=True, text=True, timeout=600)
     if rerun.returncode != 0 or f"restored checkpoint at step {at}" not in rerun.stdout \
+            or "launch: rank 0 exited 0" not in rerun.stderr \
             or _latest_ckpt(ckpt) != at + 2:
         raise AssertionError(f"gang resume: rc={rerun.returncode}, latest "
                              f"{_latest_ckpt(ckpt)}:\n{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
-    print(f"gang preemption: tiny trainer in a one-rank NCCL group SIGTERMed, exit 113 "
-          f"with a sharded checkpoint at step {at}; rerun restored step {at}, exit 0, "
-          f"final checkpoint at step {at + 2}", flush=True)
+    print(f"gang preemption: tiny trainer in a one-rank NCCL group under train/launch.py "
+          f"(one child), the launcher SIGTERMed: child and launcher exit 113 with a sharded "
+          f"checkpoint at step {at}; rerun restored step {at}, exit 0, final checkpoint at "
+          f"step {at + 2}", flush=True)
     shutil.rmtree(ckpt, ignore_errors=True)
     return dict(preempted_at=at)
 
@@ -4856,6 +4880,221 @@ def phase_pipeline(smi):
     return out
 
 
+CTX_SEQ, CTX_LAYERS = 4096, 2  # 20a: Llama-7B's max_seq_len, 2,048 positions a rank
+CTX_STRATEGIES = ("ring", "ulysses")
+
+
+class _ZeroOffset:
+    """A mesh whose ranks all say they hold context block 0 (the planted
+    fault of 20a): RoPE and the ring's masks read offset 0 on every rank,
+    while the collectives still run over the real groups."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
+
+    def get_local_rank(self, mesh_dim=None):
+        return 0 if mesh_dim == "context" else self._mesh.get_local_rank(mesh_dim)
+
+
+def _ctx_expected_staged(strategy, config, b, t_loc, n=2):
+    """Bytes a rank stages through the host in one value-and-grad step, by
+    the hops: each layer's collectives run in the forward, again in the
+    remat recompute and mirrored in the backward, every byte copied out and
+    back in; plus the loss's one f32 all-reduce."""
+    blk = b * config.n_heads * t_loc * config.head_dim * 2  # one of q, k, v, o in bf16
+    if strategy == "ring":
+        fwd = (n - 1) * 2 * (2 * blk)      # n - 1 hops of stacked K and V, out and in
+    else:
+        fwd = 2 * (3 * blk) + 2 * blk      # q, k, v stacked, then o: out and in
+    return config.n_layers * 3 * fwd + 2 * 4
+
+
+def _context_rank(rank, port, out_path):
+    """One rank of 20a's context pair (run as `chip_smoke.py --context-rank
+    R --context-port P --context-out PATH`)."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import collectives
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, seq_block
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    backend = dist.get_backend()
+    print(f"20a rank {rank}: process group backend {backend}, 2 ranks sharing "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    if backend != "gloo":  # NCCL cannot hold two ranks on one device: no switch
+        raise AssertionError(f"20a: backend {backend} with two ranks on one card")
+    mesh, rules = build_mesh({"context": 2}, device_type="cuda"), ShardingRules()
+    config = dataclasses.replace(llama.LlamaConfig.llama_7b(), n_layers=CTX_LAYERS)
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, config.vocab_size, (1, CTX_SEQ + 1), device="cuda",
+                           dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    local = seq_block(tokens, mesh, rules)
+    names = ("wq", "wk", "w2")
+
+    def value_and_grad(cfg, m, toks):
+        tree = llama.tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss = llama.loss_fn(tree, toks, cfg, mesh=m, rules=rules)
+        grads = torch.autograd.grad(loss, [tree["layers"][0][n] for n in names])
+        torch.cuda.synchronize()
+        return loss.item(), grads
+
+    def position_losses(cfg, m, toks):
+        """Each position's next-token loss (f32, on the host); with a mesh,
+        both ranks' blocks gathered in order."""
+        with torch.no_grad():
+            logits = llama.forward(params, toks[:, :-1], cfg, mesh=m, rules=rules)
+            nll = -torch.log_softmax(logits, -1).gather(-1, toks[:, 1:, None].long())[..., 0]
+        nll = nll.float().cpu()
+        if m is None:
+            return nll
+        parts = [torch.empty_like(nll) for _ in range(2)]
+        dist.all_gather(parts, nll)
+        return torch.cat(parts, dim=1)
+
+    def timed(fn):
+        """fn's value and its ms (value_and_grad ends in a synchronize)."""
+        t0 = time.perf_counter()
+        value = fn()
+        return value, (time.perf_counter() - t0) * 1e3
+
+    ref = None
+    if rank == 0:  # the one-process loss_fn over the whole sequence, same weights
+        value_and_grad(config, None, tokens)  # warm
+        (ref_loss, ref_grads), ref_ms = timed(lambda: value_and_grad(config, None, tokens))
+        ref = dict(loss=ref_loss, grads=[g.float().cpu() for g in ref_grads],
+                   tokens=position_losses(config, None, tokens), ms=ref_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del ref_grads
+    out = {}
+    for strategy in CTX_STRATEGIES:
+        cfg = dataclasses.replace(config, context_parallel=strategy)
+        dist.barrier()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        collectives.staged_bytes = 0
+        loss, grads = value_and_grad(cfg, mesh, local)
+        counts, staged = _counts(), collectives.staged_bytes
+        dist.barrier()
+        ms = timed(lambda: value_and_grad(cfg, mesh, local))[1]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        summed = []
+        for g in grads:  # each rank's part of the gradient, summed over the axis
+            h = g.float().cpu()
+            dist.all_reduce(h)
+            summed.append(h)
+        del grads
+        pos = position_losses(cfg, mesh, local)
+        mine = dict(loss=loss, counts=list(counts), staged=staged, ms=ms, peak_gb=peak,
+                    expected=_ctx_expected_staged(strategy, config, 1, local.shape[1] - 1))
+        ranks = [None, None]
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            errs = {n: ((a - b).norm() / b.norm()).item()
+                    for n, a, b in zip(names, summed, ref["grads"])}
+            out[strategy] = dict(
+                ranks=ranks, loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                position_err=((pos - ref["tokens"]).abs().max()
+                              / ref["tokens"].abs().max()).item(), grad_rel=errs)
+    # the planted fault: every rank's offset 0 (RoPE positions and ring masks)
+    with torch.no_grad():
+        fault_loss = llama.loss_fn(params, local, config, mesh=_ZeroOffset(mesh),
+                                   rules=rules).item()
+    fault_pos = position_losses(config, _ZeroOffset(mesh), local)
+    if rank == 0:
+        out["fault"] = dict(loss_rel=abs(fault_loss - ref["loss"]) / abs(ref["loss"]),
+                            position_err=((fault_pos - ref["tokens"]).abs().max()
+                                          / ref["tokens"].abs().max()).item())
+        out["reference"] = dict(loss=ref["loss"], ms=ref["ms"], peak_gb=ref["peak_gb"])
+        out["backend"] = backend
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _20a_context_pair(smi):
+    """Two processes of this script on the card in a gloo group, the
+    context axis 2: ring and Ulysses against the one-process loss_fn."""
+    os.makedirs(WORK, exist_ok=True)
+    out_path = os.path.join(WORK, "context-pair.json")
+    logs = [os.path.join(WORK, f"context-rank{r}.log") for r in range(2)]
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--context-rank",
+                               str(r), "--context-port", str(port), "--context-out", out_path],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=open(log, "w"), stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    texts = [open(x).read() for x in logs]
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError(f"20a context ranks exit {[p.returncode for p in procs]}:\n"
+                             + "\n".join(t[-3000:] for t in texts))
+    for t in texts:
+        print(t.strip().splitlines()[0], flush=True)  # each rank's backend line
+    with open(out_path) as f:
+        res = json.load(f)
+    want = {"ring": [0, 0, 0], "ulysses": [2 * CTX_LAYERS, CTX_LAYERS, CTX_LAYERS]}
+    bad = []
+    for st in CTX_STRATEGIES:
+        r = res[st]
+        for i, rk in enumerate(r["ranks"]):
+            print(f"20a {st} rank {i} [{smi}]: step {rk['ms']:.1f} ms (the second step), peak "
+                  f"{rk['peak_gb']:.2f} GB, staged through the host {rk['staged']:,} bytes "
+                  f"(the hops imply {rk['expected']:,}), launches fwd/dq/dkv "
+                  f"{tuple(rk['counts'])} (expected {tuple(want[st])})", flush=True)
+            if rk["counts"] != want[st] or rk["staged"] != rk["expected"]:
+                bad.append(f"{st} rank {i}")
+        print(f"20a {st} [{smi}]: llama-7b widths, {CTX_LAYERS} layers, b 1 x {CTX_SEQ + 1} "
+              f"over context 2: loss rel {r['loss_rel']:.2e} (tol 1e-2), position losses "
+              f"max rel {r['position_err']:.3e} (tol {LOGIT_TOL}), gradients rel norm "
+              + ", ".join(f"{n} {e:.3e}" for n, e in r["grad_rel"].items())
+              + f" (tol {GRAD_TOL})", flush=True)
+        if r["loss_rel"] > 1e-2 or r["position_err"] > LOGIT_TOL \
+                or max(r["grad_rel"].values()) > GRAD_TOL:
+            bad.append(f"{st} against the one-process loss_fn")
+    fault, ref = res["fault"], res["reference"]
+    print(f"20a fault [{smi}]: the ring with every rank's offset 0: loss rel "
+          f"{fault['loss_rel']:.2e}, position losses max rel {fault['position_err']:.3e} "
+          f"({fault['position_err'] / LOGIT_TOL:.1f}x the bound); one-process reference "
+          f"value-and-grad {ref['ms']:.1f} ms, peak {ref['peak_gb']:.2f} GB; pair wall "
+          f"{wall_s:.1f} s", flush=True)
+    if fault["position_err"] <= LOGIT_TOL:
+        bad.append("the planted offset fault passed the position-loss bound")
+    if bad:
+        raise AssertionError("20a: " + "; ".join(bad))
+    return dict(res, wall_s=wall_s,
+                launches=[sum(rk["counts"][i] for rk in res["ulysses"]["ranks"])
+                          for i in range(3)])
+
+
+def phase_context(smi):
+    """20: the context axis on one card (a gloo pair). Across cards the
+    collectives need NCCL over several cards: the CPU gloo gang of
+    tests/test_torch_context.py holds the semantics against JAX."""
+    out = {"a_pair": _phase("20a", _20a_context_pair, smi)}
+    print("20: context parallelism across cards (NCCL) is not run here: one card cannot "
+          "form an NCCL group of two ranks", flush=True)
+    return out
+
+
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4888,11 +5127,17 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None,
                    help="also write all of the run's numbers to this JSON file")
+    # phase 20a's ranks: this script, run by the phase itself
+    p.add_argument("--context-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--context-port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--context-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "measures the port on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.context_rank is not None:
+        return _context_rank(args.context_rank, args.context_port, args.context_out)
     _keep_bytecode()
     t_start = time.perf_counter()
     name, smi, build = _phase("1 device and build", phase_device)
@@ -4940,6 +5185,10 @@ def main(argv=None) -> int:
     _free("the workload programs")
     pipe = _phase("19 pipeline parallelism: the MPMD stage programs", phase_pipeline, smi)
     _free("the pipeline")
+    ctx = _phase("20 context parallelism: ring and Ulysses, a gloo pair on one card",
+                 phase_context, smi)
+    _free("context parallelism")
+    ctx_l = ctx["a_pair"]["launches"]  # Ulysses' K1/K2/K3 over both ranks
     pp_a, pp_b = pipe["a_mpmd"]["launches"], pipe["b_trainers"]["launches"]
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
@@ -4954,7 +5203,8 @@ def main(argv=None) -> int:
                                  "7b_lora_train": lora["a_train"]["launches"][
                                      1 if part == "dq" else 2],
                                  "7b_mpmd_4l": pp_a[1 if part == "dq" else 2],
-                                 "7b_stage_trainers": pp_b[1 if part == "dq" else 2]},
+                                 "7b_stage_trainers": pp_b[1 if part == "dq" else 2],
+                                 "7b_context_ulysses": ctx_l[1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
                                if r["sources"][part] == main_b["sources"][part]
                                and r["shape"][4] <= 128 for g in gname),
@@ -5083,7 +5333,8 @@ def main(argv=None) -> int:
                              **features["launches"], **lora["launches"],
                              "7b_disagg_serving": disagg["a_facade"]["launches"],
                              "7b_router_cross_pod": disagg["c_router"]["launches"],
-                             "7b_mpmd_4l": pp_a[0], "7b_stage_trainers": pp_b[0]},
+                             "7b_mpmd_4l": pp_a[0], "7b_stage_trainers": pp_b[0],
+                             "7b_context_ulysses": ctx_l[0]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
                            if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
@@ -5101,7 +5352,7 @@ def main(argv=None) -> int:
                            moe_train=moe_train, moe_serve=moe_serve, sharded_step=sharded,
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
-                           disagg=disagg, workloads=workloads, pipeline=pipe,
+                           disagg=disagg, workloads=workloads, pipeline=pipe, context=ctx,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -5141,6 +5392,17 @@ def main(argv=None) -> int:
                                                       "peak_gb", "launches", "tok_s",
                                                       "one_process_step_ms", "ratio")}}}),
         flush=True)
+    ca = ctx["a_pair"]
+    print(json.dumps({"context": {
+        f"llama7b_2l_{st}": {"loss_rel": ca[st]["loss_rel"],
+                             "position_err": ca[st]["position_err"],
+                             "grad_rel": ca[st]["grad_rel"],
+                             "step_ms": [rk["ms"] for rk in ca[st]["ranks"]],
+                             "peak_gb": [rk["peak_gb"] for rk in ca[st]["ranks"]],
+                             "staged_bytes": [rk["staged"] for rk in ca[st]["ranks"]],
+                             "launches": [rk["counts"] for rk in ca[st]["ranks"]]}
+        for st in CTX_STRATEGIES} | {"fault": ca["fault"], "reference": ca["reference"],
+                                     "backend": ca["backend"]}}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -255,6 +255,10 @@ def _mesh_context(params: Dict, config: LlamaConfig, mesh, rules=None, lora=None
             "int8 weight trees (quant.quantize_params) under a mesh are not "
             "ported to kubedl_tpu_torch yet (ROADMAP.md)")
     par = _Par(mesh, rules or ShardingRules(), config)
+    if par.n_ctx > 1:
+        raise NotImplementedError(
+            "a mesh context axis > 1 in decode (a KV cache over sequence blocks) is "
+            "not ported to kubedl_tpu_torch yet (ROADMAP.md)")
     local = dict(_local_head(params, par))
     local.setdefault("embed", par.view(params["embed"], "vocab", None))
     local["layers"] = [_local_layer(layer, par) for layer in params["layers"]]

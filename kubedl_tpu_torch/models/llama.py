@@ -30,13 +30,19 @@ axis follows `wo` and `w2`. The embedding and the LM head are sharded over
 the vocabulary, with the cross-entropy computed over the sharded logits.
 MoE layers take the expert-parallel routes of models/moe.py.
 
+Context parallelism (the mesh's "context" axis, `config.context_parallel`):
+each rank holds its block of every row's positions (parallel/mesh.py
+`seq_block`), RoPE reads the global positions, and attention runs over the
+axis by ring (ops/ring_attention.py) or Ulysses (ops/ulysses.py); windows
+and the attention softcap are refused there, as in the JAX package. The
+cross entropy and the MoE statistics are averaged over the context blocks
+as over the token blocks, and every gradient is a part summed over both.
+
 Pipelined (`loss_fn_pp`, the "stage" mesh axis): the layers stacked on a
 leading dim (`stack_params`, specs `param_specs_pp`) run the GPipe or the
 interleaved 1F1B schedule of parallel/pipeline.py, each stage its own
 layers through the same `pipeline_layer_fn` body the MPMD stage programs
 (train/pipeline_runtime.py) run.
-
-Not ported yet: context parallelism (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -55,10 +61,13 @@ from kubedl_tpu_torch.api.validation import validate_pipeline_shapes
 from kubedl_tpu_torch.models.moe import moe_init, moe_mlp, moe_param_specs
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from kubedl_tpu_torch.ops.ring_attention import ring_attention
+from kubedl_tpu_torch.ops.ulysses import ulysses_attention
 from kubedl_tpu_torch.parallel import collectives, pipeline
 from kubedl_tpu_torch.parallel.mesh import (P, ShardingRules, axes_index, axes_size,
                                             axis_size, live_axes, local_view, mesh_shape,
-                                            token_axes, token_index, view_placements)
+                                            seq_index, token_axes, token_index,
+                                            view_placements)
 from kubedl_tpu_torch.utils.device import resolve_device
 
 
@@ -76,9 +85,9 @@ class RopeScaling:
 @dataclass(frozen=True)
 class LlamaConfig:
     """Field for field the JAX package's LlamaConfig (same names, same
-    defaults; ``dtype`` is a torch dtype). Fields of paths the port does
-    not run yet (context parallelism) are kept so a JAX config carries
-    across whole."""
+    defaults; ``dtype`` is a torch dtype), so a JAX config carries across
+    whole. ``context_parallel`` picks the attention of a mesh whose context
+    axis is above 1: "ring" or "ulysses"."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -140,6 +149,12 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.head_dim_override or self.d_model // self.n_heads
+
+    @property
+    def has_windows(self) -> bool:
+        return self.sliding_window is not None or (
+            self.layer_windows is not None
+            and any(w is not None for w in self.layer_windows))
 
     @property
     def q_prescale(self) -> float:
@@ -457,11 +472,38 @@ def _attention_block(x, layer, config: LlamaConfig, positions, window=None,
     if par is not None:
         h = par.enter(h)
     q, k, v = _qkv(h, layer, config, positions)
-    attend = flash_attention if config.use_flash else attention_reference
-    attn = attend(q, k, v, causal=True, window=window,
-                  softcap=config.attn_logit_softcap or None)
+    if par is not None and par.n_ctx > 1:
+        attn = _context_attention(q, k, v, config, par)
+    else:
+        attend = flash_attention if config.use_flash else attention_reference
+        attn = attend(q, k, v, causal=True, window=window,
+                      softcap=config.attn_logit_softcap or None)
     attn = attn.transpose(1, 2).reshape(b, t, -1)
     return _attn_out(x, attn, layer, config, par)
+
+
+def _context_attention(q, k, v, config: LlamaConfig, par: "_Par"):
+    """Causal attention of this rank's sequence block over the context
+    axis: K and V repeated to q's heads, then the ring or Ulysses
+    (`config.context_parallel`), as the JAX package's context branch."""
+    if config.has_windows:
+        raise NotImplementedError(
+            "sliding_window + context parallelism is not implemented "
+            "(a windowed ring would skip most hops; use full attention "
+            "on the context mesh or a single-shard windowed model)")
+    if config.attn_logit_softcap:
+        raise NotImplementedError(
+            "attn_logit_softcap + context parallelism is not "
+            "implemented (the ring/all-to-all paths run uncapped "
+            "online softmax)")
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if config.context_parallel == "ulysses":
+        return ulysses_attention(q, k, v, mesh=par.mesh, axis_name=par.seq[0], causal=True,
+                                 use_flash=config.use_flash)
+    return ring_attention(q, k, v, mesh=par.mesh, axis_name=par.seq[0], causal=True)
 
 
 def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None,
@@ -536,17 +578,22 @@ def _remat(fn, policy: Optional[str]):
 class _Par:
     """The collectives of a sharded forward on `mesh` (parallel/
     collectives.py): `view` gives a leaf's local compute tensor, `enter`
-    and `psum` open and close a tensor-parallel region, and the token
-    axes sum each rank's part of the loss."""
+    and `psum` open and close a tensor-parallel region, and the token and
+    context axes sum each rank's part of the loss. `seq` are the live
+    context axes, `ctx_index` of `n_ctx` this rank's sequence block."""
 
     def __init__(self, mesh, rules: ShardingRules, config: LlamaConfig,
                  partial_axes: tuple = ()):
         self.mesh, self.rules = mesh, rules
-        self.partial_axes = partial_axes  # views' gradients are parts over these too
-        if live_axes(mesh, rules.axes("seq")):
+        self.seq = live_axes(mesh, rules.axes("seq"))
+        if len(self.seq) > 1:
             raise NotImplementedError(
-                "context parallelism (a mesh context axis > 1) is not ported to "
-                "kubedl_tpu_torch yet (ROADMAP.md)")
+                f"rules shard 'seq' over {self.seq}: context parallelism runs over "
+                f"one mesh axis")
+        self.ctx_index, self.n_ctx = seq_index(mesh, rules)
+        # views' gradients are parts over these too: the stage axis of a
+        # pipeline, and the context axis (each rank's own sequence block)
+        self.partial_axes = tuple(partial_axes) + self.seq
         self.tp = live_axes(mesh, rules.axes("heads"))
         for dim in ("mlp", "vocab"):
             if live_axes(mesh, rules.axes(dim)) != self.tp:
@@ -582,6 +629,12 @@ class _Par:
 
     def psum(self, x):
         return collectives.psum(x, self.mesh, self.tp)
+
+    def mean_over_tokens(self, x):
+        """The global mean of a per-rank mean over equal token blocks: summed
+        over the token and context axes, each rank's part 1 / blocks."""
+        return collectives.psum(x / (self.n_tok * self.n_ctx), self.mesh,
+                                token_axes(self.rules) + self.seq)
 
 
 # each leaf's compute layout: the embed dim gathered (ZeRO-3), heads, mlp
@@ -627,7 +680,10 @@ def _backbone(params: Dict, tokens, config: LlamaConfig, par: Optional[_Par] = N
     layer's activations are recomputed in backward (a sharded layer
     gathers its leaves again there)."""
     b, t = tokens.shape
-    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None].expand(b, t)
+    # global positions: this rank's block of the sequence starts at i * t
+    start = par.ctx_index * t if par is not None else 0
+    positions = torch.arange(start, start + t, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, t)
     x = _embed(params, tokens, config, par)
     remat = config.remat and torch.is_grad_enabled()
     aux = 0.0
@@ -749,8 +805,10 @@ def loss_fn(params, tokens, config: LlamaConfig, mesh=None, rules=None):
     exist), unless the tensor axis shards the vocabulary (a warning, then
     the full-logits path, as in the JAX package).
 
-    With a mesh, `tokens` are this rank's rows: the loss is the global
-    batch's, the same on every rank, and each rank's gradients are its
+    With a mesh, `tokens` are this rank's rows, and with a context axis
+    its columns of them (parallel/mesh.py `seq_block`: its positions and
+    the next token): the loss is the global batch's mean over every
+    position, the same on every rank, and each rank's gradients are its
     part of the sum (parallel/mesh.py `local_view` reduces them)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     par = _par(mesh, rules, config)
@@ -766,8 +824,8 @@ def loss_fn(params, tokens, config: LlamaConfig, mesh=None, rules=None):
         ce = _sharded_ce(_lm_head(x, head, config, par), targets, par)
     else:
         ce = _next_token_ce(_lm_head(x, head, config, par), targets)
-    if par is not None:  # each token block's share of the global mean
-        ce = collectives.psum(ce / par.n_tok, mesh, token_axes(par.rules))
+    if par is not None:  # each block's share of the global mean
+        ce = par.mean_over_tokens(ce)
     return ce + config.moe_aux_coef * aux
 
 

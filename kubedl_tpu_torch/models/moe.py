@@ -37,7 +37,11 @@ rank's rows and the local views of its leaves, laid out by
 
 Both sum their partial FFN outputs over the tensor axis when it shards
 the experts' `mlp` columns, and average the load-balance statistics over
-the token blocks.
+the token blocks. With a context axis the layer first gathers its rows'
+whole sequence (routing, slots and quotas are those of the JAX module's
+rows, which XLA gathers over context too), runs the route on it and keeps
+its own block of the output; the context peers' aux losses are one value,
+each peer's part of it 1 / the peers.
 """
 from __future__ import annotations
 
@@ -50,8 +54,8 @@ import torch.nn.functional as F
 
 from kubedl_tpu_torch.ops.gmm import TILE_M, gmm, gmm_scaled, gmm_swiglu
 from kubedl_tpu_torch.parallel import collectives
-from kubedl_tpu_torch.parallel.mesh import (ShardingRules, axes_size, axis_size,
-                                            live_axes, token_axes, token_index)
+from kubedl_tpu_torch.parallel.mesh import (ShardingRules, axes_index, axes_size,
+                                            axis_size, live_axes, token_axes, token_index)
 from kubedl_tpu_torch.utils.device import resolve_device
 
 
@@ -483,6 +487,11 @@ def _capacity_mlp_sharded(hf, params: Dict, *, top_k: int, capacity_factor: floa
     return y, aux
 
 
+def _without(rules: ShardingRules, dim: str) -> ShardingRules:
+    """The rules with logical dim `dim` mapped to no mesh axis."""
+    return ShardingRules({**rules.rules, dim: ()})
+
+
 def _emm(x, w, eq: str):
     """Batched expert einsum; int8 stacks apply their [E, out] scale after
     the contraction (exact: the scale is constant per output column)."""
@@ -506,8 +515,21 @@ def moe_mlp(h, params: Dict, *, top_k: int = 2, capacity_factor: float = 1.25,
     means True: the fused SwiGLU kernel; False the three-product reference
     path. a2a_chunks splits the sharded dropless route's all-to-all quota.
 
-    On a mesh, h holds this rank's rows and `params` the local views of the
-    layer's leaves (the router whole, the rank's experts and mlp columns)."""
+    On a mesh, h holds this rank's rows (and, with a context axis, its
+    block of their positions) and `params` the local views of the layer's
+    leaves (the router whole, the rank's experts and mlp columns)."""
+    seq = live_axes(mesh, (rules or ShardingRules()).axes("seq")) if mesh is not None else ()
+    if seq:
+        # the rows' whole sequence (the gradient reduce-scatters back); every
+        # context peer routes it alike and keeps its own block
+        n_ctx = axes_size(mesh, seq)
+        full = collectives.all_gather(h.transpose(0, 1), mesh, seq).transpose(0, 1)
+        y, aux = moe_mlp(full, params, top_k=top_k, capacity_factor=capacity_factor,
+                         mesh=mesh, rules=_without(rules or ShardingRules(), "seq"),
+                         dropless=dropless, fused=fused, a2a_chunks=a2a_chunks)
+        t = h.shape[1]
+        i = axes_index(mesh, seq)
+        return y[:, i * t:(i + 1) * t], collectives.psum(aux / n_ctx, mesh, seq)
     b, t, d = h.shape
     s = b * t
     e = params["router"].shape[-1]

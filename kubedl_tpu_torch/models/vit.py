@@ -169,6 +169,10 @@ class _Par(llama._Par):
     its gradient summed over the tensor axis as well as the token axes."""
 
     def check(self, config: ViTConfig) -> None:
+        if self.n_ctx > 1:
+            raise NotImplementedError(
+                "a mesh context axis > 1 for ViT is not ported to kubedl_tpu_torch "
+                "yet (ROADMAP.md)")
         for name, n in (("n_heads", config.n_heads), ("d_ff", config.d_ff)):
             if n % self.n_tp:
                 raise ValueError(f"{name} {n} not divisible by the tensor axis {self.n_tp}")

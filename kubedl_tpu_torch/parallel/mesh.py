@@ -4,7 +4,8 @@ kubedl_tpu/parallel/mesh.py).
 A JAXJob's spec.mesh names axes; the operator injects them as KUBEDL_MESH
 (and the cross-slice part as KUBEDL_DCN_MESH), and the program lays its
 processes out as a `torch.distributed.device_mesh.DeviceMesh` with the six
-named dims of AXIS_ORDER. The port runs one device per process, so a mesh
+named dims of AXIS_ORDER. The port runs one device per process (a pod with
+several cards starts one process a card: train/launch.py), so a mesh
 holds one rank per device and its size must equal the gang's
 (KUBEDL_NUM_PROCESSES): `mesh_from_env` checks that before the rendezvous,
 with the JAX package's `build_mesh` messages.
@@ -22,7 +23,11 @@ leaf's own placements.
 Tokens: the rows of the global batch are sharded over the token axes, the
 batch axes (data, fsdp) and then the expert axis, data outermost; the
 tensor, stage and context peers of a rank hold the same rows
-(`token_axes`, `token_index`).
+(`token_axes`, `token_index`). Context peers hold different columns of
+those rows: the sequence is cut into blocks over the `seq` axes (context),
+rank i holding positions i*t .. (i+1)*t - 1 (`seq_index`, `seq_block`), so
+a parameter's gradient is a partial sum over context as it is over the
+token axes (models/llama.py passes the seq axes as `partial_axes`).
 """
 from __future__ import annotations
 
@@ -160,6 +165,9 @@ def mesh_from_env(n: int) -> Dict[str, int]:
 
 
 def _device_type(device_type: Optional[str]) -> str:
+    """The mesh's device type: as given, else that of the group's backend
+    (nccl: cuda, gloo: cpu). A gloo group whose tensors live on a card
+    (processes sharing one card) passes "cuda"."""
     if device_type is not None:
         return device_type
     return "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
@@ -297,6 +305,29 @@ def token_index(mesh, rules: ShardingRules) -> Tuple[int, int]:
     return axes_index(mesh, axes), axes_size(mesh, axes)
 
 
+def seq_index(mesh, rules: ShardingRules) -> Tuple[int, int]:
+    """(this rank's block of the sequence, the number of blocks): its
+    coordinate over the live `seq` axes (context)."""
+    axes = live_axes(mesh, rules.axes("seq"))
+    return axes_index(mesh, axes), axes_size(mesh, axes)
+
+
+def seq_block(tokens, mesh, rules: ShardingRules):
+    """This rank's columns of next-token rows [b, T + 1] (inputs [:, :-1],
+    targets [:, 1:]): its T/n input positions and the token after them, so
+    the local slice's own shift gives its inputs and targets. T must divide
+    by the number of blocks."""
+    i, n = seq_index(mesh, rules)
+    if n == 1:
+        return tokens
+    t = tokens.shape[1] - 1
+    if t % n:
+        raise ValueError(f"{t} positions (seq_len - 1) do not split over the context "
+                         f"axis ({n}): seq_len - 1 must divide by it")
+    w = t // n
+    return tokens[:, i * w:(i + 1) * w + 1]
+
+
 def placements(mesh, spec: Sequence) -> list:
     """DTensor placements (one per mesh dim) of a PartitionSpec. A tensor
     dim over several axes takes them in mesh-dim order, which must be the
@@ -360,8 +391,9 @@ def view_placements(mesh, rules: ShardingRules, dims,
                     partial_axes: Sequence[str] = ()) -> Tuple[tuple, tuple]:
     """(placements of the logical `dims`, those of the view's gradient):
     Partial on every live token axis the view is not sharded on, and on
-    the live `partial_axes` (the pipeline's stage axis, whose ranks each
-    hold a part of an endcap's gradient)."""
+    the live `partial_axes`: the pipeline's stage axis, whose ranks each
+    hold a part of an endcap's gradient, and the context axis, whose ranks
+    each hold the part of their own sequence block."""
     from torch.distributed.tensor import Partial, Replicate
 
     target = tuple(placements(mesh, rules.spec(*dims)))
@@ -379,7 +411,8 @@ def local_view(p, mesh, rules: ShardingRules, *dims: Optional[str],
     view is not sharded on, so `p`'s gradient comes back summed over them
     on its own placements (all-reduce, or reduce-scatter over fsdp).
     `layout` is `view_placements` of the same dims, when the caller keeps
-    it. A plain tensor passes through."""
+    it (`partial_axes` there add the stage or context axis). A plain tensor
+    passes through."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(p, DTensor):

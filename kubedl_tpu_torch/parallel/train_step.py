@@ -11,10 +11,13 @@ With `mesh=None` the step runs on the device the parameters lie on. With a
 mesh, `init_state` lays the parameters out as DTensors by `param_spec_tree`
 (parallel/mesh.py `shard_tree`), the optimizer's moments follow them, and
 `loss_fn` (e.g. models/llama.py `loss_fn` with the same mesh) computes on
-local shards: each leaf's gradient arrives reduced over the token axes on
-the leaf's own placements, and `grad_norm` sums each leaf's shards once.
-The batch is this rank's rows of the global batch (`batch_spec` names the
-axes that shard it; a DTensor batch gives its local rows).
+local shards: each leaf's gradient arrives reduced over the token axes
+(and the context axis, whose ranks each hold a part) on the leaf's own
+placements, so a replicated leaf's gradient is summed over them once, and
+`grad_norm` sums each leaf's shards once. The batch is this rank's rows of
+the global batch (`batch_spec` names the axes that shard it; a DTensor
+batch gives its local rows), and with a context axis its sequence block
+(parallel/mesh.py `seq_block`).
 """
 from __future__ import annotations
 

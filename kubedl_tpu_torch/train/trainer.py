@@ -17,9 +17,16 @@ size must be the number of processes (else exit 2, before the
 rendezvous). The step is then the sharded one over that mesh, with
 sharded checkpoints. Process p's batches are the rows of its token block
 (its coordinate over data x fsdp x expert): batch ids step * blocks +
-block, so tensor peers feed the same rows. Rank 0 prints the trainer's
-lines; every process records its own spans. A process without an address
-trains alone on the one-device step.
+block, so tensor and context peers feed the same rows. Rank 0 prints the
+trainer's lines; every process records its own spans. A process without
+an address trains alone on the one-device step. A pod with several cards
+runs one trainer process a card under train/launch.py.
+
+Context parallelism (a mesh context axis above 1; attention by the model
+config's context_parallel, "ring" for every config named here): each
+process takes its columns of its rows after the next-token shift
+(parallel/mesh.py `seq_block`), so --seq-len minus 1 must divide by the
+axis (else exit 2).
 
 Usage (as a pod command; it runs on the card unless --device cpu):
     python -m kubedl_tpu_torch.train.trainer --model llama-7b --steps 100
@@ -43,8 +50,7 @@ rows. KUBEDL_PP_MPMD=1 pods run the stage program instead
 (train/pipeline_trainer.py) and exit 2 here.
 
 Refused with exit 2, until ported (ROADMAP.md): live reshard
-(KUBEDL_LIVE_RESHARD=1) and a mesh context axis above 1 (context
-parallelism).
+(KUBEDL_LIVE_RESHARD=1).
 """
 from __future__ import annotations
 
@@ -145,19 +151,25 @@ def _refused(args, info) -> Optional[str]:
     return None
 
 
-def _gang_mesh(info) -> "tuple[Optional[dict], Optional[str]]":
+def _gang_mesh(info, seq_len: Optional[int] = None) -> "tuple[Optional[dict], Optional[str]]":
     """(the mesh's axis sizes, None) or (None, the reason to exit 2). The
     gang has one device per process, so the mesh must hold
     KUBEDL_NUM_PROCESSES devices; this runs before the rendezvous, so a
-    mismatch never leaves peers waiting."""
+    mismatch never leaves peers waiting. `seq_len` is the trainer's, whose
+    positions must split over a context axis; a program that passes none
+    (train/vision.py, train/sparse.py) refuses a context axis."""
     try:
         axes = mesh_from_env(info.num_processes)
     except ValueError as e:
         return None, (f"{e} (one device per process: KUBEDL_NUM_PROCESSES="
                       f"{info.num_processes})")
-    if axes["context"] > 1:
+    if axes["context"] > 1 and seq_len is None:
         return None, (f"mesh context={axes['context']}: context parallelism is not "
                       f"ported to kubedl_tpu_torch yet (ROADMAP.md)")
+    if seq_len is not None and (seq_len - 1) % axes["context"]:
+        return None, (f"--seq-len {seq_len}: its {seq_len - 1} positions do not split "
+                      f"over the mesh context axis ({axes['context']}); seq_len - 1 "
+                      f"must divide by it")
     pp_stages = int(os.environ.get("KUBEDL_PP_STAGES", "1"))
     if pp_stages > 1 and axes["stage"] != pp_stages:
         # the stacked layers shard over the mesh's stage axis
@@ -180,7 +192,7 @@ def main(argv=None) -> int:
     refused = _refused(args, info)
     axes = None
     if not refused:
-        axes, refused = _gang_mesh(info)
+        axes, refused = _gang_mesh(info, args.seq_len)
     if refused:
         print(refused, file=sys.stderr)
         return 2  # permanent config error (utils/exit_codes.py)
@@ -216,7 +228,8 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     from kubedl_tpu_torch.obs.trace import tracer_from_env
     from kubedl_tpu_torch.ops import _build
     from kubedl_tpu_torch.parallel import optim
-    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh_from_env, token_index
+    from kubedl_tpu_torch.parallel.mesh import (ShardingRules, build_mesh_from_env, seq_block,
+                                                token_index)
     from kubedl_tpu_torch.parallel.train_step import make_train_step
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
     from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED, EXIT_XLA_COMPILE_ERROR
@@ -381,8 +394,9 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
             tracer.record("ckpt.save", duration_s=stall, step=step, final=final)
 
     # input: token shards, or synthetic batches. Batch id = step * blocks +
-    # block (the rank's token block: tensor peers read the same rows), so a
-    # resume at start_step continues the schedule.
+    # block (the rank's token block: tensor and context peers read the same
+    # rows), so a resume at start_step continues the schedule; a context
+    # rank keeps its columns of them.
     loader = None
     if args.data_path:
         import glob as globlib
@@ -401,6 +415,8 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     rng = np.random.default_rng(block)
 
     def to_device(local):
+        if mesh is not None:
+            local = seq_block(local, mesh, rules)
         return torch.from_numpy(np.ascontiguousarray(local)).to(device)
 
     def next_batch(step: int):

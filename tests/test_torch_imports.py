@@ -80,6 +80,17 @@ def test_the_pipeline_modules_are_walked():
     assert set(PIPELINE_FILES) <= set(PORT_FILES)
 
 
+CONTEXT_FILES = [ROOT / "kubedl_tpu_torch" / f for f in (
+    "ops/ring_attention.py", "ops/ulysses.py", "train/launch.py")]
+
+
+def test_the_context_modules_are_walked():
+    """Context parallelism's modules and the per-GPU launcher are among the
+    files both checks above cover."""
+    assert all(p.is_file() for p in CONTEXT_FILES)
+    assert set(CONTEXT_FILES) <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("path", PLANE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_planes_never_import_ml_dtypes(path):
     bad = [m for m in _imports(path) if m == "ml_dtypes" or m.startswith("ml_dtypes.")]

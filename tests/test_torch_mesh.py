@@ -124,9 +124,11 @@ def _fake_mesh(**sizes):
                                  get_local_rank=lambda axis: 0)
 
 
+# a context axis was refused here until context parallelism was ported:
+# `_Par` now builds on tensor x context (tests/test_torch_context.py holds
+# the context mesh against JAX)
 @pytest.mark.parametrize("sizes,error,match", [
     ({"tensor": 4}, ValueError, "n_kv_heads"),       # tiny: 2 kv heads over 4 ranks
-    ({"tensor": 2, "context": 2}, NotImplementedError, "context parallelism"),
 ])
 def test_a_mesh_the_model_cannot_take_is_refused(sizes, error, match):
     import torch
@@ -136,3 +138,32 @@ def test_a_mesh_the_model_cannot_take_is_refused(sizes, error, match):
     tokens = torch.zeros((2, 9), dtype=torch.int32)
     with pytest.raises(error, match=match):
         llama.loss_fn(params, tokens, cfg, mesh=_fake_mesh(**sizes))
+
+
+def test_par_builds_on_a_tensor_and_context_mesh():
+    import torch
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    par = llama._Par(_fake_mesh(tensor=2, context=2), mesh.ShardingRules(), cfg)
+    assert (par.tp, par.n_tp, par.seq, par.n_ctx, par.ctx_index) == (
+        ("tensor",), 2, ("context",), 2, 0)
+    assert par.partial_axes == ("context",)  # gradients are parts over context
+
+
+@pytest.mark.parametrize("ctx", [1, 2, 4])
+def test_seq_block_keeps_the_next_token(ctx):
+    import torch
+
+    tokens = torch.arange(2 * 9).reshape(2, 9)
+    blocks = []
+    for i in range(ctx):
+        fake = _fake_mesh(context=ctx)
+        fake.get_local_rank = lambda axis, i=i: i if axis == "context" else 0
+        assert mesh.seq_index(fake, mesh.ShardingRules()) == (i if ctx > 1 else 0, ctx)
+        blocks.append(mesh.seq_block(tokens, fake, mesh.ShardingRules()))
+    # each block's own shift gives its inputs and targets; together the global ones
+    assert torch.equal(torch.cat([b[:, :-1] for b in blocks], 1), tokens[:, :-1])
+    assert torch.equal(torch.cat([b[:, 1:] for b in blocks], 1), tokens[:, 1:])
+    if ctx > 1:
+        with pytest.raises(ValueError, match="seq_len - 1 must divide"):
+            mesh.seq_block(tokens[:, :8], _fake_mesh(context=ctx), mesh.ShardingRules())

@@ -47,7 +47,17 @@ global [B, T] array, microbatches, schedule, interleave, lr, clip) runs
 one models/llama.py `loss_fn_pp` step of `make_train_step` on the stacked
 parameters of its stage mesh, each rank on its part of the reference's
 microbatches, and returns the loss, grad norm, gradients and parameters
-after, gathered to their full stacked shapes. This module imports no JAX.
+after, gathered to their full stacked shapes.
+
+A case with kind "attention" (fn "ring" or "ulysses", causal, q, k, v and
+cotangent: global [B, H, T, D] numpy arrays) runs ops/ring_attention.py or
+ops/ulysses.py on each rank's rows and sequence block and returns the
+output and the q, k, v gradients of sum(output * cotangent), assembled to
+the global shapes, or the ValueError's message when the call raises.
+
+The default case takes each rank's columns of its rows too (parallel/
+mesh.py `seq_block`), so a mesh with a context axis trains on its
+sequence blocks. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -334,7 +344,45 @@ def _pipeline_case(case):
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
 
 
+def _attention_case(case):
+    """Ring or Ulysses attention on this rank's block of the global q, k, v;
+    the output and gradients of every block, assembled on every rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.ops.ring_attention import ring_attention
+    from kubedl_tpu_torch.ops.ulysses import ulysses_attention
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, seq_index, token_index
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    (r, nr), (c, nc) = token_index(mesh, rules), seq_index(mesh, rules)
+    b, t = case["q"].shape[0] // nr, case["q"].shape[2] // nc
+    rows, cols = slice(r * b, (r + 1) * b), slice(c * t, (c + 1) * t)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(case[n][rows, :, cols])).requires_grad_(True)
+               for n in ("q", "k", "v"))
+    fn = ring_attention if case["fn"] == "ring" else ulysses_attention
+    try:
+        out = fn(q, k, v, mesh=mesh, causal=case["causal"])
+    except ValueError as e:
+        return {"raised": str(e)}
+    cot = torch.from_numpy(np.ascontiguousarray(case["cotangent"][rows, :, cols]))
+    with torch.enable_grad():
+        grads = torch.autograd.grad((out * cot).sum(), [q, k, v])
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (rows, cols, [x.detach().numpy() for x in (out, *grads)]))
+    full = [np.zeros_like(case["q"]) for _ in range(4)]
+    for rs, cs, arrays in parts:
+        for f, a in zip(full, arrays):
+            f[rs, :, cs] = a
+    return {"out": full[0], "dq": full[1], "dk": full[2], "dv": full[3],
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
 def _case(case):
+    if case.get("kind") == "attention":
+        return _attention_case(case)
     if case.get("kind") == "pipeline":
         return _pipeline_case(case)
     if case.get("kind") == "lora":
@@ -352,7 +400,7 @@ def _case(case):
     from kubedl_tpu_torch.models import llama, moe
     from kubedl_tpu_torch.parallel import optim
     from kubedl_tpu_torch.parallel.mesh import (ShardingRules, build_hybrid_mesh,
-                                                build_mesh, token_index)
+                                                build_mesh, seq_block, token_index)
     from kubedl_tpu_torch.parallel.train_step import make_train_step
     from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
 
@@ -366,7 +414,8 @@ def _case(case):
 
     def local(batch):
         rows = batch.shape[0] // n_tok
-        return torch.from_numpy(np.ascontiguousarray(batch[tok * rows:(tok + 1) * rows]))
+        mine = seq_block(batch[tok * rows:(tok + 1) * rows], mesh, rules)
+        return torch.from_numpy(np.ascontiguousarray(mine))
 
     def loss(p, b):
         return llama.loss_fn(p, b, cfg, mesh=mesh, rules=rules)
