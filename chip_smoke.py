@@ -74,8 +74,8 @@ Phases, each printing its own line of numbers:
      make_train_step with AdamW and clip 1.0 at b=4, 1024-token rows;
      losses, grad norms, step time, tokens/s, active-parameter FLOP share,
      peak memory, one profiled step;
-  10. MoE serving, Mixtral-8x7B at full width and depth in int8, built
-     layer by layer on the card: a 2-layer prefill through the kernels
+  10. MoE serving, Mixtral-8x7B at full width and 8 of its 32 layers
+     (MOE_SERVE_LAYERS) in int8, built layer by layer on the card: a 2-layer prefill through the kernels
      against the plain versions, then the serving engine (8 slots, 1024
      positions) answers 8 greedy requests and one prompt sent twice.
   11. the sharded slice, on a one-rank NCCL group formed by
@@ -124,7 +124,8 @@ Phases, each printing its own line of numbers:
      8 greedy requests (restored draft equal to the saved one, acceptance,
      agreement with the plain engine), plain and speculative engines in
      turns, the 7B drafting for itself (acceptance >= 0.9), the verify
-     block against decode_step; (d) Mistral-7B-v0.1 widths, max_len 8192:
+     block against decode_step; (d) Mistral-7B-v0.1 widths at 8 of its
+     32 layers (RING_LAYERS; 13e uses the same weights), max_len 8192:
      the default ring cache (4096 rows) against a full cache on a
      6,000-token prompt (tokens equal, logits of every sampling call, half
      the cache's bytes, peak memory); (e) generate(with_logprobs=True)
@@ -172,8 +173,9 @@ Phases, each printing its own line of numbers:
      512 tokens from a seeded JSONL, and evaluate --hf-model on a seeded
      shard. The directory is removed after. K1 launches of a-d and K2/K3
      of (c) and (d) are the kernels line's d 256 rows.
-  16. RL, inside phase 15 on its directory: (a) grpo --hf-model, 3
-     on-policy steps of 4 prompts x 8 samples x 32 new tokens (KL 0.04,
+  16. RL, inside phase 15 on its directory: (a) grpo --hf-model on
+     Gemma-2-2B's config cut to 4 of its 26 layers (a directory of its
+     own, seeded as phase 15's), 3 on-policy steps of 4 prompts x 8 samples x 32 new tokens (KL 0.04,
      lr 1e-4, reward_low_ids through --reward-module) with a checkpoint,
      then a resume to step 4 with 2 inner
      epochs on the rollout's behavior logprobs: losses, KL and grad norms
@@ -262,6 +264,30 @@ Phases, each printing its own line of numbers:
      line of their own ({"context": ...}). Across cards (NCCL) the context
      axis is not run here: tests/test_torch_context.py holds it against
      JAX on a CPU gloo gang of 8.
+  21. live reshard, a bench-1b gang (full width and depth, bf16, full
+     remat, AdamW) resharded 2 -> 1 -> 2 through the staging: (a) two
+     processes of this script share the card in a gloo group (printed; an
+     nccl group fails the phase), take two steps on {"data": 2} (b 2 x 1024
+     a rank), print the sha256 of the whole state (gathered on the host),
+     move it onto {"fsdp": 2} with reshard_state and stage its blocks for 1
+     chip (refit_axes, plan_reshard, addressable_blocks, stage_shards,
+     write_manifest); (b) the trainer entry point under train/launch.py (a
+     one-rank NCCL group, --model bench-1b --batch 4 --seq-len 1024,
+     KUBEDL_LIVE_RESHARD=1) restores that staging, its sha256 equal to
+     (a)'s, trains with finite and falling losses, answers a RESIZE to 2
+     chips with "staged", stages and exits 113; (c) the pair fills a fresh
+     state on the staging's {"data": 2} through restore_staged and
+     state_from_staging, its sha256 equal to the trainer's, and one step's
+     loss within RESHARD_LOSS_TOL of rank 0's one-process loss_fn; the
+     staging's index with one member left out must raise the coverage
+     PlanError, a marker with a changed digest must make restore_staged
+     return None. Each hop prints its moved and local MB, stage, manifest
+     and restore seconds, read MB/s, peak memory and K1/K2/K3 launches
+     (asserted: 2 K1 a layer a step, K2 and K3 one). The launches join the
+     kernels line; phase 21's numbers are a JSON line of their own
+     ({"reshard": ...}). Across cards (NCCL) and over the socket fetch the
+     reshard is not run here: tests/test_torch_reshard_trainer.py holds the
+     sharded stagings on a CPU gloo gang.
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -333,6 +359,9 @@ SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd", "gmm", 
 # held to no spill and no injected wait
 WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "gmm_sm90")
 MOE_SERVE_LENGTHS = (17, 100, 250, 400, 513, 700, 850, 992)  # + 32 new <= 1024
+# phase 10 serves Mixtral-8x7B int8 at 8 of its 32 layers (11.8 GB of the
+# 46.86 GB tree; full depth until phase 21 came, which the cut pays for)
+MOE_SERVE_LAYERS = 8
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -2097,7 +2126,8 @@ def _int8_tree(config, gen):
 
 
 def phase_moe_serve():
-    """Mixtral-8x7B, int8, full width and depth, on the serving engine."""
+    """Mixtral-8x7B, int8, full width, MOE_SERVE_LAYERS deep, on the
+    serving engine."""
     from kubedl_tpu_torch.models import decode, quant
     from kubedl_tpu_torch.models.serving import ServingEngine
 
@@ -2143,7 +2173,8 @@ def phase_moe_serve():
     gc.collect()
     torch.cuda.empty_cache()
 
-    config = _mixtral(32)
+    config = _mixtral(MOE_SERVE_LAYERS)
+    n = config.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = _int8_tree(config, gen)
@@ -2176,12 +2207,12 @@ def phase_moe_serve():
     if pair[0].tokens != pair[1].tokens:
         raise AssertionError("one prompt sent twice gave different tokens")
     forwards = stats["prefill_batches"] + stats["ticks"]
-    if counts != (32 * forwards, 0, 0, 32 * forwards):
+    if counts != (n * forwards, 0, 0, n * forwards):
         raise AssertionError(f"int8 serving launches (K5, K6, K7, K8) {counts}; expected K5 = "
-                             f"K8 = 32 layers x {forwards} forwards and no K6, K7")
-    if flash[0] < 32 * stats["prefill_batches"] or flash[1:] != (0, 0):
+                             f"K8 = {n} layers x {forwards} forwards and no K6, K7")
+    if flash[0] < n * stats["prefill_batches"] or flash[1:] != (0, 0):
         raise AssertionError(f"int8 serving flash launches (fwd, dq, dkv) {flash} for "
-                             f"{stats['prefill_batches']} prefill dispatches x 32 layers")
+                             f"{stats['prefill_batches']} prefill dispatches x {n} layers")
     n_req = len(reqs) + len(pair)
     prompt_tokens = sum(MOE_SERVE_LENGTHS) + 2 * len(dup)
     numbers = dict(
@@ -2193,7 +2224,7 @@ def phase_moe_serve():
         decode_tok_s=(stats["tokens_out"] - n_req) / stats["decode_time_s"],
         peak_gb=peak_gb, launches=list(counts), flash_launches=flash[0],
         prefill_rel_err=prefill_rel)
-    print(f"moe serve: Mixtral-8x7B int8, 32 layers, tree {tree_gb:.2f} GB built in "
+    print(f"moe serve: Mixtral-8x7B int8, {n} of 32 layers, tree {tree_gb:.2f} GB built in "
           f"{init_s:.1f} s; {n_req} requests ok in {wall_s:.2f} s; prefill "
           f"{stats['prefill_batches']} dispatches {stats['prefill_time_s']:.3f} s "
           f"({numbers['prefill_tok_s']:.0f} prompt tok/s); decode {stats['decode_time_s']:.3f} s "
@@ -2217,6 +2248,7 @@ LOGIT_TOL = 0.05          # max|a - b| / max|b| of two bf16 7B paths (phase 3's 
 PREFIX_LEN, PREFIX_SUFFIXES = 1024, (32, 44, 56, 68, 80, 96, 112, 128)
 SPEC_NEW, SELF_ACCEPT_MIN = 32, 0.9
 RING_PROMPT, RING_NEW = 6000, 32       # 13d: wraps a 4096-row ring of max_len 8192
+RING_LAYERS = 8                        # 13d and 13e: 8 of Mistral-7B's 32 (cut for phase 21)
 # 13e: |logprob - teacher-forced log_softmax| of bf16 7B logits; on an H100
 # a sound run read 0.031 and the two wrong logprobs 1.02 and 1.24 (PERF.md)
 LP_TOL = 0.1
@@ -2552,7 +2584,7 @@ def _13d_ring(smi):
     from kubedl_tpu_torch.models.serving import ServingEngine
     from kubedl_tpu_torch.ops.flash_attention import flash_attention
 
-    config = _mistral()
+    config = dataclasses.replace(_mistral(), n_layers=RING_LAYERS)
     params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rng = torch.Generator().manual_seed(16)
     prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist() for n in (RING_PROMPT, 500)]
@@ -2602,7 +2634,8 @@ def _13d_ring(smi):
         for row in range(a.shape[0]):
             max_abs, scale, _ = _compare_logits(a[row], b[row], "13d")
             worst = max(worst, (max_abs / scale, max_abs))
-    print(f"13d ring caches [{smi}]: Mistral-7B-v0.1 widths (random weights), max_len 8192, "
+    print(f"13d ring caches [{smi}]: Mistral-7B-v0.1 widths, {config.n_layers} of 32 layers "
+          f"(random weights), max_len 8192, "
           f"a {RING_PROMPT}-token and a 500-token prompt, {RING_NEW} greedy tokens each: ring "
           f"of {r['rows']} rows, greedy tokens equal the full cache's; logits of "
           f"{len(r['logits'])} sampling calls worst rel {worst[0]:.3e} (max_abs "
@@ -3610,7 +3643,11 @@ def _15d_dpo_eval(path, smi):
 # K 32 rather than 64 keeps the whole run nearer its time target; lr 1e-4
 # because Adam's first updates (~lr an element) under ~1e-4 fall below the
 # rounding step of most bf16 weights, and the parameters would not move
-G2_GRPO = dict(prompts=16, prompt_len=64, B=4, G=8, K=32, steps=3, kl=0.04, lr=1e-4)
+# 16a runs GRPO on Gemma-2-2B at full width and 4 of its 26 layers: its
+# checkpoint round trip (the policy's params, mu and nu written twice and
+# read twice) took ~40 s at full depth, cut to pay for phase 21
+G2_GRPO = dict(prompts=16, prompt_len=64, B=4, G=8, K=32, steps=3, kl=0.04, lr=1e-4,
+               layers=4)
 G2_FLEET = dict(B=2, G=4, K=32, steps=2, lr=1e-4)
 RL_REWARD = "chip_smoke:reward_low_ids"
 RL_POD = dict(model="bench-1b", steps=3, B=4, G=4, K=32, lag=1)
@@ -3654,11 +3691,24 @@ def _grpo_prompts(path, c, vocab):
 def _16a_grpo(path, smi):
     """grpo --hf-model DIR: 3 on-policy steps of 4 prompts x 8 samples x 64
     new tokens with a checkpoint, then a resume to step 4 with two inner
-    epochs on the rollout's behavior logprobs."""
+    epochs on the rollout's behavior logprobs; DIR is Gemma-2-2B's config
+    cut to G2_GRPO's layers, written beside `path`."""
+    import tempfile
+
+    c, n_layers = G2_GRPO, G2_GRPO["layers"]
+    path = tempfile.mkdtemp(prefix="gemma-2-2b-grpo-", dir=WORK)
+    try:
+        write_hf_checkpoint(path, dict(GEMMA2_2B, num_hidden_layers=n_layers,
+                                       layer_types=GEMMA2_2B["layer_types"][:n_layers]))
+        return _16a_grpo_on(path, smi, c, n_layers)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _16a_grpo_on(path, smi, c, n_layers):
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.train import checkpoint, generate
 
-    c, n_layers = G2_GRPO, GEMMA2_2B["num_hidden_layers"]
     data, _ = _grpo_prompts(path, c, GEMMA2_2B["vocab_size"])
     ckpt = os.path.join(WORK, "ckpt-grpo-gemma2")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -3736,7 +3786,8 @@ def _16a_grpo(path, smi):
     tokens = c["B"] * c["G"] * c["K"]
     roll_s = [sp["dur"] for sp in rolls]
     learn_s = [sp["dur"] - sp["attrs"]["rollout_s"] for sp in steps]
-    print(f"16a grpo [{smi}]: grpo --hf-model {c['steps']} on-policy steps of {c['B']} prompts "
+    print(f"16a grpo [{smi}]: grpo --hf-model (Gemma-2-2B's widths, {n_layers} of 26 layers) "
+          f"{c['steps']} on-policy steps of {c['B']} prompts "
           f"x {c['G']} samples x {c['K']} new tokens ({c['B'] * c['G']} rows of "
           f"{c['prompt_len'] + c['K']}) in {on['wall_s']:.1f} s, resumed at step 3 for one "
           f"off-policy step of 2 epochs in {res['wall_s']:.1f} s (loads and checkpoints "
@@ -5095,6 +5146,404 @@ def phase_context(smi):
     return out
 
 
+# -- phase 21: live reshard -- a bench-1b gang resharded 2 -> 1 -> 2 through
+# the staging (parallel/reshard.py, train/reshard_runtime.py) ----------------
+
+RESHARD_SEQ = 1024        # --seq-len of every hop: attention at S 1023
+RESHARD_ROWS = 2          # rows a rank of the pair takes (21a, 21c)
+RESHARD_TRAINER_ROWS = 4  # the trainer's --batch (21b)
+RESHARD_TRAINER_STEPS = 4  # 21b's logged steps before the RESIZE is posted
+RESHARD_LOSS_TOL = 1e-2   # 21c: the pair's loss against one process's (20a's bound)
+
+
+def _reshard_batch(config, seed):
+    """A global [2 * RESHARD_ROWS, RESHARD_SEQ] batch of seeded tokens."""
+    return torch.randint(0, config.vocab_size, (2 * RESHARD_ROWS, RESHARD_SEQ),
+                         device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _wait_file(path, timeout=900.0):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{path} never appeared")
+        time.sleep(0.2)
+
+
+def _reshard_rank(rank, port, out_dir, staging):
+    """One rank of phase 21's pair (run as `chip_smoke.py --reshard-rank R
+    --reshard-port P --reshard-out DIR --reshard-dir D`). 21a: two AdamW
+    steps on {"data": 2}, the state's sha256, the in-process lane's move
+    onto {"fsdp": 2} and the staged lane for 1 chip from those shards; then
+    it waits while the trainer (21b) restores, trains and stages for 2. 21c:
+    a fresh init_state on the staging's mesh filled through restore_staged
+    and state_from_staging, its sha256, the planted faults, one step against
+    one process's loss_fn. The steps run on a data mesh: over gloo,
+    DTensor's own all-gather of a CUDA shard (Shard -> Replicate, which an
+    fsdp step runs for every weight) kills the process with SIGSEGV on the
+    card, where gloo's all-reduce, the c10d all-gather and DTensor's
+    reduce-scatter run."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, token_index
+    from kubedl_tpu_torch.parallel.reshard import PlanError
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import reshard_runtime as rt
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    backend = dist.get_backend()
+    print(f"21a rank {rank}: process group backend {backend}, 2 ranks sharing "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    if backend != "gloo":  # NCCL cannot hold two ranks on one device: no switch
+        raise AssertionError(f"21: backend {backend} with two ranks on one card")
+    rules = ShardingRules()
+    config = llama.LlamaConfig.bench_1b()
+    specs = llama.param_specs(config, rules)
+
+    def fresh(axes):
+        mesh = build_mesh(axes, device_type="cuda")
+
+        def loss(p, b):
+            return llama.loss_fn(p, b, config, mesh=mesh, rules=rules)
+
+        init_state, train_step = make_train_step(
+            loss, optim.adamw(3e-4, weight_decay=0.01), mesh, specs,
+            rules.spec("batch", None), rules)
+        state = init_state(llama.init(config, torch.Generator(device="cuda").manual_seed(0),
+                                      device="cuda"))
+        tok, n_tok = token_index(mesh, rules)
+        each = 2 * RESHARD_ROWS // n_tok
+        return mesh, state, train_step, slice(tok * each, (tok + 1) * each)
+
+    def report(name, mine):
+        ranks = [None, None]
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            tmp = os.path.join(out_dir, f".{name}.tmp")
+            with open(tmp, "w") as f:
+                json.dump(dict(ranks=ranks, backend=backend), f)
+            os.replace(tmp, os.path.join(out_dir, name))
+
+    # 21a
+    mesh, state, train_step, rows = fresh({"data": 2})
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    a = dict(rank=rank, losses=[])
+    for i in range(2):
+        state, m = train_step(state, _reshard_batch(config, 210 + i)[rows])
+        a["losses"].append(m["loss"].item())
+    torch.cuda.synchronize()
+    a["counts"] = list(_counts())
+    a["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    a["digest"] = rt.state_digest(state, specs)
+    a["digest_s"] = time.perf_counter() - t0
+    # the in-process lane's move onto {"fsdp": 2} over the same ranks
+    # (replicated leaves: each rank keeps its chunk, nothing crosses)
+    t0 = time.perf_counter()
+    mesh = build_mesh({"fsdp": 2}, device_type="cuda")
+    state = rt.reshard_state(state, mesh, specs)
+    torch.cuda.synchronize()
+    a["move_s"] = time.perf_counter() - t0
+    a["shard_mb"] = sum(x.to_local().numel() * x.element_size()
+                        for x in llama.tree_leaves(state.params)) / 2**20
+    # the staged lane for 1 chip, through the trainer's functions
+    t0 = time.perf_counter()
+    old = rt.mesh_axes(mesh)
+    new = rt.refit_axes(old, 1)
+    plan = rt.plan_reshard(rt.leaves_from_state(state, specs), old, new, 2, 1)
+    rt.stage_shards(staging, plan, rt.mesh_pod(mesh),
+                    rt.provider_from_blocks(rt.addressable_blocks(state, specs)), state.step)
+    a["stage_s"] = time.perf_counter() - t0
+    a["plan"] = dict(moved_mb=plan.moved_bytes / 2**20, local_mb=plan.local_bytes / 2**20,
+                     step=state.step)
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        if not rt.write_manifest(staging, plan, state.step, 2, timeout=60.0):
+            raise AssertionError("21a: the manifest was not published")
+        a["manifest_s"] = time.perf_counter() - t0
+    del state, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    report("a.json", a)
+    # the trainer runs (21b); then 21c from its staging
+    _wait_file(os.path.join(out_dir, "go"))
+    dist.barrier()
+    staged = rt.restore_staged(staging, rank, 2)
+    if staged is None:
+        raise AssertionError("21c: the trainer's staging did not validate for 2 pods")
+    mesh, state, train_step, rows = fresh(staged[1])
+    c = dict(rank=rank, step=staged[0])
+    read = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = rt.state_from_staging(staged[2], state, specs, stats=read)
+    torch.cuda.synchronize()
+    c["restore_s"] = time.perf_counter() - t0
+    c["read_mb"] = read["bytes"] / 2**20
+    t0 = time.perf_counter()
+    c["digest"] = rt.state_digest(state, specs)
+    c["digest_s"] = time.perf_counter() - t0
+    # the planted faults: one npz member left out of the staging's index
+    # (refused before a byte is written), and a marker whose digest changed
+    missing = sorted(staged[2].keys())[len(staged[2].keys()) // 2]
+    short = rt.StagedBlocks()
+    for k in staged[2].keys():
+        if k != missing:
+            short.add(k, *staged[2]._index[k])
+    try:
+        rt.state_from_staging(short, state, specs)
+        c["fault_coverage"] = "accepted"
+    except PlanError as e:
+        c["fault_coverage"] = str(e)
+    staged[2].close()
+    bad = os.path.join(out_dir, f"fault-{rank}")
+    os.makedirs(bad)
+    for name in os.listdir(staging):
+        if name == "manifest.json" or name.startswith("src-"):
+            os.symlink(os.path.join(staging, name), os.path.join(bad, name))
+    marker = os.path.join(bad, "src-0.json")
+    with open(marker) as f:
+        info = json.load(f)
+    os.remove(marker)
+    with open(marker, "w") as f:
+        json.dump(dict(info, digest="0" * 64), f)
+    c["fault_digest"] = rt.restore_staged(bad, rank, 2) is None
+    # one step on a fixed batch against rank 0's one-process loss_fn on the
+    # same (replicated) parameters
+    batch = _reshard_batch(config, 212)
+    if rank == 0:
+        with torch.no_grad():
+            whole = llama.tree_map(lambda p: p.to_local(), state.params)
+            c["ref_loss"] = llama.loss_fn(whole, batch, config).item()
+        del whole
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state, m = train_step(state, batch[rows])
+    c["losses"] = [m["loss"].item()]
+    torch.cuda.synchronize()
+    c["counts"] = list(_counts())
+    c["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report("c.json", c)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _digest_line(text, what):
+    m = re.search(rf"live reshard: state sha256 {what} at step (\d+): ([0-9a-f]{{64}})", text)
+    if m is None:
+        raise AssertionError(f"21b: no 'state sha256 {what}' line:\n{text[-3000:]}")
+    return int(m.group(1)), m.group(2)
+
+
+def _21b_trainer(staging, ctl, at0, want_digest):
+    """The trainer entry point on the card (train/launch.py, one child, a
+    one-rank NCCL group): restores 21a's staging, trains, gets RESIZE chips
+    2, stages for 2 and exits 113."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "kubedl_tpu_torch.train.launch", "--",
+            "kubedl_tpu_torch.train.trainer", "--model", "bench-1b",
+            "--batch", str(RESHARD_TRAINER_ROWS), "--seq-len", str(RESHARD_SEQ),
+            "--steps", "1000", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               KUBEDL_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               KUBEDL_NUM_PROCESSES="1", KUBEDL_PROCESS_ID="0", KUBEDL_LIVE_RESHARD="1",
+               KUBEDL_RESHARD_DIR=staging, KUBEDL_CONTROL_DIR=ctl, KUBEDL_RESHARD_TEST_DIGEST="1")
+    for k in ("KUBEDL_MESH", "KUBEDL_DCN_MESH", "KUBEDL_CHECKPOINT_PATH"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, times = [], {}
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if "restored live-reshard staging" in line:
+                times["restored"] = time.perf_counter() - t0
+            if f"step {at0 + RESHARD_TRAINER_STEPS}: loss=" in line and "posted" not in times:
+                tmp = os.path.join(ctl, ".msg-0001.tmp")
+                with open(tmp, "w") as f:
+                    json.dump({"type": "RESIZE", "chips": 2}, f)
+                os.replace(tmp, os.path.join(ctl, "msg-0001.json"))
+                times["posted"] = time.perf_counter() - t0
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    if proc.returncode != 113 or "launch: rank 0 exited 113" not in text:
+        raise AssertionError(f"21b: trainer rc {proc.returncode} (expected 113):\n{text[-3000:]}")
+    if f"restored live-reshard staging at step {at0} (mesh " not in text:
+        raise AssertionError(f"21b: no restore of step {at0}:\n{text[-3000:]}")
+    restored = _digest_line(text, "restored")
+    staged_at, staged_digest = _digest_line(text, "staged")
+    with open(os.path.join(ctl, "reply-0001.json")) as f:
+        reply = json.load(f)
+    losses = [float(x) for x in re.findall(r"step \d+: loss=([0-9.naninf]+)", text)]
+    read = re.search(r"live reshard: read ([0-9.]+) MB in \d+ blocks in ([0-9.]+) s", text)
+    stage = re.search(r"live reshard: staged ([0-9.]+) MB moved and ([0-9.]+) MB local for 2 "
+                      r"chips \(mesh [^)]*\) in ([0-9.]+) s, manifest ([0-9.]+) s", text)
+    mem = re.search(r"memory: peak allocated ([0-9.]+) GB on .*; flash launches fwd/dq/dkv "
+                    r"\((\d+), (\d+), (\d+)\)", text)
+    bad = []
+    if restored != (at0, want_digest):
+        bad.append(f"restored state {restored} is not 21a's {(at0, want_digest)}")
+    if reply != {"outcome": "staged", "step": staged_at}:
+        bad.append(f"reply {reply}")
+    if len(losses) < RESHARD_TRAINER_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        bad.append(f"losses {losses} (finite and falling expected)")
+    if read is None or stage is None or mem is None:
+        bad.append("no read, staged or memory line")
+    if bad:
+        raise AssertionError("21b: " + "; ".join(bad) + f"\n{text[-3000:]}")
+    return dict(wall_s=time.perf_counter() - t0, restored_at_s=times["restored"],
+                posted_at_s=times["posted"], step=staged_at, digest=staged_digest,
+                losses=losses, read_mb=float(read.group(1)), restore_s=float(read.group(2)),
+                moved_mb=float(stage.group(1)), local_mb=float(stage.group(2)),
+                stage_s=float(stage.group(3)), manifest_s=float(stage.group(4)),
+                peak_gb=float(mem.group(1)), counts=[int(mem.group(i)) for i in (2, 3, 4)])
+
+
+def _wait_pair(procs, path, logs, timeout=900.0):
+    """Wait for `path` from the pair; a rank that dies first fails the phase."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        dead = [p.returncode for p in procs if p.poll() is not None]
+        if dead or time.monotonic() > deadline:
+            raise AssertionError(f"21 pair exit {[p.poll() for p in procs]} before "
+                                 f"{os.path.basename(path)}:\n"
+                                 + "\n".join(open(x).read()[-3000:] for x in logs))
+        time.sleep(0.2)
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_reshard(smi):
+    """21: a bench-1b gang resharded 2 -> 1 -> 2 on one card, through the
+    staging: 21a a gloo pair trains on {"data": 2}, moves its state onto
+    {"fsdp": 2} in process and stages for 1 chip, 21b the trainer entry
+    point restores it on one card, trains and stages for 2 on RESIZE, 21c
+    the pair fills a fresh state from that staging. Across cards (NCCL
+    gangs) and over the socket fetch the reshard is not run here."""
+    from kubedl_tpu_torch.models import llama
+
+    work = os.path.join(WORK, "reshard")
+    staging, ctl = os.path.join(work, "staging"), os.path.join(work, "ctl")
+    shutil.rmtree(work, ignore_errors=True)
+    for d in (staging, ctl):
+        os.makedirs(d)
+    logs = [os.path.join(work, f"rank{r}.log") for r in range(2)]
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--reshard-rank",
+                               str(r), "--reshard-port", str(port), "--reshard-out", work,
+                               "--reshard-dir", staging],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=open(log, "w"), stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        a = _wait_pair(procs, os.path.join(work, "a.json"), logs)
+        a_s = time.perf_counter() - t0
+        for x in logs:
+            print(open(x).read().strip().splitlines()[0], flush=True)  # each backend line
+        r0, r1 = a["ranks"]
+        at0, digest_a = r0["plan"]["step"], r0["digest"]["*"]
+        if a["backend"] != "gloo" or not all(math.isfinite(x) for r in a["ranks"]
+                                             for x in r["losses"]):
+            raise AssertionError(f"21a: {a}")
+        print(f"21a pair [{smi}]: bench-1b (16 layers, d 2048, bf16, full remat, AdamW) on "
+              f"{{'data': 2}}, 2 steps of b {RESHARD_ROWS} x {RESHARD_SEQ} a rank: losses "
+              f"{', '.join(f'{x:.4f}' for x in r0['losses'])}; state sha256 {digest_a[:16]} "
+              f"(gathered on the host in {r0['digest_s']:.2f} s); reshard_state onto "
+              f"{{'fsdp': 2}} in {r0['move_s']:.2f} / {r1['move_s']:.2f} s "
+              f"({r0['shard_mb']:.1f} MB of params a rank); staged for 1 chip at step {at0}: "
+              f"{r0['plan']['moved_mb']:.1f} MB moved, {r0['plan']['local_mb']:.1f} MB local; "
+              f"stage s {r0['stage_s']:.2f} / {r1['stage_s']:.2f}, manifest s "
+              f"{r0['manifest_s']:.2f}; peak {r0['peak_gb']:.2f} / {r1['peak_gb']:.2f} GB; "
+              f"launches fwd/dq/dkv {tuple(r0['counts'])} + {tuple(r1['counts'])}; "
+              f"{a_s:.1f} s from the pair's start", flush=True)
+        print(f"phase 21a: {a_s:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        b = _21b_trainer(staging, ctl, at0, digest_a)
+        print(f"21b trainer [{smi}]: trainer --model bench-1b --batch {RESHARD_TRAINER_ROWS} "
+              f"--seq-len {RESHARD_SEQ} under train/launch.py (a one-rank NCCL group): "
+              f"restored 21a's staging at step {at0} ({b['read_mb']:.1f} MB in "
+              f"{b['restore_s']:.2f} s, {b['read_mb'] / b['restore_s']:.0f} MB/s; "
+              f"{b['restored_at_s']:.1f} s after the start), the state bit for bit 21a's; "
+              f"losses {', '.join(f'{x:.4f}' for x in b['losses'])}; RESIZE chips 2 -> reply "
+              f"staged at step {b['step']}, {b['moved_mb']:.1f} MB moved, "
+              f"{b['local_mb']:.1f} MB local, stage s {b['stage_s']:.2f} (the sha256 "
+              f"included), manifest s {b['manifest_s']:.2f}; exit 113; peak "
+              f"{b['peak_gb']:.2f} GB; launches fwd/dq/dkv {tuple(b['counts'])}; wall "
+              f"{b['wall_s']:.1f} s", flush=True)
+        print(f"phase 21b: {time.perf_counter() - t1:.1f} s", flush=True)
+        t2 = time.perf_counter()
+        with open(os.path.join(work, "go"), "w") as f:
+            f.write("go")
+        c = _wait_pair(procs, os.path.join(work, "c.json"), logs)
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError(f"21 pair exit {[p.returncode for p in procs]}:\n"
+                             + "\n".join(open(x).read()[-3000:] for x in logs))
+    c0, c1 = c["ranks"]
+    bad = []
+    if c0["digest"]["*"] != b["digest"]:
+        bad.append(f"restored state {c0['digest']['*']} is not the trainer's {b['digest']}")
+    if c0["step"] != b["step"]:
+        bad.append(f"restored step {c0['step']} != {b['step']}")
+    rel = abs(c0["losses"][0] - c0["ref_loss"]) / abs(c0["ref_loss"])
+    if not rel <= RESHARD_LOSS_TOL:
+        bad.append(f"loss {c0['losses'][0]} against one process's {c0['ref_loss']}")
+    for r in c["ranks"]:
+        if "coverage violation" not in r["fault_coverage"] or not r["fault_digest"]:
+            bad.append(f"planted faults on rank {r['rank']}: {r['fault_coverage']!r}, "
+                       f"digest marker refused {r['fault_digest']}")
+    # K1/K2/K3 on every hop's steps: a step launches K1 twice a layer (the
+    # forward and full remat's recompute) and K2, K3 once
+    n = llama.LlamaConfig.bench_1b().n_layers
+
+    def want(steps):
+        return [2 * n * steps, n * steps, n * steps]
+    hops = [("21a rank 0", r0["counts"], want(2)), ("21a rank 1", r1["counts"], want(2)),
+            ("21b", b["counts"], want(b["step"] - at0)),
+            ("21c rank 0", c0["counts"], want(1)), ("21c rank 1", c1["counts"], want(1))]
+    bad += [f"launches fwd/dq/dkv of {h} {got} (expected {w})" for h, got, w in hops
+            if list(got) != w]
+    if bad:
+        raise AssertionError("21: " + "; ".join(bad))
+    print(f"21c pair [{smi}]: a fresh state on {{'data': 2}} filled from the trainer's "
+          f"staging at step {c0['step']} in {c0['restore_s']:.2f} / {c1['restore_s']:.2f} s "
+          f"({c0['read_mb'] / c0['restore_s']:.0f} / {c1['read_mb'] / c1['restore_s']:.0f} "
+          f"MB/s read, {c0['read_mb']:.1f} MB a rank), sha256 the trainer's at step "
+          f"{b['step']} (hashed in {c0['digest_s']:.2f} s); one step loss "
+          f"{c0['losses'][0]:.6f} against one process's {c0['ref_loss']:.6f} (rel {rel:.2e}, "
+          f"tol {RESHARD_LOSS_TOL}); planted faults: a member left out -> "
+          f"{c0['fault_coverage'][:60]}..., a changed marker digest -> restore_staged None; "
+          f"peak {c0['peak_gb']:.2f} / {c1['peak_gb']:.2f} GB; launches fwd/dq/dkv "
+          f"{tuple(c0['counts'])} + {tuple(c1['counts'])}", flush=True)
+    print(f"phase 21c: {time.perf_counter() - t2:.1f} s", flush=True)
+    print("21: live reshard across cards (NCCL gangs) and over the socket fetch at this size "
+          "is not run here: one card cannot form an NCCL group of two ranks", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = [sum(h[1][i] for h in hops) for i in range(3)]
+    return dict(a_pair=a, a_s=a_s, b_trainer=b, c_pair=c, launches=launches, loss_rel=rel)
+
+
 def _phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5131,6 +5580,11 @@ def main(argv=None) -> int:
     p.add_argument("--context-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--context-port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--context-out", default=None, help=argparse.SUPPRESS)
+    # phase 21a's and 21c's ranks
+    p.add_argument("--reshard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--reshard-port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--reshard-out", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--reshard-dir", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5138,6 +5592,9 @@ def main(argv=None) -> int:
         return 1
     if args.context_rank is not None:
         return _context_rank(args.context_rank, args.context_port, args.context_out)
+    if args.reshard_rank is not None:
+        return _reshard_rank(args.reshard_rank, args.reshard_port, args.reshard_out,
+                             args.reshard_dir)
     _keep_bytecode()
     t_start = time.perf_counter()
     name, smi, build = _phase("1 device and build", phase_device)
@@ -5188,7 +5645,11 @@ def main(argv=None) -> int:
     ctx = _phase("20 context parallelism: ring and Ulysses, a gloo pair on one card",
                  phase_context, smi)
     _free("context parallelism")
+    reshard = _phase("21 live reshard: a bench-1b gang resharded 2 -> 1 -> 2 through the "
+                     "staging", phase_reshard, smi)
+    _free("live reshard")
     ctx_l = ctx["a_pair"]["launches"]  # Ulysses' K1/K2/K3 over both ranks
+    rs_l = reshard["launches"]  # every hop's steps: 21a's and 21c's ranks, 21b's trainer
     pp_a, pp_b = pipe["a_mpmd"]["launches"], pipe["b_trainers"]["launches"]
     main_k, main_b = kernels[MAIN_SHAPE], bwd[MAIN_BWD_SHAPE]
     bwd_rows = []
@@ -5204,7 +5665,8 @@ def main(argv=None) -> int:
                                      1 if part == "dq" else 2],
                                  "7b_mpmd_4l": pp_a[1 if part == "dq" else 2],
                                  "7b_stage_trainers": pp_b[1 if part == "dq" else 2],
-                                 "7b_context_ulysses": ctx_l[1 if part == "dq" else 2]},
+                                 "7b_context_ulysses": ctx_l[1 if part == "dq" else 2],
+                                 "bench1b_reshard_hops": rs_l[1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
                                if r["sources"][part] == main_b["sources"][part]
                                and r["shape"][4] <= 128 for g in gname),
@@ -5334,7 +5796,8 @@ def main(argv=None) -> int:
                              "7b_disagg_serving": disagg["a_facade"]["launches"],
                              "7b_router_cross_pod": disagg["c_router"]["launches"],
                              "7b_mpmd_4l": pp_a[0], "7b_stage_trainers": pp_b[0],
-                             "7b_context_ulysses": ctx_l[0]},
+                             "7b_context_ulysses": ctx_l[0],
+                             "bench1b_reshard_hops": rs_l[0]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
                            if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
@@ -5353,6 +5816,7 @@ def main(argv=None) -> int:
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
                            disagg=disagg, workloads=workloads, pipeline=pipe, context=ctx,
+                           reshard=reshard,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -5403,6 +5867,30 @@ def main(argv=None) -> int:
                              "launches": [rk["counts"] for rk in ca[st]["ranks"]]}
         for st in CTX_STRATEGIES} | {"fault": ca["fault"], "reference": ca["reference"],
                                      "backend": ca["backend"]}}), flush=True)
+    ra, rb, rc2 = (reshard[k] for k in ("a_pair", "b_trainer", "c_pair"))
+    print(json.dumps({"reshard": {
+        "bench1b_fsdp2_to_1": {"losses": ra["ranks"][0]["losses"],
+                               "moved_mb": ra["ranks"][0]["plan"]["moved_mb"],
+                               "local_mb": ra["ranks"][0]["plan"]["local_mb"],
+                               "move_s": [r["move_s"] for r in ra["ranks"]],
+                               "stage_s": [r["stage_s"] for r in ra["ranks"]],
+                               "manifest_s": ra["ranks"][0]["manifest_s"],
+                               "digest_s": ra["ranks"][0]["digest_s"],
+                               "peak_gb": [r["peak_gb"] for r in ra["ranks"]],
+                               "launches": [r["counts"] for r in ra["ranks"]],
+                               "s": reshard["a_s"]},
+        "bench1b_trainer_1_to_2": {k: rb[k] for k in ("losses", "read_mb", "restore_s",
+                                                       "moved_mb", "local_mb", "stage_s",
+                                                       "manifest_s", "peak_gb", "counts",
+                                                       "restored_at_s", "wall_s")},
+        "bench1b_restore_2": {"restore_s": [r["restore_s"] for r in rc2["ranks"]],
+                              "read_mb_s": [r["read_mb"] / r["restore_s"]
+                                            for r in rc2["ranks"]],
+                              "digest_s": rc2["ranks"][0]["digest_s"],
+                              "loss_rel": reshard["loss_rel"],
+                              "peak_gb": [r["peak_gb"] for r in rc2["ranks"]],
+                              "launches": [r["counts"] for r in rc2["ranks"]]}}}),
+        flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,10 @@ saved by `torch.distributed.checkpoint` into the same digit-named step
 directory: every rank writes its own shards of a hidden temporary
 directory, rank 0 renames it into place after a barrier and prunes, and a
 restore loads each rank's shards straight into the live sharded state.
-Every rank of the gang calls save and restore together.
+Every rank of the gang calls save and restore together. A restore reads
+the step's own layout into the live state's, so a step saved by one
+process restores into a gang's shards and a gang's sharded step into one
+process (a live reshard's fallback after the gang's size changed).
 """
 from __future__ import annotations
 
@@ -59,8 +62,15 @@ def _assign(live: Any, saved: Any, path: str = "state") -> Any:
             raise ValueError(f"checkpoint leaf {path}: {getattr(saved, 'shape', saved)} "
                              f"{getattr(saved, 'dtype', '')} does not match "
                              f"{tuple(live.shape)} {live.dtype}")
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
         with torch.no_grad():
-            live.copy_(saved)
+            if isinstance(live, DTensor):  # this rank's part of the whole leaf
+                part = distribute_tensor(saved.to(live.device), live.device_mesh,
+                                         live.placements, src_data_rank=None)
+                live.to_local().copy_(part.to_local())
+            else:
+                live.copy_(saved)
         return live
     if isinstance(live, dict):
         if not isinstance(saved, dict) or set(saved) != set(live):
@@ -147,8 +157,12 @@ class CheckpointManager:
         _barrier()
 
     def restore(self, step: int, state):
-        """Copy step `step` into `state` in place; returns state."""
-        if _sharded(state):
+        """Copy step `step` into `state` in place; returns state. Either
+        layout restores into either state, so a gang whose size changed
+        (a live reshard's closed fallback) reads the last save: a sharded
+        step into one process's whole leaves, a one-process step into each
+        rank's shards."""
+        if os.path.isfile(os.path.join(self.directory, str(step), SHARDED_FILE)):
             import torch.distributed.checkpoint as dcp
 
             payload = {"params": state.params, "opt_state": state.opt_state, "step": 0}

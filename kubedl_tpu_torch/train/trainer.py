@@ -14,13 +14,15 @@ A gang: the operator's KUBEDL_COORDINATOR_ADDRESS / KUBEDL_NUM_PROCESSES /
 KUBEDL_PROCESS_ID form the torch.distributed group (train/coordinator.py),
 KUBEDL_MESH and KUBEDL_DCN_MESH its DeviceMesh (parallel/mesh.py), whose
 size must be the number of processes (else exit 2, before the
-rendezvous). The step is then the sharded one over that mesh, with
-sharded checkpoints. Process p's batches are the rows of its token block
-(its coordinate over data x fsdp x expert): batch ids step * blocks +
-block, so tensor and context peers feed the same rows. Rank 0 prints the
-trainer's lines; every process records its own spans. A process without
-an address trains alone on the one-device step. A pod with several cards
-runs one trainer process a card under train/launch.py.
+rendezvous; a live-reshard gang, which may resume on a staging's mesh,
+checks it once its ranks agreed on the staging). The step is then the
+sharded one over that mesh, with sharded checkpoints. Process p's batches
+are the rows of its token block (its coordinate over data x fsdp x
+expert): batch ids step * blocks + block, so tensor and context peers feed
+the same rows. Rank 0 prints the trainer's lines; every process records
+its own spans. A process without an address trains alone on the
+one-device step. A pod with several cards runs one trainer process a card
+under train/launch.py.
 
 Context parallelism (a mesh context axis above 1; attention by the model
 config's context_parallel, "ring" for every config named here): each
@@ -49,8 +51,27 @@ it (models/llama.py `stack_params`, `param_specs_pp`) and the step runs
 rows. KUBEDL_PP_MPMD=1 pods run the stage program instead
 (train/pipeline_trainer.py) and exit 2 here.
 
-Refused with exit 2, until ported (ROADMAP.md): live reshard
-(KUBEDL_LIVE_RESHARD=1).
+Live reshard (KUBEDL_LIVE_RESHARD=1; train/reshard_runtime.py): with a
+control endpoint (KUBEDL_CONTROL_DIR, or KUBEDL_TRANSPORT=socket) the
+trainer answers RESIZE messages at step boundaries. The gang acts at the
+first step boundary where every rank holds an unanswered RESIZE (agreed on
+the host group that carries the SIGTERM flag); chip counts that differ
+between ranks fall back closed on every rank, and each rank replies to its
+own message. A resize that keeps the chip count refits to the same mesh:
+the state stays where it is (reply "ok", moved_mb 0); one that changes it
+stages the state's blocks for the new chip count in KUBEDL_RESHARD_DIR and
+exits 113 (reply "staged"), and the restart, with KUBEDL_NUM_PROCESSES the
+new chip count, resumes from the staging on the staging's mesh in place of
+KUBEDL_MESH. Every rank resumes from the staging or none does: the ranks
+compare the staging each read before they build the mesh, and again after
+each assembled its part. A one-process trainer asked for more chips stages
+for them. Any failure banks a final checkpoint and exits 113 (reply
+"fallback"). The rows a process takes stay --batch, so the global batch
+scales with the world across a staged restart. The test seam
+KUBEDL_RESHARD_TEST_DIGEST=1 prints the sha256 of the whole state (every
+leaf gathered on the host) after a staged restore and before staging, for
+bit-for-bit checks. Live reshard is refused with pipeline parallelism
+(exit 2), as in the reference.
 """
 from __future__ import annotations
 
@@ -140,15 +161,85 @@ def parse_args(argv=None):
 
 
 def _refused(args, info) -> Optional[str]:
-    """The message for an option this slice of the port refuses, or None."""
+    """The message for a configuration this trainer refuses, or None."""
     if os.environ.get("KUBEDL_PP_MPMD") == "1":
         return ("spec.pipeline.mpmd pods must run the stage program: "
                 "python -m kubedl_tpu_torch.train.pipeline_trainer (this SPMD "
                 "trainer would train the full model un-pipelined)")
-    later = "is not ported to kubedl_tpu_torch yet (ROADMAP.md, trainer options refused)"
-    if info.live_reshard:
-        return f"KUBEDL_LIVE_RESHARD=1: live reshard {later}"
+    if info.live_reshard and int(os.environ.get("KUBEDL_PP_STAGES", "1")) > 1:
+        return ("pipeline config invalid: spec.elastic.liveReshard is unsupported with "
+                "spec.pipeline (the reshard planner does not cover stage-stacked layouts)")
     return None
+
+
+def _staging_wanted(args, info) -> bool:
+    """Whether this run may resume from a live-reshard staging (the same on
+    every rank of a gang: the operator injects the env)."""
+    return bool(info.live_reshard and info.reshard_dir and args.lora_rank == 0)
+
+
+def _agree_on_staging(staged, reshard_dir, group):
+    """The staging every rank of the gang resumes from, or None on every
+    rank: the ranks compare the (step, axes) each read before the
+    rendezvous, and a difference (a file one rank could not read, a guard
+    that tripped on one rank) drops it everywhere, cleared by rank 0.
+    Collective; runs before the mesh is built, which the axes decide."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.train import reshard_runtime
+
+    mine = None if staged is None else [staged[0], staged[1]]
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, mine, group=group)
+    if all(s == seen[0] for s in seen):
+        return staged
+    print(f"live-reshard staging differs across the gang ((step, mesh) by rank: {seen}); "
+          f"falling back to checkpoint restore", file=sys.stderr)
+    if staged is not None:
+        staged[2].close()
+    if dist.get_rank() == 0:  # every rank is past its read (the gather)
+        reshard_runtime.clear_staging(reshard_dir)
+    return None
+
+
+def _staged_restart(args, info):
+    """(step, new axes, blocks) of the live-reshard staging this process
+    resumes from, or None. Read before the rendezvous: a valid staging's
+    mesh replaces KUBEDL_MESH. A published staging that is invalid, for
+    another process count, larger than the granted slice or older than the
+    newest checkpoint is cleared (a staging without a manifest may be a
+    gang's in-flight one and stays)."""
+    if not _staging_wanted(args, info):
+        return None
+    import math
+
+    from kubedl_tpu_torch.train import reshard_runtime
+    from kubedl_tpu_torch.train.checkpoint import latest_step
+
+    d = info.reshard_dir
+    staged = reshard_runtime.restore_staged(d, info.process_id, info.num_processes)
+    if staged is None:
+        if reshard_runtime.staging_exists(d):
+            reshard_runtime.clear_staging(d)
+        return None
+    if os.environ.get("TPU_SLICE_TYPE"):
+        # a stale staging must never re-inflate the mesh past the grant
+        try:
+            granted = reshard_runtime.slice_chips(os.environ["TPU_SLICE_TYPE"])
+        except ValueError:
+            granted = None
+        if granted is not None and math.prod(staged[1].values()) != granted:
+            print(f"staging topology {staged[1]} != granted {granted}-chip slice; "
+                  f"falling back to checkpoint", file=sys.stderr)
+            reshard_runtime.clear_staging(d)
+            return None
+    latest = latest_step(args.checkpoint_path) if args.checkpoint_path else None
+    if latest is not None and latest > staged[0]:
+        # a checkpoint newer than the staging wins: the staging is a quiesce
+        # snapshot, replaying it over later saves would lose steps
+        reshard_runtime.clear_staging(d)
+        return None
+    return staged
 
 
 def _gang_mesh(info, seq_len: Optional[int] = None) -> "tuple[Optional[dict], Optional[str]]":
@@ -190,9 +281,18 @@ def main(argv=None) -> int:
 
     info = coordinator.process_info()
     refused = _refused(args, info)
-    axes = None
+    axes = staged = None
     if not refused:
-        axes, refused = _gang_mesh(info, args.seq_len)
+        staged = _staged_restart(args, info)
+        # a gang that may resume from a staging picks its mesh once the
+        # ranks agree on it (_run): a rank that refused KUBEDL_MESH here
+        # would leave a peer with a staging waiting at the rendezvous
+        gang_decides = (info.num_processes > 1 and info.coordinator_address is not None
+                        and _staging_wanted(args, info))
+        if staged is not None:
+            axes = staged[1]
+        elif not gang_decides:
+            axes, refused = _gang_mesh(info, args.seq_len)
     if refused:
         print(refused, file=sys.stderr)
         return 2  # permanent config error (utils/exit_codes.py)
@@ -211,12 +311,12 @@ def main(argv=None) -> int:
 
     prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
     try:
-        return _run(args, info, axes, device, preempted, t_main0)
+        return _run(args, info, axes, device, preempted, t_main0, staged)
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
 
 
-def _run(args, info, axes, device, preempted, t_main0) -> int:
+def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
     import dataclasses
 
     import numpy as np
@@ -228,18 +328,34 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     from kubedl_tpu_torch.obs.trace import tracer_from_env
     from kubedl_tpu_torch.ops import _build
     from kubedl_tpu_torch.parallel import optim
-    from kubedl_tpu_torch.parallel.mesh import (ShardingRules, build_mesh_from_env, seq_block,
-                                                token_index)
+    from kubedl_tpu_torch.parallel.mesh import (ShardingRules, build_mesh, build_mesh_from_env,
+                                                seq_block, token_index)
     from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import reshard_runtime
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
     from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED, EXIT_XLA_COMPILE_ERROR
 
     rules = ShardingRules()
     mesh, world = None, 1
     block, n_blocks = 0, 1  # this process's token block of the global batch
+    # every pod gets its own SIGTERM and its own RESIZE, and a collective
+    # that ranks enter at different steps deadlocks: the gang agrees on
+    # both each step, and on a staged restart, on a host (gloo) group, so
+    # the check never waits on the device
+    flag_group = None
     if dist.is_initialized():
         world = dist.get_world_size()
-        mesh = build_mesh_from_env(world, device.type)
+        if world > 1 and device.type == "cuda":
+            flag_group = dist.new_group(backend="gloo")
+        if world > 1 and _staging_wanted(args, info):
+            staged = _agree_on_staging(staged, info.reshard_dir, flag_group)
+            if staged is None:  # KUBEDL_MESH decides, on every rank alike
+                axes, refused = _gang_mesh(info, args.seq_len)
+                if refused:
+                    print(refused, file=sys.stderr)
+                    return 2  # permanent config error
+        mesh = (build_mesh(staged[1], world, device.type) if staged is not None
+                else build_mesh_from_env(world, device.type))
         block, n_blocks = token_index(mesh, rules)
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
@@ -322,12 +438,40 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     tx = optim.adamw(lr, weight_decay=0.01)
     if args.grad_clip > 0:
         tx = optim.chain(optim.clip_by_global_norm(args.grad_clip), tx)
+
+    def fresh_params():
+        if args.hf_model:
+            from kubedl_tpu_torch.models.import_hf import load_hf
+
+            return load_hf(args.hf_model, device=device)[0]
+        return llama.init(config, torch.Generator(device=device).manual_seed(0), device=device)
+
+    def gang_any(flag: bool) -> bool:
+        """Whether any rank of the gang raised `flag` (collective)."""
+        if world == 1:
+            return flag
+        v = torch.tensor([int(flag)])
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(v.item())
+
+    digest_on = os.environ.get(reshard_runtime.ENV_TEST_DIGEST) == "1"
+
+    # the specs the planner reads the state with: those it is sharded
+    # with, and on one device any spec holds the whole leaf
+    plan_specs = llama.param_specs(config, rules)
+
+    def say_digest(what, at_step):
+        """The whole state's sha256 (the test seam; collective)."""
+        if digest_on:
+            d = reshard_runtime.state_digest(state, plan_specs, group=flag_group)
+            if d is not None:
+                say(f"live reshard: state sha256 {what} at step {at_step}: {d['*']}",
+                    flush=True)
+
     try:
         if device.type == "cuda" and config.use_flash:
             _build.build("flash_fwd", "flash_bwd")  # a refused source fails here
-        params = (hf_base if hf_base is not None else
-                  llama.init(config, torch.Generator(device=device).manual_seed(0),
-                             device=device))
+        params = hf_base if hf_base is not None else fresh_params()
         hf_base = None  # the state holds the tree from here on
         if args.lora_rank > 0:
             # adapter-only training: gradients and optimizer state cover the
@@ -357,17 +501,53 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
                 loss, tx, mesh, specs, rules.spec("batch", None), rules,
                 accum_steps=args.accum_steps)
             state = init_state(params)
+            if staged is not None:
+                # the staged-restart lane: the previous incarnation quiesced
+                # and staged its blocks for this topology; the template's
+                # values are overwritten leaf by leaf. A gap on any rank
+                # falls back closed on every rank, to the checkpoint below
+                # from a fresh init: no rank trains on its staged part
+                # while a peer restores.
+                t_restage0 = time.perf_counter()
+                read, err = {}, None
+                try:
+                    state = reshard_runtime.state_from_staging(staged[2], state, plan_specs,
+                                                               stats=read)
+                except Exception as e:  # noqa: BLE001 -- fallback closed
+                    err = e
+                staged[2].close()
+                if gang_any(err is not None):
+                    print(f"staging unusable ({err or 'a peer could not assemble its part'}); "
+                          f"falling back to checkpoint restore", file=sys.stderr)
+                    if rank0:  # every rank is past its read (the agreement)
+                        reshard_runtime.clear_staging(info.reshard_dir)
+                    staged = None
+                    del state
+                    params = fresh_params()
+                    state = init_state(params)
+                else:
+                    # NOT cleared: a stale replay is caught by the guards
+                    # of _staged_restart
+                    restore_s = time.perf_counter() - t_restage0
+                    say(f"restored live-reshard staging at step {staged[0]} "
+                        f"(mesh {staged[1]})", flush=True)
+                    say(f"live reshard: read {read.get('bytes', 0) / 2**20:.1f} MB in "
+                        f"{read.get('blocks', 0)} blocks in {restore_s:.2f} s", flush=True)
         del params
     except (torch.OutOfMemoryError, _build.BuildError) as e:
         print(f"compile/alloc failure: {e}", file=sys.stderr)
         return EXIT_XLA_COMPILE_ERROR
+    if staged is not None:
+        say_digest("restored", staged[0])
 
     mngr = None
-    start_step = 0
+    start_step = staged[0] if staged is not None else 0
     if args.checkpoint_path:
         mngr = CheckpointManager(args.checkpoint_path, max_to_keep=args.checkpoint_keep)
         latest = mngr.latest_step()
-        if latest is not None and os.environ.get("KUBEDL_CHECKPOINT_RESTORE", "1") == "1":
+        if staged is not None:
+            pass  # the live-reshard staging beats a restore (start_step set above)
+        elif latest is not None and os.environ.get("KUBEDL_CHECKPOINT_RESTORE", "1") == "1":
             t_restore0 = time.perf_counter()
             state = mngr.restore(latest, state)
             start_step = state.step
@@ -478,19 +658,148 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     tracer.record("trainer.init", duration_s=time.perf_counter() - t_main0,
                   step=start_step, model=model_name, devices=world)
 
-    # every pod gets its own SIGTERM, and a collective save that ranks enter
-    # at different steps deadlocks: the gang takes the MAX of the flag each
-    # step, on a host (gloo) group, so the check never waits on the device
-    flag_group = None
-    if world > 1:
-        flag_group = dist.new_group(backend="gloo") if device.type == "cuda" else None
+    # the control endpoint: the socket plane in kube mode, KUBEDL_CONTROL_DIR
+    # polling on the local executor (same surface)
+    ctl = reshard_runtime.control_from_env() if info.live_reshard else None
+    reshard_dir = info.reshard_dir
+    pending = {"msg": None, "chips": 0}  # this rank's unanswered RESIZE
 
-    def stop_now() -> bool:
+    def gang_flags():
+        """(stop, every rank holds a RESIZE, lowest and highest chip count
+        asked): the MAX over the gang of SIGTERM flags and RESIZE states."""
+        have = pending["msg"] is not None
         if world == 1:
-            return preempted["flag"]
-        flag = torch.tensor([int(preempted["flag"])])
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=flag_group)
-        return bool(flag.item())
+            return preempted["flag"], have, pending["chips"], pending["chips"]
+        big = 1 << 40
+        chips = max(-big, min(big, pending["chips"])) if have else None
+        v = torch.tensor([int(preempted["flag"]), int(not have),
+                          chips if have else -big, -chips if have else -big])
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(v[0]), not bool(v[1]), -int(v[3]), int(v[2])
+
+    def say_memory():
+        if device.type == "cuda":
+            from kubedl_tpu_torch.ops.flash_attention import flash_attention as fa
+
+            say(f"memory: peak allocated {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
+                f"on {torch.cuda.get_device_name(device)}; flash launches fwd/dq/dkv "
+                f"({fa.launches}, {fa.bwd_dq_launches}, {fa.bwd_dkv_launches})", flush=True)
+
+    def exit_retryable():
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(EXIT_TPU_PREEMPTED)
+
+    # -- the live resize protocol (train/reshard_runtime.py ladder) --------
+    # every rank enters these together, at the step the gang agreed on
+
+    def resize_fallback(msg, at_step, reason):
+        """Fallback CLOSED: the old state is intact (nothing is committed
+        before every rank succeeded), so bank it as a final checkpoint, tell
+        the scheduler, and exit retryable -- the restart comes back through
+        checkpoint restore. A corrupted state is never saved or trained on."""
+        print(f"live reshard failed ({reason}); falling back to checkpoint restore",
+              file=sys.stderr)
+        try:
+            save(at_step, final=True)
+        except Exception:  # noqa: BLE001 -- the last interval save still holds
+            pass
+        tracer.record("reshard.fallback", step=at_step, reason=str(reason)[:200])
+        ctl.reply(msg, outcome="fallback", step=at_step, error=str(reason)[:300])
+        exit_retryable()
+
+    def resize_staged(msg, at_step, new_chips):
+        """A changed chip count: the gang quiesces, stages the blocks the new
+        topology needs and restarts onto it (reassembly at startup). Worker 0
+        publishes the manifest once every pod staged a matching plan; any gap
+        falls back closed on every rank."""
+        t_stage0 = time.perf_counter()
+        plan, err = None, None
+        try:
+            say_digest("staged", at_step)
+            if not reshard_dir:
+                raise reshard_runtime.ReshardError("no KUBEDL_RESHARD_DIR")
+            leaves = reshard_runtime.leaves_from_state(state, plan_specs)
+            old_axes = reshard_runtime.mesh_axes(mesh)
+            new_axes = reshard_runtime.refit_axes(old_axes, new_chips)
+            plan = reshard_runtime.plan_reshard(leaves, old_axes, new_axes, world, new_chips)
+            reshard_runtime.stage_shards(
+                reshard_dir, plan, reshard_runtime.mesh_pod(mesh),
+                reshard_runtime.provider_from_blocks(
+                    reshard_runtime.addressable_blocks(state, plan_specs)), at_step)
+        except Exception as e:  # noqa: BLE001 -- fallback closed
+            err = e
+        if gang_any(err is not None):
+            resize_fallback(msg, at_step, f"staged lane: {err or 'a peer did not stage'}")
+        stage_s = time.perf_counter() - t_stage0
+        # the job's own quiesce budget (spec.elastic.quiesceTimeoutS)
+        # outranks the scheduler default
+        quiesce = float(os.environ.get("KUBEDL_RESHARD_QUIESCE_S",
+                                       msg.get("quiesce_timeout_s", 30.0)))
+        ok = (reshard_runtime.mesh_pod(mesh) != 0 or reshard_runtime.write_manifest(
+            reshard_dir, plan, at_step, world, timeout=quiesce))
+        if gang_any(not ok):
+            resize_fallback(msg, at_step, "staged lane: manifest aborted")
+        tracer.record("reshard.staged", duration_s=time.perf_counter() - t_stage0,
+                      step=at_step, chips=new_chips)
+        ctl.reply(msg, outcome="staged", step=at_step)
+        say(f"live reshard: staged {plan.moved_bytes / 2**20:.1f} MB moved and "
+            f"{plan.local_bytes / 2**20:.1f} MB local for {new_chips} chips "
+            f"(mesh {plan.new_axes}) in {stage_s:.2f} s, manifest "
+            f"{time.perf_counter() - t_stage0 - stage_s:.2f} s", flush=True)
+        say(f"staged reshard at step {at_step}: restarting onto the new topology",
+            flush=True)
+        say_memory()
+        exit_retryable()
+
+    def handle_resize(msg, at_step, new_chips):
+        t0 = time.perf_counter()
+        sync()  # quiesce at the step boundary
+        if new_chips <= 0:
+            resize_fallback(msg, at_step, f"bad chip count {new_chips}")
+        if args.lora_rank > 0:
+            resize_fallback(msg, at_step, "lora runs restart via checkpoint")
+        if new_chips != world:
+            resize_staged(msg, at_step, new_chips)  # does not return
+        # the same chip count refits to the same mesh: the plan moves
+        # nothing, and the state, the mesh and the step stay as they are
+        plan = err = None
+        try:
+            _, _, plan = reshard_runtime.live_resize(state, mesh, new_chips, plan_specs)
+        except reshard_runtime.ReshardError as e:
+            err = e
+        if gang_any(err is not None):
+            resize_fallback(msg, at_step, str(err or "a peer's reshard failed"))
+        # reply NOW: downtime = quiesce -> the state resident on the mesh,
+        # a step dispatchable
+        downtime = time.perf_counter() - t0
+        moved_mb = round(plan.moved_bytes / 2**20, 3)
+        tracer.record("reshard.live", duration_s=downtime, step=at_step, chips=new_chips,
+                      outcome="ok", moved_mb=moved_mb)
+        ctl.reply(msg, outcome="ok", step=at_step, downtime_s=round(downtime, 4),
+                  chips=new_chips, moved_mb=moved_mb)
+        live = {k: v for k, v in reshard_runtime.mesh_axes(mesh).items() if v > 1}
+        say(f"live reshard at step {at_step}: mesh -> {live} ({new_chips} devices, "
+            f"downtime {downtime:.3f}s); live reshard: resumed at step {at_step + 1}",
+            flush=True)
+
+    def poll_control():
+        """Hold this rank's next RESIZE; answer any other message "failed"."""
+        if ctl is None or pending["msg"] is not None:
+            return
+        cmsg = ctl.poll()
+        if cmsg is None:
+            return
+        if cmsg.get("type") != "RESIZE":
+            ctl.reply(cmsg, outcome="failed",
+                      error=f"unknown control message {cmsg.get('type')!r}")
+            return
+        try:
+            chips = int(cmsg.get("chips", 0))
+        except (TypeError, ValueError):
+            chips = 0
+        pending.update(msg=cmsg, chips=chips)
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -523,7 +832,9 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
             if prof is not None and prof.should_stop(step):
                 sync()
                 prof.stop()
-            if stop_now():
+            poll_control()
+            stop, resize, lo, hi = gang_flags()
+            if stop:
                 sync()
                 if prof is not None:
                     prof.stop()
@@ -534,9 +845,15 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
                 # every rank); exit at once, as the JAX trainer does: a clean
                 # interpreter exit would run the process group's shutdown
                 # while peers may still be in their last collective
-                sys.stdout.flush()
-                sys.stderr.flush()
-                os._exit(EXIT_TPU_PREEMPTED)
+                exit_retryable()
+            if resize:
+                msg = pending["msg"]
+                pending.update(msg=None, chips=0)
+                if lo != hi:
+                    sync()
+                    resize_fallback(msg, step + 1, f"the gang's ranks asked for "
+                                                   f"{lo} to {hi} chips")
+                handle_resize(msg, step + 1, lo)
             if args.checkpoint_interval and (step + 1) % args.checkpoint_interval == 0:
                 save(step + 1)
             if args.eval_every and (step + 1) % args.eval_every == 0:
@@ -560,9 +877,7 @@ def _run(args, info, axes, device, preempted, t_main0) -> int:
     say(f"done: {steps_done} steps in {total:.1f}s "
         f"({steps_done / total:.2f} step/s, "
         f"{steps_done * tokens_per_step / total:.0f} tok/s)", flush=True)
-    if device.type == "cuda":
-        say(f"memory: peak allocated {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
-            f"on {torch.cuda.get_device_name(device)}", flush=True)
+    say_memory()
     save(args.steps, final=True)
     tracer.record("trainer.done", step=args.steps, steps_done=steps_done,
                   wall_s=round(total, 3))

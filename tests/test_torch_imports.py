@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax():
 
 
 PLANE_FILES = [ROOT / "kubedl_tpu_torch" / sub / f"{n}.py"
-               for sub, names in (("transport", ("__init__", "plane", "metrics")),
+               for sub, names in (("transport", ("__init__", "plane", "metrics", "control",
+                                                 "blocks")),
                                   ("serving", ("__init__", "kv_pool", "handoff",
                                                "engine_prefill", "engine_decode",
                                                "disaggregated", "router", "rollout")))
@@ -91,7 +92,21 @@ def test_the_context_modules_are_walked():
     assert set(CONTEXT_FILES) <= set(PORT_FILES)
 
 
-@pytest.mark.parametrize("path", PLANE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+RESHARD_FILES = [ROOT / "kubedl_tpu_torch" / f for f in (
+    "parallel/reshard.py", "train/reshard_runtime.py", "transport/control.py",
+    "transport/blocks.py")]
+
+
+def test_the_reshard_modules_are_walked():
+    """The live reshard's modules (the planner, the trainer's runtime, the
+    socket control channel and the staged fetch) are among the files both
+    checks above cover, and the ml_dtypes check below."""
+    assert all(p.is_file() for p in RESHARD_FILES)
+    assert set(RESHARD_FILES) <= set(PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PLANE_FILES + RESHARD_FILES[:2],
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_planes_never_import_ml_dtypes(path):
     bad = [m for m in _imports(path) if m == "ml_dtypes" or m.startswith("ml_dtypes.")]
     assert not bad, f"{path.name} imports {bad}"

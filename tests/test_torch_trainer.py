@@ -179,10 +179,13 @@ def test_profile_window_writes_a_trace(tmp_path, capsys):
 # the last four: a mesh whose size is not the gang's (one device a
 # process), refused before any rendezvous with build_mesh's messages.
 # "lora" was refused until LoRA was ported, "hf_model" until Hugging Face
-# import was; their cases now check that the same flags train
-# (tests/test_torch_lora.py holds the step to JAX's). "pp_stages" was
-# refused until pipeline parallelism was ported; one process has a stage
-# axis of 1, which the reference's message refuses
+# import was, "live_reshard" until live reshard was; their cases now check
+# that the same flags train (tests/test_torch_lora.py holds the step to
+# JAX's; KUBEDL_LIVE_RESHARD=1 without a control endpoint trains to its
+# end, as the reference does with no control channel, and
+# tests/test_torch_reshard_trainer.py drives the resize ladder).
+# "pp_stages" was refused until pipeline parallelism was ported; one
+# process has a stage axis of 1, which the reference's message refuses
 # (tests/test_torch_pipeline_trainer.py trains a stage mesh). "pp_mpmd"
 # names the port's stage program.
 REFUSED = {
@@ -227,16 +230,17 @@ def test_refused_options_exit_2(name, monkeypatch, capsys, tmp_path):
         assert rc == 0 and f"base weights: {tmp_path} (3L/64d)" in out
         assert f"model={tmp_path}" in out and "lora: rank 2" in out
         return
+    if name == "live_reshard":
+        assert rc == 0 and "done: 1 steps in" in out
+        return
     assert rc == 2
     if name == "pp_mpmd":  # the JAX trainer's message: run the stage program
         assert "python -m kubedl_tpu_torch.train.pipeline_trainer" in err
     elif name == "pp_stages":
         assert ("KUBEDL_PP_STAGES=2 but the mesh stage axis is 1 (spec.mesh.stage "
                 "must match spec.pipeline.stages)") in err
-    elif name in MISMATCH:
-        assert MISMATCH[name] in err and "one device per process" in err
     else:
-        assert "ROADMAP.md" in err
+        assert MISMATCH[name] in err and "one device per process" in err
 
 
 def test_out_of_memory_building_the_state_exits_114(monkeypatch, capsys):

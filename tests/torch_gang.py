@@ -55,6 +55,18 @@ ops/ulysses.py on each rank's rows and sequence block and returns the
 output and the q, k, v gradients of sum(output * cotangent), assembled to
 the global shapes, or the ValueError's message when the call raises.
 
+A case with kind "reshard" (config, params, ici, batch, lr) runs one
+AdamW step on the mesh and returns `leaves_from_state`, every state leaf
+gathered to its full shape (by path) and `state_digest`; with "stage"
+(dir, chips) every rank then stages its blocks for that chip count
+(train/reshard_runtime.py) and rank 0 publishes the manifest; with
+"move_to" (mesh axes) the state then moves onto that mesh over the same
+ranks with `reshard_state` and is gathered again, and one more step runs
+there. Before that, `live_resize` to the gang's own size keeps it in
+place (the same mesh, nothing moved) and it is gathered. With "restore" (a staging dir) the case builds the state on its
+mesh from `params` and overwrites it from the staging through
+`restore_staged` and `state_from_staging` instead, and returns it gathered.
+
 The default case takes each rank's columns of its rows too (parallel/
 mesh.py `seq_block`), so a mesh with a context axis trains on its
 sequence blocks. This module imports no JAX.
@@ -380,7 +392,93 @@ def _attention_case(case):
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
 
 
+def _gathered_state(state, specs):
+    """path -> the leaf's full array (numpy) or counter (int)."""
+    from torch.distributed.tensor import DTensor
+
+    from kubedl_tpu_torch.parallel.reshard import state_leaves
+
+    out = {}
+    for leaf in state_leaves(state, specs):
+        v = leaf.value
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
+        out[leaf.path] = v if isinstance(v, int) else v.detach().numpy().copy()
+    return out
+
+
+def _reshard_case(case):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import reshard_runtime as rt
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    specs = llama.param_specs(cfg, rules)
+    tx = optim.adamw(case["lr"], weight_decay=0.01)
+
+    def step_on(m):
+        def loss(p, b):
+            return llama.loss_fn(p, b, cfg, mesh=m, rules=rules)
+        return make_train_step(loss, tx, m, specs, rules.spec("batch", None), rules)
+
+    init_state, train_step = step_on(mesh)
+    state = init_state(params_from_numpy(case["params"]))
+    out = {"mesh": rt.mesh_axes(mesh)}
+    if case.get("restore"):
+        staged = rt.restore_staged(case["restore"], rt.mesh_pod(mesh), dist.get_world_size(),
+                                   expect_axes=case["ici"])
+        assert staged is not None, "the staging did not validate"
+        state = rt.state_from_staging(staged[2], state, specs)
+        out.update(step=staged[0], state=_gathered_state(state, specs),
+                   digest=rt.state_digest(state, specs))
+        return out
+    local = _local_rows(case["batch"], mesh, rules)
+    state, m = train_step(state, local)
+    out.update(loss=float(m["loss"]),
+               leaves={p: (shape, item, tuple(spec)) for p, (shape, item, spec)
+                       in rt.leaves_from_state(state, specs).items()},
+               state=_gathered_state(state, specs), digest=rt.state_digest(state, specs))
+    if case.get("stage"):
+        d, chips = case["stage"]["dir"], case["stage"]["chips"]
+        old = rt.mesh_axes(mesh)
+        plan = rt.plan_reshard(rt.leaves_from_state(state, specs), old,
+                               rt.refit_axes(old, chips), dist.get_world_size(), chips)
+        rt.stage_shards(d, plan, rt.mesh_pod(mesh),
+                        rt.provider_from_blocks(rt.addressable_blocks(state, specs)),
+                        state.step)
+        dist.barrier()
+        if rt.mesh_pod(mesh) == 0:
+            assert rt.write_manifest(d, plan, state.step, dist.get_world_size(), timeout=10)
+        dist.barrier()
+        out["plan"] = dict(moved=plan.moved_bytes, local=plan.local_bytes,
+                           digest=plan.digest())
+    # the in-process lane at the gang's own size: the refit mesh is the same
+    mesh, state, plan = rt.live_resize(state, mesh, dist.get_world_size(), specs)
+    out.update(live_mesh=rt.mesh_axes(mesh), live_moved=plan.moved_bytes,
+               live_state=_gathered_state(state, specs))
+    if case.get("move_to"):
+        new_mesh = build_mesh(case["move_to"])
+        state = rt.reshard_state(state, new_mesh, specs)
+        out["moved_mesh"] = rt.mesh_axes(new_mesh)
+        out["moved_state"] = _gathered_state(state, specs)
+        _, train_step = step_on(new_mesh)
+        state, m = train_step(state, _local_rows(case["batch"], new_mesh, rules))
+        out["moved_loss"] = float(m["loss"])
+    return out
+
+
 def _case(case):
+    if case.get("kind") == "reshard":
+        return _reshard_case(case)
     if case.get("kind") == "attention":
         return _attention_case(case)
     if case.get("kind") == "pipeline":
