@@ -19,8 +19,9 @@ Phases, each printing its own line of numbers:
      kernel kernel_source routes to (flash_fwd_sm90.cu at every head dim,
      its Fwd<256> geometry at d 256), rerun bit for bit, the mma.sync
      kernel of flash_fwd.cu at the same shape, and the library
-     (scaled_dot_product_attention, or
-     flex_attention compiled with the softcap as its score_mod), each timed
+     (scaled_dot_product_attention, or on the d 256 row of the kernels
+     line flex_attention compiled with the softcap as its score_mod; the
+     other softcap rows time no library call), each timed
      as device time (10 launches in a CUDA graph, median of 7 replays), the
      plain version and one whole wrapper call (CUDA events, median of 7
      after 2 warm-ups), beside the least time the card could take. On the
@@ -45,9 +46,9 @@ Phases, each printing its own line of numbers:
      kernels at the same shape, each two
      launches bit-identical and timed as device time (CUDA graphs), beside
      one whole wrapper call of each, the plain version and the library
-     (scaled_dot_product_attention's backward, or flex_attention's where a
-     softcap or window is set: forward and backward less forward, device
-     time); q scaled and the options dropped as in phase 2;
+     (scaled_dot_product_attention's backward, or flex_attention's on the
+     d 256 row of the kernels line: forward and backward less forward,
+     device time; the other softcap and window rows time none); q scaled and the options dropped as in phase 2;
   5. gradients through the model at full width, 2 layers: loss_fn and
      every gradient through the kernels against plain attention, with the
      launch counts of full remat;
@@ -58,7 +59,11 @@ Phases, each printing its own line of numbers:
   7. the trainer's options (bench-1b: accumulation, chunked CE, "dots"
      remat, cosine schedule) and its preemption contract: a subprocess
      trainer SIGTERMed after its first checkpoint exits 113, and its rerun
-     resumes from that checkpoint for 2 steps and exits 0.
+     resumes from that checkpoint for 2 steps and exits 0. That contract,
+     11c's and 19c's run right after phase 1, side by side, each in a
+     thread of its own (each is tiny processes starting, a SIGTERM and a
+     rerun, so side by side they take about the longest one's time), while
+     the main thread compiles the flex_attention calls of phases 2 and 2b;
   2c. the grouped matmul kernels of gmm_sm90.cu (K6 and its
      transposed-weight use, K7 with f32 and bf16 output, K5 and K8 on bf16
      and int8 weights) against their plain versions at Mixtral-8x7B widths
@@ -81,11 +86,11 @@ Phases, each printing its own line of numbers:
   11. the sharded slice, on a one-rank NCCL group formed by
      train/coordinator.py's rendezvous: (a) full-width, full-depth
      Llama-7B through make_train_step on a one-device DeviceMesh (the
-     sharded code: DTensor leaves, local views, the sharded optimizer), 6
+     sharded code: DTensor leaves, local views, the sharded optimizer), 3
      steps at b=4 and 1024-token rows, in turns with the one-device step on
      the same init and batches (one device, sharded, sharded, one device);
      its first loss against the one-device loss, the flash launch counts
-     against phase 6's, step time and peak memory beside the one-device
+     against phase 6's (scaled to 3 steps), step time and peak memory beside the one-device
      step's and phase 6's; (b)
      the expert-parallel dropless body (models/moe.py
      `_dropless_mlp_sharded`) at Mixtral widths on a one-rank expert group,
@@ -98,9 +103,11 @@ Phases, each printing its own line of numbers:
      one-rank group, started through train/launch.py (one child for the
      one card), SIGTERMed at the launcher after its first sharded
      checkpoint: the child and the launcher exit 113, and the rerun
-     resumes from it and exits 0.
+     resumes from it and exits 0 (run after phase 1, beside phase 7's
+     contract);
   12. tensor-parallel serving and the int8 KV cache, in the same one-rank
-     group: full-width, full-depth Llama-7B (fresh init, bf16) on the
+     group: full-width Llama-7B at TP_LAYERS of its 32 layers (fresh init,
+     bf16) on the
      serving engine with phase 4's traffic (8 slots, 1024 positions, 6
      prompts at once, then one prompt twice, 32 greedy tokens each), in
      turns one device, mesh, int8 KV, int8 KV, mesh, one device: (a) the
@@ -173,8 +180,8 @@ Phases, each printing its own line of numbers:
      512 tokens from a seeded JSONL, and evaluate --hf-model on a seeded
      shard. The directory is removed after. K1 launches of a-d and K2/K3
      of (c) and (d) are the kernels line's d 256 rows.
-  16. RL, inside phase 15 on its directory: (a) grpo --hf-model on
-     Gemma-2-2B's config cut to 4 of its 26 layers (a directory of its
+  16. RL, inside phase 15: (a) grpo --hf-model on
+     Gemma-2-2B's config cut to 2 of its 26 layers (a directory of its
      own, seeded as phase 15's), 3 on-policy steps of 4 prompts x 8 samples x 32 new tokens (KL 0.04,
      lr 1e-4, reward_low_ids through --reward-module) with a checkpoint,
      then a resume to step 4 with 2 inner
@@ -183,8 +190,8 @@ Phases, each printing its own line of numbers:
      off-policy first-epoch ratio within LP_TOL of 1, the checkpoint
      generate reads equal to the state the resume restored bit for bit,
      K1/K2/K3 launches counted, rollout and learner seconds a step, peak
-     memory; (b) the lockstep RLFleet (1 actor, B 2, G 4, K 32, 2 learner
-     steps) against the monolithic loop with the same seeds, run first and
+     memory; (b) on (a)'s directory, the lockstep RLFleet (1 actor, B 2, G 4,
+     K 32, 2 learner steps) against the monolithic loop with the same seeds, run first and
      freed: losses and grad norms within 1e-5 relative (floor 1e-3),
      every grad norm above 0, no stale drop, the last weight
      record decoded against the learner's parameters bit for bit, publish
@@ -195,14 +202,14 @@ Phases, each printing its own line of numbers:
      gemma2_grpo and gemma2_rl_fleet; phase 16's numbers are a JSON line
      of their own ({"rl": ...}) before the kernels line.
   17. the disaggregated serving plane (serving/) on the socket transport
-     plane (transport/): (a) DisaggregatedEngine on full-width, full-depth
-     Llama-7B (bf16, seeded) against the monolithic ServingEngine with
-     phase 4's traffic in turns: tokens equal up to phase 15's near-tie
+     plane (transport/): (a) DisaggregatedEngine on full-width Llama-7B at
+     DISAGG_LAYERS of its 32 layers (bf16, seeded) against the monolithic
+     ServingEngine with phase 4's traffic in turns: tokens equal up to phase 15's near-tie
      rule, K1 launches equal, decode ms a tick and peak memory of both,
      the pool's stats; then 32 slots over the [8, 1024] cache's KV bytes
      in blocks, the most streams decoding at once against 8; (b), inside
-     phase 15 on its directory: RolloutEngine on Gemma-2-2B with 16a's
-     rollout shape, a cold and a warm wave of the same prompts in turns
+     phase 15 on 16a's directory (2 of 26 layers): RolloutEngine on
+     Gemma-2-2B with 16a's rollout shape, a cold and a warm wave of the same prompts in turns
      with decode.generate: behavior logprobs within LP_TOL of a
      teacher-forced sequence_logprobs, the pool's blocks at the tick
      (G prompt caches cold, one prompt's blocks a group warm), Fwd<256>
@@ -242,7 +249,8 @@ Phases, each printing its own line of numbers:
      and wait of each stage, its boundary bytes and send MB/s, each process's
      peak; then the one-process trainer at the same depth, one turn each;
      (c) two tiny stage processes over the socket plane SIGTERMed: both
-     exit 113 with a checkpoint at the same step, the rerun resumes it. The
+     exit 113 with a checkpoint at the same step, the rerun resumes it
+     (run after phase 1, beside phase 7's contract). The
      SPMD stage axis above 1 needs several cards (the CPU gang holds it).
      The launches of (a) and (b) join the kernels line; phase 19's numbers
      are a JSON line of their own ({"pipeline": ...}).
@@ -264,15 +272,17 @@ Phases, each printing its own line of numbers:
      line of their own ({"context": ...}). Across cards (NCCL) the context
      axis is not run here: tests/test_torch_context.py holds it against
      JAX on a CPU gloo gang of 8.
-  21. live reshard, a bench-1b gang (full width and depth, bf16, full
-     remat, AdamW) resharded 2 -> 1 -> 2 through the staging: (a) two
+  21. live reshard, a bench-1b gang (full width, RESHARD_LAYERS of its 16
+     layers, bf16, full remat, AdamW; a Llama checkpoint directory of that
+     config, seeded, which the trainer reads with --hf-model) resharded
+     2 -> 1 -> 2 through the staging: (a) two
      processes of this script share the card in a gloo group (printed; an
      nccl group fails the phase), take two steps on {"data": 2} (b 2 x 1024
      a rank), print the sha256 of the whole state (gathered on the host),
      move it onto {"fsdp": 2} with reshard_state and stage its blocks for 1
      chip (refit_axes, plan_reshard, addressable_blocks, stage_shards,
      write_manifest); (b) the trainer entry point under train/launch.py (a
-     one-rank NCCL group, --model bench-1b --batch 4 --seq-len 1024,
+     one-rank NCCL group, --hf-model DIR --batch 4 --seq-len 1024,
      KUBEDL_LIVE_RESHARD=1) restores that staging, its sha256 equal to
      (a)'s, trains with finite and falling losses, answers a RESIZE to 2
      chips with "staged", stages and exits 113; (c) the pair fills a fresh
@@ -288,6 +298,26 @@ Phases, each printing its own line of numbers:
      ({"reshard": ...}). Across cards (NCCL) and over the socket fetch the
      reshard is not run here: tests/test_torch_reshard_trainer.py holds the
      sharded stagings on a CPU gloo gang.
+  22. asynchronous checkpoints, the MNIST gang and the rendezvous smoke:
+     (a) bench-1b (full width and depth, bf16, full remat, clip + AdamW, b 4
+     x 1024) on the card through make_train_step and CheckpointManager:
+     the state's GB and the host's MemTotal, the pinned buffers' one-time
+     registration, an interval save's stall in the loop, the step beside
+     its write against steps without one, the writer's seconds and GB/s,
+     then the same save done synchronously (save and wait_until_finished);
+     the published step reloaded must equal bit for bit the phase's own
+     snapshot at that step after a step ran in place over the live state,
+     and a planted manager that hands the writer the live tensors must
+     fail that comparison; K1/K2/K3 launches (2/1/1 a layer a step) join
+     the kernels line. (b) phases 7 and 11c (SIGTERM -> 113 -> resume, one
+     device and sharded) and 16a run the asynchronous saves; 16a prints
+     each (final) save's stall beside its write and fsync. (c) MNIST (phase 18c's flags) as two processes of the entry
+     point sharing the card in a gloo group (--backend gloo: NCCL cannot
+     hold two ranks on one device): both exit 0 with devices=2, every
+     step's loss within MNIST_LOSS_TOL of one process on the same global
+     batch; the rendezvous smoke (train/smoke_distributed.py) as two
+     processes beside it: both exit 0 with psum=2.0. Phase 22's numbers are
+     a JSON line of their own ({"async_checkpoints": ...}).
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -327,6 +357,14 @@ MAIN_SHAPE = "7b_b4_s1024"
 MAIN_BWD_SHAPE = "7b_b4_s1023"
 MAIN_VIT = "vit_b16_s197"  # phase 18a's attention: the non-causal rows of phases 2 and 2b
 MAIN_D256, MAIN_BWD_D256 = "gemma2_s1024", "gemma2_s1023"  # phase 15's shapes at d 256
+# flex_attention, the library call of a softcap row, compiles its kernels
+# for each row (15-35 s a row on the card): phases 2 and 2b time it on the
+# d 256 rows of the kernels line only, compiled ahead beside the preemption
+# contracts (_compile_flex); their other softcap and window rows time no
+# library call
+FLEX_SHAPES = {MAIN_D256: (4, 8, 4, 1024, 256, True, None, 50.0),
+               MAIN_BWD_D256: (4, 8, 4, 1023, 256, True, None, 50.0)}
+FLEX_ROWS = tuple(FLEX_SHAPES)
 # the kernels phase 15 runs at d 256: K1, K2, K3
 D256_NAMES = ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu dq", "flash_bwd_sm90.cu dkv")
 # phases 2 and 2b scale q by this on their softcap rows: at unit q and k the
@@ -417,17 +455,34 @@ def _attended_pairs(s, causal, window):
     return w * (w + 1) // 2 + (s - w) * w
 
 
+_FLEX_FNS = {}
+
+
 def _flex(s, causal, window, softcap, gqa):
     """torch's flex_attention, compiled, with the softcap as its score_mod
     and the causal or window mask as its block mask: one PyTorch call of
     the kernels' function where scaled_dot_product_attention has no
-    softcap. Returns fn(q, k, v) -> (out, natural-log lse)."""
+    softcap. Returns fn(q, k, v) -> (out, natural-log lse), one a row for
+    the whole run, so that what _compile_flex compiled is what the phases
+    call."""
+    key = (s, causal, window, softcap, gqa)
+    if key not in _FLEX_FNS:
+        _FLEX_FNS[key] = _make_flex(*key)
+    return _FLEX_FNS[key]
+
+
+def _make_flex(s, causal, window, softcap, gqa):
     import torch._dynamo
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    import torch._inductor.config
 
     for knob in ("recompile_limit", "cache_size_limit"):  # a compile per row
         if hasattr(torch._dynamo.config, knob):
             setattr(torch._dynamo.config, knob, 64)
+    # compile in this process: a pool of compile workers, each importing
+    # torch first, takes longer to start than the few kernels take to build
+    torch._inductor.config.compile_threads = 1
 
     def score_mod(score, b, h, qi, ki):
         return softcap * torch.tanh(score / softcap)
@@ -442,6 +497,32 @@ def _flex(s, causal, window, softcap, gqa):
     flex = torch.compile(flex_attention, dynamic=False)
     return lambda q, k, v: flex(q, k, v, score_mod=None if softcap is None else score_mod,
                                 block_mask=block_mask, enable_gqa=gqa, return_lse=True)
+
+
+def _compile_flex():
+    """FLEX_ROWS' library calls compiled ahead, called as phases 2 and 2b
+    call them: phase 2's forward on inputs without grad; 2b's forward and
+    backward on leaves that need grad, and its forward under no_grad. Twice:
+    the first graph compiled guards on flex_attention's warn-once set, which
+    its own first call changes, so the second round compiles it again and
+    after that every call finds its graph."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name in FLEX_ROWS * 2:
+        b, hq, hkv, s, d, causal, window, softcap = FLEX_SHAPES[name]
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda",
+                               dtype=torch.float32).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        q = q * SOFTCAP_Q_SCALE
+        flex = _flex(s, causal, window, softcap, hq != hkv)
+        if name == MAIN_D256:
+            flex(q, k, v)
+            continue
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        dout = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        torch.autograd.grad(flex(qg, kg, vg)[0], (qg, kg, vg), dout)
+        with torch.no_grad():
+            flex(qg, kg, vg)
+    torch.cuda.synchronize()
 
 
 def _dropped(s, window, softcap, causal=True):
@@ -520,7 +601,7 @@ def phase_kernels(only=None):
         # phase 15's Gemma-2-2B (flash_fwd_sm90.cu's Fwd<256>): GQA 8/4, softcap 50;
         # 15a's prefill on the sliding layers, where the 4096 window binds;
         # the twin without the softcap that scaled_dot_product_attention takes
-        MAIN_D256: (4, 8, 4, 1024, 256, True, None, 50.0),
+        MAIN_D256: FLEX_SHAPES[MAIN_D256],
         "gemma2_w4096_b1_s5000": (1, 8, 4, G2_PREFILL, 256, True, 4096, 50.0),
         "d256_gqa_s1024": (4, 8, 4, 1024, 256, True, None, None),
         # phase 18's ViT-B/16 (the one non-causal path): b 128, 12 heads of
@@ -562,7 +643,9 @@ def phase_kernels(only=None):
                 raise AssertionError(f"phase 2 cannot see the planted fault {_fault_label(opt)} "
                                      f"at {name}: it reads {dropped[opt]:.3f} of the tolerance")
         library, library_err = "sdpa", None
-        if softcap is not None:
+        if softcap is not None and name not in FLEX_ROWS:
+            library = None
+        elif softcap is not None:
             library, flex = "flex_attention", _flex(s, causal, window, softcap, hq != hkv)
             lib_out, lib_lse = flex(q, k, v)
             library_err = (lib_out.float() - ref).abs().max().item()
@@ -583,7 +666,9 @@ def phase_kernels(only=None):
         kernel_ms = _graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
         wrapper_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
-        if softcap is None:  # scaled_dot_product_attention has no softcap
+        if library is None:
+            library_ms = None
+        elif softcap is None:  # scaled_dot_product_attention has no softcap
             mask = None
             if window is not None:
                 mask = fa._mask(s, causal, window, q.device)
@@ -610,7 +695,7 @@ def phase_kernels(only=None):
                  share_of_bound=bound_ms / kernel_ms,
                  tflops=flops / kernel_ms / 1e9)
         results[name] = r
-        lib = f"{library_ms:.4f} ({library})"
+        lib = "not timed" if library is None else f"{library_ms:.4f} ({library})"
         old = "n/a" if mma_sync_ms is None else \
             f"{mma_sync_ms:.4f} (x{r['speedup_vs_mma_sync']:.2f}, err {mma_sync_err:.2e})"
         faults = "".join(f" {_fault_label(o)}_reads={x:.1f}xtol" for o, x in dropped.items())
@@ -917,7 +1002,7 @@ def phase_bwd_kernels(only=None):
         # Dq256 and Dkv256): GQA 8/4, softcap 50; the sliding layers at a
         # length where the 4096 window binds; the twin without the softcap
         # that SDPA's backward takes
-        MAIN_BWD_D256: (4, 8, 4, 1023, 256, True, None, 50.0),
+        MAIN_BWD_D256: FLEX_SHAPES[MAIN_BWD_D256],
         "gemma2_w4096_b1_s5000": (1, 8, 4, G2_PREFILL, 256, True, 4096, 50.0),
         "d256_gqa_s1023": (4, 8, 4, 1023, 256, True, None, None),
         # phase 18a's ViT-B/16 step and the non-ragged twin, both not causal
@@ -982,13 +1067,14 @@ def phase_bwd_kernels(only=None):
                                      f"{_fault_label(opt)} at {name}: {dropped[opt]:.3f} of "
                                      f"the tolerance")
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        library, library_err = None, None
         if softcap is None and window is None:
-            library, library_err = "sdpa", None
+            library = "sdpa"
 
             def attend():
                 return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                                       enable_gqa=hq != hkv)
-        else:  # scaled_dot_product_attention has no softcap, nor a window but a mask
+        elif name in FLEX_ROWS:  # SDPA has no softcap, nor a window but a mask
             library, flex = "flex_attention", _flex(s, causal, window, softcap, hq != hkv)
 
             def attend():
@@ -1007,10 +1093,12 @@ def phase_bwd_kernels(only=None):
                             iters=3)
         # device time, as the kernels': forward and backward less forward,
         # each timed in a CUDA graph
-        fwd_bwd = _graph_ms(lambda: torch.autograd.grad(attend(), (qg, kg, vg), dout))
-        with torch.no_grad():
-            fwd_only = _graph_ms(attend)
-        library_ms = fwd_bwd - fwd_only
+        library_ms = None
+        if library is not None:
+            fwd_bwd = _graph_ms(lambda: torch.autograd.grad(attend(), (qg, kg, vg), dout))
+            with torch.no_grad():
+                fwd_only = _graph_ms(attend)
+            library_ms = fwd_bwd - fwd_only
         del qg, kg, vg
         work = _bwd_bounds(b, hq, hkv, s, d, causal, window)
         r = dict(shape=[b, hq, hkv, s, d], causal=causal, window=window, softcap=softcap,
@@ -1029,7 +1117,7 @@ def phase_bwd_kernels(only=None):
         r["dq_speedup_vs_mma_sync"] = old["dq_ms"] / r["dq_ms"]
         r["dkv_speedup_vs_mma_sync"] = old["dkv_ms"] / r["dkv_ms"]
         results[name] = r
-        lib = f"{library_ms:.4f} ({library})"
+        lib = "not timed" if library is None else f"{library_ms:.4f} ({library})"
         errs = r["errors"]
         vs = (f"{old['dq_ms']:.4f}+{old['dkv_ms']:.4f} (x{r['speedup_vs_mma_sync']:.2f}, "
               f"dq x{r['dq_speedup_vs_mma_sync']:.2f}, dkv x{r['dkv_speedup_vs_mma_sync']:.2f}, "
@@ -1276,8 +1364,8 @@ def _latest_ckpt(path):
 
 
 def phase_options():
-    """bench-1b with the trainer's options in process; then a subprocess
-    trainer preempted by SIGTERM and resumed."""
+    """bench-1b with the trainer's options in process (the preemption
+    contract of phase 7 runs in phase_preemption_contracts)."""
     _reset_counts()
     steps = 4
     rc, spans, _ = _run_trainer(
@@ -1295,7 +1383,12 @@ def phase_options():
     print(f"options: bench-1b accum 2, ce_chunks 4, remat dots, cosine warmup 2: "
           f"{steps} steps, losses {', '.join(f'{x:.4f}' for x in losses)}, grad_norm "
           f"{', '.join(f'{x:.3f}' for x in gnorms)}, launches fwd/dq/dkv {counts}", flush=True)
+    return dict(bench_1b=dict(losses=losses, grad_norms=gnorms, launches=list(counts)))
 
+
+def _7_preemption():
+    """7: a subprocess trainer preempted by SIGTERM after its first
+    checkpoint, and resumed."""
     ckpt = os.path.join(WORK, "ckpt-tiny")
     shutil.rmtree(ckpt, ignore_errors=True)
     cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.trainer", "--model", "tiny",
@@ -1334,8 +1427,26 @@ def phase_options():
                              f"{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
     print(f"preemption: tiny trainer SIGTERMed, exit 113 with a checkpoint at step {at}; "
           f"rerun restored step {at}, exit 0, final checkpoint at step {at + 2}", flush=True)
-    return dict(bench_1b=dict(losses=losses, grad_norms=gnorms, launches=list(counts)),
-                preempted_at=at)
+    return dict(preempted_at=at)
+
+
+def phase_preemption_contracts(smi):
+    """The preemption contracts of phases 7, 11c and 19c side by side, each
+    in a thread of its own: tiny programs as subprocesses, SIGTERMed and
+    rerun, whose checks are exit codes, checkpoint steps and restores. Each
+    is mostly the start-up of its processes, so side by side they take about
+    the longest one's time; meanwhile this thread compiles phases 2 and 2b's
+    flex_attention (_compile_flex), which measures nothing. Returns {"7",
+    "11c", "19c": its numbers}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {"7": (_7_preemption, ()), "11c": (phase_gang_preemption, ()),
+            "19c": (_19c_socket_preemption, (smi,))}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(_phase, f"{k} preemption (side by side)", fn, *args)
+                   for k, (fn, args) in jobs.items()}
+        _phase("2 and 2b: flex_attention compiled (beside the contracts)", _compile_flex)
+        return {k: f.result() for k, f in futures.items()}
 
 
 def _free_port():
@@ -1427,9 +1538,11 @@ def phase_sharded_step(train):
     from kubedl_tpu_torch.parallel.mesh import build_mesh
 
     _one_rank_group()
-    steps, batch, seq = 6, 4, 1024
+    steps, batch, seq = 3, 4, 1024
     config = llama.LlamaConfig.llama_7b()
     mesh = build_mesh({"data": 1}, device_type="cuda")
+    # phase 6's launches over its 6 steps, scaled to these steps
+    want = [x // len(train["losses"]) * steps for x in train["launches"]]
     gen = torch.Generator(device="cuda").manual_seed(11)
     batches = [torch.randint(0, config.vocab_size, (batch, seq), generator=gen, device="cuda",
                              dtype=torch.int32) for _ in range(steps)]
@@ -1445,9 +1558,9 @@ def phase_sharded_step(train):
         if loss_rel > 1e-2:  # phase 5's bf16 loss tolerance
             raise AssertionError(f"sharded 7B first loss {losses[0]} vs one-device "
                                  f"{plain_loss}")
-        if list(counts) != train["launches"]:
-            raise AssertionError(f"sharded 7B launches (fwd, dq, dkv) {counts}, phase 6 "
-                                 f"{train['launches']}")
+        if list(counts) != want:
+            raise AssertionError(f"sharded 7B launches (fwd, dq, dkv) {counts}, phase 6's "
+                                 f"over {steps} steps {want}")
     med = {k: [statistics.median(t[2][1:]) * 1e3 for t in v] for k, v in turns.items()}
     losses, gnorms, times, counts, peak_gb, plain_loss = turns["sharded"][0]
     loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
@@ -1632,18 +1745,23 @@ def _drive_engine(engine, prompts, dup, adapters=None):
 
 
 TP_TURNS = ("one_device", "mesh", "int8_kv", "int8_kv", "mesh", "one_device")
+# phase 12 serves Llama-7B at 8 of its 32 layers (full depth until phase 22
+# came, which the cut pays for): its checks compare engines in turns at one
+# depth, and the int8 cache's bytes ratio is per layer
+TP_LAYERS = 8
 
 
 def phase_tp_serving():
-    """12: Llama-7B on the serving engine through the sharded decode on a
-    one-device mesh (a) and with the int8 KV cache (b), in turns with the
+    """12: Llama-7B (TP_LAYERS of its 32 layers) on the serving engine
+    through the sharded decode on a one-device mesh (a) and with the int8 KV cache (b), in turns with the
     one-device bf16-cache engine on the same parameters and traffic."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.models.serving import ServingEngine
     from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
 
     _one_rank_group()
-    config, rules = llama.LlamaConfig.llama_7b(), ShardingRules()
+    config = dataclasses.replace(llama.LlamaConfig.llama_7b(), n_layers=TP_LAYERS)
+    rules = ShardingRules()
     mesh = build_mesh({"tensor": 1}, device_type="cuda")
     params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     sharded = shard_tree(params, mesh, llama.param_specs(config, rules))
@@ -3161,8 +3279,10 @@ G2_EVAL = dict(batch=4, seq=1024, batches=2)
 
 def _hf_names(c):
     """(name, HF shape [out, in], fan_in or 0 for a norm) of a Gemma-2
-    checkpoint, in file order."""
-    d, hd, dff = c["hidden_size"], c["head_dim"], c["intermediate_size"]
+    checkpoint (or of a Llama one, model_type "llama"), in file order."""
+    llama_type = c.get("model_type") == "llama"
+    d, dff = c["hidden_size"], c["intermediate_size"]
+    hd = c.get("head_dim") or d // c["num_attention_heads"]
     nq, nkv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
     out = [("model.embed_tokens.weight", (c["vocab_size"], d), d)]
     for i in range(c["num_hidden_layers"]):
@@ -3172,13 +3292,17 @@ def _hf_names(c):
                 (f"{p}.self_attn.k_proj.weight", (nkv, d), d),
                 (f"{p}.self_attn.v_proj.weight", (nkv, d), d),
                 (f"{p}.self_attn.o_proj.weight", (d, nq), nq),
-                (f"{p}.post_attention_layernorm.weight", (d,), 0),
-                (f"{p}.pre_feedforward_layernorm.weight", (d,), 0),
-                (f"{p}.post_feedforward_layernorm.weight", (d,), 0),
-                (f"{p}.mlp.gate_proj.weight", (dff, d), d),
+                (f"{p}.post_attention_layernorm.weight", (d,), 0)]
+        if not llama_type:
+            out += [(f"{p}.pre_feedforward_layernorm.weight", (d,), 0),
+                    (f"{p}.post_feedforward_layernorm.weight", (d,), 0)]
+        out += [(f"{p}.mlp.gate_proj.weight", (dff, d), d),
                 (f"{p}.mlp.up_proj.weight", (dff, d), d),
                 (f"{p}.mlp.down_proj.weight", (d, dff), dff)]
-    return out + [("model.norm.weight", (d,), 0)]
+    out.append(("model.norm.weight", (d,), 0))
+    if llama_type and not c.get("tie_word_embeddings", False):
+        out.append(("lm_head.weight", (c["vocab_size"], d), d))
+    return out
 
 
 def write_hf_checkpoint(path, hf_config, seed=0, shards=G2_SHARDS, device="cuda"):
@@ -3643,11 +3767,13 @@ def _15d_dpo_eval(path, smi):
 # K 32 rather than 64 keeps the whole run nearer its time target; lr 1e-4
 # because Adam's first updates (~lr an element) under ~1e-4 fall below the
 # rounding step of most bf16 weights, and the parameters would not move
-# 16a runs GRPO on Gemma-2-2B at full width and 4 of its 26 layers: its
-# checkpoint round trip (the policy's params, mu and nu written twice and
-# read twice) took ~40 s at full depth, cut to pay for phase 21
+# 16a runs GRPO on Gemma-2-2B at full width and 2 of its 26 layers (a
+# sliding and a global one): its checkpoint round trip (the policy's params,
+# mu and nu written twice and read twice) took ~40 s at full depth, cut to 4
+# layers to pay for phase 21 and to 2 for phase 22; the 256k-row embedding
+# is most of what is left. 16b and 17b run on the same directory
 G2_GRPO = dict(prompts=16, prompt_len=64, B=4, G=8, K=32, steps=3, kl=0.04, lr=1e-4,
-               layers=4)
+               layers=2)
 G2_FLEET = dict(B=2, G=4, K=32, steps=2, lr=1e-4)
 RL_REWARD = "chip_smoke:reward_low_ids"
 RL_POD = dict(model="bench-1b", steps=3, B=4, G=4, K=32, lag=1)
@@ -3691,21 +3817,9 @@ def _grpo_prompts(path, c, vocab):
 def _16a_grpo(path, smi):
     """grpo --hf-model DIR: 3 on-policy steps of 4 prompts x 8 samples x 64
     new tokens with a checkpoint, then a resume to step 4 with two inner
-    epochs on the rollout's behavior logprobs; DIR is Gemma-2-2B's config
-    cut to G2_GRPO's layers, written beside `path`."""
-    import tempfile
-
+    epochs on the rollout's behavior logprobs; DIR (`path`) is Gemma-2-2B's
+    config cut to G2_GRPO's layers."""
     c, n_layers = G2_GRPO, G2_GRPO["layers"]
-    path = tempfile.mkdtemp(prefix="gemma-2-2b-grpo-", dir=WORK)
-    try:
-        write_hf_checkpoint(path, dict(GEMMA2_2B, num_hidden_layers=n_layers,
-                                       layer_types=GEMMA2_2B["layer_types"][:n_layers]))
-        return _16a_grpo_on(path, smi, c, n_layers)
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
-
-
-def _16a_grpo_on(path, smi, c, n_layers):
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.train import checkpoint, generate
 
@@ -3781,6 +3895,27 @@ def _16a_grpo_on(path, smi, c, n_layers):
     if on["counts"] != want_on or res["counts"] != want_res:
         raise AssertionError(f"16a: launches (fwd, dq, dkv) {on['counts']} and "
                              f"{res['counts']}, expected {want_on} and {want_res}")
+    # 22b: each save's stall in the step loop (ckpt.save) beside its write
+    # on the writer thread (ckpt.write); both runs save only at their end,
+    # a final save, which waits for its write
+    saves = []
+    for r in (on, res):
+        writes = {sp["attrs"]["step"]: sp for sp in r["spans"].get("ckpt.write", [])}
+        for sp in r["spans"].get("ckpt.save", []):
+            w = writes.get(sp["attrs"]["step"])
+            if w is None:
+                raise AssertionError(f"16a: no write span for the save at step "
+                                     f"{sp['attrs']['step']}")
+            saves.append(dict(step=sp["attrs"]["step"], final=sp["attrs"]["final"],
+                              stall_s=sp["dur"], write_s=w["dur"],
+                              fsync_s=w["attrs"]["fsync_s"], gb=w["attrs"]["bytes"] / 1e9))
+    if [(x["step"], x["final"]) for x in saves] != [(3, True), (4, True)]:
+        raise AssertionError(f"16a: saves {saves}, expected final ones at 3 and 4")
+    print(f"16a checkpoints [{smi}]: " + "; ".join(
+        f"step {x['step']} final: stall {x['stall_s']:.2f} s (the snapshot, the pinned "
+        f"buffers' first registration included, and the wait), write {x['write_s']:.2f} s "
+        f"(fsync {x['fsync_s']:.2f} s; {x['gb']:.2f} GB, {x['gb'] / x['write_s']:.2f} GB/s)"
+        for x in saves), flush=True)
     steps = on["spans"]["grpo.step"] + res["spans"]["grpo.step"]
     rolls = on["spans"]["grpo.rollout"] + res["spans"]["grpo.rollout"]
     tokens = c["B"] * c["G"] * c["K"]
@@ -3807,14 +3942,15 @@ def _16a_grpo_on(path, smi, c, n_layers):
                 off_clip=off[0]["attrs"]["clip_frac"], rollout_s=roll_s,
                 rollout_tok_s=[tokens / x for x in roll_s], learner_s=learn_s,
                 peak_gb=[on["peak_gb"], res["peak_gb"]], wall_s=[on["wall_s"], res["wall_s"]],
-                launches=[a + b for a, b in zip(on["counts"], res["counts"])])
+                launches=[a + b for a, b in zip(on["counts"], res["counts"])], saves=saves)
 
 
 def _16b_fleet(path, smi):
-    """The in-process lockstep RLFleet on the Gemma-2-2B weights against the
-    port's monolithic loop with the same seeds (tests/test_rl.py's recipe),
-    run first and freed; then the weight record the learner published last
-    decoded against its parameters."""
+    """The in-process lockstep RLFleet on the Gemma-2-2B weights in `path`
+    (16a's directory, cut to G2_GRPO's layers) against the port's monolithic
+    loop with the same seeds (tests/test_rl.py's recipe), run first and
+    freed; then the weight record the learner published last decoded
+    against its parameters."""
     from kubedl_tpu_torch.models import decode, llama
     from kubedl_tpu_torch.models.import_hf import load_hf
     from kubedl_tpu_torch.parallel import optim
@@ -3824,9 +3960,10 @@ def _16b_fleet(path, smi):
     from kubedl_tpu_torch.rl.weights import sorted_leaves
     from kubedl_tpu_torch.train import grpo, rl
 
-    c, n_layers = G2_FLEET, GEMMA2_2B["num_hidden_layers"]
+    c = G2_FLEET
     _, prompts = _grpo_prompts(path, G2_GRPO, GEMMA2_2B["vocab_size"])
     base, config = load_hf(path, device="cuda")
+    n_layers = config.n_layers
     reward_fn = grpo.make_reward_fn(grpo.parse_args(["--reward-module", RL_REWARD]))
     seed, B, G, K, P = 0, c["B"], c["G"], c["K"], G2_GRPO["prompt_len"]
     t0 = time.perf_counter()
@@ -3889,7 +4026,8 @@ def _16b_fleet(path, smi):
     publish_s = stats.weight_sync_s / max(caster.version, 1)
     split = fleet_goodput_split(stats, fleet.actors)
     want = (c["steps"] * 4 * n_layers, c["steps"] * n_layers, c["steps"] * n_layers)
-    print(f"16b fleet [{smi}]: lockstep RLFleet (1 actor, maxWeightLag 0, B={B}, G={G}, "
+    print(f"16b fleet [{smi}]: lockstep RLFleet (Gemma-2-2B's widths, {n_layers} of "
+          f"{GEMMA2_2B['num_hidden_layers']} layers; 1 actor, maxWeightLag 0, B={B}, G={G}, "
           f"K={K}) {c['steps']} learner steps in {fleet_s:.1f} s against the monolithic loop "
           f"in {mono_s:.1f} s: losses {', '.join(f'{x:.6f}' for x in losses)} vs "
           f"{', '.join(f'{x:.6f}' for x in mono)}, grad norms "
@@ -3922,8 +4060,8 @@ def _16b_fleet(path, smi):
 
 def _16c_pods(smi, lane="dir"):
     """rl_pod as two processes on the card at bench-1b: a learner of 3
-    steps (B 4, G 4, K 32, maxWeightLag 1, a checkpoint) and its actor, on
-    the dir lane (16c), or (17d, lane="socket") over the authenticated
+    steps (B 4, G 4, K 32, maxWeightLag 1; a checkpoint on the dir lane)
+    and its actor, on the dir lane (16c), or (17d, lane="socket") over the authenticated
     socket plane on loopback addresses with one shared token, the actor
     rolling out through the serving plane (KUBEDL_RL_ENGINE=serving)."""
     c = RL_POD
@@ -3948,8 +4086,9 @@ def _16c_pods(smi, lane="dir"):
         for role, addr in addrs.items():
             role_env[role]["KUBEDL_TRANSPORT_BIND"] = addr
     cmd = [sys.executable, "-m", "kubedl_tpu_torch.train.rl_pod", "--model", c["model"],
-           "--steps", str(c["steps"]), "--log-every", "1", "--checkpoint-path",
-           os.path.join(root, "ckpt")]
+           "--steps", str(c["steps"]), "--log-every", "1"]
+    if lane == "dir":  # the learner's bench-1b checkpoint once; 17d takes the sockets
+        cmd += ["--checkpoint-path", os.path.join(root, "ckpt")]
     t0 = time.perf_counter()
     procs = {role: subprocess.Popen(cmd, cwd=here, env=dict(env, KUBEDL_RL_ROLE=role,
                                                               POD_NAME=f"rl-{role}",
@@ -3987,7 +4126,8 @@ def _16c_pods(smi, lane="dir"):
             f"published_version={c['steps']}" not in lout or \
             f"final weight version {c['steps']} (step {c['steps']})" not in aout or \
             (lane == "socket" and "engine=serving" not in aout) or \
-            not os.path.isdir(os.path.join(root, "ckpt", "learner", str(c["steps"]))):
+            (lane == "dir" and
+             not os.path.isdir(os.path.join(root, "ckpt", "learner", str(c["steps"])))):
         raise AssertionError(f"{tag}: rl_pod roles failed:\nlearner:\n{lout[-3000:]}\n"
                              f"actor:\n{aout[-3000:]}")
     shutil.rmtree(root, ignore_errors=True)
@@ -4014,7 +4154,7 @@ def phase_gemma2(smi):
 
     os.makedirs(WORK, exist_ok=True)
     path = tempfile.mkdtemp(prefix="gemma-2-2b-", dir=WORK)
-    out = {}
+    out, cut = {}, None
     try:
         out["a_load"] = _15a_load(path, smi)
         _free("15a")
@@ -4024,12 +4164,19 @@ def phase_gemma2(smi):
         _free("15c")
         out["d_dpo_eval"] = _15d_dpo_eval(path, smi)
         _free("15d")
-        # phases 16 and 17b reuse this directory's Gemma-2-2B
-        out["rl"] = _phase("16 RL: GRPO, the fleet and the pods", phase_rl, path, smi)
+        # phases 16 and 17b: Gemma-2-2B's config cut to G2_GRPO's layers,
+        # a directory of its own, seeded as this one
+        n_layers = G2_GRPO["layers"]
+        cut = tempfile.mkdtemp(prefix="gemma-2-2b-grpo-", dir=WORK)
+        write_hf_checkpoint(cut, dict(GEMMA2_2B, num_hidden_layers=n_layers,
+                                      layer_types=GEMMA2_2B["layer_types"][:n_layers]))
+        out["rl"] = _phase("16 RL: GRPO, the fleet and the pods", phase_rl, cut, smi)
         _free("16")
-        out["rollout"] = _phase("17b serving-plane rollout at d 256", _17b_rollout, path, smi)
+        out["rollout"] = _phase("17b serving-plane rollout at d 256", _17b_rollout, cut, smi)
     finally:
         shutil.rmtree(path, ignore_errors=True)
+        if cut is not None:
+            shutil.rmtree(cut, ignore_errors=True)
     d = out["d_dpo_eval"]
     g, f = out["rl"]["a_grpo"]["launches"], out["rl"]["b_fleet"]["launches"]
     out["launches"] = {"fwd": {"gemma2_prefill": out["a_load"]["launches"],
@@ -4101,14 +4248,14 @@ def _near_ties_only(params, config, prompts, want, got, what):
 
 
 def _17a_facade(smi):
-    """DisaggregatedEngine on Llama-7B (full width and depth, bf16, seeded)
-    against the monolithic ServingEngine with phase 4's traffic, in turns;
+    """DisaggregatedEngine on Llama-7B (full width, DISAGG_LAYERS of its 32
+    layers, bf16, seeded) against the monolithic ServingEngine with phase 4's traffic, in turns;
     then the paged pool's concurrency at the contiguous cache's KV bytes."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.models.serving import ServingEngine
     from kubedl_tpu_torch.serving import DisaggregatedEngine
 
-    config = llama.LlamaConfig.llama_7b()
+    config = dataclasses.replace(llama.LlamaConfig.llama_7b(), n_layers=DISAGG_LAYERS)
     params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rng = torch.Generator().manual_seed(2)
     prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
@@ -4292,7 +4439,8 @@ def _17c_router(params, config, every, want, smi):
 
 
 def _17b_rollout(path, smi):
-    """RolloutEngine on phase 15's Gemma-2-2B (d 256): 16a's rollout shape
+    """RolloutEngine on 16a's Gemma-2-2B directory (d 256, G2_GRPO's layers):
+    16a's rollout shape
     (4 prompts x G 8 x 32 new tokens), a cold wave and a warm wave of the
     same prompts, in turns with decode.generate's rollout of the same rows;
     behavior logprobs against a teacher-forced sequence_logprobs."""
@@ -4362,7 +4510,8 @@ def _17b_rollout(path, smi):
     launches = runs["serving"][0]["launches"]
     gen_s = [r["s"] for r in runs["generate"]]
     srv_s = [r["s"] for r in runs["serving"]]
-    print(f"17b rollout [{smi}]: gemma-2-2b (d 256) RolloutEngine, {B} prompts of {P} x G {G} "
+    print(f"17b rollout [{smi}]: gemma-2-2b (d 256, {config.n_layers} of "
+          f"{GEMMA2_2B['num_hidden_layers']} layers) RolloutEngine, {B} prompts of {P} x G {G} "
           f"x {K} new tokens ({B * G} slots, block {PAGED_BLOCK}), turns generate/serving/"
           f"serving/generate: rollout s serving {', '.join(f'{x:.2f}' for x in srv_s)} "
           f"(cold, warm) against decode.generate {', '.join(f'{x:.2f}' for x in gen_s)}; "
@@ -4382,6 +4531,12 @@ def _17b_rollout(path, smi):
     return dict(serving_s=srv_s, generate_s=gen_s, lp_max_diff=worst, blocks_cold=cold,
                 blocks_warm=warm, warm_hit_tokens=hits, launches=launches,
                 warm_launches=runs["serving"][1]["launches"])
+
+
+# 17a and 17c serve Llama-7B at 8 of its 32 layers (full depth until phase 22
+# came, which the cut pays for): the plane's host-side work a tick and a
+# handoff is per layer, as the paths' checks are
+DISAGG_LAYERS = 8
 
 
 def phase_disagg(smi, rollout):
@@ -4924,7 +5079,6 @@ def phase_pipeline(smi):
     _free("19a")
     out["b_trainers"] = _phase("19b", _19b_stage_trainers, smi)
     _free("19b")
-    out["c_socket"] = _phase("19c", _19c_socket_preemption, smi)
     print("19: the SPMD stage axis above 1 (parallel/pipeline.py) is not run here: one card "
           "cannot form a group of two stage ranks; tests/test_torch_pipeline_spmd.py holds it "
           "against JAX on a CPU gloo gang of 8", flush=True)
@@ -5154,6 +5308,35 @@ RESHARD_ROWS = 2          # rows a rank of the pair takes (21a, 21c)
 RESHARD_TRAINER_ROWS = 4  # the trainer's --batch (21b)
 RESHARD_TRAINER_STEPS = 4  # 21b's logged steps before the RESIZE is posted
 RESHARD_LOSS_TOL = 1e-2   # 21c: the pair's loss against one process's (20a's bound)
+# 21 runs bench-1b's widths at 4 of its 16 layers (a cut of depth that pays
+# for phase 22): the state the hops stage, hash and restore is a third of
+# the whole model's, and the planner's blocks a layer are the same
+RESHARD_LAYERS = 4
+RESHARD_MODEL = "bench-1b-4l"  # its checkpoint directory under phase 21's work dir
+
+
+def _reshard_config():
+    from kubedl_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.bench_1b(), n_layers=RESHARD_LAYERS)
+
+
+def _write_reshard_model(path):
+    """_reshard_config() as a seeded Llama checkpoint directory, for the
+    trainer's --hf-model; raises unless the directory's config.json maps
+    back onto the same config."""
+    from kubedl_tpu_torch.models.import_hf import config_from_hf
+
+    c = _reshard_config()
+    hf = dict(model_type="llama", vocab_size=c.vocab_size, hidden_size=c.d_model,
+              intermediate_size=c.d_ff, num_hidden_layers=c.n_layers,
+              num_attention_heads=c.n_heads, num_key_value_heads=c.n_kv_heads,
+              max_position_embeddings=c.max_seq_len, rope_theta=c.rope_theta,
+              rms_norm_eps=c.rms_eps, tie_word_embeddings=c.tie_embeddings,
+              torch_dtype="bfloat16")
+    if config_from_hf(hf) != c:
+        raise AssertionError(f"21: {hf} does not map onto {c}")
+    write_hf_checkpoint(path, hf)
 
 
 def _reshard_batch(config, seed):
@@ -5202,7 +5385,7 @@ def _reshard_rank(rank, port, out_dir, staging):
     if backend != "gloo":  # NCCL cannot hold two ranks on one device: no switch
         raise AssertionError(f"21: backend {backend} with two ranks on one card")
     rules = ShardingRules()
-    config = llama.LlamaConfig.bench_1b()
+    config = _reshard_config()
     specs = llama.param_specs(config, rules)
 
     def fresh(axes):
@@ -5343,13 +5526,13 @@ def _digest_line(text, what):
     return int(m.group(1)), m.group(2)
 
 
-def _21b_trainer(staging, ctl, at0, want_digest):
+def _21b_trainer(staging, ctl, at0, want_digest, model_dir):
     """The trainer entry point on the card (train/launch.py, one child, a
     one-rank NCCL group): restores 21a's staging, trains, gets RESIZE chips
     2, stages for 2 and exits 113."""
     root = os.path.dirname(os.path.abspath(__file__))
     argv = [sys.executable, "-m", "kubedl_tpu_torch.train.launch", "--",
-            "kubedl_tpu_torch.train.trainer", "--model", "bench-1b",
+            "kubedl_tpu_torch.train.trainer", "--hf-model", model_dir,
             "--batch", str(RESHARD_TRAINER_ROWS), "--seq-len", str(RESHARD_SEQ),
             "--steps", "1000", "--log-every", "1"]
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
@@ -5434,13 +5617,13 @@ def phase_reshard(smi):
     point restores it on one card, trains and stages for 2 on RESIZE, 21c
     the pair fills a fresh state from that staging. Across cards (NCCL
     gangs) and over the socket fetch the reshard is not run here."""
-    from kubedl_tpu_torch.models import llama
-
     work = os.path.join(WORK, "reshard")
     staging, ctl = os.path.join(work, "staging"), os.path.join(work, "ctl")
+    model_dir = os.path.join(work, RESHARD_MODEL)
     shutil.rmtree(work, ignore_errors=True)
     for d in (staging, ctl):
         os.makedirs(d)
+    _write_reshard_model(model_dir)
     logs = [os.path.join(work, f"rank{r}.log") for r in range(2)]
     port = _free_port()
     t0 = time.perf_counter()
@@ -5460,7 +5643,8 @@ def phase_reshard(smi):
         if a["backend"] != "gloo" or not all(math.isfinite(x) for r in a["ranks"]
                                              for x in r["losses"]):
             raise AssertionError(f"21a: {a}")
-        print(f"21a pair [{smi}]: bench-1b (16 layers, d 2048, bf16, full remat, AdamW) on "
+        print(f"21a pair [{smi}]: bench-1b ({RESHARD_LAYERS} of 16 layers, d 2048, bf16, full "
+              f"remat, AdamW) on "
               f"{{'data': 2}}, 2 steps of b {RESHARD_ROWS} x {RESHARD_SEQ} a rank: losses "
               f"{', '.join(f'{x:.4f}' for x in r0['losses'])}; state sha256 {digest_a[:16]} "
               f"(gathered on the host in {r0['digest_s']:.2f} s); reshard_state onto "
@@ -5473,8 +5657,9 @@ def phase_reshard(smi):
               f"{a_s:.1f} s from the pair's start", flush=True)
         print(f"phase 21a: {a_s:.1f} s", flush=True)
         t1 = time.perf_counter()
-        b = _21b_trainer(staging, ctl, at0, digest_a)
-        print(f"21b trainer [{smi}]: trainer --model bench-1b --batch {RESHARD_TRAINER_ROWS} "
+        b = _21b_trainer(staging, ctl, at0, digest_a, model_dir)
+        print(f"21b trainer [{smi}]: trainer --hf-model {RESHARD_MODEL} (bench-1b, "
+              f"{RESHARD_LAYERS} of 16 layers) --batch {RESHARD_TRAINER_ROWS} "
               f"--seq-len {RESHARD_SEQ} under train/launch.py (a one-rank NCCL group): "
               f"restored 21a's staging at step {at0} ({b['read_mb']:.1f} MB in "
               f"{b['restore_s']:.2f} s, {b['read_mb'] / b['restore_s']:.0f} MB/s; "
@@ -5515,7 +5700,7 @@ def phase_reshard(smi):
                        f"digest marker refused {r['fault_digest']}")
     # K1/K2/K3 on every hop's steps: a step launches K1 twice a layer (the
     # forward and full remat's recompute) and K2, K3 once
-    n = llama.LlamaConfig.bench_1b().n_layers
+    n = RESHARD_LAYERS
 
     def want(steps):
         return [2 * n * steps, n * steps, n * steps]
@@ -5542,6 +5727,316 @@ def phase_reshard(smi):
     shutil.rmtree(work, ignore_errors=True)
     launches = [sum(h[1][i] for h in hops) for i in range(3)]
     return dict(a_pair=a, a_s=a_s, b_trainer=b, c_pair=c, launches=launches, loss_rel=rel)
+
+
+# -- phase 22: asynchronous checkpoints, the MNIST gang, the rendezvous smoke --
+
+ASYNC_ROWS, ASYNC_SEQ = 4, 1024  # 22a's batch: the trainer's at phase 21b
+ASYNC_PLAIN_STEPS = 2             # 22a's steps without a save in flight, timed
+
+
+def _host_mem_gb():
+    """The host's MemTotal (/proc/meminfo) in GB."""
+    with open("/proc/meminfo") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("MemTotal:"))
+    return kb * 1024 / 1e9
+
+
+class _SpanList:
+    """A tracer that keeps the spans it is given (CheckpointManager's
+    ckpt.write)."""
+
+    def __init__(self):
+        self.spans = []
+
+    def record(self, name, duration_s=0.0, **attrs):
+        self.spans.append(dict(name=name, dur=duration_s, **attrs))
+
+
+def _state_leaves(state):
+    from kubedl_tpu_torch.models import llama
+
+    return [t for t in llama.tree_leaves({"params": state.params,
+                                          "opt_state": state.opt_state})
+            if isinstance(t, torch.Tensor)]
+
+
+def _published_differs(path, step, want):
+    """Leaves of <path>/<step>/state.pt (read on the card) that differ from
+    `want` (tensors on the card, in the state's order), and whether the
+    step number does."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.train import checkpoint
+
+    saved = torch.load(os.path.join(path, str(step), checkpoint.STATE_FILE), map_location="cpu",
+                       mmap=True, weights_only=True)
+    got = [t for t in llama.tree_leaves({"params": saved["params"],
+                                         "opt_state": saved["opt_state"]})
+           if isinstance(t, torch.Tensor)]
+    if len(got) != len(want):
+        raise AssertionError(f"22a: step {step} holds {len(got)} tensors, the state {len(want)}")
+    bad = sum(1 for g, w in zip(got, want)
+              if g.dtype != w.dtype or not torch.equal(g.to(w.device), w))
+    return bad, saved["step"] != step
+
+
+def _22a_async_saves(smi):
+    """bench-1b (full width and depth, bf16, full remat, clip + AdamW) on
+    the card through make_train_step and CheckpointManager: steps without a
+    save, then an asynchronous save with the next step overlapping its
+    write, then the same save done synchronously; the published step
+    against the phase's own snapshot after a step ran in place over the
+    live state, and a planted manager that hands the writer the live
+    tensors, which must fail that comparison."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import checkpoint
+
+    held = threading.Event()
+
+    class LiveWriter(checkpoint.CheckpointManager):
+        """The planted fault: the writer gets the live tensors. Its write
+        waits for `held`, so the steps the phase runs meanwhile land first
+        (the hazard, without a race against the write's speed)."""
+
+        def _snapshot(self, payload):
+            return payload
+
+        def _write(self, *args):
+            if not held.wait(600):
+                raise TimeoutError("22a: the planted writer was never released")
+            return super()._write(*args)
+
+    config = llama.LlamaConfig.bench_1b()
+    dirs = [os.path.join(WORK, name) for name in ("ckpt-async", "ckpt-async-live")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tx = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(3e-4, weight_decay=0.01))
+    init_state, train_step = make_train_step(lambda p, b: llama.loss_fn(p, b, config), tx)
+    state = init_state(params)
+    del params
+    batch = torch.randint(0, config.vocab_size, (ASYNC_ROWS, ASYNC_SEQ), device="cuda",
+                          dtype=torch.int32,
+                          generator=torch.Generator(device="cuda").manual_seed(22))
+    spans = _SpanList()
+    mngr = checkpoint.CheckpointManager(dirs[0], max_to_keep=2, tracer=spans)
+    losses = []
+
+    def step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(m["loss"].item())  # waits for the step
+        return time.perf_counter() - t0
+
+    def own_snapshot():
+        return [t.detach().clone() for t in _state_leaves(state)]
+
+    _reset_counts()
+    step()
+    step()  # warm
+    plain_s = [step() for _ in range(ASYNC_PLAIN_STEPS)]
+    leaves = _state_leaves(state)
+    n_tensors, state_gb = len(leaves), sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    del leaves
+    t0 = time.perf_counter()  # the buffers' registration and one copy, once
+    mngr._snapshot({"params": state.params, "opt_state": state.opt_state, "step": state.step})
+    pin_s = time.perf_counter() - t0
+
+    # the interval save: the loop's stall, then a step beside the write
+    at = state.step
+    want = own_snapshot()
+    t0 = time.perf_counter()
+    mngr.save(at, state)
+    stall_s = time.perf_counter() - t0
+    in_flight = mngr.latest_step() != at
+    overlap_s = step()  # in place over the live state, the write in flight
+    t0 = time.perf_counter()
+    mngr.wait_until_finished()
+    tail_s = time.perf_counter() - t0
+    write = spans.spans[-1]
+    bad, bad_step = _published_differs(dirs[0], at, want)
+    if bad or bad_step:
+        raise AssertionError(f"22a: the published step {at} differs from the state at save "
+                             f"in {bad} leaves (step number differs: {bad_step})")
+    del want
+
+    # the same save done synchronously
+    t0 = time.perf_counter()
+    mngr.save(state.step, state)
+    mngr.wait_until_finished()
+    sync_s = time.perf_counter() - t0
+    sync_write = spans.spans[-1]
+
+    # the planted fault: the live tensors to the writer, two steps in place
+    live = LiveWriter(dirs[1], tracer=spans)
+    at_live = state.step
+    want = own_snapshot()
+    live.save(at_live, state)
+    step()
+    step()
+    held.set()
+    live.wait_until_finished()
+    bad_live, _ = _published_differs(dirs[1], at_live, want)
+    del want
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = config.n_layers
+    n_steps = len(losses)
+    if counts != (2 * n * n_steps, n * n_steps, n * n_steps):
+        raise AssertionError(f"22a: launches (fwd, dq, dkv) {counts} over {n_steps} steps")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"22a: losses {losses}")
+    if not bad_live:
+        raise AssertionError("22a: the planted live-tensor writer published the state at save: "
+                             "the comparison cannot see a save that reads the live state")
+    plain_ms = statistics.median(plain_s) * 1e3
+    mem_gb = _host_mem_gb()
+    print(f"22a async checkpoints [{smi}]: bench-1b (full width and depth, bf16, clip + AdamW) "
+          f"b {ASYNC_ROWS} x {ASYNC_SEQ}, state {state_gb:.2f} GB in {n_tensors} tensors "
+          f"(host MemTotal {mem_gb:.1f} GB); pinned buffers registered and filled once in "
+          f"{pin_s:.2f} s; interval save at step {at}: stall {stall_s * 1e3:.1f} ms "
+          f"(latest_step lagging: {in_flight}), the step beside the write "
+          f"{overlap_s * 1e3:.1f} ms against {plain_ms:.1f} ms without one (steps "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in plain_s)}), then {tail_s:.2f} s waited; write "
+          f"{write['dur']:.2f} s (fsync {write['fsync_s']:.2f} s; "
+          f"{write['bytes'] / 1e9 / write['dur']:.2f} GB/s); the same save synchronously: stall "
+          f"{sync_s:.2f} s (write {sync_write['dur']:.2f} s, fsync {sync_write['fsync_s']:.2f} s; "
+          f"{sync_write['bytes'] / 1e9 / sync_write['dur']:.2f} GB/s); step {at} reloaded equals "
+          f"the phase's snapshot bit for bit after a step in place; the planted live-tensor "
+          f"writer: {bad_live} of {n_tensors} leaves differ (seen); peak {peak_gb:.2f} GB; "
+          f"K1/K2/K3 launches {counts} over {n_steps} steps", flush=True)
+    del state, mngr, live
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(state_gb=state_gb, tensors=n_tensors, pin_s=pin_s,
+                stall_ms=stall_s * 1e3, overlap_step_ms=overlap_s * 1e3, plain_step_ms=plain_ms,
+                plain_steps_ms=[x * 1e3 for x in plain_s], tail_wait_s=tail_s,
+                write_s=write["dur"], write_gb_s=write["bytes"] / 1e9 / write["dur"],
+                fsync_s=write["fsync_s"], sync_fsync_s=sync_write["fsync_s"],
+                sync_stall_s=sync_s, sync_write_s=sync_write["dur"],
+                sync_write_gb_s=sync_write["bytes"] / 1e9 / sync_write["dur"],
+                lagging=in_flight, planted_bad_leaves=bad_live, losses=losses,
+                launches=list(counts), peak_gb=peak_gb, host_mem_gb=mem_gb)
+
+
+_MNIST_RANK = """
+import json, sys
+from kubedl_tpu_torch.train import mnist
+run = mnist.run
+def keep(*a, **kw):
+    out = run(*a, **kw)
+    with open(sys.argv[1], "w") as f:
+        json.dump(out["losses"], f)
+    return out
+mnist.run = keep
+sys.exit(mnist.main(sys.argv[2:]))
+"""
+
+
+def _pair(argvs, tag, timeout=300):
+    """Two processes of one gloo gang sharing the card (the operator's env:
+    a loopback coordinator, KUBEDL_NUM_PROCESSES 2, KUBEDL_PROCESS_ID
+    0 and 1); returns the started processes and their log paths."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    logs = [os.path.join(WORK, f"{tag}-rank{r}.log") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable] + argvs[r], cwd=root, stdout=open(logs[r], "w"),
+        stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                 KUBEDL_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", KUBEDL_NUM_PROCESSES="2",
+                 KUBEDL_PROCESS_ID=str(r))) for r in range(2)]
+    return procs, logs
+
+
+def _22c_gangs(smi):
+    """MNIST as two processes sharing the card over gloo (the entry point's
+    main in each, its losses written beside), against one process on the
+    same global batch; the rendezvous smoke as two processes meanwhile."""
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.train_step import make_train_step
+    from kubedl_tpu_torch.train import mnist
+
+    os.makedirs(WORK, exist_ok=True)
+    outs = [os.path.join(WORK, f"22c-mnist-losses{r}.json") for r in range(2)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    t0 = time.perf_counter()
+    m_procs, m_logs = _pair([["-c", _MNIST_RANK, outs[r], *MNIST_ARGS, "--backend", "gloo"]
+                             for r in range(2)], "22c-mnist")
+    s_procs, s_logs = _pair([["-m", "kubedl_tpu_torch.train.smoke_distributed", "--backend",
+                              "gloo"]] * 2, "22c-smoke")
+    try:
+        for p in m_procs + s_procs:
+            p.wait(timeout=300)
+    finally:
+        for p in m_procs + s_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    texts = [open(x).read() for x in m_logs + s_logs]
+    rcs = [p.returncode for p in m_procs + s_procs]
+    if rcs != [0, 0, 0, 0]:
+        raise AssertionError(f"22c: exits {rcs}:\n" + "\n".join(t[-1500:] for t in texts))
+    args = mnist.parse_args(MNIST_ARGS)
+    lines = [_line_numbers(t, ["steps", "batch", "loss", "step/sec", "devices"])
+             for t in texts[:2]]
+    if any(ln["devices"] != 2 or ln["batch"] != args.batch // 2 * 2 for ln in lines):
+        raise AssertionError(f"22c: MNIST lines {lines}")
+    for r, t in enumerate(texts[2:]):
+        if f"distributed ok: process {r}/2 devices 1 local / 2 global, psum=2.0" not in t:
+            raise AssertionError(f"22c: the rendezvous smoke's rank {r}:\n{t[-1500:]}")
+    got = [json.load(open(o)) for o in outs]
+    if got[0] != got[1]:
+        raise AssertionError("22c: the MNIST ranks read different losses")
+
+    # one process on the card on the same global batch: process r's rows of
+    # its own draw from default_rng(r)
+    k = mnist.steps_per_call(args.steps, args.steps_per_call)
+    half = args.batch // 2  # the global batch is 2 * half
+    draws = [mnist.draw_batches(np.random.default_rng(r), k, 2 * half) for r in range(2)]
+    xs = np.concatenate([draws[0][0][:, :half], draws[1][0][:, half:]], axis=1)
+    ys = np.concatenate([draws[0][1][:, :half], draws[1][1][:, half:]], axis=1)
+    dev = torch.device("cuda")
+    init_state, train_step = make_train_step(mnist.loss_fn, optim.adam(args.lr))
+    state = init_state(mnist.init_params(args.hidden, device=dev))
+    batches = [(torch.from_numpy(xs[i]).to(dev), torch.from_numpy(ys[i]).to(dev))
+               for i in range(k)]
+    want = []
+    for i in range(len(got[0])):
+        state, m = train_step(state, batches[i % k])
+        want.append(m["loss"])
+    want = torch.stack(want).tolist()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], want))
+    print(f"22c mnist gang [{smi}]: two processes sharing the card in a gloo group "
+          f"(--backend gloo; NCCL cannot hold two ranks on one device), {' '.join(MNIST_ARGS)}, "
+          f"devices=2, global batch {args.batch}: {lines[0]['step/sec']:.1f} / {lines[1]['step/sec']:.1f} "
+          f"step/s; {len(want)} losses against one process on the same global batch: final "
+          f"{got[0][-1]:.6f} / {want[-1]:.6f}, max rel {loss_rel:.2e} (tol {MNIST_LOSS_TOL}); "
+          f"rendezvous smoke: both ranks 'distributed ok ... psum=2.0' in a gloo group; both "
+          f"pairs in {wall_s:.1f} s", flush=True)
+    if len(got[0]) != len(want) or loss_rel > MNIST_LOSS_TOL:
+        raise AssertionError("22c: the MNIST gang disagrees with one process")
+    return dict(step_s=[ln["step/sec"] for ln in lines], loss_rel=loss_rel,
+                final=[got[0][-1], want[-1]], wall_s=wall_s, backend="gloo")
+
+
+def phase_async(smi):
+    """22: a) asynchronous saves at bench-1b; c) the MNIST gang and the
+    rendezvous smoke (22b rides in phases 7, 11c and 16a)."""
+    out = {"a_saves": _phase("22a", _22a_async_saves, smi)}
+    _free("22a")
+    out["c_gangs"] = _phase("22c", _22c_gangs, smi)
+    return out
 
 
 def _phase(label, fn, *args):
@@ -5598,6 +6093,8 @@ def main(argv=None) -> int:
     _keep_bytecode()
     t_start = time.perf_counter()
     name, smi, build = _phase("1 device and build", phase_device)
+    contracts = _phase("7, 11c and 19c: the preemption contracts side by side",
+                       phase_preemption_contracts, smi)
     kernels = _phase("2 flash forward kernel", phase_kernels)
     bwd = _phase("2b flash backward kernels", phase_bwd_kernels)
     gmm = _phase("2c grouped matmul kernels", phase_gmm_kernels)
@@ -5607,7 +6104,8 @@ def main(argv=None) -> int:
     grads = _phase("5 7B-width gradients", phase_grads)
     _free("gradients")
     train = _phase("6 7B trainer", phase_train, model["n_params"])
-    options = _phase("7 trainer options and preemption", phase_options)
+    options = _phase("7 trainer options", phase_options)
+    options.update(contracts["7"])  # run after phase 1
     _free("training")
     moe_grads = _phase("8 MoE gradients", phase_moe_grads)
     _free("MoE gradients")
@@ -5619,8 +6117,7 @@ def main(argv=None) -> int:
     _free("the sharded step")
     ep = _phase("11b expert-parallel body", phase_ep_body)
     _free("the expert-parallel body")
-    gang = _phase("11c gang preemption", phase_gang_preemption)
-    _free("gang preemption")
+    gang = contracts["11c"]  # run after phase 1, beside phase 7's contract
     tp = _phase("12 tensor-parallel serving and the int8 KV cache", phase_tp_serving)
     _free("tensor-parallel serving")
     import torch.distributed as dist
@@ -5641,6 +6138,7 @@ def main(argv=None) -> int:
                        phase_workloads, smi)
     _free("the workload programs")
     pipe = _phase("19 pipeline parallelism: the MPMD stage programs", phase_pipeline, smi)
+    pipe["c_socket"] = contracts["19c"]  # run after phase 1, beside phase 7's contract
     _free("the pipeline")
     ctx = _phase("20 context parallelism: ring and Ulysses, a gloo pair on one card",
                  phase_context, smi)
@@ -5648,6 +6146,10 @@ def main(argv=None) -> int:
     reshard = _phase("21 live reshard: a bench-1b gang resharded 2 -> 1 -> 2 through the "
                      "staging", phase_reshard, smi)
     _free("live reshard")
+    async_ = _phase("22 asynchronous checkpoints at bench-1b, the MNIST gang and the "
+                    "rendezvous smoke", phase_async, smi)
+    _free("asynchronous checkpoints")
+    ck_l = async_["a_saves"]["launches"]  # 22a's bench-1b steps around its saves
     ctx_l = ctx["a_pair"]["launches"]  # Ulysses' K1/K2/K3 over both ranks
     rs_l = reshard["launches"]  # every hop's steps: 21a's and 21c's ranks, 21b's trainer
     pp_a, pp_b = pipe["a_mpmd"]["launches"], pipe["b_trainers"]["launches"]
@@ -5666,7 +6168,8 @@ def main(argv=None) -> int:
                                  "7b_mpmd_4l": pp_a[1 if part == "dq" else 2],
                                  "7b_stage_trainers": pp_b[1 if part == "dq" else 2],
                                  "7b_context_ulysses": ctx_l[1 if part == "dq" else 2],
-                                 "bench1b_reshard_hops": rs_l[1 if part == "dq" else 2]},
+                                 "bench1b_reshard_hops": rs_l[1 if part == "dq" else 2],
+                                 "bench1b_async_ckpt": ck_l[1 if part == "dq" else 2]},
             "max_abs_err": max(r["errors"][g + "_abs"] for r in bwd.values()
                                if r["sources"][part] == main_b["sources"][part]
                                and r["shape"][4] <= 128 for g in gname),
@@ -5797,7 +6300,8 @@ def main(argv=None) -> int:
                              "7b_router_cross_pod": disagg["c_router"]["launches"],
                              "7b_mpmd_4l": pp_a[0], "7b_stage_trainers": pp_b[0],
                              "7b_context_ulysses": ctx_l[0],
-                             "bench1b_reshard_hops": rs_l[0]},
+                             "bench1b_reshard_hops": rs_l[0],
+                             "bench1b_async_ckpt": ck_l[0]},
         "max_abs_err": max(r["out_max_abs_err"] for r in kernels.values()
                            if r["source"] == main_k["source"] and r["shape"][4] <= 128),
         "ms": main_k["kernel_ms"],
@@ -5816,7 +6320,7 @@ def main(argv=None) -> int:
                            ep_body=ep, gang_preemption=gang, tp_serving=tp,
                            serving_features=features, lora=lora, gemma2=gemma, rl=rl,
                            disagg=disagg, workloads=workloads, pipeline=pipe, context=ctx,
-                           reshard=reshard,
+                           reshard=reshard, async_checkpoints=async_,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1)
     a, b, c = rl["a_grpo"], rl["b_fleet"], rl["c_pods"]
@@ -5891,6 +6395,16 @@ def main(argv=None) -> int:
                               "peak_gb": [r["peak_gb"] for r in rc2["ranks"]],
                               "launches": [r["counts"] for r in rc2["ranks"]]}}}),
         flush=True)
+    sa, gc_ = async_["a_saves"], async_["c_gangs"]
+    print(json.dumps({"async_checkpoints": {
+        "bench1b_saves": {k: sa[k] for k in ("state_gb", "pin_s", "stall_ms", "overlap_step_ms",
+                                             "plain_step_ms", "write_s", "write_gb_s",
+                                             "sync_stall_s", "sync_write_s", "sync_write_gb_s",
+                                             "planted_bad_leaves", "host_mem_gb", "launches")},
+        "gemma2_grpo_saves": rl["a_grpo"]["saves"],
+        "mnist_gang": {k: gc_[k] for k in ("step_s", "loss_rel", "backend")},
+        "mnist_one_process_step_s": workloads["c_mnist"]["step_s"]},
+        "device": smi}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -192,8 +192,9 @@ def main(argv=None) -> int:
             print(f"step {it}: loss={m['loss']:.4f} margin={m['reward_margin']:.3f} "
                   f"acc={m['preference_accuracy']:.2f}", flush=True)
         if mngr is not None and (it % args.checkpoint_interval == 0 or it == args.steps):
-            mngr.save(it, state)
+            mngr.save(it, state)  # returns once the state is on the host
     if mngr is not None:
+        mngr.wait_until_finished()  # the final write lands before the exit
         print(f"saved policy checkpoint at step {args.steps}", flush=True)
     print(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s", flush=True)
     return 0

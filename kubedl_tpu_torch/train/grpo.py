@@ -269,10 +269,11 @@ def main(argv=None) -> int:
     pad_to = max(len(p) for p in prompts)
     K = args.max_new_tokens
 
+    tracer = tracer_from_env()
     mngr = None
     start_step = 0
     if args.checkpoint_path:
-        mngr = CheckpointManager(args.checkpoint_path, max_to_keep=2)
+        mngr = CheckpointManager(args.checkpoint_path, max_to_keep=2, tracer=tracer)
         latest = mngr.latest_step()
         if latest is not None:
             state = mngr.restore(latest, state)
@@ -282,7 +283,6 @@ def main(argv=None) -> int:
     def on_device(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    tracer = tracer_from_env()
     B, G = args.prompts_per_step, args.group_size
     t0 = time.time()
     try:
@@ -339,7 +339,12 @@ def main(argv=None) -> int:
                       f"+-{rewards.std():.3f} loss={m['loss']:.4f} "
                       f"kl={m['kl']:.4f} clip={m['clip_frac']:.2f}", flush=True)
             if mngr is not None and (it % args.checkpoint_interval == 0 or it == args.steps):
-                mngr.save(it, state)
+                t_save = time.perf_counter()
+                mngr.save(it, state)  # returns once the state is on the host
+                if it == args.steps:
+                    mngr.wait_until_finished()  # the final write lands before the exit
+                tracer.record("ckpt.save", duration_s=time.perf_counter() - t_save, step=it,
+                              final=it == args.steps)
     finally:
         tracer.close()
     if mngr is not None:

@@ -8,7 +8,7 @@ The port runs one device per process (parallel/mesh.py), where one JAX
 process drives all of its host's chips, so this has no counterpart in the
 JAX package. The operator injects KUBEDL_COORDINATOR_ADDRESS,
 KUBEDL_NUM_PROCESSES (P pods) and KUBEDL_PROCESS_ID (this pod, p). With G
-local devices (`torch.cuda.device_count()`, or --local-devices), child l
+local devices (the CUDA driver's count, or --local-devices), child l
 runs ``python -m <module> [args]`` with
 
     KUBEDL_PROCESS_ID = p * G + l,  KUBEDL_NUM_PROCESSES = P * G,
@@ -49,7 +49,7 @@ def parse_args(argv=None):
                                 usage="%(prog)s [--local-devices N] [--device cpu] "
                                       "-- <module> [args]")
     p.add_argument("--local-devices", type=int, default=None,
-                   help="children to start (default: torch.cuda.device_count())")
+                   help="children to start (default: the visible CUDA devices)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu: start --local-devices children on the CPU")
     p.add_argument("command", nargs=argparse.REMAINDER,
@@ -60,6 +60,23 @@ def parse_args(argv=None):
         p.error("no module to run: -- <module> [args]")
     args.command = cmd
     return args
+
+
+def cuda_device_count() -> int:
+    """The CUDA devices this process sees (CUDA_VISIBLE_DEVICES applies),
+    as the driver counts them; 0 without a driver. The launcher asks the
+    driver (cuInit, cuDeviceGetCount) rather than torch, whose import would
+    cost every pod seconds before its children start."""
+    import ctypes
+
+    try:
+        driver = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return 0
+    n = ctypes.c_int(0)
+    if driver.cuInit(0) != 0 or driver.cuDeviceGetCount(ctypes.byref(n)) != 0:
+        return 0
+    return n.value
 
 
 def _visible_cards(n: int, env: dict) -> List[str]:
@@ -114,9 +131,7 @@ def main(argv=None) -> int:
         if args.device == "cpu":
             print("--device cpu needs --local-devices", file=sys.stderr)
             return 2
-        import torch
-
-        local = torch.cuda.device_count()
+        local = cuda_device_count()
         if local < 1:
             print("no CUDA device is visible: pass --device cpu --local-devices N "
                   "to start CPU processes", file=sys.stderr)

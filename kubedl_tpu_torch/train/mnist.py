@@ -7,13 +7,21 @@ loss optax's softmax cross entropy with integer labels, the optimizer Adam
 batches drawn with numpy from the process id's seed, the steps cycling
 through them k a call, k clamped to a divisor of --steps.
 
+A multi-process job (the operator's KUBEDL_COORDINATOR_ADDRESS,
+KUBEDL_NUM_PROCESSES, KUBEDL_PROCESS_ID; one device a process, as
+train/launch.py places them) trains data-parallel, as the reference does
+over every device of every process: the parameters are replicated, the
+global batch is --batch rounded down to a multiple of the gang's devices,
+each process draws the whole (k, batch, 784) array from its process id's
+seed and keeps its own rows of it (what the reference's device_put onto
+P(None, "data") keeps on a process's device), and the loss and every
+gradient are mean-reduced over the gang. The group is nccl on a card and
+gloo on the CPU; processes sharing one card need --backend gloo.
+
 Usage (as a pod command; it runs on the card unless --device cpu):
     python -m kubedl_tpu_torch.train.mnist --steps 200 --batch 256
 
-Prints `step/sec` and exits 0. A multi-process job (KUBEDL_NUM_PROCESSES
-> 1) exits 2: the reference puts a different batch from each process onto
-one global sharding, which waits for one process per local GPU (ROADMAP.md
-Queue 1, item 8).
+Each process prints `step/sec ... devices=<the gang's devices>` and exits 0.
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ def parse_args(argv=None):
                         help="distinct batches a call, the steps cycling through them")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="the gang's process group (default nccl on a card, gloo on "
+                             "the CPU; gloo for processes sharing one card)")
     return parser.parse_args(argv)
 
 
@@ -67,6 +78,21 @@ def loss_fn(params, batch):
     return (torch.logsumexp(logits, dim=-1) - label).mean()
 
 
+def gang_loss_fn(mesh, world: int):
+    """loss_fn over the gang: every parameter enters the data axis (its
+    gradient is summed over the gang) and each rank's mean over its rows is
+    summed and divided by the gang's size, so the loss is the global
+    batch's mean and each gradient the mean over the gang. Without a mesh
+    (one process) it is loss_fn."""
+    from kubedl_tpu_torch.parallel import collectives
+
+    def loss(params, batch):
+        params = {k: collectives.enter(v, mesh, ("data",)) for k, v in params.items()}
+        return collectives.psum(loss_fn(params, batch), mesh, ("data",)) / world
+
+    return loss
+
+
 def steps_per_call(steps: int, k: int) -> int:
     """k clamped to [1, steps], then down to a divisor of steps."""
     k = max(1, min(k, steps))
@@ -84,21 +110,25 @@ def draw_batches(rng, k: int, batch: int):
     return xs, ys
 
 
-def run(args, process_id: int, device) -> Dict:
+def run(args, process_id: int, device, mesh=None, rank: int = 0, world: int = 1) -> Dict:
     """Train as main does: one call of k steps to warm up, then steps / k
-    timed calls. Returns the numbers main prints and every step's loss."""
+    timed calls, as rank `rank` of a gang of `world` processes on `mesh`
+    (None: one process). Returns the numbers main prints and every step's
+    loss (the global batch's)."""
     import numpy as np
     import torch
 
     from kubedl_tpu_torch.parallel import optim
     from kubedl_tpu_torch.parallel.train_step import make_train_step
 
-    init_state, train_step = make_train_step(loss_fn, optim.adam(args.lr))
+    init_state, train_step = make_train_step(gang_loss_fn(mesh, world), optim.adam(args.lr))
     state = init_state(init_params(args.hidden, device=device))
     k = steps_per_call(args.steps, args.steps_per_call)
-    batch = max(args.batch, 1)  # one device a process
+    batch = max(args.batch // world * world, world)  # the global batch
     xs, ys = draw_batches(np.random.default_rng(process_id), k, batch)
-    batches = [(torch.from_numpy(xs[i]).to(device), torch.from_numpy(ys[i]).to(device))
+    mine = slice(rank * batch // world, (rank + 1) * batch // world)
+    batches = [(torch.from_numpy(np.ascontiguousarray(xs[i, mine])).to(device),
+                torch.from_numpy(np.ascontiguousarray(ys[i, mine])).to(device))
                for i in range(k)]
     losses = []
 
@@ -122,20 +152,26 @@ def run(args, process_id: int, device) -> Dict:
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
     from kubedl_tpu_torch.train import coordinator
-
-    info = coordinator.process_info()
-    if info.num_processes > 1:
-        print(f"KUBEDL_NUM_PROCESSES={info.num_processes}: the multi-process MNIST job "
-              f"is not ported to kubedl_tpu_torch yet (ROADMAP.md Queue 1, item 8: "
-              f"one process per local GPU)", file=sys.stderr)
-        return 2
-
     from kubedl_tpu_torch.utils.device import process_device
 
-    r = run(args, info.process_id, process_device(args.device))
+    info = coordinator.process_info()
+    device = process_device(args.device)  # current before NCCL binds to it
+    coordinator.initialize(info, backend=args.backend or (
+        "nccl" if device.type == "cuda" else "gloo"))
+    mesh, rank, world = None, 0, 1
+    if dist.is_initialized():
+        from kubedl_tpu_torch.parallel.mesh import build_mesh
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        mesh = build_mesh({"data": world}, world, device.type)
+    r = run(args, info.process_id, device, mesh, rank, world)
     print(f"steps={r['steps']} batch={r['batch']} loss={r['loss']:.4f} "
-          f"step/sec={r['steps'] / r['seconds']:.1f} devices=1", flush=True)
+          f"step/sec={r['steps'] / r['seconds']:.1f} devices={world}", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

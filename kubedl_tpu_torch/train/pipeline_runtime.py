@@ -39,7 +39,7 @@ preempted pipeline checkpoint the same step.
 
 A stage spanning several devices (the reference's `mesh` argument) needs
 one process a device and a process group a stage; it is refused here
-(ROADMAP.md, items 8 and 12).
+(ROADMAP.md, item 12e).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ from kubedl_tpu_torch.parallel.pipeline_mpmd import (
 
 MESH_REFUSED = ("a stage spanning several devices (mesh=...) needs one process a device "
                 "and a process group a stage, which kubedl_tpu_torch does not run yet "
-                "(ROADMAP.md, items 8 and 12)")
+                "(ROADMAP.md, item 12e)")
 
 
 def init_stage_params(config: llama.LlamaConfig, plan: StagePlan, stage: int,

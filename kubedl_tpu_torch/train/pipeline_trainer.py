@@ -149,7 +149,8 @@ def main(argv=None) -> int:
     mngr = None
     start_step = 0
     if args.checkpoint_path:
-        mngr = CheckpointManager(os.path.join(args.checkpoint_path, f"stage-{stage}"))
+        mngr = CheckpointManager(os.path.join(args.checkpoint_path, f"stage-{stage}"),
+                                 tracer=tracer)
         # Restore the latest step EVERY stage has, not this stage's own
         # latest: interval saves are per stage and a crash can land between
         # them, so the stages' latest steps may differ -- resuming each at
@@ -175,8 +176,9 @@ def main(argv=None) -> int:
             return
         t_save0 = time.perf_counter()
         state.params, state.opt_state, state.step = rt.params, rt.opt_state, step
-        mngr.save(step, state)
+        mngr.save(step, state)  # returns once the state is on the host
         if final:
+            mngr.wait_until_finished()  # the write lands before the exit
             print(f"stage {stage}: saved final checkpoint at step {step}", flush=True)
         stall = time.perf_counter() - t_save0
         ckpt_stall["v"] += stall
@@ -232,6 +234,10 @@ def main(argv=None) -> int:
                 print(f"stage {stage}: preempted at step {step + 1}; exiting retryable",
                       flush=True)
                 return EXIT_TPU_PREEMPTED
+    except BaseException:
+        if mngr is not None:
+            mngr.wait_until_finished()  # an interval save in flight lands or raises
+        raise
     finally:
         # SIGTERM or a raise DURING the traced window still stops the
         # profiler (idempotent: the paths above may have stopped it)

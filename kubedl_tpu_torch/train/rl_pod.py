@@ -321,7 +321,8 @@ def _learn(args, cfg, device, job, traj_channels, weight_channels) -> int:
     mngr = None
     start_step = 0
     if args.checkpoint_path:
-        mngr = CheckpointManager(os.path.join(args.checkpoint_path, "learner"), max_to_keep=2)
+        mngr = CheckpointManager(os.path.join(args.checkpoint_path, "learner"), max_to_keep=2,
+                                 tracer=tracer)
         latest = mngr.latest_step()
         if latest is not None and os.environ.get("KUBEDL_CHECKPOINT_RESTORE", "1") == "1":
             t0 = time.perf_counter()
@@ -332,13 +333,19 @@ def _learn(args, cfg, device, job, traj_channels, weight_channels) -> int:
     done = {"step": start_step, "saved": start_step}
 
     def save(step, final=False):
-        if mngr is None or step == done["saved"]:
-            return  # already on disk (restored, or saved at this step)
+        if mngr is None:
+            return
         t0 = time.perf_counter()
-        mngr.save(step, learner.state)
-        done["saved"] = step
-        tracer.record("ckpt.save", duration_s=time.perf_counter() - t0, step=step, final=final)
-        print(f"learner: saved policy checkpoint at step {step}", flush=True)
+        fresh = step != done["saved"]  # else: restored, or saved at this step already
+        if fresh:
+            mngr.save(step, learner.state)  # returns once the state is on the host
+            done["saved"] = step
+        if final:
+            mngr.wait_until_finished()  # the write lands before the exit
+        if fresh:
+            tracer.record("ckpt.save", duration_s=time.perf_counter() - t0, step=step,
+                          final=final)
+            print(f"learner: saved policy checkpoint at step {step}", flush=True)
 
     preempted = {"flag": False}
     signal.signal(signal.SIGTERM, lambda *_: preempted.update(flag=True))

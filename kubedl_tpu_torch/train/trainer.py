@@ -4,7 +4,8 @@ training one model.
 
 Llama (models/llama.py) -> the train step (parallel/train_step.py,
 optimizer parallel/optim.py) -> checkpoints with preemption-safe save and
-resume (train/checkpoint.py). The contract the operator depends on is the
+resume (train/checkpoint.py: interval saves are asynchronous, a final save
+waits for its write). The contract the operator depends on is the
 JAX trainer's: the same flags and env defaults, the same printed lines and
 trace spans, and on SIGTERM a final checkpoint and then the retryable exit
 113, so the ExitCode restart policy brings the pod back and the trainer
@@ -543,7 +544,8 @@ def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
     mngr = None
     start_step = staged[0] if staged is not None else 0
     if args.checkpoint_path:
-        mngr = CheckpointManager(args.checkpoint_path, max_to_keep=args.checkpoint_keep)
+        mngr = CheckpointManager(args.checkpoint_path, max_to_keep=args.checkpoint_keep,
+                                 tracer=tracer)
         latest = mngr.latest_step()
         if staged is not None:
             pass  # the live-reshard staging beats a restore (start_step set above)
@@ -564,9 +566,10 @@ def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
         t_save0 = time.perf_counter()
         did_save = saved_step["v"] != step
         if did_save:  # else: the interval hook already saved it
-            mngr.save(step, state)
+            mngr.save(step, state)  # returns once the state is on the host
             saved_step["v"] = step
         if final:
+            mngr.wait_until_finished()  # the write lands before the exit
             say(f"saved final checkpoint at step {step}", flush=True)
         if did_save or final:
             stall = time.perf_counter() - t_save0
@@ -686,6 +689,11 @@ def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
                 f"({fa.launches}, {fa.bwd_dq_launches}, {fa.bwd_dkv_launches})", flush=True)
 
     def exit_retryable():
+        if mngr is not None:
+            try:
+                mngr.wait_until_finished()  # an interval save in flight lands first
+            except Exception as e:  # noqa: BLE001 -- the exit is retryable either way
+                print(f"checkpoint write failed: {e!r}", file=sys.stderr)
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(EXIT_TPU_PREEMPTED)
@@ -702,8 +710,8 @@ def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
               file=sys.stderr)
         try:
             save(at_step, final=True)
-        except Exception:  # noqa: BLE001 -- the last interval save still holds
-            pass
+        except Exception as e:  # noqa: BLE001 -- the last published save still holds
+            print(f"fallback checkpoint at step {at_step} failed: {e!r}", file=sys.stderr)
         tracer.record("reshard.fallback", step=at_step, reason=str(reason)[:200])
         ctl.reply(msg, outcome="fallback", step=at_step, error=str(reason)[:300])
         exit_retryable()
@@ -865,6 +873,10 @@ def _run(args, info, axes, device, preempted, t_main0, staged=None) -> int:
                 last_log = now
                 say(f"step {step + 1}: loss={loss_v:.4f} "
                     f"step/s={sps:.2f} tok/s={sps * tokens_per_step:.0f}", flush=True)
+    except BaseException:
+        if mngr is not None:
+            mngr.wait_until_finished()  # an interval save in flight lands or raises
+        raise
     finally:
         # SIGTERM or a raise inside the traced window must not leave the
         # profiler open (stop is idempotent)

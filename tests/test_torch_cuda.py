@@ -922,3 +922,39 @@ def test_weight_record_of_card_bf16_tensors(dev):
     weights.copy_leaves_into(back, leaves)
     for a, b in zip(llama.tree_leaves(back), llama.tree_leaves(params)):
         assert a.device == b.device and torch.equal(a, b)
+
+
+def test_async_checkpoint_of_a_card_state(dev, tmp_path):
+    """CheckpointManager on a state on the card: the leaves go through the
+    page-locked host buffers; the published step equals the state at save
+    after the state changed in place, and a second save with the same
+    layout reuses the buffers."""
+    from kubedl_tpu_torch.parallel.train_step import TrainState
+    from kubedl_tpu_torch.train import checkpoint
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = TrainState(params={"w": torch.randn(300, 7, device=dev, generator=gen)
+                               .to(torch.bfloat16), "b": torch.zeros(7, device=dev)},
+                       opt_state={"count": 3, "mu": [torch.ones(5, device=dev)]}, step=3)
+    want = {k: v.cpu() for k, v in state.params.items()}
+    mngr = checkpoint.CheckpointManager(str(tmp_path))
+    mngr.save(3, state)
+    pinned = mngr._pinned
+    assert all(v.is_pinned() for v in pinned.views)
+    for v in state.params.values():
+        v.add_(1)
+    mngr.wait_until_finished()
+    saved = torch.load(tmp_path / "3" / checkpoint.STATE_FILE, weights_only=True)
+    assert all(torch.equal(saved["params"][k], want[k]) for k in want)
+    assert saved["opt_state"]["count"] == 3 and saved["step"] == 3
+    mngr.save(4, state)
+    mngr.wait_until_finished()
+    assert mngr._pinned is pinned and mngr.all_steps() == [3, 4]
+
+
+def test_the_launcher_counts_the_cards_torch_counts(dev):
+    """train/launch.py counts the cards through the CUDA driver, without
+    torch: the same count as torch's."""
+    from kubedl_tpu_torch.train import launch
+
+    assert launch.cuda_device_count() == torch.cuda.device_count() >= 1

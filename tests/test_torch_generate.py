@@ -59,8 +59,11 @@ def test_restore_params_reads_the_newest_step(trained, capsys):
 def test_restore_params_reads_a_sharded_step(tmp_path):
     """A gloo gang of two ranks (tests/torch_gang.py) takes one fsdp2 step
     and saves its DTensor state through CheckpointManager, each rank its
-    own shards; restore_params, in a process with no group, reads the step
-    back whole: the gang's parameters after the step, bit for bit."""
+    own shards, asynchronously: a second step runs in place over the live
+    state while the write is in flight. The published step restores into
+    the gang (a fresh sharded state) and, through restore_params in a
+    process with no group, whole: the gang's parameters after the first
+    step, bit for bit, not the live state's after the second."""
     from torch_gang import run_gang
 
     from kubedl_tpu_torch.utils.convert import params_from_numpy
@@ -81,9 +84,13 @@ def test_restore_params_reads_a_sharded_step(tmp_path):
     assert not (step_dir / checkpoint.STATE_FILE).exists()
     assert len(list(step_dir.glob("*.distcp"))) == 2  # one shard file a rank
     restored = generate.restore_params(path, device="cpu")
-    assert _equal(restored, params_from_numpy(got["ckpt"]["params"]))
+    saved = params_from_numpy(got["ckpt"]["params"])
+    assert _equal(restored, saved)
     assert not _equal(restored, params)  # the step moved them
     assert not any(t.requires_grad for t in llama.tree_leaves(restored))
+    gang = got["ckpt"]["restored"]
+    assert gang["step"] == 1 and _equal(params_from_numpy(gang["params"]), saved)
+    assert not _equal(params_from_numpy(gang["moved"]), saved)  # the live state moved on
 
 
 def _prompt(seed):

@@ -105,6 +105,17 @@ def test_the_reshard_modules_are_walked():
     assert set(RESHARD_FILES) <= set(PORT_FILES)
 
 
+SLICE21_FILES = [ROOT / "kubedl_tpu_torch" / f for f in (
+    "train/smoke_distributed.py", "train/checkpoint.py", "train/mnist.py")]
+
+
+def test_the_rendezvous_smoke_is_walked():
+    """The rendezvous smoke, the asynchronous checkpoint manager and the
+    multi-process MNIST job are among the files both checks above cover."""
+    assert all(p.is_file() for p in SLICE21_FILES)
+    assert set(SLICE21_FILES) <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("path", PLANE_FILES + RESHARD_FILES[:2],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_planes_never_import_ml_dtypes(path):

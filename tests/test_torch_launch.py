@@ -14,7 +14,9 @@ context parallelism in one gang.
 * a child that dies takes the others down, and the launcher exits with its
   code; the children's env and the exit code's rule;
 * the trainer exits 2 before any rendezvous when its positions do not
-  split over the context axis, and ViT still refuses the axis."""
+  split over the context axis, and ViT still refuses the axis;
+* without --local-devices the launcher counts the cards through the CUDA
+  driver, never importing torch."""
 import os
 import signal
 import subprocess
@@ -170,3 +172,36 @@ def test_a_child_that_dies_takes_the_others_down(tmp_path):
                          env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 3, out.stderr
     assert "launch: rank 1 exited 3" in out.stderr and "launch: rank 0 exited -9" in out.stderr
+
+
+def test_the_launcher_counts_cards_through_the_driver(monkeypatch, capsys):
+    """Without --local-devices the launcher asks the CUDA driver for the
+    count (torch is never imported for it); no driver means no card, and
+    the launcher exits 2 before starting a child."""
+    import ctypes
+
+    code = ("import sys\nfrom kubedl_tpu_torch.train import launch\n"
+            "launch.cuda_device_count()\nprint('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stderr
+
+    class Driver:
+        def cuInit(self, flags):
+            return 0
+
+        def cuDeviceGetCount(self, ref):
+            ref._obj.value = 3
+            return 0
+
+    monkeypatch.setattr(ctypes, "CDLL", lambda name: Driver())
+    assert launch.cuda_device_count() == 3
+
+    def missing(name):
+        raise OSError(f"{name}: cannot open shared object file")
+
+    monkeypatch.setattr(ctypes, "CDLL", missing)
+    assert launch.cuda_device_count() == 0
+    assert launch.main(["--", "kubedl_tpu_torch.train.trainer"]) == 2
+    assert "no CUDA device is visible" in capsys.readouterr().err

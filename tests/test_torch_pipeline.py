@@ -443,10 +443,10 @@ def _run_stages(fns, tokens):
 def test_a_stage_mesh_is_refused():
     _, _, cfg, fresh = models()
     plan = pipeline_mpmd.make_stage_plan(4, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, item 12e\)"):
         rt.StageRuntime(0, plan, cfg, pipeline_mpmd.split_stage_params(fresh(), plan, 0),
                         optim.sgd(0.0), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, item 12e\)"):
         rt.MPMDPipeline(cfg, fresh(), optim.sgd(0.0), n_stages=2, n_microbatches=4,
                         meshes=[object(), object()])
     with pytest.raises(NotImplementedError, match="one process a device"):

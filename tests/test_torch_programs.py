@@ -10,9 +10,12 @@
   builds it inside its main;
 * MNIST: the same for kubedl_tpu/train/mnist.py's MLP and Adam;
 * each program's main at tiny flags on the CPU prints the reference's line;
-  vision and sparse train as a gloo gang of 2 processes; MNIST refuses a
-  multi-process job with exit 2; without a card every entry point raises
-  unless given --device cpu."""
+  vision, sparse and MNIST train as a gloo gang of 2 processes (MNIST's
+  losses against the reference's MLP on the global batch its two processes
+  assemble); without a card every entry point raises unless given
+  --device cpu;
+* the rendezvous smoke (train/smoke_distributed.py) as a gang of 2, and
+  its count check."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -250,9 +253,14 @@ def test_program_needs_the_card_unless_told_cpu(name, monkeypatch):
 
 
 def test_mnist_refuses_a_multi_process_job(capsys, monkeypatch):
+    """KUBEDL_NUM_PROCESSES=2 once exited 2 here (unported). Now it is a
+    gang's setting: without a coordinator address the process joins no
+    group and trains alone, as the reference's does without one, and exits
+    0 (test_mnist_trains_as_a_gang_of_2 runs the gang)."""
     monkeypatch.setenv("KUBEDL_NUM_PROCESSES", "2")
-    assert mnist.main(["--device", "cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    monkeypatch.delenv("KUBEDL_COORDINATOR_ADDRESS", raising=False)
+    assert mnist.main(["--device", "cpu", "--steps", "2", "--batch", "8", "--hidden", "8"]) == 0
+    assert capsys.readouterr().out.strip().endswith("devices=1")
 
 
 def _run_ranks(module, argv, world, extra_env):
@@ -293,3 +301,128 @@ def test_program_trains_as_a_gang(name, argv, env, want):
     rcs, outs = _run_ranks(f"kubedl_tpu_torch.train.{name}", argv, 2, env)
     assert rcs == [0, 0], outs
     assert want in outs[0] and "loss=" not in outs[1], outs
+
+
+# MNIST's gang: main in each process, its losses written beside its line
+_MNIST_RANK = """
+import json, sys
+from kubedl_tpu_torch.train import mnist
+run = mnist.run
+def keep(*a, **kw):
+    out = run(*a, **kw)
+    with open(sys.argv[1], "w") as f:
+        json.dump(out["losses"], f)
+    return out
+mnist.run = keep
+sys.exit(mnist.main(sys.argv[2:]))
+"""
+
+
+def test_mnist_trains_as_a_gang_of_2(tmp_path):
+    """`mnist.main` as two gloo processes (each through its whole main, the
+    rendezvous included): both exit 0 and print devices=2 and the global
+    batch; every step's loss matches the reference's MLP and Adam, built
+    as test_mnist_three_steps_match_the_reference_losses builds them, on
+    the global batch the reference assembles: rows 0-7 of process 0's draw
+    from default_rng(0), rows 8-15 of process 1's from default_rng(1). The
+    gang's loss is the mean of the two ranks' means and each gradient the
+    mean over the gang, a different order of sums than one batch's: the
+    bound is 1e-4 relative (one process holds 1e-5)."""
+    import os
+    import subprocess
+    import sys
+
+    from torch_gang import ROOT, free_port
+
+    hidden, lr, batch, k, steps = 32, 1e-3, 17, 3, 6  # 17 rounds to 16 over 2 devices
+    port = free_port()
+    outs = [tmp_path / f"losses{r}.json" for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MNIST_RANK, str(outs[r]), "--device", "cpu", "--steps",
+         str(steps), "--batch", str(batch), "--hidden", str(hidden), "--lr", str(lr),
+         "--steps-per-call", str(k)], cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT,
+                 KUBEDL_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", KUBEDL_NUM_PROCESSES="2",
+                 KUBEDL_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        texts = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], texts
+    for text in texts:
+        assert f"steps={steps} batch=16 loss=" in text and text.strip().endswith("devices=2")
+    import json
+
+    got = [json.loads(o.read_text()) for o in outs]
+    assert got[0] == got[1]  # every rank reads the same global loss
+
+    rows = [mnist.draw_batches(np.random.default_rng(r), k, 16) for r in range(2)]
+    xs = np.concatenate([rows[0][0][:, :8], rows[1][0][:, 8:]], axis=1)
+    ys = np.concatenate([rows[0][1][:, :8], rows[1][1][:, 8:]], axis=1)
+    k1, k2, _ = jax.random.split(jax.random.PRNGKey(0), 3)
+    params = {"w1": jax.random.normal(k1, (784, hidden), jnp.float32) * 0.02,
+              "b1": jnp.zeros((hidden,), jnp.float32),
+              "w2": jax.random.normal(k2, (hidden, 10), jnp.float32) * 0.02,
+              "b2": jnp.zeros((10,), jnp.float32)}
+    tx = optax.adam(lr)
+
+    def loss_fn(params, x, y):
+        h = jnp.maximum(x.astype(jnp.bfloat16) @ params["w1"].astype(jnp.bfloat16)
+                        + params["b1"].astype(jnp.bfloat16), 0)
+        logits = (h @ params["w2"].astype(jnp.bfloat16) + params["b2"].astype(jnp.bfloat16))
+        logits = logits.astype(jnp.float32)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+
+    @jax.jit
+    def step(params, opt_state, x, y):
+        loss, grads = jax.value_and_grad(loss_fn)(params, x, y)
+        updates, opt_state = tx.update(grads, opt_state)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    # the port's init equals the reference's only in distribution: start the
+    # reference from the port's parameters (seed 0), as main draws them
+    params = jax.tree_util.tree_map(
+        jnp.asarray, {n: t.numpy() for n, t in mnist.init_params(hidden, device="cpu").items()})
+    opt_state = tx.init(params)
+    want = []
+    for i in range(steps + k):  # the warm-up call's k steps, then the timed ones
+        params, opt_state, loss = step(params, opt_state, jnp.asarray(xs[i % k]),
+                                       jnp.asarray(ys[i % k]))
+        want.append(float(loss))
+    assert len(got[0]) == len(want)
+    for a, b in zip(got[0], want):
+        assert abs(a - b) <= 1e-4 * abs(b), (got[0], want)
+
+
+def test_the_rendezvous_smoke_as_a_gang_of_2():
+    """`python -m kubedl_tpu_torch.train.smoke_distributed` as two gloo
+    processes: both exit 0 with the reference's line, psum over both."""
+    rcs, outs = _run_ranks("kubedl_tpu_torch.train.smoke_distributed", [], 2, {})
+    assert rcs == [0, 0], outs
+    assert "distributed ok: process 0/2 devices 1 local / 2 global, psum=2.0" in outs[0]
+
+
+def test_the_rendezvous_count_check_exits_1(capsys):
+    """The count check with a global count that is not local x processes
+    (a wrong KUBEDL_NUM_PROCESSES would hang the rendezvous instead): the
+    reference's message and exit 1. Alone, without an address, a process
+    told it is one of two sees one device and exits 1 the same way."""
+    from kubedl_tpu_torch.train import smoke_distributed
+
+    assert smoke_distributed.count_error(2, 1, 2) is None
+    assert smoke_distributed.count_error(3, 1, 2) == "global devices 3 != local 1 x 2 processes"
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "KUBEDL_COORDINATOR_ADDRESS"}
+    old = dict(os.environ)
+    try:
+        os.environ.clear()
+        os.environ.update(env, KUBEDL_NUM_PROCESSES="2")
+        assert smoke_distributed.main(["--device", "cpu"]) == 1
+    finally:
+        os.environ.clear()
+        os.environ.update(old)
+    assert "global devices 1 != local 1 x 2 processes" in capsys.readouterr().err

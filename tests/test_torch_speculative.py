@@ -104,7 +104,8 @@ def test_sampled_speculative_samples_the_target_distribution():
     0.09); plain sampled generate passes the same check, and the third
     token's marginals of the two samplers agree (TV < 0.12). The draft's
     own exact marginal reads TV > 0.27 (3x the bound), so a sampler that
-    accepts every draft fails the bound."""
+    accepts every draft fails the bound. The plain draws are one call of
+    N rows (each row its own samples from one generator)."""
     V, T, N = 8, 0.7, 1500
     cfg = tllama.LlamaConfig(vocab_size=V, d_model=32, n_layers=1, n_heads=2, n_kv_heads=2,
                              d_ff=64, max_seq_len=64, dtype=torch.float32, remat=False)
@@ -123,11 +124,20 @@ def test_sampled_speculative_samples_the_target_distribution():
     exact = exact_marginal(params)
     assert 0.5 * np.abs(exact_marginal(draft) - exact).sum() > 3 * 0.09
     gen_s, gen_v = torch.Generator().manual_seed(7), torch.Generator().manual_seed(8)
-    spec = np.stack([tdecode.generate_speculative(params, draft, prompt, cfg, cfg, 3, k=3,
-                                                  temperature=T, generator=gen_s)[0].numpy()
-                     for _ in range(N)])
-    van = np.stack([tdecode.generate(params, prompt, cfg, 3, temperature=T,
-                                     generator=gen_v)[0].numpy() for _ in range(N)])
+    # generate_speculative is batch 1: N calls on tensors of a few dozen
+    # elements, where intra-op threads cost more than the math (and contend
+    # with other processes' threads); plain generate takes the N rows at once
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        spec = np.stack([tdecode.generate_speculative(params, draft, prompt, cfg, cfg, 3, k=3,
+                                                      temperature=T, generator=gen_s)[0].numpy()
+                         for _ in range(N)])
+        van = tdecode.generate(params, prompt.expand(N, 3), cfg, 3, temperature=T,
+                               generator=gen_v).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    assert spec.shape == van.shape == (N, 3)
 
     def marginal(toks, i):
         return np.bincount(toks[:, i], minlength=V) / len(toks)

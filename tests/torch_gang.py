@@ -12,7 +12,11 @@ returns rank 0's results by case name. A case is a dict:
   micro-step), accum, lr, clip, and optionally stats (capture the dropless
   route's routing and dispatch integers of layer 0's first forward) and
   checkpoint (a directory: every rank saves the sharded state after the
-  last step through train/checkpoint.py's CheckpointManager).
+  last step through train/checkpoint.py's CheckpointManager, asynchronously,
+  takes one more step in place over the live state while the write is in
+  flight, waits, and restores the saved step into a fresh state; "restored"
+  holds its parameters and step, and "moved" the live state's after the
+  extra step; "params" and "step" stay those of the saved state).
 
 Each rank takes its rows of every global batch (parallel/mesh.py
 `token_index`), runs `make_train_step` on its DeviceMesh and reports the
@@ -547,11 +551,21 @@ def _case(case):
         state, m = train_step(state, local(b))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    params = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
+    step, restored = state.step, None
     if case.get("checkpoint"):
         from kubedl_tpu_torch.train.checkpoint import CheckpointManager
 
-        CheckpointManager(case["checkpoint"]).save(int(state.step), state)
-    params = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
+        mngr = CheckpointManager(case["checkpoint"])
+        mngr.save(step, state)  # returns once DCP staged the shards
+        state, _ = train_step(state, local(case["batches"][-1]))  # in place, mid-write
+        mngr.wait_until_finished()
+        fresh = init_state(params_from_numpy(case["params"]))
+        fresh = mngr.restore(step, fresh)
+        restored = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(fresh.params)]
+        moved = [p.detach().full_tensor().numpy() for p in llama.tree_leaves(state.params)]
+        restored = {"params": _like(case["params"], restored), "step": fresh.step,
+                    "moved": _like(case["params"], moved)}
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, (tok, stats[0] if stats else None))
     per_block = {}
@@ -561,7 +575,7 @@ def _case(case):
     return {"loss": losses, "grad_norm": norms, "grads": _like(case["params"], full),
             "params": _like(case["params"], params),
             "stats": per_block, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-            "step": state.step}
+            "step": step, "restored": restored}
 
 
 def main(job_path: str, out_path: str) -> int:
