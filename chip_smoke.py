@@ -147,7 +147,8 @@ Phases, each printing its own line of numbers:
      adapter count, the optimizer state's bytes, K1/K2/K3 launches equal to
      phase 6's, the base unchanged bit for bit (init's draws replayed),
      the merge and the adapters' optimizer alone, then the LoRA step
-     beside phase 6's full step on the same init, one turn each; (b) Llama-7B on
+     beside phase 6's full step on the same init, one turn each; (b) Llama-7B
+     (full width, LORA_SERVING_LAYERS of its 32 layers, cut for phase 23) on
      ServingEngine with phase 4's traffic, two rank-16 adapters with noise
      in B registered: adapter-0 requests equal the no-adapter engine's
      tokens bit for bit (one turn each, decode ms a tick and kernels a
@@ -176,10 +177,12 @@ Phases, each printing its own line of numbers:
      where transformers imports, a word-level tokenizer saved into the
      directory serves a text, a messages, a string-stop and an SSE request;
      (c) trainer --hf-model, 4 steps at b=4, 1024-token rows, chunked CE
-     over the 256000 vocabulary; (d) dpo --hf-model, 3 steps of 2 pairs x
-     512 tokens from a seeded JSONL, and evaluate --hf-model on a seeded
-     shard. The directory is removed after. K1 launches of a-d and K2/K3
-     of (c) and (d) are the kernels line's d 256 rows.
+     over the 256000 vocabulary; (d) on 16a's directory (2 of 26 layers,
+     cut from 26 to pay for phase 23), dpo --hf-model, 3 steps of 2
+     pairs x 512 tokens from a seeded JSONL, and evaluate --hf-model on a
+     seeded shard: phase 23's one-process baselines. The directories are
+     removed after. K1 launches of a-d and K2/K3 of (c) and (d) are the
+     kernels line's d 256 rows.
   16. RL, inside phase 15: (a) grpo --hf-model on
      Gemma-2-2B's config cut to 2 of its 26 layers (a directory of its
      own, seeded as phase 15's), 3 on-policy steps of 4 prompts x 8 samples x 32 new tokens (KL 0.04,
@@ -218,7 +221,8 @@ Phases, each printing its own line of numbers:
      TransportPlanes on 127.0.0.1, one decode pod drained mid-stream:
      tokens equal to (a)'s monolithic ones up to the near-tie rule, MB a
      handoff and MB/s of the hop; (d) 16c's pods over the socket plane
-     with KUBEDL_RL_ENGINE=serving and 16c's checks. The launches of (a),
+     with KUBEDL_RL_ENGINE=serving and 16c's checks (run inside
+     phase 16's window, after 16c, beside phase 23's pairs). The launches of (a),
      (b) and (c) join the kernels line; phase 17's numbers are a JSON line
      of their own ({"disagg": ...}).
   18. the one-card workload programs: (a) ViT-B/16 (full width and depth,
@@ -318,6 +322,23 @@ Phases, each printing its own line of numbers:
      batch; the rendezvous smoke (train/smoke_distributed.py) as two
      processes beside it: both exit 0 with psum=2.0. Phase 22's numbers are
      a JSON line of their own ({"async_checkpoints": ...}).
+  23. post-training under a mesh, inside phase 15 on 16a's directory:
+     each program as two processes of `python -m` sharing the card in a
+     gloo group from the operator's env (--backend gloo; each rank's
+     backend line printed, an nccl group fails the phase), started after
+     16a, beside 16b, 16c and 17d (run in phase 16's window for that):
+     (a) dpo on tensor=2, 15d's run with a sharded
+     checkpoint: step 1's loss and margin within POST_LOSS_TOL of 15d's;
+     (b) grpo on data=2, 16a's argv for POST_GRPO_STEPS steps with a
+     sharded checkpoint, then a resume for one step more: step 1's
+     rollout on both ranks equal to 16a's (a row may part only at a
+     near-tie, phase 15's rule), its loss and grad norm within
+     POST_LOSS_TOL of 16a's; (c) evaluate on tensor=2: tokens equal, nll
+     within POST_NLL_TOL of 15d's. Every rank's K1/K2/K3 launches (d 256,
+     on its local heads or rows) equal the counts the shapes imply and
+     join the d 256 rows; each rank's step seconds beside one process's,
+     its host-staged collectives (MB and seconds) and peak memory; a JSON
+     line of their own ({"post_training": ...}).
 Each phase prints its seconds. Then one JSON line of per-kernel numbers
 and, last, the device line.
 `--out PATH` also writes every number of the run to PATH as JSON. Any
@@ -2849,6 +2870,9 @@ LORA_ADAPTER_PARAMS = 39_976_960  # rank 16 on wq, wk, wv, wo, w1, w3, w2 of 32 
 # 14b's B noise: A @ B then has std 0.05 * sqrt(16 / 4096), a fifth of a 7B
 # weight's (1 / sqrt(4096)), so the adapters change greedy tokens
 LORA_B_STD = 0.05
+# 14b serves Llama-7B at 8 of its 32 layers (full depth before phase 23, cut
+# to pay for it): full width, every check kept
+LORA_SERVING_LAYERS = 8
 LORA_TURN_STEPS = 4
 STREAM_PROMPT, STREAM_NEW = 100, 128
 
@@ -3011,14 +3035,15 @@ def _kernels_a_tick(engine, prompts, adapters, ticks=4):
 
 
 def _14b_adapter_serving(smi):
-    """Llama-7B on ServingEngine with phase 4's traffic: no adapter against
-    two registered rank-16 adapters (requests naming adapter 0) in turns,
-    tokens bit for bit; then each adapter against an engine on the merged
-    weights (first-token logits, greedy agreement)."""
+    """Llama-7B (LORA_SERVING_LAYERS of its 32 layers) on ServingEngine with
+    phase 4's traffic: no adapter against two registered rank-16 adapters
+    (requests naming adapter 0) in turns, tokens bit for bit; then each
+    adapter against an engine on the merged weights (first-token logits,
+    greedy agreement)."""
     from kubedl_tpu_torch.models import llama, lora
     from kubedl_tpu_torch.models.serving import ServingEngine, _bucket
 
-    config = llama.LlamaConfig.llama_7b()
+    config = dataclasses.replace(llama.LlamaConfig.llama_7b(), n_layers=LORA_SERVING_LAYERS)
     params = llama.init(config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(14)
     adapters = []
@@ -3044,7 +3069,8 @@ def _14b_adapter_serving(smi):
     if any(e for r in runs for e in r["errors"]) or any(r["tokens"] != runs[0]["tokens"]
                                                         for r in runs):
         raise AssertionError("14b: adapter-0 requests differ from the no-adapter engine's")
-    if turns["2"][0]["launches"] != turns["0"][0]["launches"] or turns["2"][0]["launches"] < 32:
+    if turns["2"][0]["launches"] != turns["0"][0]["launches"] or \
+            turns["2"][0]["launches"] < config.n_layers:  # one prefill launch a layer at least
         raise AssertionError(f"14b: flash launches {[r['launches'] for r in runs]}")
     tick = {k: [r["tick_ms_median"] for r in v] for k, v in turns.items()}
     mixed = [1 + i % 2 for i in range(len(prompts) + 2)]
@@ -3083,7 +3109,8 @@ def _14b_adapter_serving(smi):
     if max(v["agree_with_base"] for v in per_adapter.values()) > 0.9:
         raise AssertionError(f"14b: the adapters barely change greedy tokens {per_adapter}")
     del engines, params, adapters
-    print(f"14b adapter serving [{smi}]: llama-7b, 8 slots, 1024 positions, phase 4's traffic; "
+    print(f"14b adapter serving [{smi}]: llama-7b at {config.n_layers} of 32 layers, 8 slots, "
+          f"1024 positions, phase 4's traffic; "
           f"2 rank-{LORA_RANK} adapters registered (B ~ N(0, {LORA_B_STD})): adapter-0 requests "
           f"equal the no-adapter engine's tokens bit for bit in every turn; decode ms a tick "
           f"(median) with 0 adapters {', '.join(f'{x:.2f}' for x in tick['0'])}, with 2 "
@@ -3700,14 +3727,12 @@ def _15c_train(path, smi):
                 launches=list(counts), wall_s=wall_s)
 
 
-def _15d_dpo_eval(path, smi):
-    """dpo --hf-model DIR on seeded id-list pairs; evaluate --hf-model DIR on
-    a seeded shard."""
+def _15d_data(path):
+    """15d's seeded id-list pairs (pairs.jsonl) and token shard (eval-0.bin)
+    in `path`, which phase 23's pairs read too."""
     from kubedl_tpu_torch.native.loader import write_shard
-    from kubedl_tpu_torch.train import dpo, evaluate
 
-    vocab, n_layers = GEMMA2_2B["vocab_size"], GEMMA2_2B["num_hidden_layers"]
-    c = G2_DPO
+    vocab, c, e = GEMMA2_2B["vocab_size"], G2_DPO, G2_EVAL
     rng = np.random.default_rng(15)
     pairs = os.path.join(path, "pairs.jsonl")
     with open(pairs, "w") as f:
@@ -3716,10 +3741,32 @@ def _15d_dpo_eval(path, smi):
             f.write(json.dumps({"prompt": prompt,
                                 "chosen": rng.integers(1, vocab, c["seq"] - 128).tolist(),
                                 "rejected": rng.integers(1, vocab, 300).tolist()}) + "\n")
+    shard = os.path.join(path, "eval-0.bin")
+    write_shard(shard, rng.integers(1, vocab, e["batch"] * e["seq"] * e["batches"]))
+    return pairs, shard
+
+
+def _dpo_launches(n_layers):
+    """K1/K2/K3 launches of G2_DPO's run: the reference's forward once a
+    distinct batch, the policy's twice a step (forward and its recompute in
+    backward)."""
+    c = G2_DPO
+    refs = len({(it * c["batch"]) % c["pairs"] for it in range(c["steps"])})
+    return (n_layers * (refs + 2 * c["steps"]), n_layers * c["steps"], n_layers * c["steps"])
+
+
+def _15d_dpo_eval(path, smi, pairs, shard):
+    """dpo --hf-model DIR on 15d's seeded id-list pairs; evaluate --hf-model
+    DIR on its seeded shard: one process each, phase 23's baselines. DIR is
+    the directory of Gemma-2-2B's config cut to G2_GRPO's layers."""
+    from kubedl_tpu_torch.train import dpo, evaluate
+
+    n_layers = G2_GRPO["layers"]
+    c = G2_DPO
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    with _captured() as out:
+    with _traced("dpo-one") as trace_dir, _captured() as out:
         rc = dpo.main(["--hf-model", path, "--data-path", pairs, "--batch", str(c["batch"]),
                        "--seq-len", str(c["seq"]), "--steps", str(c["steps"]),
                        "--log-every", "1", "--lr", "1e-6"])
@@ -3728,18 +3775,15 @@ def _15d_dpo_eval(path, smi):
     steps = re.findall(r"step (\d+): loss=(\S+) margin=(\S+) acc=(\S+)", out.text())
     losses = [float(s[1]) for s in steps]
     margins = [float(s[2]) for s in steps]
-    if rc != 0 or len(steps) != c["steps"] or not all(
+    spans = [sp for sp in _trace_spans(trace_dir) if sp["name"] == "dpo.step"]
+    step_s = [sp["dur"] for sp in sorted(spans, key=lambda sp: sp["attrs"]["step"])]
+    if rc != 0 or len(steps) != c["steps"] or len(step_s) != c["steps"] or not all(
             math.isfinite(x) for x in losses + margins):
         raise AssertionError(f"15d: dpo rc {rc}, steps {steps}")
-    # the reference's forward once a distinct batch, the policy's twice a step
-    # (forward and its recompute in backward)
-    refs = len({(it * c["batch"]) % c["pairs"] for it in range(c["steps"])})
-    want = (n_layers * (refs + 2 * c["steps"]), n_layers * c["steps"], n_layers * c["steps"])
+    want = _dpo_launches(n_layers)
     if dpo_counts != want:
         raise AssertionError(f"15d: dpo launches (fwd, dq, dkv) {dpo_counts}, expected {want}")
     e = G2_EVAL
-    shard = os.path.join(path, "eval-0.bin")
-    write_shard(shard, rng.integers(1, vocab, e["batch"] * e["seq"] * e["batches"]))
     _reset_counts()
     t0 = time.perf_counter()
     with _captured() as out:
@@ -3751,14 +3795,15 @@ def _15d_dpo_eval(path, smi):
             line["tokens"] != e["batches"] * e["batch"] * (e["seq"] - 1) or \
             eval_launches != e["batches"] * n_layers:
         raise AssertionError(f"15d: evaluate rc {rc}, {line}, K1 {eval_launches}")
-    print(f"15d dpo/eval [{smi}]: dpo --hf-model {c['steps']} steps of {c['batch']} pairs x "
-          f"{c['seq']} tokens in {dpo_s:.1f} s (load included): losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}, margins "
+    print(f"15d dpo/eval [{smi}]: Gemma-2-2B's widths at {n_layers} of 26 layers: dpo "
+          f"--hf-model {c['steps']} steps of {c['batch']} pairs x {c['seq']} tokens in "
+          f"{dpo_s:.1f} s (load included), steps {', '.join(f'{x:.3f}' for x in step_s)} s: "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}, margins "
           f"{', '.join(f'{x:.3f}' for x in margins)}, peak {dpo_peak:.2f} GB, K1/K2/K3 "
           f"launches {dpo_counts}; evaluate --hf-model on a seeded shard in {eval_s:.1f} s: "
           f"{json.dumps(line)}, K1 launches {eval_launches}", flush=True)
-    return dict(dpo_s=dpo_s, dpo_losses=losses, dpo_margins=margins, dpo_peak_gb=dpo_peak,
-                dpo_launches=list(dpo_counts), eval_s=eval_s, eval=line,
+    return dict(dpo_s=dpo_s, dpo_step_s=step_s, dpo_losses=losses, dpo_margins=margins,
+                dpo_peak_gb=dpo_peak, dpo_launches=list(dpo_counts), eval_s=eval_s, eval=line,
                 eval_launches=eval_launches)
 
 
@@ -3830,10 +3875,21 @@ def _16a_grpo(path, smi):
             "--group-size", str(c["G"]), "--max-new-tokens", str(c["K"]), "--kl-coef",
             str(c["kl"]), "--lr", str(c["lr"]), "--reward-module", RL_REWARD, "--log-every", "1",
             "--checkpoint-path", ckpt]
+    from kubedl_tpu_torch.models import decode
+
     runs = {}
+    real_generate = decode.generate
     for label, extra in (("on_policy", ["--steps", str(c["steps"])]),
                          ("resume", ["--steps", str(c["steps"] + 1), "--inner-epochs", "2"])):
         captured = {}
+        if label == "on_policy":  # step 1's prompts and rollout: phase 23b's baseline
+            def first(params, prompt, *a, **kw):
+                got = real_generate(params, prompt, *a, **kw)
+                if "rollout1" not in captured:
+                    captured.update(prompts1=prompt.tolist(), rollout1=got.tolist())
+                return got
+
+            decode.generate = first
         if label == "resume":
             saved = generate.restore_params(ckpt, "policy", device="cpu")  # step 3
             restore = checkpoint.CheckpointManager.restore
@@ -3851,6 +3907,7 @@ def _16a_grpo(path, smi):
         try:
             rc, text, spans = _run_grpo(argv + extra, f"grpo-{label}")
         finally:
+            decode.generate = real_generate
             if label == "resume":
                 checkpoint.CheckpointManager.restore = restore
         runs[label] = dict(rc=rc, text=text, spans=spans, counts=_counts(),
@@ -3942,7 +3999,10 @@ def _16a_grpo(path, smi):
                 off_clip=off[0]["attrs"]["clip_frac"], rollout_s=roll_s,
                 rollout_tok_s=[tokens / x for x in roll_s], learner_s=learn_s,
                 peak_gb=[on["peak_gb"], res["peak_gb"]], wall_s=[on["wall_s"], res["wall_s"]],
-                launches=[a + b for a, b in zip(on["counts"], res["counts"])], saves=saves)
+                launches=[a + b for a, b in zip(on["counts"], res["counts"])], saves=saves,
+                argv=argv, prompts1=on["prompts1"], rollout1=on["rollout1"],
+                loss1=on_ups[0]["attrs"]["loss"],
+                update_s=[sp["dur"] for sp in on_ups])
 
 
 def _16b_fleet(path, smi):
@@ -4134,27 +4194,317 @@ def _16c_pods(smi, lane="dir"):
     return dict(wall_s=wall_s, rcs=rcs, learn_s=learn, rollout_s=rolls, consumed=groups)
 
 
-def phase_rl(path, smi):
+def phase_rl(path, smi, beside=None):
     """16: a) grpo --hf-model on Gemma-2-2B, with a resume; b) the lockstep
     RLFleet on the same weights against the monolithic loop; c) rl_pod's two
-    roles as processes at bench-1b."""
+    roles as processes at bench-1b. `beside(16a's numbers)`, when given,
+    starts work that runs in processes of its own (phase 23's pairs) after
+    a, beside b, c and phase 17d (rl_pod over sockets, which only waits on
+    its pods too, run here then); what it returns comes back under
+    "beside", 17d's numbers under "d_socket_pods"."""
     out = {"a_grpo": _16a_grpo(path, smi)}
     _free("16a")
+    if beside is not None:
+        out["beside"] = beside(out["a_grpo"])
     out["b_fleet"] = _16b_fleet(path, smi)
     _free("16b")
     out["c_pods"] = _16c_pods(smi)
+    if beside is not None:
+        out["d_socket_pods"] = _phase("17d (beside phase 23's pairs)", _16c_pods, smi,
+                                      "socket")
     return out
+
+
+# phase 23: DPO, GRPO and evaluation under a mesh. Each program runs as two
+# processes sharing the card in a gloo group (--backend gloo: NCCL cannot
+# hold two ranks on one device), from the operator's env, on 16a's
+# directory (Gemma-2-2B at full width, G2_GRPO's 2 of 26 layers), started
+# after 16a, beside 16b and the pods of 16c and 17d (its ranks spend their
+# first seconds importing torch on the host; 17d runs there, in phase 16's
+# window, for that). 15d's one-process dpo and evaluate and 16a's first
+# steps on the same directory are the baselines.
+POST_MESH = {"dpo": "tensor=2", "grpo": "data=2", "evaluate": "tensor=2"}
+POST_GRPO_STEPS = 2       # 23b's first run; its resume takes one step more
+POST_LOSS_TOL = 2e-2      # 23a, 23b: step 1 against one process (bf16)
+POST_NLL_TOL = 1e-2       # 23c: nll against one process (bf16)
+_POST_REPORT = re.compile(
+    r"process (\d)/2: peak allocated (\S+) GB; flash launches fwd/dq/dkv \((\d+), (\d+), "
+    r"(\d+)\); host-staged collectives (\S+) MB in (\S+) s")
+
+# 23b's first run: the program as `python -m` runs it, its first rollout
+# written beside
+_GRPO_RANK = """
+import json, runpy, sys
+from kubedl_tpu_torch.models import decode
+out, generate = sys.argv[1], decode.generate
+def first(params, prompt, *a, **kw):
+    got = generate(params, prompt, *a, **kw)
+    if not hasattr(first, "done"):
+        first.done = True
+        with open(out, "w") as f:
+            json.dump(got.tolist(), f)
+    return got
+decode.generate = first
+sys.argv = ["kubedl_tpu_torch.train.grpo"] + sys.argv[2:]
+runpy.run_module("kubedl_tpu_torch.train.grpo", run_name="__main__")
+"""
+
+
+def _post_pair(argvs, tag, mesh):
+    """Two ranks of one gloo gang (the operator's env: a loopback
+    coordinator, KUBEDL_NUM_PROCESSES 2, KUBEDL_PROCESS_ID, KUBEDL_MESH),
+    spans exported per rank (POD_NAME <tag>-rank<r>); started."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port, trace = _free_port(), os.path.join(WORK, f"trace-{tag}")
+    shutil.rmtree(trace, ignore_errors=True)
+    logs = [os.path.join(WORK, f"{tag}-rank{r}.log") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable] + argvs[r], cwd=root, stdout=open(logs[r], "w"),
+        stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                 KUBEDL_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", KUBEDL_NUM_PROCESSES="2",
+                 KUBEDL_PROCESS_ID=str(r), KUBEDL_MESH=mesh, KUBEDL_TRACE_DIR=trace,
+                 POD_NAME=f"{tag}-rank{r}")) for r in range(2)]
+    return dict(tag=tag, procs=procs, logs=logs, trace=trace, t0=time.perf_counter())
+
+
+def _post_wait(pair, timeout=600):
+    """Wait for a pair: its exit codes, texts, wall seconds and each rank's
+    spans, gloo backend and report line (launches, staged collectives)."""
+    try:
+        for p in pair["procs"]:
+            p.wait(timeout=max(timeout - (time.perf_counter() - pair["t0"]), 1))
+    finally:
+        for p in pair["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = dict(tag=pair["tag"], wall_s=time.perf_counter() - pair["t0"],
+               rcs=[p.returncode for p in pair["procs"]],
+               texts=[open(x).read() for x in pair["logs"]])
+    if out["rcs"] != [0, 0]:
+        raise AssertionError(f"{pair['tag']}: exits {out['rcs']}:\n" +
+                             "\n".join(t[-2500:] for t in out["texts"]))
+    spans = _trace_spans(pair["trace"])
+    out["ranks"] = []
+    for r, text in enumerate(out["texts"]):
+        backend = re.search(rf"process {r}/2: process group backend (\w+)", text)
+        if backend is None or backend.group(1) != "gloo":
+            # NCCL cannot hold two ranks on one device: no switch
+            raise AssertionError(f"{pair['tag']} rank {r}: backend "
+                                 f"{backend and backend.group(1)}, not gloo")
+        print(backend.group(0), f"({pair['tag']})", flush=True)  # each rank's backend line
+        rep = [m for m in _POST_REPORT.finditer(text) if int(m.group(1)) == r]
+        if not rep:
+            raise AssertionError(f"{pair['tag']} rank {r}: no report line:\n{text[-2000:]}")
+        m = rep[-1]
+        out["ranks"].append(dict(
+            peak_gb=float(m.group(2)), counts=tuple(int(m.group(i)) for i in (3, 4, 5)),
+            staged_mb=float(m.group(6)), staged_s=float(m.group(7)),
+            spans=[sp for sp in spans if sp["service"] == f"{pair['tag']}-rank{r}"]))
+    return out
+
+
+def _post_counts(res, want):
+    for r, rk in enumerate(res["ranks"]):
+        if rk["counts"] != want:
+            raise AssertionError(f"{res['tag']} rank {r}: launches (fwd, dq, dkv) "
+                                 f"{rk['counts']}, expected {want}")
+
+
+def _near(a, b, tol, floor):
+    return abs(a - b) <= tol * max(abs(b), floor)
+
+
+def _23_start(cut, pairs, shard, grpo):
+    """Start 23a (dpo, tensor=2, with a checkpoint) and 23c (evaluate,
+    tensor=2), and on a thread 23b (grpo, data=2, POST_GRPO_STEPS steps
+    with a checkpoint, then a resume for one step more); returns what
+    `_23_finish` waits for."""
+    c, e = G2_DPO, G2_EVAL
+    gloo = ["--backend", "gloo"]
+    ckpt = {k: os.path.join(WORK, f"ckpt-23{k}") for k in "ab"}
+    for d in ckpt.values():
+        shutil.rmtree(d, ignore_errors=True)
+    dpo_argv = ["-m", "kubedl_tpu_torch.train.dpo", "--hf-model", cut, "--data-path", pairs,
+                "--batch", str(c["batch"]), "--seq-len", str(c["seq"]), "--steps",
+                str(c["steps"]), "--log-every", "1", "--lr", "1e-6", "--checkpoint-path",
+                ckpt["a"]] + gloo
+    eval_argv = ["-m", "kubedl_tpu_torch.train.evaluate", "--hf-model", cut, "--data-path",
+                 shard, "--batch", str(e["batch"]), "--seq-len", str(e["seq"]),
+                 "--log-every", "0"] + gloo
+    i = grpo["argv"].index("--checkpoint-path")  # 16a's argv, 16a's checkpoint dropped
+    grpo_argv = grpo["argv"][:i] + grpo["argv"][i + 2:] + ["--checkpoint-path", ckpt["b"]] + gloo
+    rollouts = [os.path.join(WORK, f"23b-rollout{r}.json") for r in range(2)]
+    started = dict(t0=time.perf_counter(), ckpt=ckpt, rollouts=rollouts,
+                   a=_post_pair([dpo_argv] * 2, "23a", POST_MESH["dpo"]),
+                   c=_post_pair([eval_argv] * 2, "23c", POST_MESH["evaluate"]))
+
+    def chain():
+        try:
+            started["b_live"] = _post_pair(
+                [["-c", _GRPO_RANK, rollouts[r], *grpo_argv, "--steps",
+                  str(POST_GRPO_STEPS)] for r in range(2)], "23b", POST_MESH["grpo"])
+            started["b"] = _post_wait(started["b_live"])
+            started["b_live"] = _post_pair(
+                [["-m", "kubedl_tpu_torch.train.grpo", *grpo_argv, "--steps",
+                  str(POST_GRPO_STEPS + 1)]] * 2, "23b-resume", POST_MESH["grpo"])
+            started["b_resume"] = _post_wait(started["b_live"])
+        except BaseException as err:  # noqa: BLE001 -- raised again by _23_finish
+            started["b_error"] = err
+
+    started["thread"] = threading.Thread(target=chain)
+    started["thread"].start()
+    return started
+
+
+def _23_finish(started, cut, one, grpo, smi):
+    """Wait for phase 23's pairs and hold each to one process: 23a's step-1
+    loss and margin against 15d's dpo (POST_LOSS_TOL), 23b's step-1 rollout
+    against 16a's (equal, or parting only at a near-tie) and its step-1
+    loss and grad norm against 16a's (POST_LOSS_TOL), its resume from the
+    sharded checkpoint, 23c's tokens and nll against 15d's evaluate
+    (POST_NLL_TOL); every rank's K1/K2/K3 launches against the counts the
+    shapes imply."""
+    n_layers = G2_GRPO["layers"]
+    try:
+        a = _post_wait(started["a"])
+        ce = _post_wait(started["c"])
+    finally:
+        started["thread"].join()
+    if "b_error" in started:
+        raise started["b_error"]
+    b, br = started["b"], started["b_resume"]
+    wall_s = time.perf_counter() - started["t0"]
+
+    # 23a: dpo on tensor=2
+    steps = re.findall(r"step (\d+): loss=(\S+) margin=(\S+) acc=(\S+)", a["texts"][0])
+    losses, margins = [float(x[1]) for x in steps], [float(x[2]) for x in steps]
+    if len(steps) != G2_DPO["steps"] or re.search(r"step \d+: loss=", a["texts"][1]):
+        raise AssertionError(f"23a: step lines {steps} (rank 0 alone prints them)")
+    want_l, want_m = one["dpo_losses"][0], one["dpo_margins"][0]
+    if not (_near(losses[0], want_l, POST_LOSS_TOL, 1e-3) and
+            _near(margins[0], want_m, POST_LOSS_TOL, 1e-3)):
+        raise AssertionError(f"23a: step 1 loss {losses[0]} margin {margins[0]} against one "
+                             f"process's {want_l} {want_m}")
+    if f"saved policy checkpoint at step {G2_DPO['steps']}" not in a["texts"][0] or \
+            not os.path.isdir(os.path.join(started["ckpt"]["a"], str(G2_DPO["steps"]))):
+        raise AssertionError("23a: no sharded checkpoint")
+    _post_counts(a, _dpo_launches(n_layers))
+    a_step_s = [[sp["dur"] for sp in sorted(rk["spans"], key=lambda sp: sp["attrs"]["step"])
+                 if sp["name"] == "dpo.step"] for rk in a["ranks"]]
+
+    # 23b: grpo on data=2, then the resume
+    got = [json.load(open(x)) for x in started["rollouts"]]
+    if got[0] != got[1]:
+        raise AssertionError("23b: the two ranks rolled out different tokens")
+    want_roll = grpo["rollout1"]
+    splits = []
+    if got[0] != want_roll:
+        from kubedl_tpu_torch.models.import_hf import load_hf
+
+        params, config = load_hf(cut, device="cuda")
+        prompts = [p[:G2_GRPO["prompt_len"]] for p in grpo["prompts1"]]
+        splits = _near_ties_only(params, config, prompts, want_roll, got[0],
+                                 "23b rollout against 16a's")
+        del params
+    ups = [sorted((sp for sp in rk["spans"] if sp["name"] == "grpo.update"),
+                  key=lambda sp: sp["attrs"]["step"]) for rk in b["ranks"]]
+    if any(len(u) != POST_GRPO_STEPS for u in ups) or \
+            any(u0["attrs"]["loss"] != u1["attrs"]["loss"] for u0, u1 in zip(*ups)):
+        raise AssertionError(f"23b: updates {[[sp['attrs'] for sp in u] for u in ups]}")
+    loss1, gn1 = ups[0][0]["attrs"]["loss"], ups[0][0]["attrs"]["grad_norm"]
+    if not (_near(loss1, grpo["loss1"], POST_LOSS_TOL, 1e-3) and
+            _near(gn1, grpo["grad_norms"][0], POST_LOSS_TOL, 1e-3)):
+        raise AssertionError(f"23b: step 1 loss {loss1} grad_norm {gn1} against one "
+                             f"process's {grpo['loss1']} {grpo['grad_norms'][0]}")
+    if f"restored policy checkpoint at step {POST_GRPO_STEPS}" not in br["texts"][0] or \
+            f"step {POST_GRPO_STEPS + 1}: reward=" not in br["texts"][0]:
+        raise AssertionError(f"23b: the resume did not restore step {POST_GRPO_STEPS}:\n"
+                             f"{br['texts'][0][-2000:]}")
+    per_step = (4 * n_layers, n_layers, n_layers)  # rollout prefill, reference, policy x2
+    _post_counts(b, tuple(POST_GRPO_STEPS * x for x in per_step))
+    _post_counts(br, per_step)
+    b_up_s = [[sp["dur"] for sp in u] for u in ups]
+    b_roll_s = [[sp["dur"] for sp in rk["spans"] if sp["name"] == "grpo.rollout"]
+                for rk in b["ranks"]]
+
+    # 23c: evaluate on tensor=2
+    lines = [ln for ln in ce["texts"][0].splitlines() if '"eval_perplexity"' in ln]
+    if not lines or '"eval_perplexity"' in ce["texts"][1]:
+        raise AssertionError(f"23c: JSON lines {lines} (rank 0 alone prints one)")
+    line, want = json.loads(lines[-1]), one["eval"]
+    if line["tokens"] != want["tokens"] or not _near(line["nll"], want["nll"], POST_NLL_TOL,
+                                                     0.0):
+        raise AssertionError(f"23c: {line} against one process's {want}")
+    _post_counts(ce, (G2_EVAL["batches"] * n_layers, 0, 0))
+
+    def ranks(res, key, fmt):
+        return " / ".join(fmt.format(rk[key]) for rk in res["ranks"])
+
+    def staged(res):
+        return " / ".join(f"{rk['staged_mb']:.1f} MB in {rk['staged_s']:.3f} s"
+                          for rk in res["ranks"])
+
+    print(f"23a dpo pair [{smi}]: dpo --hf-model (Gemma-2-2B's widths, {n_layers} of 26 "
+          f"layers) on {POST_MESH['dpo']}, two processes sharing the card over gloo, "
+          f"{G2_DPO['steps']} steps of {G2_DPO['batch']} pairs x {G2_DPO['seq']} tokens and a "
+          f"sharded checkpoint in {a['wall_s']:.1f} s (start-up included): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, margins "
+          f"{', '.join(f'{x:.3f}' for x in margins)}; step 1 against one process's "
+          f"{want_l:.4f} / {want_m:.3f}; steps s rank 0 "
+          f"{', '.join(f'{x:.3f}' for x in a_step_s[0])}, rank 1 "
+          f"{', '.join(f'{x:.3f}' for x in a_step_s[1])} (one process "
+          f"{', '.join(f'{x:.3f}' for x in one['dpo_step_s'])}); host-staged collectives "
+          f"{staged(a)}; peak {ranks(a, 'peak_gb', '{:.2f}')} GB; K1/K2/K3 launches a rank "
+          f"{ranks(a, 'counts', '{}')}", flush=True)
+    print(f"23b grpo pair [{smi}]: grpo --hf-model on {POST_MESH['grpo']}, {G2_GRPO['B']} "
+          f"prompts x {G2_GRPO['G']} samples x {G2_GRPO['K']} new tokens, "
+          f"{POST_GRPO_STEPS} steps with a sharded checkpoint in {b['wall_s']:.1f} s, resumed "
+          f"for step {POST_GRPO_STEPS + 1} in {br['wall_s']:.1f} s: step-1 rollout "
+          f"{'equal to' if not splits else f'parting at near-ties {splits} from'} 16a's on "
+          f"both ranks; step-1 loss {loss1:.6f} grad_norm {gn1:.4f} against one process's "
+          f"{grpo['loss1']:.6f} {grpo['grad_norms'][0]:.4f}; update s rank 0 "
+          f"{', '.join(f'{x:.3f}' for x in b_up_s[0])}, rank 1 "
+          f"{', '.join(f'{x:.3f}' for x in b_up_s[1])} (one process "
+          f"{', '.join(f'{x:.3f}' for x in grpo['update_s'][:POST_GRPO_STEPS])}); rollout s "
+          f"rank 0 {', '.join(f'{x:.2f}' for x in b_roll_s[0])}; host-staged collectives "
+          f"{staged(b)}; peak {ranks(b, 'peak_gb', '{:.2f}')} GB; K1/K2/K3 launches a rank "
+          f"{ranks(b, 'counts', '{}')} + resume {ranks(br, 'counts', '{}')}", flush=True)
+    print(f"23c evaluate pair [{smi}]: evaluate --hf-model on {POST_MESH['evaluate']} in "
+          f"{ce['wall_s']:.1f} s: {json.dumps(line)} against one process's nll "
+          f"{want['nll']:.6f}, {want['tokens_per_sec']:.0f} tok/s; host-staged collectives "
+          f"{staged(ce)}; peak {ranks(ce, 'peak_gb', '{:.2f}')} GB; K1 launches a rank "
+          f"{ranks(ce, 'counts', '{}')}; phase 23 from its start {wall_s:.1f} s", flush=True)
+    for d in started["ckpt"].values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def launches(res, tag):
+        return {f"gemma2_{tag}_rank{r}": rk["counts"] for r, rk in enumerate(res["ranks"])}
+    return dict(wall_s=wall_s, dpo_losses=losses, dpo_margins=margins, dpo_step_s=a_step_s,
+                grpo_loss1=loss1, grpo_grad_norm1=gn1, grpo_splits=splits,
+                grpo_update_s=b_up_s, grpo_rollout_s=b_roll_s, eval=line,
+                staged={res["tag"]: [(rk["staged_mb"], rk["staged_s"]) for rk in res["ranks"]]
+                        for res in (a, b, br, ce)},
+                peak_gb={res["tag"]: [rk["peak_gb"] for rk in res["ranks"]]
+                         for res in (a, b, br, ce)},
+                pair_s={res["tag"]: res["wall_s"] for res in (a, b, br, ce)},
+                launches={**launches(a, "dpo_tensor2"), **launches(b, "grpo_data2"),
+                          **launches(br, "grpo_data2_resume"),
+                          **launches(ce, "eval_tensor2")})
 
 
 def phase_gemma2(smi):
     """15: Gemma-2-2B from a local Hugging Face directory through the d 256
     kernels: a) write and load it, prefill; b) generate and serve; c) the
-    trainer; d) dpo and evaluate. The directory is removed after."""
+    trainer; then a directory of its config cut to G2_GRPO's layers for d)
+    dpo and evaluate, phase 16, phase 23's pairs and 17b. The directories
+    are removed after."""
     import tempfile
 
     os.makedirs(WORK, exist_ok=True)
     path = tempfile.mkdtemp(prefix="gemma-2-2b-", dir=WORK)
-    out, cut = {}, None
+    out, cut, started = {}, None, None
     try:
         out["a_load"] = _15a_load(path, smi)
         _free("15a")
@@ -4162,22 +4512,45 @@ def phase_gemma2(smi):
         _free("15b")
         out["c_train"] = _15c_train(path, smi)
         _free("15c")
-        out["d_dpo_eval"] = _15d_dpo_eval(path, smi)
-        _free("15d")
-        # phases 16 and 17b: Gemma-2-2B's config cut to G2_GRPO's layers,
-        # a directory of its own, seeded as this one
+        shutil.rmtree(path, ignore_errors=True)
+        # 15d, 16, 17b and 23: Gemma-2-2B's config cut to G2_GRPO's layers,
+        # a directory of its own, seeded as the full one
         n_layers = G2_GRPO["layers"]
         cut = tempfile.mkdtemp(prefix="gemma-2-2b-grpo-", dir=WORK)
         write_hf_checkpoint(cut, dict(GEMMA2_2B, num_hidden_layers=n_layers,
                                       layer_types=GEMMA2_2B["layer_types"][:n_layers]))
-        out["rl"] = _phase("16 RL: GRPO, the fleet and the pods", phase_rl, cut, smi)
-        _free("16")
+        pairs, shard = _15d_data(cut)
+        out["d_dpo_eval"] = _15d_dpo_eval(cut, smi, pairs, shard)
+        _free("15d")
+
+        def start_23(grpo):
+            nonlocal started
+            started = _23_start(cut, pairs, shard, grpo)
+            return started
+
+        out["rl"] = _phase("16 RL: GRPO, the fleet and the pods (23's pairs beside 16b, 16c, 17d)",
+                           phase_rl, cut, smi, start_23)
+        out["post"] = _phase("23 post-training under a mesh: dpo, grpo and evaluate as gloo "
+                             "pairs (the rest of it)", _23_finish, out["rl"].pop("beside"),
+                             cut, out["d_dpo_eval"], out["rl"]["a_grpo"], smi)
+        started = None
+        _free("16 and 23")
         out["rollout"] = _phase("17b serving-plane rollout at d 256", _17b_rollout, cut, smi)
     finally:
+        if started is not None:  # a failure before 23 finished: its pairs go
+            for k in "ac":
+                for proc in started[k]["procs"]:
+                    if proc.poll() is None:
+                        proc.kill()
+            started["thread"].join(timeout=5)
+            for proc in started.get("b_live", {}).get("procs", []):
+                if proc.poll() is None:
+                    proc.kill()
+            started["thread"].join()
         shutil.rmtree(path, ignore_errors=True)
         if cut is not None:
             shutil.rmtree(cut, ignore_errors=True)
-    d = out["d_dpo_eval"]
+    d, post = out["d_dpo_eval"], out["post"]["launches"]
     g, f = out["rl"]["a_grpo"]["launches"], out["rl"]["b_fleet"]["launches"]
     out["launches"] = {"fwd": {"gemma2_prefill": out["a_load"]["launches"],
                                "gemma2_serving": out["b_serve"]["launches"],
@@ -4185,13 +4558,16 @@ def phase_gemma2(smi):
                                "gemma2_dpo": d["dpo_launches"][0],
                                "gemma2_eval": d["eval_launches"],
                                "gemma2_grpo": g[0], "gemma2_rl_fleet": f[0],
-                               "gemma2_serving_rollout": out["rollout"]["launches"]},
+                               "gemma2_serving_rollout": out["rollout"]["launches"],
+                               **{k: v[0] for k, v in post.items()}},
                        "dq": {"gemma2_train": out["c_train"]["launches"][1],
                               "gemma2_dpo": d["dpo_launches"][1],
-                              "gemma2_grpo": g[1], "gemma2_rl_fleet": f[1]},
+                              "gemma2_grpo": g[1], "gemma2_rl_fleet": f[1],
+                              **{k: v[1] for k, v in post.items() if v[1]}},
                        "dkv": {"gemma2_train": out["c_train"]["launches"][2],
                                "gemma2_dpo": d["dpo_launches"][2],
-                               "gemma2_grpo": g[2], "gemma2_rl_fleet": f[2]}}
+                               "gemma2_grpo": g[2], "gemma2_rl_fleet": f[2],
+                               **{k: v[2] for k, v in post.items() if v[2]}}}
     return out
 
 
@@ -4539,17 +4915,18 @@ def _17b_rollout(path, smi):
 DISAGG_LAYERS = 8
 
 
-def phase_disagg(smi, rollout):
+def phase_disagg(smi, rollout, d_pods=None):
     """17: a) the facade on Llama-7B against the monolithic engine, and the
     paged pool's concurrency; c) the router across pods over loopback
-    sockets with a drain; d) rl_pod over sockets with the serving engine.
+    sockets with a drain; d) rl_pod over sockets with the serving engine,
+    unless `d_pods` holds its numbers (run in phase 16, beside phase 23).
     (b), the rollout at d 256, ran inside phase 15 on its directory."""
     out = {"b_rollout": rollout}
     out["a_facade"], params, config, every, want = _phase("17a", _17a_facade, smi)
     out["c_router"] = _phase("17c", _17c_router, params, config, every, want, smi)
     del params
     _free("17a-c")
-    out["d_pods"] = _phase("17d", _16c_pods, smi, "socket")
+    out["d_pods"] = d_pods or _phase("17d", _16c_pods, smi, "socket")
     return out
 
 
@@ -6132,7 +6509,7 @@ def main(argv=None) -> int:
     _free("Gemma-2")
     rl = gemma.pop("rl")
     disagg = _phase("17 the disaggregated serving plane and the socket plane (a, c, d)",
-                    phase_disagg, smi, gemma.pop("rollout"))
+                    phase_disagg, smi, gemma.pop("rollout"), rl.pop("d_socket_pods", None))
     _free("the serving plane")
     workloads = _phase("18 the workload programs: ViT-B/16, the sparse CTR model, MNIST",
                        phase_workloads, smi)
@@ -6395,6 +6772,18 @@ def main(argv=None) -> int:
                               "peak_gb": [r["peak_gb"] for r in rc2["ranks"]],
                               "launches": [r["counts"] for r in rc2["ranks"]]}}}),
         flush=True)
+    pt = gemma["post"]
+    print(json.dumps({"post_training": {
+        "gemma2_2l_pairs": {k: pt[k] for k in ("wall_s", "pair_s", "dpo_losses", "dpo_step_s",
+                                                "grpo_loss1", "grpo_grad_norm1", "grpo_splits",
+                                                "grpo_update_s", "grpo_rollout_s", "eval",
+                                                "staged", "peak_gb", "launches")},
+        "gemma2_2l_one_process": {"dpo_losses": gemma["d_dpo_eval"]["dpo_losses"],
+                                  "dpo_step_s": gemma["d_dpo_eval"]["dpo_step_s"],
+                                  "eval": gemma["d_dpo_eval"]["eval"],
+                                  "grpo_loss1": rl["a_grpo"]["loss1"],
+                                  "grpo_update_s": rl["a_grpo"]["update_s"]}},
+        "device": smi}), flush=True)
     sa, gc_ = async_["a_saves"], async_["c_gangs"]
     print(json.dumps({"async_checkpoints": {
         "bench1b_saves": {k: sa[k] for k in ("state_gb", "pin_s", "stall_ms", "overlap_step_ms",

@@ -461,8 +461,12 @@ def prefill_chunked(params: Dict, tokens, cache: Dict, config: LlamaConfig,
 
 def _categorical(logits, generator: Optional[torch.Generator]):
     """One draw per row from softmax(logits) by the Gumbel-max trick
-    (-log of an Exp(1) draw is Gumbel); -inf logits are never drawn."""
-    e = torch.empty_like(logits, dtype=torch.float32).exponential_(generator=generator)
+    (-log of an Exp(1) draw is Gumbel); -inf logits are never drawn. The
+    noise is drawn in row-major order whatever the logits' strides (logits
+    gathered over a tensor axis are not contiguous), so a mesh draws one
+    device's tokens."""
+    e = torch.empty(logits.shape, dtype=torch.float32,
+                    device=logits.device).exponential_(generator=generator)
     return (logits.float() - torch.log(e)).argmax(dim=-1)
 
 
@@ -481,15 +485,13 @@ def generate(params: Dict, prompt, config: LlamaConfig, max_new_tokens: int,
 
     with_logprobs=True also returns [b, max_new_tokens] f32 log-probs of
     each emitted token under the untempered distribution (log_softmax of
-    the logits that picked it)."""
+    the logits that picked it; under a mesh those logits are already
+    gathered over the tensor axis, the same on every rank)."""
     b, t = prompt.shape
     max_len = max_len or (t + max_new_tokens)
     if t + max_new_tokens > max_len:
         raise ValueError(f"prompt {t} + {max_new_tokens} new tokens exceeds "
                          f"max_len {max_len}")
-    if with_logprobs and mesh is not None:
-        raise NotImplementedError("generate(with_logprobs=True) under a mesh is not "
-                                  "ported to kubedl_tpu_torch yet (ROADMAP.md)")
     local, par = _mesh_context(params, config, mesh, rules)
     cache = init_kv_cache(config, b, max_len, uniform=lengths is None,
                           kv_dtype=kv_dtype, device=prompt.device, mesh=mesh, rules=rules)

@@ -784,10 +784,11 @@ def _next_token_ce_chunked(x, params, config: LlamaConfig, targets, n_chunks: in
     return (big_m + torch.log(big_l) - tgt).mean()
 
 
-def _sharded_ce(logits, targets, par: _Par):
-    """_next_token_ce over logits whose vocabulary is sharded over the
-    tensor axis: the max, the sum of exponentials and the target's logit
-    are combined across the shards."""
+def sharded_target_logprobs(logits, targets, par: _Par):
+    """log p(targets) at each position [..] from logits [.., vocab shard]
+    whose vocabulary is sharded over the tensor axis: the max, the sum of
+    exponentials and the target's logit (from the shard that holds it) are
+    combined across the shards."""
     vl = logits.shape[-1]
     m = collectives.pmax(logits.amax(dim=-1), par.mesh, par.tp)
     se = par.psum(torch.exp(logits - m[..., None]).sum(dim=-1))
@@ -795,7 +796,13 @@ def _sharded_ce(logits, targets, par: _Par):
     inside = (ids >= 0) & (ids < vl)
     tl = torch.gather(logits, -1, ids.clamp(0, vl - 1)[..., None])[..., 0]
     tl = par.psum(torch.where(inside, tl, tl.new_zeros(())))
-    return (torch.log(se) + m - tl).mean()
+    return tl - (torch.log(se) + m)
+
+
+def _sharded_ce(logits, targets, par: _Par):
+    """_next_token_ce over logits whose vocabulary is sharded over the
+    tensor axis."""
+    return -sharded_target_logprobs(logits, targets, par).mean()
 
 
 def loss_fn(params, tokens, config: LlamaConfig, mesh=None, rules=None):

@@ -24,11 +24,14 @@ swaps sequence for heads with `all_to_all_tiled` (ops/ulysses.py).
 
 A group whose backend is gloo carries host tensors: every collective here
 stages a CUDA tensor through the host on such a group (several processes
-sharing one card can only form a gloo group), and counts the bytes it
-copies each way in `staged_bytes`. NCCL groups take the tensor as it is.
+sharing one card can only form a gloo group), counts the bytes it copies
+each way in `staged_bytes`, and the seconds from the host copy's arrival
+(the device's queued work done) to the result's return to the card in
+`staged_s`. NCCL groups take the tensor as it is.
 """
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import torch
@@ -38,9 +41,11 @@ from kubedl_tpu_torch.parallel.mesh import axis_size, live_axes
 
 
 # bytes copied between a card and the host for collectives on gloo groups
-# (device to host plus host to device), since the process started or the
-# caller last set it to 0
+# (device to host plus host to device), and the seconds those collectives
+# took once their input reached the host, since the process started or the
+# caller last set them to 0
 staged_bytes = 0
+staged_s = 0.0
 
 
 def _groups(mesh, axes: Sequence[str]):
@@ -59,10 +64,13 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().cpu()
 
 
-def _to_device(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    global staged_bytes
+def _to_device(x: torch.Tensor, like: torch.Tensor, t0: float) -> torch.Tensor:
+    """x back on `like`'s card; `t0` is when x's staged collective began."""
+    global staged_bytes, staged_s
     staged_bytes += x.numel() * x.element_size()
-    return x.to(like.device)
+    out = x.to(like.device)
+    staged_s += time.perf_counter() - t0
+    return out
 
 
 def _all_reduce(x, groups, op=dist.ReduceOp.SUM):
@@ -70,8 +78,9 @@ def _all_reduce(x, groups, op=dist.ReduceOp.SUM):
     for g in groups:
         if _staged(x, g):
             h = _to_host(x)
+            t0 = time.perf_counter()
             dist.all_reduce(h, op=op, group=g)
-            x.copy_(_to_device(h, x))
+            x.copy_(_to_device(h, x, t0))
         else:
             dist.all_reduce(x, op=op, group=g)
     return x
@@ -81,27 +90,30 @@ def _gather(x, g):
     n = dist.get_world_size(g)
     staged = _staged(x, g)
     src = _to_host(x) if staged else x.contiguous()
+    t0 = time.perf_counter()
     out = src.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=g)
-    return _to_device(out, x) if staged else out
+    return _to_device(out, x, t0) if staged else out
 
 
 def _reduce_scatter(x, g):
     n = dist.get_world_size(g)
     staged = _staged(x, g)
     src = _to_host(x) if staged else x.contiguous()
+    t0 = time.perf_counter()
     out = src.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=g)
-    return _to_device(out, x) if staged else out
+    return _to_device(out, x, t0) if staged else out
 
 
 def _all_to_all(x, g):
     """Block i of x [n, ...] to rank i of `g`; block i of the result from rank i."""
     if _staged(x, g):
         h = _to_host(x)
+        t0 = time.perf_counter()
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=g)
-        return _to_device(out, x)
+        return _to_device(out, x, t0)
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=g)
@@ -249,12 +261,13 @@ def _permute(x, group, perm):
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out, _peer(group, src), group))
             got = True
+    t0 = time.perf_counter()
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     if not staged:
         return out
-    return _to_device(out, x) if got else out.to(x.device)
+    return _to_device(out, x, t0) if got else out.to(x.device)
 
 
 class _Ppermute(torch.autograd.Function):
@@ -274,8 +287,9 @@ class _Broadcast(torch.autograd.Function):
         ctx.keep = dist.get_rank(group) == src
         if _staged(x, group):
             h = _to_host(x)
+            t0 = time.perf_counter()
             dist.broadcast(h, src=_peer(group, src), group=group)
-            return _to_device(h, x)
+            return _to_device(h, x, t0)
         out = x.contiguous().clone()
         dist.broadcast(out, src=_peer(group, src), group=group)
         return out

@@ -305,6 +305,21 @@ def token_index(mesh, rules: ShardingRules) -> Tuple[int, int]:
     return axes_index(mesh, axes), axes_size(mesh, axes)
 
 
+def token_rows(n_rows: int, mesh, rules: ShardingRules) -> slice:
+    """The rows of a global batch of `n_rows` that this rank's token block
+    holds (equal blocks in block order; ranks of one block, such as tensor
+    peers, hold the same rows); all of them without a mesh. Raises
+    ValueError when the rows do not split over the blocks."""
+    if mesh is None:
+        return slice(0, n_rows)
+    i, n = token_index(mesh, rules)
+    if n_rows % n:
+        raise ValueError(f"a global batch of {n_rows} rows does not split over the "
+                         f"mesh's {n} token blocks")
+    w = n_rows // n
+    return slice(i * w, (i + 1) * w)
+
+
 def seq_index(mesh, rules: ShardingRules) -> Tuple[int, int]:
     """(this rank's block of the sequence, the number of blocks): its
     coordinate over the live `seq` axes (context)."""

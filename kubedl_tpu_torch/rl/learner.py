@@ -19,7 +19,11 @@ ordered by (actor, seq), not by arrival, so the update is the same
 whichever actor's group came first. Behavior logprobs
 come FROM the trajectories (sampling-time capture);
 ``use_behavior_logprobs=False`` falls back to the strictly-on-policy
-detached form.
+detached form. Given a mesh (one device a process, parallel/mesh.py), the
+step is sharded over it: the policy and the reference are laid out by
+`llama.param_specs`, each rank trains on its token block's rows of the
+batch (`token_rows`; advantages come from the whole batch's groups), and
+a broadcast publishes the gathered tensors.
 
 Waiting on an empty queue is actor-starved time (rl.idle span,
 cause=actor_starved): a fleet whose wall time pools there needs more or
@@ -36,7 +40,7 @@ import numpy as np
 
 import torch
 
-from kubedl_tpu_torch.models.llama import tree_leaves
+from kubedl_tpu_torch.models.llama import tree_leaves, tree_map
 from kubedl_tpu_torch.rl.metrics import rl_metrics
 from kubedl_tpu_torch.rl.trajectory import TrajectoryConsumer
 from kubedl_tpu_torch.rl.weights import WeightBroadcaster
@@ -84,6 +88,7 @@ class LearnerRuntime:
         tracer=None,
     ) -> None:
         from kubedl_tpu_torch.parallel import optim
+        from kubedl_tpu_torch.parallel.mesh import ShardingRules
         from kubedl_tpu_torch.train.rl import make_grpo_step
 
         self.config = config
@@ -92,12 +97,13 @@ class LearnerRuntime:
         self.broadcaster = broadcaster
         self.tracer = tracer
         self.stats = LearnerStats()
-        self.mesh = mesh  # a mesh is refused by make_grpo_step (ROADMAP.md)
+        self.rules = ShardingRules()
+        self.mesh = mesh
         tx = optim.adamw(cfg.lr, weight_decay=0.0)
         if cfg.grad_clip > 0:
             tx = optim.chain(optim.clip_by_global_norm(cfg.grad_clip), tx)
         init_state, self._lp_fn, self._ref_fn, self._step = make_grpo_step(
-            base_params, config, tx, mesh, clip_eps=cfg.clip_eps,
+            base_params, config, tx, mesh, rules=self.rules, clip_eps=cfg.clip_eps,
             kl_coef=cfg.kl_coef, use_old_logprobs=cfg.use_behavior_logprobs,
         )
         # trains the tree it is given, in place (make_train_step)
@@ -158,6 +164,7 @@ class LearnerRuntime:
 
     def train_step(self, groups) -> Dict:
         """One GRPO update over B trajectory groups (B*G sequences)."""
+        from kubedl_tpu_torch.parallel.mesh import token_rows
         from kubedl_tpu_torch.train.rl import group_advantages
 
         # one order for the batch's rows whichever actor's group arrived
@@ -175,15 +182,19 @@ class LearnerRuntime:
                     f"trajectory group of {t.tokens.shape[0]} != "
                     f"configured group size {G}")
 
+        # with a mesh, this rank's token block of the B*G rows; the
+        # advantages are the whole batch's groups first
+        mine = token_rows(B * G, self.mesh, self.rules)
+
         def on_device(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a[mine])).to(self.device)
 
         tokens = np.concatenate([t.tokens for t in groups])      # [B*G, T]
         prompt_lens = np.repeat(
             np.array([t.prompt_len for t in groups], np.int32), G)
         seq_lens = np.concatenate([t.seq_lens for t in groups])
         rewards = np.stack([t.rewards for t in groups])          # [B, G]
-        adv = group_advantages(rewards).reshape(B * G).to(self.device)
+        adv = group_advantages(rewards).reshape(B * G)[mine].to(self.device)
         lp_batch = (on_device(tokens), on_device(prompt_lens), on_device(seq_lens))
         t0 = time.perf_counter()
         ref_lp = self._ref_fn(lp_batch)
@@ -211,7 +222,11 @@ class LearnerRuntime:
         if step % max(self.cfg.broadcast_interval, 1):
             return
         t0 = time.perf_counter()
-        version, _ = self.broadcaster.publish(self.state.params, step)
+        params = self.state.params
+        if self.mesh is not None:  # the actors take whole tensors
+            params = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t,
+                              params)
+        version, _ = self.broadcaster.publish(params, step)
         sync_s = time.perf_counter() - t0
         self.stats.weight_sync_s += sync_s
         rl_metrics.on_weights_published(self.cfg.job, version)

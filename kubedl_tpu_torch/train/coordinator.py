@@ -96,3 +96,23 @@ def initialize(info: Optional[ProcessInfo] = None, backend: str = "gloo") -> Pro
     log.info("torch.distributed initialized: %d/%d via %s (%s)",
              info.process_id, info.num_processes, addr, backend)
     return info
+
+
+def join_gang(info: ProcessInfo, device, backend: Optional[str] = None):
+    """The post-training programs' start (train/dpo.py, grpo.py,
+    evaluate.py), once KUBEDL_MESH was checked against the gang: join the
+    group and build its mesh from KUBEDL_MESH, one device a process.
+    Returns (mesh, rank, world), or (None, 0, 1) for a process that joins
+    no group. `backend` defaults to nccl on a card and gloo on the CPU;
+    processes sharing one card need gloo. Each rank says its backend."""
+    import torch.distributed as dist
+
+    initialize(info, backend=backend or ("nccl" if device.type == "cuda" else "gloo"))
+    if not dist.is_initialized():
+        return None, 0, 1
+    from kubedl_tpu_torch.parallel.mesh import build_mesh_from_env
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = build_mesh_from_env(world, device.type)
+    print(f"process {rank}/{world}: process group backend {dist.get_backend()}", flush=True)
+    return mesh, rank, world

@@ -1,5 +1,5 @@
 """DPO post-training workload: preference pairs in, an aligned policy out
-(kubedl_tpu/train/dpo.py), on one device.
+(kubedl_tpu/train/dpo.py), on one device or as a gang.
 
     python -m kubedl_tpu_torch.train.dpo --hf-model DIR --data-path pairs.jsonl
 
@@ -7,7 +7,8 @@ Reads JSONL preference data, runs the DPO step (train/preference.py),
 checkpoints the whole policy TrainState (train/checkpoint.py, so generate
 and serve restore it with the ordinary --checkpoint-path, and a rerun
 resumes from the newest step), and logs the implicit reward margin and
-the preference accuracy. One JSON object a line:
+the preference accuracy (with KUBEDL_TRACE_DIR set, each step is a
+dpo.step span carrying its metrics). One JSON object a line:
 
     {"prompt": [ids...], "chosen": [ids...], "rejected": [ids...]}
 
@@ -17,7 +18,17 @@ right-padded to --seq-len (prompt and the longer continuation must fit).
 The frozen reference is the starting policy: the base weights of
 --hf-model, --ref-checkpoint-path or a fresh init; its logprobs are
 computed once per batch and kept. It runs on the card unless --device cpu
-is given; KUBEDL_MESH may ask for no more than this one device (exit 2).
+is given.
+
+As a gang (KUBEDL_COORDINATOR_ADDRESS, KUBEDL_NUM_PROCESSES,
+KUBEDL_PROCESS_ID), one device a process, the step is sharded over
+KUBEDL_MESH (train/preference.py): the global batch is --batch pairs, each
+token block training on its share of them (--batch must divide by the
+number of blocks), and the checkpoint is sharded (train/checkpoint.py). A
+mesh whose size is not the gang's exits 2. --backend gloo lets processes
+share one card. Every rank computes the same global metrics; rank 0
+prints. SIGTERM to any rank stops the whole gang at the next step: the
+state is saved there and every rank exits 113, and a rerun resumes.
 """
 from __future__ import annotations
 
@@ -57,6 +68,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="the gang's process group (default nccl on a card, gloo on "
+                        "the CPU; gloo for processes sharing one card)")
     return p.parse_args(argv)
 
 
@@ -104,24 +118,57 @@ def load_pairs(path: str, seq_len: int, tokenizer=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    import math
+    import signal
+
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, token_axes
+    from kubedl_tpu_torch.train import coordinator
+    from kubedl_tpu_torch.train.trainer import _gang_mesh
+
+    info = coordinator.process_info()
+    axes, refused = _gang_mesh(info)
+    rules = ShardingRules()
+    n_blocks = math.prod(axes[a] for a in token_axes(rules)) if axes else 1
+    if not refused and args.batch % n_blocks:
+        refused = (f"--batch {args.batch} pairs do not split over the mesh's {n_blocks} "
+                   f"token blocks {axes}: --batch must divide by them")
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+
+    # SIGTERM flips a flag the gang agrees on at each step; the previous
+    # handler comes back when main returns
+    preempted = {"flag": False}
+
+    def on_sigterm(signum, frame):
+        preempted["flag"] = True
+
+    prev = signal.signal(signal.SIGTERM, on_sigterm)
+    try:
+        return _run(args, info, axes, rules, preempted)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def _run(args, info, axes, rules, preempted) -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.obs.trace import tracer_from_env
     from kubedl_tpu_torch.parallel import optim
-    from kubedl_tpu_torch.parallel.mesh import mesh_from_env
+    from kubedl_tpu_torch.parallel.mesh import token_rows
+    from kubedl_tpu_torch.train import coordinator
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
     from kubedl_tpu_torch.train.generate import load_tokenizer, restore_or_init
     from kubedl_tpu_torch.train.preference import make_dpo_step
-    from kubedl_tpu_torch.utils.device import resolve_device
+    from kubedl_tpu_torch.utils.device import gang_report, process_device
+    from kubedl_tpu_torch.utils.exit_codes import EXIT_TPU_PREEMPTED
 
-    try:
-        axes = mesh_from_env(1)
-    except ValueError as e:
-        print(f"{e} (DPO runs on one device; a mesh is not ported yet, ROADMAP.md)",
-              file=sys.stderr)
-        return 2
-    dev = resolve_device(args.device)
+    dev = process_device(args.device)  # current before NCCL binds to it
+    mesh, rank, world = coordinator.join_gang(info, dev, args.backend)
+    say = print if rank == 0 else (lambda *a, **kw: None)
     tokenizer = None
     if args.hf_model:
         from kubedl_tpu_torch.models.import_hf import load_hf
@@ -136,12 +183,12 @@ def main(argv=None) -> int:
             seed=args.seed, label="base", device=dev)
         if base is None:
             return 1
-    print(f"mesh: {axes} model={args.hf_model or args.model} beta={args.beta}", flush=True)
+    say(f"mesh: {axes} model={args.hf_model or args.model} beta={args.beta}", flush=True)
 
     tx = optim.adamw(args.lr, weight_decay=0.0)
     if args.grad_clip > 0:
         tx = optim.chain(optim.clip_by_global_norm(args.grad_clip), tx)
-    init_state, ref_fn, step = make_dpo_step(base, config, tx, beta=args.beta,
+    init_state, ref_fn, step = make_dpo_step(base, config, tx, mesh, rules, beta=args.beta,
                                              accum_steps=args.accum_steps)
     state = init_state(base)
     del base
@@ -151,7 +198,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     if args.data_path:
         tokens, plens, slens = load_pairs(args.data_path, args.seq_len, tokenizer=tokenizer)
-        print(f"data: {len(tokens)} pairs from {args.data_path}", flush=True)
+        say(f"data: {len(tokens)} pairs from {args.data_path}", flush=True)
     else:
         n = max(args.batch * 4, 32)
         tokens = rng.integers(1, config.vocab_size, (n, 2, args.seq_len)).astype(np.int32)
@@ -159,7 +206,7 @@ def main(argv=None) -> int:
         slens = rng.integers(args.seq_len // 2, args.seq_len + 1, (n, 2)).astype(np.int32)
         for i in range(n):  # a shared prompt across each pair
             tokens[i, 1, :plens[i]] = tokens[i, 0, :plens[i]]
-        print(f"data: {n} synthetic pairs (no --data-path)", flush=True)
+        say(f"data: {n} synthetic pairs (no --data-path)", flush=True)
 
     mngr = None
     start_step = 0
@@ -170,7 +217,20 @@ def main(argv=None) -> int:
             # preemption resume: pick the schedule up where it stopped
             state = mngr.restore(latest, state)
             start_step = latest
-            print(f"restored policy checkpoint at step {start_step}", flush=True)
+            say(f"restored policy checkpoint at step {start_step}", flush=True)
+
+    # the SIGTERM flag, agreed over a host group so the check never waits
+    # on the device
+    flag_group = dist.new_group(backend="gloo") if world > 1 else None
+
+    def stop_now() -> bool:
+        if flag_group is None:
+            return preempted["flag"]
+        v = torch.tensor([int(preempted["flag"])])
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(v.item())
+
+    mine = token_rows(args.batch, mesh, rules)  # this rank's pairs of each batch
 
     def on_device(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -178,25 +238,41 @@ def main(argv=None) -> int:
     n_pairs = len(tokens)
     order = rng.permutation(n_pairs)
     ref_cache = {}
+    tracer = tracer_from_env()
     t0 = time.time()
-    for it in range(start_step + 1, args.steps + 1):
-        lo = ((it - 1) * args.batch) % n_pairs
-        idx = np.take(order, range(lo, lo + args.batch), mode="wrap")
-        batch = (on_device(tokens[idx]), on_device(plens[idx]), on_device(slens[idx]))
-        key = (lo, args.batch)
-        if key not in ref_cache:
-            ref_cache[key] = ref_fn(batch)
-        state, metrics = step(state, (*batch, ref_cache[key]))
-        if it % args.log_every == 0 or it == args.steps:
-            m = {k: float(v) for k, v in metrics.items()}
-            print(f"step {it}: loss={m['loss']:.4f} margin={m['reward_margin']:.3f} "
-                  f"acc={m['preference_accuracy']:.2f}", flush=True)
-        if mngr is not None and (it % args.checkpoint_interval == 0 or it == args.steps):
-            mngr.save(it, state)  # returns once the state is on the host
+    try:
+        for it in range(start_step + 1, args.steps + 1):
+            t_step = time.perf_counter()
+            lo = ((it - 1) * args.batch) % n_pairs
+            idx = np.take(order, range(lo, lo + args.batch), mode="wrap")[mine]
+            batch = (on_device(tokens[idx]), on_device(plens[idx]), on_device(slens[idx]))
+            key = (lo, args.batch)
+            if key not in ref_cache:
+                ref_cache[key] = ref_fn(batch)
+            state, metrics = step(state, (*batch, ref_cache[key]))
+            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            tracer.record("dpo.step", duration_s=time.perf_counter() - t_step, step=it, **m)
+            if it % args.log_every == 0 or it == args.steps:
+                say(f"step {it}: loss={m['loss']:.4f} margin={m['reward_margin']:.3f} "
+                    f"acc={m['preference_accuracy']:.2f}", flush=True)
+            stop = it < args.steps and stop_now()
+            if mngr is not None and (it % args.checkpoint_interval == 0 or it == args.steps
+                                     or stop):
+                mngr.save(it, state)  # returns once the state is on the host
+            if stop:
+                if mngr is not None:
+                    mngr.wait_until_finished()
+                saved = "saved policy checkpoint; " if mngr is not None else ""
+                say(f"preempted at step {it}: {saved}exit {EXIT_TPU_PREEMPTED}", flush=True)
+                return EXIT_TPU_PREEMPTED
+    finally:
+        tracer.close()
     if mngr is not None:
         mngr.wait_until_finished()  # the final write lands before the exit
-        print(f"saved policy checkpoint at step {args.steps}", flush=True)
-    print(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s", flush=True)
+        say(f"saved policy checkpoint at step {args.steps}", flush=True)
+    say(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s", flush=True)
+    if mesh is not None and dev.type == "cuda":
+        print(f"process {rank}/{world}: {gang_report(dev)}", flush=True)
     return 0
 
 

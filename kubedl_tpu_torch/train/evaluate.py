@@ -1,5 +1,5 @@
 """Evaluation workload: a checkpoint in, perplexity out
-(kubedl_tpu/train/evaluate.py), on one device.
+(kubedl_tpu/train/evaluate.py), on one device or as a gang.
 
     python -m kubedl_tpu_torch.train.evaluate --hf-model DIR --data-path 'shard-*.bin'
 
@@ -9,8 +9,16 @@ the token shards of --data-path (native/loader.py, batch i = batch_at(i),
 a deterministic full pass, so two checkpoints compare bit for bit) or 8
 synthetic batches, and prints one JSON line: the mean next-token NLL of
 models/llama.py `loss_fn` and its perplexity. It runs on the card unless
---device cpu is given; KUBEDL_MESH may ask for no more than this one
-device (exit 2).
+--device cpu is given.
+
+As a gang (KUBEDL_COORDINATOR_ADDRESS, KUBEDL_NUM_PROCESSES,
+KUBEDL_PROCESS_ID), one device a process, the weights are sharded over
+KUBEDL_MESH and each token block scores --batch rows of every global batch
+(its own windows, batch_at(i * blocks + block), or its own synthetic draw):
+the global batch is --batch times the number of token blocks, and ranks of
+one block (tensor peers) score the same rows. `loss_fn` gives the global
+batch's mean on every rank; rank 0 prints the line. A mesh whose size is
+not the gang's exits 2. --backend gloo lets processes share one card.
 """
 from __future__ import annotations
 
@@ -47,6 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to score on (cuda, cuda:N or cpu)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="the gang's process group (default nccl on a card, gloo on "
+                        "the CPU; gloo for processes sharing one card)")
     return p.parse_args(argv)
 
 
@@ -61,17 +72,20 @@ def main(argv=None) -> int:
     import torch
 
     from kubedl_tpu_torch.models import llama
-    from kubedl_tpu_torch.parallel.mesh import mesh_from_env
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, shard_tree, token_index
+    from kubedl_tpu_torch.train import coordinator
     from kubedl_tpu_torch.train.generate import resolve_params
-    from kubedl_tpu_torch.utils.device import resolve_device
+    from kubedl_tpu_torch.train.trainer import _gang_mesh
+    from kubedl_tpu_torch.utils.device import gang_report, process_device
 
-    try:
-        axes = mesh_from_env(1)
-    except ValueError as e:
-        print(f"{e} (evaluation runs on one device; a mesh is not ported yet, "
-              f"ROADMAP.md)", file=sys.stderr)
+    info = coordinator.process_info()
+    axes, refused = _gang_mesh(info)
+    if refused:
+        print(refused, file=sys.stderr)
         return 2
-    dev = resolve_device(args.device)
+    dev = process_device(args.device)  # current before NCCL binds to it
+    mesh, rank, world = coordinator.join_gang(info, dev, args.backend)
+    say = print if rank == 0 else (lambda *a, **kw: None)
     try:
         params, config = resolve_params(
             args.model, args.hf_model, args.checkpoint_path, args.allow_fresh_init,
@@ -82,9 +96,16 @@ def main(argv=None) -> int:
         return 1
     if params is None:
         return 1
-    print(f"mesh: {axes} model={args.hf_model or args.model} seq={args.seq_len} "
-          f"processes=1", flush=True)
+    rules = ShardingRules()
+    block, n_blocks = 0, 1
+    if mesh is not None:
+        params = shard_tree(params, mesh, llama.param_specs(config, rules))
+        block, n_blocks = token_index(mesh, rules)
+    say(f"mesh: {axes} model={args.hf_model or args.model} seq={args.seq_len} "
+        f"processes={world}", flush=True)
 
+    # each token block scores its own --batch rows of a global batch
+    global_batch = args.batch * n_blocks
     if args.data_path:
         from kubedl_tpu_torch.native.loader import PyTokenLoader
 
@@ -94,27 +115,29 @@ def main(argv=None) -> int:
             return 1
         loader = PyTokenLoader(shard_paths, batch=args.batch, seq_len=args.seq_len,
                                seed=args.seed)
-        if loader.n_windows < args.batch:
+        if loader.n_windows < global_batch:
             # batch_at wraps window ids modulo n_windows: a short set would
             # score some windows twice and bias the mean
             print(f"only {loader.n_windows} windows for a global batch of "
-                  f"{args.batch} — shrink --batch", file=sys.stderr)
+                  f"{global_batch} — shrink --batch", file=sys.stderr)
             return 1
-        n_batches = loader.n_windows // args.batch
-        dropped = loader.n_windows - n_batches * args.batch
+        n_batches = loader.n_windows // global_batch
+        dropped = loader.n_windows - n_batches * global_batch
         if dropped:
-            print(f"note: dropping {dropped} remainder windows (static batch shapes)",
-                  flush=True)
-        get = loader.batch_at
-        print(f"data: {len(shard_paths)} shards, {loader.n_windows} windows -> "
-              f"{n_batches} global batches", flush=True)
+            say(f"note: dropping {dropped} remainder windows (static batch shapes)",
+                flush=True)
+
+        def get(i):  # block-strided ids: block r scores batches r, r+n, r+2n, ...
+            return loader.batch_at(i * n_blocks + block)
+        say(f"data: {len(shard_paths)} shards, {loader.n_windows} windows -> "
+            f"{n_batches} global batches", flush=True)
     else:
-        rng = np.random.default_rng(args.seed)
+        rng = np.random.default_rng(args.seed + block)
         fixed = rng.integers(1, config.vocab_size,
                              (8, args.batch, args.seq_len)).astype(np.int32)
         n_batches = len(fixed)
         get = fixed.__getitem__
-        print(f"data: {n_batches} synthetic batches (no --data-path)", flush=True)
+        say(f"data: {n_batches} synthetic batches (no --data-path)", flush=True)
     if args.max_batches:
         n_batches = min(n_batches, args.max_batches)
 
@@ -124,25 +147,27 @@ def main(argv=None) -> int:
         for i in range(n_batches):
             tokens = torch.from_numpy(np.ascontiguousarray(get(i))).to(dev)
             # loss_fn: the mean next-token CE over seq_len - 1 positions
-            total_nll += float(llama.loss_fn(params, tokens, config))
+            total_nll += float(llama.loss_fn(params, tokens, config, mesh=mesh, rules=rules))
             if t0 is None:
                 t0 = time.time()  # steady-state clock: batch 0 builds the kernels
             if args.log_every and ((i + 1) % args.log_every == 0 or i + 1 == n_batches):
                 mean = total_nll / (i + 1)
-                print(f"batch {i + 1}/{n_batches}: nll={mean:.4f} "
-                      f"ppl={math.exp(min(mean, 30.0)):.2f}", flush=True)
+                say(f"batch {i + 1}/{n_batches}: nll={mean:.4f} "
+                    f"ppl={math.exp(min(mean, 30.0)):.2f}", flush=True)
     mean_nll = total_nll / n_batches
-    tokens = n_batches * args.batch * (args.seq_len - 1)
+    tokens = n_batches * global_batch * (args.seq_len - 1)
     dt = max(time.time() - (t0 or time.time()), 1e-9)
-    print(json.dumps({
+    say(json.dumps({
         "metric": "eval_perplexity",
         "perplexity": round(math.exp(min(mean_nll, 30.0)), 4),
         "nll": round(mean_nll, 6),
         "tokens": tokens,
         # steady state: the first batch starts the clock but is not counted
-        "tokens_per_sec": round((tokens - args.batch * (args.seq_len - 1)) / dt
+        "tokens_per_sec": round((tokens - global_batch * (args.seq_len - 1)) / dt
                                 if n_batches > 1 else 0.0, 0),
     }), flush=True)
+    if mesh is not None and dev.type == "cuda":
+        print(f"process {rank}/{world}: {gang_report(dev)}", flush=True)
     return 0
 
 

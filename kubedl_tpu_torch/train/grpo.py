@@ -1,5 +1,5 @@
 """GRPO post-training workload -- prompts in, a reward-tuned policy out
-(kubedl_tpu/train/grpo.py), on one device.
+(kubedl_tpu/train/grpo.py), on one device or as a gang.
 
     python -m kubedl_tpu_torch.train.grpo --hf-model DIR --data-path prompts.jsonl
 
@@ -31,8 +31,17 @@ torch.Generator on the device seeded from numpy's SeedSequence((seed,
 it)), so a resumed run continues the noise schedule. With KUBEDL_TRACE_DIR
 set, each step, its rollout and each of its updates is a span
 (grpo.step, grpo.rollout, grpo.update with the update's metrics). It runs
-on the card unless --device cpu is given; KUBEDL_MESH may ask for no more
-than this one device (exit 2).
+on the card unless --device cpu is given.
+
+As a gang (KUBEDL_COORDINATOR_ADDRESS, KUBEDL_NUM_PROCESSES,
+KUBEDL_PROCESS_ID), one device a process, the policy is sharded over
+KUBEDL_MESH (train/rl.py). Every rank rolls out the whole B x G batch with
+the one-process seeding, through `decode.generate(..., mesh=mesh)`, so the
+gang's rollout is one process's for the same weights; rewards and group
+advantages come from the whole batch, and each token block trains on its
+rows (B x G must divide by the number of blocks). The checkpoint is
+sharded (train/checkpoint.py). A mesh whose size is not the gang's exits
+2. --backend gloo lets processes share one card. Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -87,6 +96,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="the gang's process group (default nccl on a card, gloo on "
+                        "the CPU; gloo for processes sharing one card)")
     args = p.parse_args(argv)
     if args.reward == "length" and not args.reward_module and args.eos_id < 0:
         p.error("--reward length needs --eos-id: without a stop token "
@@ -203,6 +215,7 @@ def completion_rows(comp, tiled, tiled_plens, eos_id: int, reward_fn, n_cols: in
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    import math
     import time
 
     import numpy as np
@@ -211,19 +224,28 @@ def main(argv=None) -> int:
     from kubedl_tpu_torch.models import decode, llama
     from kubedl_tpu_torch.obs.trace import tracer_from_env
     from kubedl_tpu_torch.parallel import optim
-    from kubedl_tpu_torch.parallel.mesh import mesh_from_env
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, token_axes, token_rows
+    from kubedl_tpu_torch.train import coordinator
     from kubedl_tpu_torch.train.checkpoint import CheckpointManager
     from kubedl_tpu_torch.train.generate import load_tokenizer, restore_or_init
     from kubedl_tpu_torch.train.rl import group_advantages, make_grpo_step
-    from kubedl_tpu_torch.utils.device import resolve_device
+    from kubedl_tpu_torch.train.trainer import _gang_mesh
+    from kubedl_tpu_torch.utils.device import gang_report, process_device
 
-    try:
-        axes = mesh_from_env(1)
-    except ValueError as e:
-        print(f"{e} (GRPO runs on one device; a mesh is not ported yet, ROADMAP.md)",
-              file=sys.stderr)
+    info = coordinator.process_info()
+    axes, refused = _gang_mesh(info)
+    rules = ShardingRules()
+    B, G = args.prompts_per_step, args.group_size
+    n_blocks = math.prod(axes[a] for a in token_axes(rules)) if axes else 1
+    if not refused and (B * G) % n_blocks:
+        refused = (f"--prompts-per-step x --group-size = {B * G} rows do not split over "
+                   f"the mesh's {n_blocks} token blocks {axes}")
+    if refused:
+        print(refused, file=sys.stderr)
         return 2
-    dev = resolve_device(args.device)
+    dev = process_device(args.device)  # current before NCCL binds to it
+    mesh, rank, world = coordinator.join_gang(info, dev, args.backend)
+    say = print if rank == 0 else (lambda *a, **kw: None)
     tokenizer = None
     if args.hf_model:
         from kubedl_tpu_torch.models.import_hf import load_hf
@@ -238,8 +260,8 @@ def main(argv=None) -> int:
             seed=args.seed, label="base", device=dev)
         if base is None:
             return 1
-    print(f"mesh: {axes} model={args.hf_model or args.model} "
-          f"G={args.group_size} kl={args.kl_coef}", flush=True)
+    say(f"mesh: {axes} model={args.hf_model or args.model} "
+        f"G={args.group_size} kl={args.kl_coef}", flush=True)
 
     tx = optim.adamw(args.lr, weight_decay=0.0)
     if args.grad_clip > 0:
@@ -248,7 +270,7 @@ def main(argv=None) -> int:
     # uses its own detached forward for old_lp
     use_old = args.inner_epochs > 1
     init_state, _, ref_fn, step = make_grpo_step(
-        base, config, tx, clip_eps=args.clip_eps, kl_coef=args.kl_coef,
+        base, config, tx, mesh, rules, clip_eps=args.clip_eps, kl_coef=args.kl_coef,
         accum_steps=args.accum_steps, use_old_logprobs=use_old)
     state = init_state(base)
     del base
@@ -257,12 +279,12 @@ def main(argv=None) -> int:
     max_prompt = config.max_seq_len - args.max_new_tokens
     if args.data_path:
         prompts = load_prompts(args.data_path, max_prompt, tokenizer=tokenizer)
-        print(f"data: {len(prompts)} prompts from {args.data_path}", flush=True)
+        say(f"data: {len(prompts)} prompts from {args.data_path}", flush=True)
     else:
         n = max(args.prompts_per_step * 4, 16)
         plen = min(16, max_prompt)
         prompts = [list(rng.integers(1, config.vocab_size, plen)) for _ in range(n)]
-        print(f"data: {n} synthetic prompts (no --data-path)", flush=True)
+        say(f"data: {n} synthetic prompts (no --data-path)", flush=True)
 
     reward_fn = make_reward_fn(args)
     uniform = len({len(p) for p in prompts}) == 1
@@ -278,12 +300,12 @@ def main(argv=None) -> int:
         if latest is not None:
             state = mngr.restore(latest, state)
             start_step = latest
-            print(f"restored policy checkpoint at step {start_step}", flush=True)
+            say(f"restored policy checkpoint at step {start_step}", flush=True)
 
     def on_device(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    B, G = args.prompts_per_step, args.group_size
+    mine = token_rows(B * G, mesh, rules)  # this rank's rows of each batch
     t0 = time.time()
     try:
         for it in range(start_step + 1, args.steps + 1):
@@ -306,7 +328,7 @@ def main(argv=None) -> int:
                     temperature=args.temperature,
                     generator=sampling_generator(dev, args.seed, it),
                     lengths=None if uniform else on_device(tiled_plens),
-                    with_logprobs=use_old)
+                    with_logprobs=use_old, mesh=mesh, rules=rules)
             comp, beh_lp = ((rolled[0].cpu().numpy(), rolled[1].cpu().numpy()) if use_old
                             else (rolled.cpu().numpy(), None))
             roll_s = time.perf_counter() - t_roll
@@ -317,14 +339,16 @@ def main(argv=None) -> int:
                 comp, tiled, tiled_plens, args.eos_id, reward_fn, pad_to + K, beh_lp)
             adv = group_advantages(rewards.reshape(B, G)).reshape(-1)
 
-            # -- the reference's logprobs, then the update(s) -------------
-            lp_batch = (on_device(full), on_device(tiled_plens), on_device(seq_lens))
+            # -- the reference's logprobs, then the update(s), on this
+            # rank's rows -------------------------------------------------
+            lp_batch = (on_device(full[mine]), on_device(tiled_plens[mine]),
+                        on_device(seq_lens[mine]))
             ref_lp = ref_fn(lp_batch)
             if use_old:
                 # old_lp comes from the rollout (sampling-time capture)
-                train_batch = (*lp_batch, adv.to(dev), on_device(old_grid), ref_lp)
+                train_batch = (*lp_batch, adv[mine].to(dev), on_device(old_grid[mine]), ref_lp)
             else:
-                train_batch = (*lp_batch, adv.to(dev), ref_lp)
+                train_batch = (*lp_batch, adv[mine].to(dev), ref_lp)
             for epoch in range(args.inner_epochs):
                 t_up = time.perf_counter()
                 state, metrics = step(state, train_batch)
@@ -335,7 +359,7 @@ def main(argv=None) -> int:
             tracer.record("grpo.step", duration_s=time.perf_counter() - t_step, step=it,
                           rollout_s=roll_s)
             if it % args.log_every == 0 or it == args.steps:
-                print(f"step {it}: reward={rewards.mean():.3f}"
+                say(f"step {it}: reward={rewards.mean():.3f}"
                       f"+-{rewards.std():.3f} loss={m['loss']:.4f} "
                       f"kl={m['kl']:.4f} clip={m['clip_frac']:.2f}", flush=True)
             if mngr is not None and (it % args.checkpoint_interval == 0 or it == args.steps):
@@ -348,8 +372,10 @@ def main(argv=None) -> int:
     finally:
         tracer.close()
     if mngr is not None:
-        print(f"saved policy checkpoint at step {args.steps}", flush=True)
-    print(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s", flush=True)
+        say(f"saved policy checkpoint at step {args.steps}", flush=True)
+    say(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s", flush=True)
+    if mesh is not None and dev.type == "cuda":
+        print(f"process {rank}/{world}: {gang_report(dev)}", flush=True)
     return 0
 
 

@@ -23,8 +23,13 @@ attention) on parallel/train_step.py's `make_train_step`. The frozen
 reference and the sampling-time ("old") policy never enter autograd:
 their per-token logprobs are computed without it and passed into the
 step as batch data. The reference is a detached copy of the starting
-weights taken at construction. One device: a mesh is refused
-(ROADMAP.md).
+weights taken at construction.
+
+With a mesh, each rank computes on its token block's rows, as DPO does
+(train/preference.py), and the reference is laid out like the policy.
+Every token mean is over the global batch: the masked sums and the token
+count are summed over the token blocks before any division, so ranks
+whose completions differ in length still give the reference's loss.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from typing import Dict
 import torch
 
 from kubedl_tpu_torch.models import llama
-from kubedl_tpu_torch.train.preference import _one_device, sequence_logprobs
+from kubedl_tpu_torch.train.preference import _sequence_logprobs, sequence_logprobs
 
 
 def group_advantages(rewards, eps: float = 1e-6):
@@ -61,22 +66,23 @@ def grpo_loss(params: Dict, tokens, prompt_lens, seq_lens, advantages, old_logpr
     loss uses the detached logprobs of its own forward, so the ratio is
     exactly 1 and the surrogate is REINFORCE with the group baseline, one
     forward cheaper a step."""
-    _one_device(mesh, "GRPO")
-    (lp, mask), aux = sequence_logprobs(params, tokens, prompt_lens, seq_lens, config,
-                                        with_aux=True, per_token=True)
+    par = llama._par(mesh, rules, config)
+    (lp, mask), aux = _sequence_logprobs(params, tokens, prompt_lens, seq_lens, config, par,
+                                         with_aux=True, per_token=True)
     if old_logprobs is None:
         old_logprobs = lp.detach()
-    n_tok = torch.clamp(mask.sum(), min=1.0)
+    total = _global_sum(par)
+    n_tok = torch.clamp(total(mask.sum()), min=1.0)
     adv = advantages[:, None].float()  # broadcast over tokens
     ratio = torch.exp(lp - old_logprobs)
     clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
     surrogate = torch.minimum(ratio * adv, clipped * adv)
-    pg_loss = -(surrogate * mask).sum() / n_tok
+    pg_loss = -total((surrogate * mask).sum()) / n_tok
     if kl_coef > 0:
         # k3 KL estimator against the frozen reference (Schulman): unbiased,
         # non-negative, low-variance near the reference
         delta = ref_logprobs - lp
-        kl = ((torch.exp(delta) - delta - 1.0) * mask).sum() / n_tok
+        kl = total(((torch.exp(delta) - delta - 1.0) * mask).sum()) / n_tok
         loss = pg_loss + kl_coef * kl
     else:
         # pure clipped-surrogate GRPO: ref_logprobs is a placeholder that
@@ -89,12 +95,24 @@ def grpo_loss(params: Dict, tokens, prompt_lens, seq_lens, advantages, old_logpr
         metrics = {
             "pg_loss": pg_loss.detach(),
             "kl": kl.detach(),
-            "ratio_mean": (ratio * mask).sum() / n_tok,
-            "clip_frac": (((ratio < 1.0 - clip_eps) | (ratio > 1.0 + clip_eps)) * mask).sum()
-            / n_tok,
-            "completion_logprob": (lp * mask).sum() / n_tok,
+            "ratio_mean": total((ratio * mask).sum()) / n_tok,
+            "clip_frac": total((((ratio < 1.0 - clip_eps) | (ratio > 1.0 + clip_eps))
+                                * mask).sum()) / n_tok,
+            "completion_logprob": total((lp * mask).sum()) / n_tok,
         }
     return loss, metrics
+
+
+def _global_sum(par):
+    """x -> its sum over the token blocks (and context blocks), whose
+    gradient is each rank's own part; the identity without a mesh."""
+    if par is None:
+        return lambda x: x
+    from kubedl_tpu_torch.parallel import collectives
+    from kubedl_tpu_torch.parallel.mesh import token_axes
+
+    axes = token_axes(par.rules) + par.seq
+    return lambda x: collectives.psum(x, par.mesh, axes)
 
 
 def make_grpo_step(ref_params: Dict, config: llama.LlamaConfig, tx, mesh=None, rules=None,
@@ -112,16 +130,24 @@ def make_grpo_step(ref_params: Dict, config: llama.LlamaConfig, tx, mesh=None, r
     use_old_logprobs=False (strictly on-policy) drops old_lp from the
     step's batch tuple. kl_coef == 0 keeps no reference copy: the reference
     function returns zeros that the loss never reads."""
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, shard_tree
     from kubedl_tpu_torch.parallel.train_step import make_train_step
 
-    _one_device(mesh, "GRPO")
-    ref = (llama.tree_map(lambda t: t.detach().clone(), ref_params)
-           if kl_coef > 0 else None)
+    if mesh is not None:
+        rules = rules or ShardingRules()
+        if param_spec_tree is None:
+            param_spec_tree = llama.param_specs(config, rules)
+    ref = None
+    if kl_coef > 0:
+        ref = llama.tree_map(lambda t: t.detach().clone(), ref_params)
+        if mesh is not None:  # laid out like the policy, as DPO's reference
+            ref = shard_tree(ref, mesh, param_spec_tree)
 
     def logprob_fn(p, batch):
         tokens, prompt_lens, seq_lens = batch
         with torch.no_grad():
-            return sequence_logprobs(p, tokens, prompt_lens, seq_lens, config, per_token=True)
+            return sequence_logprobs(p, tokens, prompt_lens, seq_lens, config, mesh=mesh,
+                                     rules=rules, per_token=True)
 
     def ref_logprob_fn(batch):
         if ref is None:
@@ -137,8 +163,8 @@ def make_grpo_step(ref_params: Dict, config: llama.LlamaConfig, tx, mesh=None, r
             tokens, prompt_lens, seq_lens, advantages, ref_lp = batch
             old_lp = None
         return grpo_loss(params, tokens, prompt_lens, seq_lens, advantages, old_lp, ref_lp,
-                         config, clip_eps=clip_eps, kl_coef=kl_coef)
+                         config, clip_eps=clip_eps, kl_coef=kl_coef, mesh=mesh, rules=rules)
 
-    init_state, grpo_step = make_train_step(loss_fn, tx, accum_steps=accum_steps,
-                                            has_aux=True)
+    init_state, grpo_step = make_train_step(loss_fn, tx, mesh, param_spec_tree,
+                                            accum_steps=accum_steps, has_aux=True, rules=rules)
     return init_state, logprob_fn, ref_logprob_fn, grpo_step

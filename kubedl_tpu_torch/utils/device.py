@@ -37,3 +37,16 @@ def process_device(device: Union[str, torch.device, None] = "cuda") -> torch.dev
         dev = torch.device("cuda", dev.index or 0)
         torch.cuda.set_device(dev)
     return dev
+
+
+def gang_report(device: torch.device) -> str:
+    """What a gang's process on a card prints at its end: its peak device
+    memory, the flash kernels' launches and the collectives staged through
+    the host (parallel/collectives.py)."""
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention as fa
+    from kubedl_tpu_torch.parallel import collectives
+
+    return (f"peak allocated {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB; flash "
+            f"launches fwd/dq/dkv ({fa.launches}, {fa.bwd_dq_launches}, "
+            f"{fa.bwd_dkv_launches}); host-staged collectives "
+            f"{collectives.staged_bytes / 1e6:.1f} MB in {collectives.staged_s:.3f} s")

@@ -6,6 +6,7 @@ at a time, a writer's error is raised on the caller's thread, and the
 programs' final saves wait. The write is held by a blocking seam (a
 patched `torch.save` waiting on an Event), so nothing here races a
 clock; each wait has a timeout."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import threading
 

@@ -5,6 +5,7 @@ to its own one-pass paths): the same f32 parameters, inputs from a numpy
 seed. Logits within 1e-4 of max|JAX|, greedy tokens equal, the routing
 integers (which prompts chunk, how many chunked prefills, how many wave
 prefills) equal, and the errors JAX raises raised the same way."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import types
 
@@ -281,6 +282,10 @@ def test_chunked_prefill_under_a_mesh_is_refused(model):
                         prefill_chunk=16, mesh=mesh)
     with pytest.raises(NotImplementedError, match="chunked prefill under a mesh.*ROADMAP.md"):
         eng.submit(np.ones(40, np.int32), 2)
-    with pytest.raises(NotImplementedError, match="with_logprobs.*ROADMAP.md"):
-        tdecode.generate(tp, torch.ones((1, 4), dtype=torch.int32), tcfg, 2,
-                         with_logprobs=True, mesh=mesh)
+    # generate(with_logprobs=True) runs under a mesh (a tensor-2 gang holds
+    # it to one device in tests/test_torch_post_training_gang.py); on this
+    # one-device mesh it is the one-device call
+    prompt = torch.ones((1, 4), dtype=torch.int32)
+    got = tdecode.generate(tp, prompt, tcfg, 2, with_logprobs=True, mesh=mesh)
+    want = tdecode.generate(tp, prompt, tcfg, 2, with_logprobs=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -16,6 +16,7 @@ inputs from a numpy seed:
   the JAX step on the same mesh;
 * a window and an attention softcap under a context axis raise
   NotImplementedError with the JAX package's messages."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import types
 

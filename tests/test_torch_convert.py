@@ -1,6 +1,7 @@
 """kubedl_tpu_torch/utils/convert.py: the JAX params tree carries across
 to torch tensors and back bit for bit (bf16 included), and a JAX
 LlamaConfig's fields build the port's config."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -5,6 +5,7 @@ KUBEDL_NUM_PROCESSES and KUBEDL_PROCESS_ID, its service-DNS host mapped to
 loopback; and a process without an address left ungrouped. Name lookups
 are answered by a stand-in for socket.getaddrinfo, so no test asks a
 resolver."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import socket
 import subprocess

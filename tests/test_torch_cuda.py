@@ -5,6 +5,7 @@ it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 same f32 parameters, with the JAX side on its flash kernel (use_flash=True,
 interpret mode here): prefill, ragged and uniform decode steps, block
 steps and greedy generate, token for token."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

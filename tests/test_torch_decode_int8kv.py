@@ -5,6 +5,7 @@ block step, greedy generate and the serving engine with kv_dtype="int8"
 (logits within 1e-4 of max|JAX|, tokens equal). The JAX side of `tiny`
 runs its flash kernel in interpret mode; the family variants run its
 attention_reference, as test_torch_decode.py's do."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

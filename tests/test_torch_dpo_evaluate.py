@@ -6,6 +6,7 @@ NLL within 1e-4, the same token count); dpo on id-list and text JSONL
 step at the DPO fixed point), a run cut at step 2 and resumed equal bit for
 bit to one run straight through, its checkpoint read back by generate; and
 both workloads' guards."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 
 import numpy as np
@@ -60,9 +61,21 @@ def test_evaluate_json_line_equals_jax(hf_dir, tmp_path, monkeypatch, capsys, da
     assert abs(got["perplexity"] - want["perplexity"]) <= 2 * NLL_TOL * want["perplexity"]
 
 
+def _mesh_message():
+    """The reference's error for KUBEDL_MESH over one device."""
+    import jax
+
+    from kubedl_tpu.parallel.mesh import build_mesh_from_env
+
+    with pytest.raises(ValueError) as e:
+        build_mesh_from_env(devices=jax.devices()[:1])
+    return str(e.value)
+
+
 def test_evaluate_guards(tmp_path, monkeypatch, capsys):
     """The reference's exits: no shards, no checkpoint, fewer windows than a
-    batch (exit 1); a mesh of more than this one device (exit 2)."""
+    batch (exit 1); a mesh whose size is not the gang's, data=2 on one
+    process (exit 2, the reference's message)."""
     tiny = ["--device", "cpu", "--model", "tiny"]
     assert evaluate.main(tiny + ["--allow-fresh-init", "--data-path",
                                  str(tmp_path / "none-*.bin")]) == 1
@@ -75,7 +88,7 @@ def test_evaluate_guards(tmp_path, monkeypatch, capsys):
     assert "shrink --batch" in capsys.readouterr().err
     monkeypatch.setenv("KUBEDL_MESH", "data=2")
     assert evaluate.main(tiny + ["--allow-fresh-init"]) == 2
-    assert "evaluation runs on one device" in capsys.readouterr().err
+    assert _mesh_message() in capsys.readouterr().err
 
 
 def _write_pairs(path, rows):
@@ -147,7 +160,8 @@ def test_dpo_text_pairs_through_the_tokenizer(hf_dir, tmp_path, capsys):
 def test_dpo_guards(tmp_path, monkeypatch, capsys):
     """Text without a tokenizer and a file of no usable pair raise the
     reference's errors; an empty --ref-checkpoint-path exits 1 unless
-    --allow-fresh-init; a mesh of more than one device exits 2."""
+    --allow-fresh-init; a mesh whose size is not the gang's, data=2 on one
+    process, exits 2 with the reference's message."""
     text = _write_pairs(tmp_path / "t.jsonl", [{"prompt": "hi", "chosen": "a",
                                                  "rejected": "b"}])
     with pytest.raises(ValueError) as jerr:
@@ -165,4 +179,4 @@ def test_dpo_guards(tmp_path, monkeypatch, capsys):
     assert "error: no checkpoint under" in capsys.readouterr().err
     monkeypatch.setenv("KUBEDL_MESH", "data=2")
     assert dpo.main(tiny) == 2
-    assert "DPO runs on one device" in capsys.readouterr().err
+    assert _mesh_message() in capsys.readouterr().err

@@ -11,6 +11,7 @@ and one models/vit.py training step on data2·tensor2 (loss and grad norm
 within 1e-5 relative, every gradient within 1e-5 of max|JAX leaf|, the
 parameters after AdamW's update within 1e-5 but for at most 0.1 % of a
 leaf, each of those within lr)."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

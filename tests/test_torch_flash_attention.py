@@ -3,6 +3,7 @@ flash attention: the port's plain versions (what a CPU tensor runs) against
 the Pallas kernel in interpret mode and against attention_reference, on the
 same numpy inputs. The CUDA kernel itself is held against the plain
 version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import ml_dtypes

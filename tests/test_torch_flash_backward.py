@@ -5,6 +5,7 @@ backward kernels in interpret mode) and against torch autograd of the
 port's plain forward, on the same numpy inputs; and the dispatch rule of
 the autograd.Function. The CUDA kernels are held against the plain
 backward on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import ml_dtypes

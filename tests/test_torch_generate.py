@@ -7,6 +7,7 @@ directory exits 1 with the reference's error unless --allow-fresh-init is
 given, as does an adapter directory with no adapters; --hf-model, once
 refused, generates from a Hugging Face directory and raises naming a
 missing one."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import copy
 import json
 import threading

@@ -7,6 +7,7 @@ experts' zero gradients; and the row-tile refusals, message for message.
 Tolerances: f32 within 1e-4 of max|JAX| (one f32 product per expert here,
 per-tile accumulation there); bf16 within 2e-2 (one bf16 rounding of the
 output, taken from f32 sums in another order)."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

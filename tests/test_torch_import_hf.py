@@ -5,6 +5,7 @@ the trees equal bit for bit (bf16 included) from a single safetensors file,
 a sharded index and pytorch_model.bin, f32 logits within 1e-4 of max|JAX|
 and at the JAX test's tolerance of transformers' own, greedy decode equal
 token for token."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import json
 import os

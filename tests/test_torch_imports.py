@@ -4,6 +4,7 @@ trainer, the transport plane and the serving plane included) imports with
 those and ml_dtypes made unimportable; the transport and serving planes
 import no ml_dtypes at all (bf16 crosses as raw words viewed through
 torch). Entry points never pick the CPU on their own."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import ast
 import os
 import subprocess

@@ -4,6 +4,7 @@ package's `BlockPool`/`PrefixIndex` with the same sequence of operations,
 every observation logged (block ids, refcounts, `stats()`, hit counts,
 raised errors) and the two logs held equal; plus a seeded churn of random
 operations crossed the same way and the device pool's layout."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ context parallelism in one gang.
   split over the context axis, and ViT still refuses the axis;
 * without --local-devices the launcher counts the cards through the CUDA
   driver, never importing torch."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import signal
 import subprocess

@@ -2,6 +2,7 @@
 same parameters (carried across with utils/convert.py): forward logits in
 f32 with the Gemma-2 and Qwen2 family knobs and RoPE scaling on and off,
 and the pieces the forward is built from."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ mesh, every rank; the base unchanged bit for bit and the optimizer state
 adapter-sized. Then the trainer's --lora-rank on the CPU: adapter-only
 checkpoints, resume, a gloo gang of 4 on fsdp=2,tensor=2 against the
 one-device LoRA step, and generate / serve consuming the checkpoints."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ prefill and with a self-draft speculative engine; requests naming adapter
 0 give the no-adapter engine's tokens bit for bit; the registry and
 `submit` raise the JAX engine's messages; adapters compose with sampling
 and logprobs; an int8 tree and a mesh are refused."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@ by case against the JAX package's build_mesh / build_mesh_from_env on the
 8-device CPU platform; and ShardingRules.spec and the DTensor placements
 of every leaf of param_specs (dense, MoE, QKV bias, post-block norms)
 against the JAX package's PartitionSpecs."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import types
 
 import jax

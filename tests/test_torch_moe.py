@@ -8,6 +8,7 @@ its Pallas kernels in interpret mode.
 
 Random f32 router logits do not tie, so torch.topk and lax.top_k pick the
 same experts in the same order."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

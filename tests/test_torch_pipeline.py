@@ -10,6 +10,7 @@ are tests/test_pipeline_1f1b.py's (loss 1e-5, gradients atol 2e-4 rtol
 JAX's gradient fell below 1e-6 at some step: there Adam's update turns
 rounding of a gradient near its eps into a share of lr, held to
 0.05 x lr x 3."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import itertools
 

@@ -12,6 +12,7 @@ norm (1e-5 relative), every stacked gradient leaf (1e-4 of max|JAX leaf|)
 and the parameters after the clipped AdamW update (UPDATE_TOL); and
 `forward_pipelined`'s logits of rank 0's rows (stage 0's copy of the last
 stage's) against JAX's, within 1e-4 of max|logit|."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ processes on the CPU, one a stage, and the SPMD trainer on a stage mesh.
 * `trainer` with KUBEDL_PP_STAGES=2 and KUBEDL_MESH=stage=2 on a gloo gang
   of 2 trains and prints the bubble line, and refuses one microbatch for
   two stages with the reference's message."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import re
 import signal

@@ -5,6 +5,7 @@ chunked against full with an uneven split, Gemma-2's final softcap, per
 token), `dpo_loss` at the reference (zero margin, log 2), three
 `make_dpo_step` updates (clip + AdamW, as the dpo workload builds them)
 and MoE's aux term, each within 1e-5 relative of JAX's."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax
@@ -174,9 +175,3 @@ def test_dpo_moe_keeps_router_aux():
     routers = [layer["moe"]["router"] for layer in tp["layers"]]
     grads = torch.autograd.grad(loss, routers)
     assert sum(float(g.abs().sum()) for g in grads) > 0.0
-
-
-def test_a_mesh_is_refused(model):
-    _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="DPO under a mesh.*ROADMAP.md"):
-        preference.make_dpo_step(tp, tcfg, optim.adamw(LR, 0.0), mesh=object())

@@ -5,6 +5,7 @@ a numpy seed. First-token logits within 1e-4 of max|JAX|, greedy tokens
 equal to JAX's and to the full prompt sent without a prefix, the
 registered cache unchanged bit for bit by the requests that append to it,
 and JAX's validation errors."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import json
 import threading

@@ -16,6 +16,7 @@
   --device cpu;
 * the rendezvous smoke (train/smoke_distributed.py) as a gang of 2, and
   its count check."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -293,14 +294,25 @@ def _run_ranks(module, argv, world, extra_env):
      "steps=2 batch=8 loss="),
     ("sparse", ["--steps", "2", "--batch", "32", "--hidden", "16", "--vocab-scale", "997"], {},
      " table_shards=2 devices=2"),
+    ("dpo", ["--model", "tiny", "--steps", "2", "--batch", "2", "--seq-len", "24",
+             "--log-every", "1"], {"KUBEDL_MESH": "tensor=2"}, "step 2: loss="),
+    ("grpo", ["--model", "tiny", "--steps", "2", "--prompts-per-step", "2", "--group-size",
+              "2", "--max-new-tokens", "4", "--inner-epochs", "2", "--log-every", "1"],
+     {"KUBEDL_MESH": "data=2"}, "step 2: reward="),
+    ("evaluate", ["--model", "tiny", "--allow-fresh-init", "--batch", "2", "--seq-len", "17",
+                  "--max-batches", "2"], {"KUBEDL_MESH": "tensor=2"},
+     '"metric": "eval_perplexity"'),
 ])
 def test_program_trains_as_a_gang(name, argv, env, want):
     """vision on data=2 and sparse in its default layout (every process on
     the table axis; at scale 997 two vocabularies have 501 rows, odd over
-    2, so the tables are padded): both ranks exit 0, rank 0 prints."""
+    2, so the tables are padded), dpo and evaluate on tensor=2 and grpo with
+    two inner epochs on data=2 (tests/test_torch_post_training_programs.py
+    holds dpo and evaluate gangs to one process): both ranks exit 0, rank 0
+    prints."""
     rcs, outs = _run_ranks(f"kubedl_tpu_torch.train.{name}", argv, 2, env)
     assert rcs == [0, 0], outs
-    assert want in outs[0] and "loss=" not in outs[1], outs
+    assert want in outs[0] and "loss=" not in outs[1] and want not in outs[1], outs
 
 
 # MNIST's gang: main in each process, its losses written beside its line

@@ -12,6 +12,7 @@ reference's; and the socket control channel and staged fetch
 planes in both directions, with a stale epoch and a corrupt transfer
 refused. Every recv waits at most 10 s; every plane is closed after its
 test."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 import os
 import shutil

@@ -23,6 +23,7 @@ fall back closed (a final checkpoint, reply "fallback", exit 113); a
 staging with a block missing falls back to the checkpoint, and so does a
 fault that only one rank of a gang sees, on every rank; pipeline stages
 with live reshard exit 2 with the reference's message."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import json
 import os

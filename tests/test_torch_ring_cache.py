@@ -5,6 +5,7 @@ its own full cache): the same f32 parameters, prompts from a numpy seed.
 max|JAX|, greedy tokens equal, and the guards raise as JAX's do. The port
 runs its flash wrapper's CPU path (use_flash=True), the JAX side its plain
 attention."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import types
 

@@ -9,6 +9,7 @@ training forward's recompute, with the decode engine and with the serving
 plane (engine="serving", whose later waves share prompt blocks); a JAX
 learner and a port actor train over one socket pair of the two packages'
 transport planes."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ learner as two processes on the dir lane at `tiny`, their spans under one
 trace id, and over loopback sockets with the serving rollout engine;
 SIGTERM to the learner -> a checkpoint and exit 113, and the rerun
 resumes from it; the purge of a crashed incarnation's messages."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 import os
 import signal

@@ -4,6 +4,7 @@ package's: records of the same arrays byte-identical (bf16 included), each
 package decoding the other's, the refusals, the trajectory and weight
 records (JAX's sorted leaf order), the broadcast/receive halves and the
 channels' exactly-once delivery."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import subprocess
 import sys

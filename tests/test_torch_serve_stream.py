@@ -6,6 +6,7 @@ match, and a disconnect frees the slot); multi-LoRA over HTTP (POST
 /adapter, per-request adapter_id, 422s) with the adapted tokens equal to
 JAX's decode on JAX's merged weights; and serve --adapter CKPT[:ALPHA] at
 startup, a bad path exiting 1."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 import socket
 import threading
@@ -160,9 +161,12 @@ def _jax_adapter(jp, seed, targets):
 
 
 def _save(path, adapters):
-    """An adapter checkpoint as the trainer's --lora-rank run writes one."""
-    checkpoint.CheckpointManager(path).save(1, TrainState(params=adapters, opt_state={},
-                                                          step=1))
+    """An adapter checkpoint as the trainer's --lora-rank run writes one,
+    published before it returns (a save returns once the state is on the
+    host; its write lands on a thread of its own)."""
+    mngr = checkpoint.CheckpointManager(path)
+    mngr.save(1, TrainState(params=adapters, opt_state={}, step=1))
+    mngr.wait_until_finished()
 
 
 def test_multi_lora_over_http(tmp_path):

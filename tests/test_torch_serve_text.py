@@ -8,6 +8,7 @@ and equal JAX's events; the errors of a server without a tokenizer are
 JAX's word for word. Then `serve --hf-model DIR` itself: its tokens equal
 `generate --hf-model DIR`'s path, --draft-hf-model speculates with the
 same answer, a draft of another vocabulary is refused."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 import threading
 import urllib.error

@@ -5,6 +5,7 @@ failure isolation; one HTTP round trip through the port's server on the
 CPU. Ring caches, chunked prefill, prefixes and speculative serving have
 files of their own (tests/test_torch_{ring_cache,chunked_prefill,
 prefix_cache,speculative}.py)."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import json
 import threading

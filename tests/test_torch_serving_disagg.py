@@ -22,6 +22,7 @@ weights (utils/convert.py) and to the port's own monolithic ServingEngine:
 The JAX side runs plain attention (use_flash=False, as
 tests/test_serving_disagg.py does); the port's flash wrapper takes its
 plain version on CPU tensors. Greedy tokens are compared exactly."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import zipfile
 from unittest import mock

@@ -10,6 +10,7 @@ route the routing and dispatch integers of layer 0 exactly: each block's
 expert choices against the JAX package's `_top_k_gating` on the JAX
 layer-0 hidden states, and which entries the quota kept against the
 quota rule applied to them."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

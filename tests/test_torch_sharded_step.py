@@ -8,6 +8,7 @@ kubedl_tpu.parallel.train_step.make_train_step with the optax chain the
 trainer builds. Compared: each micro-step's loss and grad norm (1e-5
 relative), every gradient leaf gathered to its full shape (1e-4 of
 max|JAX leaf|) and the parameters after the update (UPDATE_TOL)."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

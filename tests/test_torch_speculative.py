@@ -7,6 +7,7 @@ sampled scheme is held by a distribution test, since the two RNGs differ:
 a fixed target/draft pair, 1500 seeded draws, the total-variation distance
 of the second token's marginal to the exact one below 0.09, as the JAX
 test bounds its own."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import types
 

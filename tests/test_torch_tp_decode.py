@@ -10,6 +10,7 @@ side jits `generate` and runs its `ServingEngine` on the sharded tree. Every
 rank's greedy tokens must equal JAX's, and a sampled decode must give the
 same tokens on every rank. The refusals of MoE layers and int8 weight trees
 under a mesh are checked on a stand-in mesh, before any collective."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import types
 

@@ -5,6 +5,7 @@ Pallas flash kernels in interpret mode), with the family knobs, chunked CE
 and each remat mode; three updates of `make_train_step` against the JAX
 step on a one-device CPU mesh with the optax chain the trainer builds;
 and the optimizer's schedules against optax."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

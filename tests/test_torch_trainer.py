@@ -6,6 +6,7 @@ JAX package's readers load, the options the port refuses (and --lora-rank,
 refused until it was ported, training), and meshes whose
 size is not the gang's (exit 2). The trainer as a gang:
 tests/test_torch_trainer_gang.py."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import signal
 import subprocess

@@ -14,6 +14,7 @@ rank each, forming their gloo group from the operator's env.
 
 The gang runs the tiny config in f32 (a wrapper swaps the dtype), so the
 sharded and one-device losses can be held to 1e-5."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import os
 import signal
 import subprocess

@@ -9,6 +9,7 @@ resend, a restarted peer refused), and both metrics singletons render the
 same /metrics text for the same events. The RL trajectory stream runs
 exactly once over the port's channels. Every recv waits at most 10 s and
 every plane is closed in the fixture's teardown."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import json
 import socket as pysocket
 import struct

@@ -10,6 +10,7 @@ the JAX step with ``optax.adamw(1e-3)`` (whose default decay is 1e-4):
 losses and grad norms within 1e-5 relative, all but 0.1 % of the
 parameters within 1e-5 and every one within 0.05 x lr x updates; the bf16
 forward within 2e-2 of max|logit|."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 
 import jax

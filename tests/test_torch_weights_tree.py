@@ -5,6 +5,7 @@ for byte, each package's relay verifying the other's; every pod
 committing the same bytes; a tampered chunk or a mismatched manifest never
 adopted; a dead interior node's subtree re-parenting to the root; and a
 3-actor RL fleet on the tree equal to hub-and-spoke."""
+import torch_threads  # noqa: F401 -- one intra-op thread (tests/torch_threads.py)
 import dataclasses
 import hashlib
 import threading

@@ -71,6 +71,22 @@ place (the same mesh, nothing moved) and it is gathered. With "restore" (a stagi
 mesh from `params` and overwrites it from the staging through
 `restore_staged` and `state_from_staging` instead, and returns it gathered.
 
+Post-training cases (config, params, ici). Kind "dpo" (batches: global
+(tokens [b, 2, T], prompt_lens, seq_lens) triples, lr, clip, beta) runs
+train/preference.py `make_dpo_step` with clip + AdamW; kind "grpo"
+(batches: global (tokens, prompt_lens, seq_lens, advantages, old
+log-probs or None) tuples, lr, clip, kl, use_old) runs train/rl.py
+`make_grpo_step`; each rank trains on its token block's pairs or rows
+(parallel/mesh.py `token_rows`) and every rank's metrics of every step
+come back, with the parameters after the last, gathered. Kind "seqlp"
+(tokens, prompt_lens, seq_lens) runs `sequence_logprobs` summed and per
+token on each rank's rows and returns them gathered in block order, every
+rank's. Kind "learner" (groups: Trajectory fields, lr, clip, kl) runs one
+rl/learner.py `LearnerRuntime.train_step` on the mesh and one broadcast,
+and returns every rank's metrics, the parameters after and the leaves the
+broadcast published. A "decode" case with "logprobs" also returns the
+log-probs of `generate(with_logprobs=True)`.
+
 The default case takes each rank's columns of its rows too (parallel/
 mesh.py `seq_block`), so a mesh with a context axis trains on its
 sequence blocks. This module imports no JAX.
@@ -163,10 +179,11 @@ def _inference_case(case):
         lengths = None if lengths is None else torch.from_numpy(lengths)
 
         def run(**kw):
-            return decode.generate(params, prompt, cfg, case["new_tokens"],
-                                   max_len=case["max_len"], lengths=lengths,
-                                   kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules,
-                                   **kw).tolist()
+            got = decode.generate(params, prompt, cfg, case["new_tokens"],
+                                  max_len=case["max_len"], lengths=lengths,
+                                  kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules,
+                                  with_logprobs=bool(case.get("logprobs")), **kw)
+            return [t.tolist() for t in got] if case.get("logprobs") else got.tolist()
         out["greedy"] = run()
         if case.get("temperature"):
             out["sampled"] = run(temperature=case["temperature"],
@@ -480,7 +497,101 @@ def _reshard_case(case):
     return out
 
 
+def _post_training_case(case):
+    """make_dpo_step, make_grpo_step, sequence_logprobs or the learner's
+    step on the case's mesh: every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import optim
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, token_rows
+    from kubedl_tpu_torch.train import preference, rl
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    kind = case["kind"]
+
+    def local(*arrays):
+        mine = token_rows(arrays[0].shape[0], mesh, rules)
+        return tuple(None if a is None else torch.from_numpy(np.ascontiguousarray(a[mine]))
+                     for a in arrays)
+
+    def gathered(state):
+        return _like(case["params"], [p.detach().full_tensor().numpy()
+                                      for p in llama.tree_leaves(state.params)])
+
+    def tx():
+        return optim.chain(optim.clip_by_global_norm(case["clip"]),
+                           optim.adamw(case["lr"], weight_decay=0.0))
+
+    out = {}
+    if kind == "dpo":
+        init, ref_fn, step = preference.make_dpo_step(
+            params_from_numpy(case["params"]), cfg, tx(), mesh, rules, beta=case["beta"])
+        state = init(params_from_numpy(case["params"]))
+        out["steps"] = []
+        for tokens, pl, sl in case["batches"]:
+            batch = local(tokens, pl, sl)
+            ref = ref_fn(batch)
+            state, m = step(state, (*batch, ref))
+            out["steps"].append({k: float(v) for k, v in m.items()})
+        out["params"] = gathered(state)
+    elif kind == "grpo":
+        init, _, ref_fn, step = rl.make_grpo_step(
+            params_from_numpy(case["params"]), cfg, tx(), mesh, rules, kl_coef=case["kl"],
+            use_old_logprobs=case["use_old"])
+        state = init(params_from_numpy(case["params"]))
+        out["steps"] = []
+        for tokens, pl, sl, adv, old in case["batches"]:
+            tokens, pl, sl, adv, old = local(tokens, pl, sl, adv, old)
+            ref = ref_fn((tokens, pl, sl))
+            extra = (old,) if case["use_old"] else ()
+            state, m = step(state, (tokens, pl, sl, adv, *extra, ref))
+            out["steps"].append({k: float(v) for k, v in m.items()})
+        out["params"] = gathered(state)
+    elif kind == "seqlp":
+        from kubedl_tpu_torch.parallel.mesh import shard_tree
+
+        params = shard_tree(params_from_numpy(case["params"]), mesh,
+                            llama.param_specs(cfg, rules))
+        batch = local(case["tokens"], case["prompt_lens"], case["seq_lens"])
+        with torch.no_grad():
+            sums = preference.sequence_logprobs(params, *batch, cfg, mesh=mesh, rules=rules)
+            lp, mask = preference.sequence_logprobs(params, *batch, cfg, mesh=mesh, rules=rules,
+                                                    per_token=True)
+        out.update(sums=_gathered_rows(sums, mesh, rules), lp=_gathered_rows(lp, mesh, rules),
+                   mask=_gathered_rows(mask, mesh, rules))
+    else:  # learner
+        from kubedl_tpu_torch.rl.learner import LearnerConfig, LearnerRuntime
+        from kubedl_tpu_torch.rl.trajectory import Trajectory
+        from kubedl_tpu_torch.rl.weights import WeightBroadcaster, decode_weights
+
+        class Keep:
+            def send(self, tag, payload):
+                self.payload = bytes(payload)
+
+        sink = Keep()
+        groups = [Trajectory(**g) for g in case["groups"]]
+        lcfg = LearnerConfig(prompts_per_step=len(groups), group_size=len(groups[0].tokens),
+                             lr=case["lr"], grad_clip=case["clip"], kl_coef=case["kl"])
+        learner = LearnerRuntime(params_from_numpy(case["params"]), cfg, lcfg, consumer=None,
+                                 broadcaster=WeightBroadcaster([sink]), mesh=mesh)
+        out["metrics"] = learner.train_step(groups)
+        learner._maybe_broadcast(1)
+        out["params"] = gathered(learner.state)
+        out["published"] = [t.numpy() for t in decode_weights(sink.payload)[0]]
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
 def _case(case):
+    if case.get("kind") in ("dpo", "grpo", "seqlp", "learner"):
+        return _post_training_case(case)
     if case.get("kind") == "reshard":
         return _reshard_case(case)
     if case.get("kind") == "attention":
