@@ -117,7 +117,28 @@ Phases, each printing its own line of numbers:
      beside it; (b) ServingEngine(kv_dtype="int8"): int8 cache leaves, the
      cache's bytes against the bf16 cache's, every request's first token
      equal to the bf16 run's, peak memory, decode ms a tick, and the share
-     of greedy tokens that agree with the bf16 run.
+     of greedy tokens that agree with the bf16 run. On the same mesh, each
+     against the one-device engine bit for bit: (c) Mixtral-8x7B int8 at
+     full width and MOE_TP_LAYERS of its 32 layers, built layer by layer as
+     phase 10 builds it, quantized whole and then sharded, with phase 4's
+     traffic in turns one device, mesh, mesh, one device: tokens, equal
+     K5 and K8 launches, decode ms a tick; then its bf16 tree one turn
+     each, through K5 and K6; (d) the serving features on
+     the 7B tree: a FEAT_CHUNK_PROMPT-token prompt chunked at 256 while
+     seven slots decode, then a 1,024-token registered prefix with suffix
+     requests, a self-draft speculative engine (acceptance >=
+     SELF_ACCEPT_MIN), and a ring cache at Mistral-7B widths (2 of 32
+     layers) on a prompt past the 4,096 window.
+  24. MoE int8 decode across ranks, a gloo pair on the card, started
+     beside phase 12 and checked at its end: two processes of this script
+     (--moe-pair-rank, hidden flags), Mixtral-8x7B widths, int8, 2 of 32
+     layers (12c's seeded tree, quantized whole in each process), each
+     running decode.generate on b 4 x 512 prompt tokens for 16 greedy
+     tokens on {"tensor": 2} and then {"expert": 2}: both ranks' tokens
+     equal, their first tokens one process's (12c's tree), teacher-forced
+     one-process logits along a rank's tokens within LOGIT_TOL of its own,
+     each rank's K5/K8 launches and local stack shapes as the mesh implies,
+     and each rank's gang_report line.
   13. the serving features, after phase 12's group is gone: (a) Llama-7B
      on ServingEngine (8 slots, max_len 4096, buckets to 1024, chunks of
      256): a 3,840-token prompt chunk-prefills while seven slots decode;
@@ -162,8 +183,9 @@ Phases, each printing its own line of numbers:
      against GET /stats. K1 launches of a-d and K2/K3 of (a) join the
      kernels line's launches_by_path.
   15. Gemma-2-2B from a local Hugging Face directory, after phase 14: (a)
-     the published google/gemma-2-2b config.json (full width and depth,
-     tie_word_embeddings left out as save_pretrained writes it) and seeded
+     the published google/gemma-2-2b config.json (full width, G2_MAIN_LAYERS
+     of its 26 layers, tie_word_embeddings left out as save_pretrained
+     writes it) and seeded
      bf16 weights in two safetensors shards with an index, written by this
      script into build/chip_smoke/; models/import_hf.py load_hf onto the
      card, every leaf against the seeded tensor bit for bit, load seconds
@@ -350,6 +372,7 @@ import contextlib
 import dataclasses
 import gc
 import glob
+import hashlib
 import json
 import math
 import os
@@ -1772,10 +1795,13 @@ TP_TURNS = ("one_device", "mesh", "int8_kv", "int8_kv", "mesh", "one_device")
 TP_LAYERS = 8
 
 
-def phase_tp_serving():
+def phase_tp_serving(smi, pair):
     """12: Llama-7B (TP_LAYERS of its 32 layers) on the serving engine
-    through the sharded decode on a one-device mesh (a) and with the int8 KV cache (b), in turns with the
-    one-device bf16-cache engine on the same parameters and traffic."""
+    through the sharded decode on a one-device mesh (a) and with the int8 KV
+    cache (b), in turns with the one-device bf16-cache engine on the same
+    parameters and traffic; then on the same mesh Mixtral-8x7B int8 (c) and
+    the serving features (d), each against the one-device engine; then
+    phase 24's pair (started beside this phase) against 12c's tree."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.models.serving import ServingEngine
     from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
@@ -1803,7 +1829,7 @@ def phase_tp_serving():
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del engine
         turns.setdefault(label, []).append(out)
-    del params, sharded, kinds
+    del kinds
     ref = turns["one_device"][0]
     for label, runs in turns.items():
         for run in runs:
@@ -1854,10 +1880,451 @@ def phase_tp_serving():
           f"(ratio {bytes_ratio:.4f}), first tokens equal, greedy tokens agreeing with the "
           f"bf16 run {agree}/{sum(len(t) for t in ref['tokens'])} ({agree_share:.4f})",
           flush=True)
+    features = _phase("12d", _12d_features, params, sharded, config, mesh, rules, smi)
+    del params, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_params, moe_config = _phase("12c", _12c_moe_int8, mesh, rules, smi)
+    moe_pair = _phase("24 MoE int8 decode on tensor=2 and expert=2: a gloo pair",
+                      _24_finish, pair, moe_params, moe_config, smi)
+    del moe_params
     return dict(turns=turns, order=list(TP_TURNS), tick_ratio=tick_ratio,
                 bytes_ratio=bytes_ratio, agree_share=agree_share,
                 launches_mesh=turns["mesh"][0]["launches"],
-                launches_int8=turns["int8_kv"][0]["launches"])
+                launches_int8=turns["int8_kv"][0]["launches"],
+                c_moe=moe, d_features=features, moe_pair=moe_pair)
+
+
+# 12c: Mixtral-8x7B int8 on the one-device mesh, in turns with the
+# one-device engine; its tree (MOE_TP_SEED) is phase 24's one-process
+# reference, which each rank of the pair builds alike
+MOE_TP_LAYERS = 2
+MOE_TP_SEED = 24
+MOE_TP_TURNS = ("one_device", "mesh", "mesh", "one_device")
+# 12d: the serving features on the mesh against one device
+FEAT_CHUNK_PROMPT, FEAT_MAX_LEN = 2048, 2304  # 8 chunks of 256; buckets stop at 1024
+FEAT_BUCKETS = [16, 32, 64, 128, 256, 512, 1024]
+FEAT_PREFIX_NEW = 16
+FEAT_RING_LAYERS, FEAT_RING_PROMPT, FEAT_RING_MAX_LEN = 2, 4400, 4608
+# 24: the pair's meshes and traffic
+MOE_PAIR_MESHES = ({"tensor": 2}, {"expert": 2})
+MOE_PAIR_B, MOE_PAIR_PROMPT, MOE_PAIR_NEW, MOE_PAIR_SEED = 4, 512, 16, 25
+
+
+def _12c_moe_int8(mesh, rules, smi):
+    """Mixtral-8x7B (MOE_TP_LAYERS of 32) through the sharded decode on the
+    one-device mesh, in turns with the one-device engine: the int8 tree is
+    quantized whole (built layer by layer as phase 10 builds it) and then
+    sharded, tokens bit for bit and K5 and K8 launches equal; then the bf16
+    tree of the same depth, one turn each, through K5 and K6."""
+    from kubedl_tpu_torch.models import llama, quant
+    from kubedl_tpu_torch.parallel.mesh import shard_tree
+
+    config = _mixtral(MOE_TP_LAYERS)
+    params = _int8_tree(config, torch.Generator(device="cuda").manual_seed(MOE_TP_SEED))
+    sharded = shard_tree(params, mesh, llama.param_specs(config, rules))
+    if not quant.is_quantized(sharded["layers"][0]["moe"]["w1"]):
+        raise AssertionError("12c: shard_tree did not keep the int8 leaves")
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+               for n in SERVE_LENGTHS]
+    turns, ref = _12c_turns(params, sharded, config, mesh, rules, prompts, MOE_TP_TURNS, "int8")
+    del sharded
+    # the bf16 stacks take K6 where the int8 ones take K8
+    bf16 = llama.init(config, torch.Generator(device="cuda").manual_seed(MOE_TP_SEED),
+                      device="cuda")
+    b_turns, b_ref = _12c_turns(bf16, shard_tree(bf16, mesh, llama.param_specs(config, rules)),
+                                config, mesh, rules, prompts, MOE_TP_TURNS[:2], "bf16")
+    del bf16
+
+    def mean(runs, label):
+        return statistics.mean(r["tick_ms_median"] for r in runs[label])
+
+    def ticks(runs):
+        return "; ".join(f"{label} " + ", ".join(f"{r['tick_ms_median']:.2f}" for r in rs)
+                         for label, rs in runs.items())
+
+    print(f"12c moe int8 under a mesh [{smi}]: Mixtral-8x7B int8, {config.n_layers} of 32 "
+          f"layers, quantized whole then shard_tree onto {{'tensor': 1}}, phase 4's traffic in "
+          f"turns {' / '.join(MOE_TP_TURNS)}: tokens bit for bit, launches K5/K6/K7/K8 "
+          f"{ref['gmm']} each turn; median tick {ticks(turns)} ms (mesh/one-device "
+          f"{mean(turns, 'mesh') / mean(turns, 'one_device'):.4f}); flash launches "
+          f"{ref['launches']}; bf16 tree in turns {' / '.join(MOE_TP_TURNS[:2])}: tokens bit "
+          f"for bit, launches K5/K6/K7/K8 {b_ref['gmm']}, median tick {ticks(b_turns)} ms",
+          flush=True)
+    return dict(turns=turns, gmm=ref["gmm"], launches=ref["launches"],
+                tick_ratio=mean(turns, "mesh") / mean(turns, "one_device"),
+                bf16_turns=b_turns, bf16_gmm=b_ref["gmm"],
+                bf16_launches=b_ref["launches"]), params, config
+
+
+def _12c_turns(params, sharded, config, mesh, rules, prompts, order, kind):
+    """Phase 4's traffic on the one-device and the mesh engine in the turns
+    of `order`: every turn's tokens and grouped-matmul launches equal the
+    first one-device turn's, the expert FFN's launches K5 with K8 (int8) or
+    K6 (bf16), once a layer a forward at least."""
+    from kubedl_tpu_torch.models.serving import ServingEngine
+
+    turns = {}
+    for label in order:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tree, kw = (params, {}) if label == "one_device" else (sharded,
+                                                               dict(mesh=mesh, rules=rules))
+        engine = ServingEngine(tree, config, slots=8, max_len=1024, **kw)
+        _reset_gmm_counts()
+        out = _drive_engine(engine, prompts, prompts[2])
+        out["gmm"] = list(_gmm_counts())
+        del engine
+        turns.setdefault(label, []).append(out)
+    ref = turns["one_device"][0]
+    second = 3 if kind == "int8" else 1  # K8 or K6 beside K5
+    for label, runs in turns.items():
+        for run in runs:
+            if any(run["errors"]) or any(len(t) != SERVE_NEW for t in run["tokens"]):
+                raise AssertionError(f"12c {kind} {label}: failed requests {run['errors']}")
+            g = run["gmm"]
+            if g[0] != g[second] or g[0] < config.n_layers \
+                    or any(g[i] for i in range(1, 4) if i != second):
+                raise AssertionError(f"12c {kind} {label}: launches K5/K6/K7/K8 {g}")
+            if run["tokens"] != ref["tokens"] or g != ref["gmm"]:
+                raise AssertionError(f"12c {kind} {label}: tokens equal "
+                                     f"{run['tokens'] == ref['tokens']}, launches {g} vs "
+                                     f"{ref['gmm']}")
+    return turns, ref
+
+
+def _12d_features(params, sharded, config, mesh, rules, smi):
+    """The serving features on the one-device mesh against the one-device
+    engine on phase 12's 7B tree, bit for bit: chunked prefill beside
+    decoding slots then a registered prefix (one engine a turn), a
+    self-draft speculative engine; then ring caches at Mistral-7B widths."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.ops.flash_attention import flash_attention
+    from kubedl_tpu_torch.parallel.mesh import shard_tree
+
+    rng = torch.Generator().manual_seed(23)
+
+    def draw(n):
+        return torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
+
+    long_prompt, shorts = draw(FEAT_CHUNK_PROMPT), [draw(CHUNK_SHORT) for _ in range(7)]
+    prefix, suffixes = draw(PREFIX_LEN), [draw(n) for n in PREFIX_SUFFIXES[:4]]
+    spec_prompts = [draw(n) for n in SERVE_LENGTHS[:4]]
+    on = {"one_device": (params, {}), "mesh": (sharded, dict(mesh=mesh, rules=rules))}
+    res, launches = {}, 0
+    for label, (tree, kw) in on.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = ServingEngine(tree, config, slots=8, max_len=FEAT_MAX_LEN,
+                               prompt_buckets=FEAT_BUCKETS, prefill_chunk=256, **kw)
+        gap, long_req, ttft, n_fwd, short_reqs = _chunk_traffic(engine, shorts, long_prompt)
+        chunked = engine.stats()["chunked_prefills"]
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        pid = engine.register_prefix(prefix)
+        reqs = [engine.submit(sfx, FEAT_PREFIX_NEW, prefix_id=pid) for sfx in suffixes]
+        while engine.has_pending():
+            engine.step_block(8)
+        torch.cuda.synchronize()
+        prefix_s = time.perf_counter() - t0
+        n_fwd += flash_attention.launches
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_attention.launches = 0
+        engine = ServingEngine(tree, config, slots=8, max_len=1024, draft_params=tree,
+                               draft_config=config, **kw)
+        spec_toks, round_ms, st = _spec_turn(engine, spec_prompts)
+        n_fwd += flash_attention.launches
+        del engine
+        res[label] = dict(chunk=[r.tokens for r in short_reqs] + [long_req.tokens],
+                          chunked=chunked, gap_ms=gap * 1e3, ttft_s=ttft,
+                          prefix=[r.tokens for r in reqs], prefix_errors=[r.error for r in reqs],
+                          prefix_s=prefix_s, spec=spec_toks, round_ms=round_ms,
+                          acceptance=st["spec_acceptance"], launches=n_fwd)
+        if label == "mesh":
+            launches += n_fwd
+    one, m = res["one_device"], res["mesh"]
+    for label, r in res.items():
+        if r["chunked"] != 1 or any(r["prefix_errors"]) \
+                or any(len(t) != FEAT_PREFIX_NEW for t in r["prefix"]):
+            raise AssertionError(f"12d {label}: chunked prefills {r['chunked']}, prefix "
+                                 f"errors {r['prefix_errors']}")
+        if r["acceptance"] < SELF_ACCEPT_MIN:
+            raise AssertionError(f"12d {label}: self-draft acceptance {r['acceptance']}")
+    for what in ("chunk", "prefix", "spec"):
+        if m[what] != one[what]:
+            raise AssertionError(f"12d: the mesh's {what} tokens differ from one device's")
+    # ring caches at Mistral-7B widths, a prompt past the window
+    mcfg = dataclasses.replace(_mistral(), n_layers=FEAT_RING_LAYERS)
+    mp = llama.init(mcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    ring_on = {"one_device": (mp, {}),
+               "mesh": (shard_tree(mp, mesh, llama.param_specs(mcfg, rules)),
+                        dict(mesh=mesh, rules=rules))}
+    ring_prompts = [draw(FEAT_RING_PROMPT), draw(500)]
+    ring = {}
+    for label, (tree, kw) in ring_on.items():
+        flash_attention.launches = 0
+        engine = ServingEngine(tree, mcfg, slots=2, max_len=FEAT_RING_MAX_LEN, **kw)
+        reqs = [engine.submit(p, RING_NEW) for p in ring_prompts]
+        while engine.has_pending():
+            engine.step_block(8)
+        st = engine.stats()
+        ring[label] = dict(tokens=[r.tokens for r in reqs], errors=[r.error for r in reqs],
+                           ring=engine.ring, rows=engine.cache["k"][0].shape[2],
+                           launches=flash_attention.launches,
+                           decode_ms=st["decode_time_s"] / max(st["ticks"], 1) * 1e3)
+        del engine
+    del ring_on, mp
+    for label, r in ring.items():
+        if any(r["errors"]) or not r["ring"] or r["rows"] != mcfg.sliding_window:
+            raise AssertionError(f"12d ring {label}: errors {r['errors']}, ring {r['ring']}, "
+                                 f"rows {r['rows']}")
+    if ring["mesh"]["tokens"] != ring["one_device"]["tokens"]:
+        raise AssertionError("12d: the mesh's ring tokens differ from one device's")
+    launches += ring["mesh"]["launches"]
+    print(f"12d serving features under a mesh [{smi}]: Llama-7B {config.n_layers} of 32 layers "
+          f"on {{'tensor': 1}} against one device, bit for bit: a {FEAT_CHUNK_PROMPT}-token "
+          f"prompt chunked at 256 beside 7 decoding slots (longest token gap "
+          f"{m['gap_ms']:.1f} ms against {one['gap_ms']:.1f}, first token after "
+          f"{m['ttft_s']:.3f} s against {one['ttft_s']:.3f}); a {PREFIX_LEN}-token prefix and "
+          f"{len(suffixes)} suffix requests ({m['prefix_s']:.3f} s against "
+          f"{one['prefix_s']:.3f}); a self-draft, acceptance {m['acceptance']:.4f} "
+          f"({one['acceptance']:.4f}), {m['round_ms']:.2f} ms a round against "
+          f"{one['round_ms']:.2f}; ring at Mistral-7B widths ({mcfg.n_layers} of 32 layers), "
+          f"a {FEAT_RING_PROMPT}-token prompt into {ring['mesh']['rows']} rows, decode "
+          f"{ring['mesh']['decode_ms']:.2f} ms a tick against "
+          f"{ring['one_device']['decode_ms']:.2f}; flash launches on the mesh {launches}",
+          flush=True)
+    return dict(features=res, ring=ring, launches=launches)
+
+
+def _moe_pair_rank(rank, port, out_path):
+    """One rank of phase 24's pair (run as `chip_smoke.py --moe-pair-rank R
+    --moe-pair-port P --moe-pair-out PATH`): the seeded int8 tree quantized
+    whole, sharded onto each mesh of MOE_PAIR_MESHES in turn, then
+    `decode.generate` and a teacher-forced pass along its own tokens."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import decode, llama
+    from kubedl_tpu_torch.parallel import collectives
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
+    from kubedl_tpu_torch.utils.device import gang_report
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    backend = dist.get_backend()
+    print(f"24 rank {rank}: process group backend {backend}, 2 ranks sharing "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    if backend != "gloo":  # NCCL cannot hold two ranks on one device: no switch
+        raise AssertionError(f"24: backend {backend} with two ranks on one card")
+    config, rules = _mixtral(MOE_TP_LAYERS), ShardingRules()
+    params = _int8_tree(config, torch.Generator(device="cuda").manual_seed(MOE_TP_SEED))
+    prompt = _moe_pair_prompt(config)
+    out = {}
+    for axes in MOE_PAIR_MESHES:
+        name = ",".join(f"{a}={n}" for a, n in axes.items())
+        mesh = build_mesh(axes, device_type="cuda")
+        sharded = shard_tree(params, mesh, llama.param_specs(config, rules))
+        dist.barrier()
+        _reset_gmm_counts()
+        _reset_counts()
+        collectives.staged_bytes, collectives.staged_s = 0, 0.0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            toks = decode.generate(sharded, prompt, config, MOE_PAIR_NEW, mesh=mesh,
+                                   rules=rules)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gmm, flash = list(_gmm_counts()), list(_counts())
+        staged = (collectives.staged_bytes, collectives.staged_s)
+        # the rank's logits (and router inputs) along its own tokens
+        gates = []
+        with torch.no_grad(), _gates_recorded(gates):
+            local, par = decode._mesh_context(sharded, config, mesh, rules)
+            cache = decode.init_kv_cache(config, MOE_PAIR_B, MOE_PAIR_PROMPT + MOE_PAIR_NEW,
+                                         uniform=True, device="cuda", mesh=mesh, rules=rules)
+            logits, cache = decode._prefill(local, prompt, cache, config, par=par)
+            rows = [logits.float()]
+            for i in range(MOE_PAIR_NEW - 1):
+                logits, cache = decode._decode_block_step(local, toks[:, i:i + 1], cache,
+                                                          config, check=False, par=par)
+                rows.append(logits[:, 0].float())
+        shapes = {n: list(local["layers"][0]["moe"][n]["q"].shape) for n in ("w1", "w3", "w2")}
+        # the router's inputs come out of a sum over the ranks: every rank's
+        # must be the same bits, or the ranks would route apart
+        digest = hashlib.sha256(b"".join(g.cpu().numpy().tobytes() for g in gates)).hexdigest()
+        mine = dict(tokens=toks.tolist(), gmm=gmm, flash=flash, shapes=shapes, gen_s=gen_s,
+                    gates_sha256=digest,
+                    staged_mb=staged[0] / 1e6, staged_s=staged[1],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        ranks = [None, None]
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            torch.save({"logits": torch.stack(rows, 1).cpu(), "gates": [g.cpu() for g in gates]},
+                       out_path + f".{name}.pt")
+            out[name] = dict(ranks=ranks)
+        del sharded, local, par, cache, logits, rows
+        torch.cuda.empty_cache()
+    print(f"24 rank {rank}: {gang_report(torch.device('cuda', 0))}", flush=True)
+    if rank == 0:
+        out["backend"] = backend
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _moe_pair_prompt(config):
+    return torch.randint(1, config.vocab_size, (MOE_PAIR_B, MOE_PAIR_PROMPT), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(MOE_PAIR_SEED)).cuda()
+
+
+def _24_start():
+    """Phase 24's two processes, started to run beside phase 12."""
+    os.makedirs(WORK, exist_ok=True)
+    out_path = os.path.join(WORK, "moe-pair.json")
+    logs = [os.path.join(WORK, f"moe-pair-rank{r}.log") for r in range(2)]
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--moe-pair-rank",
+                               str(r), "--moe-pair-port", str(port), "--moe-pair-out", out_path],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=open(log, "w"), stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    return dict(procs=procs, logs=logs, out=out_path, t0=time.perf_counter())
+
+
+def _routing_parted(got, ref, n_layers):
+    """Rows and steps ([b, steps] bool) where a rank's routing of the row's
+    current token (the prompt's last at step 0) differs from one process's
+    in any layer, and how many of those partings the measured difference
+    of the two gate logits does not explain: a parting is a near-tie when
+    one process's margin between its choice and the rank's is no larger
+    than twice the largest |gate logit difference| of that token."""
+    k = 2
+    steps = len(ref) // n_layers
+    parted = torch.zeros((MOE_PAIR_B, steps), dtype=torch.bool)
+    unexplained = 0
+    for c, (g, r) in enumerate(zip(got, ref)):
+        step = c // n_layers
+        rows = (torch.arange(MOE_PAIR_B) + 1) * MOE_PAIR_PROMPT - 1 if step == 0 \
+            else torch.arange(MOE_PAIR_B)
+        for b, t in enumerate(rows.tolist()):
+            mine = set(torch.topk(g[t], k).indices.tolist())
+            theirs = set(torch.topk(r[t], k).indices.tolist())
+            if mine == theirs:
+                continue
+            parted[b, step] = True
+            margin = (min(r[t][e] for e in theirs - mine)
+                      - max(r[t][e] for e in mine - theirs)).item()
+            # the two choices' gap moves by at most twice the largest difference
+            if margin > 2 * (g[t] - r[t]).abs().max().item():
+                unexplained += 1
+    return parted, unexplained
+
+
+def _24_finish(pair, params, config, smi):
+    """Wait for phase 24's pair and hold it to one process on the same
+    tree: both ranks' tokens equal, first tokens one process's, the
+    one-process logits along a rank's tokens within LOGIT_TOL of its own,
+    K5/K8 launches and local stack shapes as each mesh implies."""
+    from kubedl_tpu_torch.models import decode
+
+    procs = pair["procs"]
+    try:
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - pair["t0"]
+    texts = [open(x).read() for x in pair["logs"]]
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError(f"24 ranks exit {[p.returncode for p in procs]}:\n"
+                             + "\n".join(t[-3000:] for t in texts))
+    for t in texts:  # each rank's backend line and its gang_report line
+        for line in t.strip().splitlines():
+            if line.startswith("24 rank"):
+                print(line, flush=True)
+    with open(pair["out"]) as f:
+        res = json.load(f)
+    prompt = _moe_pair_prompt(config)
+    with torch.no_grad():
+        one = decode.generate(params, prompt, config, MOE_PAIR_NEW)
+    n, e, ff = config.n_layers, config.n_experts, config.d_ff
+    want_shapes = {"tensor=2": {"w1": [e, 4096, ff // 2], "w3": [e, 4096, ff // 2],
+                                "w2": [e, ff // 2, 4096]},
+                   "expert=2": {"w1": [e // 2, 4096, ff], "w3": [e // 2, 4096, ff],
+                                "w2": [e // 2, ff, 4096]}}
+    out, bad = {"wall_s": wall_s, "backend": res["backend"]}, []
+    launches = [0, 0, 0, 0]
+    for axes in MOE_PAIR_MESHES:
+        name = ",".join(f"{a}={k}" for a, k in axes.items())
+        ranks = res[name]["ranks"]
+        toks = torch.tensor(ranks[0]["tokens"], dtype=torch.int32, device="cuda")
+        # one process's logits (and router inputs) along the rank's tokens
+        gates = []
+        with torch.no_grad(), _gates_recorded(gates):
+            cache = decode.init_kv_cache(config, MOE_PAIR_B, MOE_PAIR_PROMPT + MOE_PAIR_NEW,
+                                         uniform=True, device="cuda")
+            logits, cache = decode.prefill(params, prompt, cache, config)
+            rows = [logits.float()]
+            for i in range(MOE_PAIR_NEW - 1):
+                logits, cache = decode.decode_step(params, toks[:, i], cache, config,
+                                                   check=False)
+                rows.append(logits.float())
+        ref = torch.stack(rows, 1).cpu()
+        saved = torch.load(pair["out"] + f".{name}.pt")
+        got = saved["logits"]
+        parted, unexplained = _routing_parted(saved["gates"], [g.cpu() for g in gates], n)
+        rels = (got - ref).abs().amax(-1) / ref.abs().amax(-1)  # [b, step]
+        rel = rels.masked_fill(parted, 0.0).max().item()
+        same = ranks[0]["tokens"] == ranks[1]["tokens"]
+        gates_same = ranks[0]["gates_sha256"] == ranks[1]["gates_sha256"]
+        firsts = all(r[0] == o or bool(parted[b, 0]) for b, (r, o) in
+                     enumerate(zip(ranks[0]["tokens"], one[:, 0].tolist())))
+        agree = sum(a == b for x, y in zip(ranks[0]["tokens"], one.tolist())
+                    for a, b in zip(x, y)) / one.numel()
+        want_gmm = [n * MOE_PAIR_NEW, 0, 0, n * MOE_PAIR_NEW]  # a prefill + 15 steps
+        for i, rk in enumerate(ranks):
+            print(f"24 {name} rank {i} [{smi}]: generate {rk['gen_s']:.2f} s, launches "
+                  f"K5/K6/K7/K8 {rk['gmm']} (expected {want_gmm}), flash fwd {rk['flash'][0]}, "
+                  f"local stacks {rk['shapes']}, host-staged {rk['staged_mb']:.1f} MB in "
+                  f"{rk['staged_s']:.3f} s, peak {rk['peak_gb']:.2f} GB", flush=True)
+            if rk["gmm"] != want_gmm or rk["shapes"] != want_shapes[name] \
+                    or rk["flash"][0] != n:
+                bad.append(f"{name} rank {i}: launches {rk['gmm']}, flash {rk['flash']}, "
+                           f"shapes {rk['shapes']}")
+            launches = [a + b for a, b in zip(launches, rk["gmm"])]
+        print(f"24 {name} [{smi}]: Mixtral-8x7B int8, {n} of 32 layers, b {MOE_PAIR_B} x "
+              f"{MOE_PAIR_PROMPT}, {MOE_PAIR_NEW} greedy tokens: ranks equal {same}, router "
+              f"inputs bitwise equal on both ranks {gates_same} ({len(saved['gates'])} routing "
+              f"calls), first "
+              f"tokens equal one process's {firsts}, tokens agreeing with one process "
+              f"{agree:.4f}; one process's logits along the rank's tokens max rel {rel:.3e} "
+              f"(tol {LOGIT_TOL}) over the {int((~parted).sum())} of {parted.numel()} row-steps "
+              f"whose routing equals one process's; the {int(parted.sum())} others part at a "
+              f"router near-tie within the gate logits' measured difference (unexplained "
+              f"{unexplained}), their logits max rel {rels[parted].max().item() if parted.any() else 0.0:.3e}",
+              flush=True)
+        if not same or not gates_same or not firsts or rel > LOGIT_TOL or unexplained \
+                or parted.float().mean().item() > 0.25:
+            bad.append(f"{name}: ranks equal {same}, router inputs {gates_same}, first tokens "
+                       f"{firsts}, logits rel {rel}, "
+                       f"parted routings {int(parted.sum())}, unexplained {unexplained}")
+        out[name] = dict(ranks=ranks, logits_rel=rel, agree=agree,
+                         routing_parted=int(parted.sum()), gen_s=[rk["gen_s"] for rk in ranks])
+    print(f"24 [{smi}]: pair wall {wall_s:.1f} s from its start beside phase 12", flush=True)
+    if bad:
+        raise AssertionError("24: " + "; ".join(bad))
+    out["launches"] = launches
+    return out
 
 # -- the MoE slice: grouped matmul kernels, gradients, training, int8 serving --
 
@@ -1942,6 +2409,25 @@ def _recorded(routing):
         out = real(*args, **kwargs)
         routing.append(out[0].detach().clone())
         return out
+
+    moe._top_k_gating = gating
+    try:
+        yield
+    finally:
+        moe._top_k_gating = real
+
+
+@contextlib.contextmanager
+def _gates_recorded(gates):
+    """Append the router's gate logits [S, E] of every routing call in the
+    block to `gates` (phase 24's teacher-forced passes)."""
+    from kubedl_tpu_torch.models import moe
+
+    real = moe._top_k_gating
+
+    def gating(gate_logits, *args, **kwargs):
+        gates.append(gate_logits.detach().float().clone())
+        return real(gate_logits, *args, **kwargs)
 
     moe._top_k_gating = gating
     try:
@@ -3288,6 +3774,12 @@ GEMMA2_2B = dict(
     rope_theta=10000.0, max_position_embeddings=8192, hidden_activation="gelu_pytorch_tanh",
     attention_bias=False, bos_token_id=2, eos_token_id=1, pad_token_id=0,
     torch_dtype="bfloat16")
+# 15a-c write, load, serve and train G2_MAIN_LAYERS of its 26 layers (full
+# depth before phases 12c, 12d and 24 came, which the cut pays for): full
+# width, sliding and global layers alternating as published
+G2_MAIN_LAYERS = 8
+GEMMA2_MAIN = dict(GEMMA2_2B, num_hidden_layers=G2_MAIN_LAYERS,
+                   layer_types=GEMMA2_2B["layer_types"][:G2_MAIN_LAYERS])
 G2_SHARDS = 2
 # seeded weights at N(0, 1/fan_in) (transformers' own init of a Gemma-2 is
 # about that) give greedy rows that repeat one token: the tied embedding
@@ -3432,7 +3924,7 @@ def _15a_load(path, smi):
     from kubedl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    seeded, nbytes = write_hf_checkpoint(path, GEMMA2_2B)
+    seeded, nbytes = write_hf_checkpoint(path, GEMMA2_MAIN)
     write_s = time.perf_counter() - t0
     free_gb = shutil.disk_usage(path).free / 1e9
     torch.cuda.synchronize()
@@ -3445,8 +3937,8 @@ def _15a_load(path, smi):
                                                               fa.BWD_SM90):
         raise AssertionError(f"15a: head dim {config.head_dim} does not route to the d 256 "
                              f"kernels")
-    want_windows = tuple(GEMMA2_2B["sliding_window"] if t == "sliding_attention" else None
-                         for t in GEMMA2_2B["layer_types"])
+    want_windows = tuple(GEMMA2_MAIN["sliding_window"] if t == "sliding_attention" else None
+                         for t in GEMMA2_MAIN["layer_types"])
     if (config.head_dim, config.tie_embeddings, config.layer_windows, "lm_head" in params,
             config.attn_logit_softcap, config.final_logit_softcap) != \
             (256, True, want_windows, False, 50.0, 30.0):
@@ -3593,7 +4085,7 @@ def _15b_serve(path, smi):
             raise AssertionError(f"15b: request of {n} prompt tokens failed: {a}")
     if pair["results"][0]["tokens"] != pair["results"][1]["tokens"]:
         raise AssertionError("15b: one prompt sent twice gave different tokens")
-    n_layers = GEMMA2_2B["num_hidden_layers"]
+    n_layers = GEMMA2_MAIN["num_hidden_layers"]
     if launches < n_layers * stats["prefill_batches"] or gen_launches != 2 * n_layers:
         raise AssertionError(f"15b: K1 launched {launches} times for {stats['prefill_batches']} "
                              f"prefill dispatches x {n_layers} layers; generate {gen_launches}")
@@ -3692,7 +4184,7 @@ def _15b_text(base, tok):
 def _15c_train(path, smi):
     """trainer --hf-model DIR: 4 steps at b=4, 1024-token rows, chunked CE
     over the 256000 vocabulary."""
-    c, n_layers = G2_TRAIN, GEMMA2_2B["num_hidden_layers"]
+    c, n_layers = G2_TRAIN, GEMMA2_MAIN["num_hidden_layers"]
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
@@ -6452,6 +6944,10 @@ def main(argv=None) -> int:
     p.add_argument("--context-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--context-port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--context-out", default=None, help=argparse.SUPPRESS)
+    # phase 24's ranks
+    p.add_argument("--moe-pair-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--moe-pair-port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--moe-pair-out", default=None, help=argparse.SUPPRESS)
     # phase 21a's and 21c's ranks
     p.add_argument("--reshard-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--reshard-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -6464,6 +6960,8 @@ def main(argv=None) -> int:
         return 1
     if args.context_rank is not None:
         return _context_rank(args.context_rank, args.context_port, args.context_out)
+    if args.moe_pair_rank is not None:
+        return _moe_pair_rank(args.moe_pair_rank, args.moe_pair_port, args.moe_pair_out)
     if args.reshard_rank is not None:
         return _reshard_rank(args.reshard_rank, args.reshard_port, args.reshard_out,
                              args.reshard_dir)
@@ -6495,7 +6993,9 @@ def main(argv=None) -> int:
     ep = _phase("11b expert-parallel body", phase_ep_body)
     _free("the expert-parallel body")
     gang = contracts["11c"]  # run after phase 1, beside phase 7's contract
-    tp = _phase("12 tensor-parallel serving and the int8 KV cache", phase_tp_serving)
+    pair = _24_start()  # phase 24's pair runs beside phase 12
+    tp = _phase("12 tensor-parallel serving, the int8 KV cache, MoE int8 and the serving "
+                "features under a mesh (and 24's check)", phase_tp_serving, smi, pair)
     _free("tensor-parallel serving")
     import torch.distributed as dist
 
@@ -6567,7 +7067,11 @@ def main(argv=None) -> int:
             "name": kname,
             "launches_by_path": {"moe_train": moe_train["launches"][MAIN_INDEX[kname]],
                                  "ep_dropless_body": ep["launches"][MAIN_INDEX[kname]],
-                                 "moe_int8_serving": moe_serve["launches"][MAIN_INDEX[kname]]},
+                                 "moe_int8_serving": moe_serve["launches"][MAIN_INDEX[kname]],
+                                 "moe_int8_mesh_serving": tp["c_moe"]["gmm"][MAIN_INDEX[kname]],
+                                 "moe_bf16_mesh_serving":
+                                     tp["c_moe"]["bf16_gmm"][MAIN_INDEX[kname]],
+                                 "moe_int8_pair": tp["moe_pair"]["launches"][MAIN_INDEX[kname]]},
             "route": "cuda",
             "source": "kubedl_tpu_torch/ops/csrc/gmm_sm90.cu",
             "replaces": f"kubedl_tpu/ops/gmm.py:{line}",
@@ -6672,6 +7176,12 @@ def main(argv=None) -> int:
                              "moe_int8_serving": moe_serve["flash_launches"],
                              "7b_tp_serving": tp["launches_mesh"],
                              "7b_int8_kv_serving": tp["launches_int8"],
+                             "moe_int8_mesh_serving": tp["c_moe"]["launches"],
+                             "moe_bf16_mesh_serving": tp["c_moe"]["bf16_launches"],
+                             "7b_features_mesh": tp["d_features"]["launches"],
+                             "moe_int8_pair": sum(rk["flash"][0] for m in MOE_PAIR_MESHES
+                                                  for rk in tp["moe_pair"][",".join(
+                                                      f"{a}={k}" for a, k in m.items())]["ranks"]),
                              **features["launches"], **lora["launches"],
                              "7b_disagg_serving": disagg["a_facade"]["launches"],
                              "7b_router_cross_pod": disagg["c_router"]["launches"],
@@ -6793,6 +7303,22 @@ def main(argv=None) -> int:
         "gemma2_grpo_saves": rl["a_grpo"]["saves"],
         "mnist_gang": {k: gc_[k] for k in ("step_s", "loss_rel", "backend")},
         "mnist_one_process_step_s": workloads["c_mnist"]["step_s"]},
+        "device": smi}), flush=True)
+    cm, fd, mp = tp["c_moe"], tp["d_features"], tp["moe_pair"]
+    print(json.dumps({"mesh_serving": {
+        "moe_int8_mesh_12c": {"gmm": cm["gmm"], "tick_ratio": cm["tick_ratio"],
+                              "tick_ms": {k: [r["tick_ms_median"] for r in v]
+                                          for k, v in cm["turns"].items()}},
+        "moe_bf16_mesh_12c": {"gmm": cm["bf16_gmm"],
+                              "tick_ms": {k: [r["tick_ms_median"] for r in v]
+                                          for k, v in cm["bf16_turns"].items()}},
+        "llama7b_features_mesh_12d": {k: {f: v[f] for f in ("gap_ms", "ttft_s", "prefix_s",
+                                                             "round_ms", "acceptance")}
+                                      for k, v in fd["features"].items()}
+        | {"ring_decode_ms": {k: v["decode_ms"] for k, v in fd["ring"].items()}},
+        "moe_int8_pair_24": {k: {f: v[f] for f in ("logits_rel", "agree", "gen_s")}
+                             for k, v in mp.items() if isinstance(v, dict)}
+        | {"wall_s": mp["wall_s"], "launches": mp["launches"]}},
         "device": smi}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -15,14 +15,19 @@ through the grouped matmul kernels (models/moe.py); int8 weight trees
 (models/quant.py) run through every entry point.
 
 Sharded (`mesh`, `rules`): the tree's leaves are DTensors laid out by
-`llama.param_specs`. Every rank runs the whole batch (the token axes
+`llama.param_specs` (an int8 tree quantized whole, then sharded: parallel/
+mesh.py `scale_dims`). Every rank runs the whole batch (the token axes
 replicate it) on its local views of the leaves, taken once a call (or once
-an engine, models/serving.py): its heads, its `mlp` columns and its
-vocabulary rows, with any fsdp shards gathered. The cache holds the local
-KV heads, one sum over the tensor axis follows `wo` and `w2`, and the
-vocabulary shards of the logits are gathered before a token is picked, so
-every rank computes the same tokens. MoE layers and int8 weight trees under
-a mesh are refused (ROADMAP.md).
+an engine, models/serving.py) and gathered through parallel/collectives.py:
+its heads, its `mlp` columns, its experts and its vocabulary rows, with any
+fsdp shards gathered; an int8 leaf's scales follow its output dim. The cache
+holds the local KV heads, one sum over the tensor axis follows `wo` and
+`w2`, a MoE layer routes the whole batch on every rank and sums its experts'
+and columns' parts over the expert and tensor axes (models/moe.py
+`moe_mlp_decode`), and the vocabulary shards of the logits are gathered
+before a token is picked, so every rank computes the same tokens. LoRA
+adapters (ROADMAP.md 12d) and a context axis above 1 (12f) are refused
+under a mesh.
 
 Unlike the JAX functions, which return new arrays, these write K/V into the
 given cache's buffers in place (a copy per token would double the cache
@@ -40,9 +45,8 @@ the window mask applies unchanged. Decode steps on a ring are single-token.
 `prefill_chunked` appends a prompt in block steps, `generate_speculative`
 drafts with a small model and verifies in one block step a round; both,
 and the ring, are plain torch over the cache, as the JAX package computes
-them outside any kernel. Under a mesh, ring caches, logprobs and LoRA
-adapters are refused (ROADMAP.md); `prefill_chunked` and
-`generate_speculative` take no mesh, as the JAX functions take none.
+them outside any kernel. Each takes `mesh` and `rules` as the other
+entry points do (the JAX functions run on a sharded tree as they are).
 
 `decode_step`, `decode_block_step` and `prefill` take per-row LoRA adapters
 (`lora`, the serving engine's stacks, and `adapter_ids` [b]): two batched
@@ -68,7 +72,7 @@ from kubedl_tpu_torch.models.llama import (
     _qkv,
     rms_norm,
 )
-from kubedl_tpu_torch.models.quant import _quantize_cols, is_quantized
+from kubedl_tpu_torch.models.quant import _quantize_cols
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 from kubedl_tpu_torch.parallel import collectives
 from kubedl_tpu_torch.parallel.mesh import ShardingRules, axes_size, live_axes
@@ -92,7 +96,7 @@ def init_kv_cache(
     `uniform`, else one length per row. The buffers are in the model dtype,
     or int8 codes with "ks"/"vs" bf16 scale buffers (ones until written)
     when kv_dtype="int8". With a mesh, a rank's cache holds its
-    n_kv_heads / (tensor axis size) local heads.
+    n_kv_heads / (tensor axis size) local heads, a ring's too.
 
     ring=True (sliding-window models): the buffers hold the window's rows,
     [b, h, window, d], written at lengths % window, and the dict carries a
@@ -110,10 +114,6 @@ def init_kv_cache(
             raise ValueError(
                 f"ring cache needs max_len >= sliding_window "
                 f"({config.sliding_window}), got {max_len}; drop ring=True")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ring KV caches under a mesh are not ported to kubedl_tpu_torch "
-                "yet (ROADMAP.md)")
         max_len = int(config.sliding_window)
     dev = resolve_device(device)
     n_tp = 1 if mesh is None else axes_size(
@@ -241,24 +241,22 @@ def _mesh_context(params: Dict, config: LlamaConfig, mesh, rules=None, lora=None
     without a mesh; with one, every leaf's local view, taken here once."""
     if mesh is None:
         return params, None
+    from torch.distributed.tensor import DTensor
+
     if lora is not None:
         raise NotImplementedError(
             "LoRA adapters under a mesh are not ported to kubedl_tpu_torch yet "
-            "(ROADMAP.md)")
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "MoE layers under a mesh in decode are not ported to kubedl_tpu_torch "
-            "yet (ROADMAP.md)")
-    if any(is_quantized(w) for w in params["layers"][0].values()) \
-            or is_quantized(params.get("lm_head")):
-        raise NotImplementedError(
-            "int8 weight trees (quant.quantize_params) under a mesh are not "
-            "ported to kubedl_tpu_torch yet (ROADMAP.md)")
-    par = _Par(mesh, rules or ShardingRules(), config)
+            "(ROADMAP.md 12d)")
+    par = _Par(mesh, rules or ShardingRules(), config, decode=True)
     if par.n_ctx > 1:
         raise NotImplementedError(
             "a mesh context axis > 1 in decode (a KV cache over sequence blocks) is "
-            "not ported to kubedl_tpu_torch yet (ROADMAP.md)")
+            "not ported to kubedl_tpu_torch yet (ROADMAP.md 12f)")
+    split = par.tp + live_axes(mesh, par.rules.axes("expert"))
+    if split and not isinstance(params["embed"], DTensor):
+        # a plain tree's full leaves would be summed over the split axes
+        raise ValueError(f"the mesh splits {split}: shard the tree first "
+                         f"(parallel/mesh.py shard_tree with llama.param_specs)")
     local = dict(_local_head(params, par))
     local.setdefault("embed", par.view(params["embed"], "vocab", None))
     local["layers"] = [_local_layer(layer, par) for layer in params["layers"]]
@@ -437,7 +435,7 @@ def _prefill(params, tokens, cache, config, lengths=None, par=None, lora=None,
 
 
 def prefill_chunked(params: Dict, tokens, cache: Dict, config: LlamaConfig,
-                    chunk_size: int = 2048):
+                    chunk_size: int = 2048, mesh=None, rules=None):
     """Append prompt tokens [b, t] to a uniform cache in block steps of
     `chunk_size` (multi-turn serving ingests a new turn without re-running
     the earlier ones). The whole append is checked against the cache's
@@ -445,18 +443,20 @@ def prefill_chunked(params: Dict, tokens, cache: Dict, config: LlamaConfig,
     (padding would put pad tokens into the cache); the LM head runs once,
     on the last hidden row. Returns (last-token logits [b, vocab], cache).
     The block attention is the plain masked product over the cache, so a
-    single long prompt is better served by the one-pass `prefill`."""
+    single long prompt is better served by the one-pass `prefill`. `mesh`,
+    `rules` as in decode_step."""
     b, t = tokens.shape
     if cache["lengths"].dim() != 0:
         raise ValueError("prefill_chunked requires a uniform cache "
                          "(init_kv_cache(..., uniform=True))")
     _check_capacity(cache["lengths"], t, cache["k"][0].shape[2])
+    local, par = _mesh_context(params, config, mesh, rules)
     x_last = None
     for s0 in range(0, t, chunk_size):
-        x, cache = _decode_block_step(params, tokens[:, s0:s0 + chunk_size], cache,
-                                      config, check=False, return_hidden=True)
+        x, cache = _decode_block_step(local, tokens[:, s0:s0 + chunk_size], cache,
+                                      config, check=False, par=par, return_hidden=True)
         x_last = x[:, -1]
-    return _lm_head(x_last[:, None], params, config)[:, 0], cache
+    return _full_logits(_lm_head(x_last[:, None], local, config, par)[:, 0], par), cache
 
 
 def _categorical(logits, generator: Optional[torch.Generator]):
@@ -521,7 +521,8 @@ def generate_speculative(params: Dict, draft_params: Dict, prompt, config: Llama
                          draft_config: LlamaConfig, max_new_tokens: int, k: int = 4,
                          kv_dtype: Optional[str] = None, return_stats: bool = False,
                          temperature: float = 0.0,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None, mesh=None,
+                         rules=None):
     """Speculative decoding of one sequence: [1, max_new_tokens] from the
     target's distribution in fewer target passes. Each round the draft
     proposes k tokens one step at a time and the target verifies them in
@@ -533,7 +534,10 @@ def generate_speculative(params: Dict, draft_params: Dict, prompt, config: Llama
     min(1, p(x)/q(x)) and otherwise draws from normalize(max(p - q, 0)),
     which samples the target's distribution. return_stats=True also
     returns {"rounds", "acceptance"}: accepted drafts a round over k-1.
-    Every round reads its accepted count back to the host once."""
+    Every round reads its accepted count back to the host once. Under a
+    `mesh` both trees are sharded alike and each caches its local heads;
+    every rank runs the rounds on the gathered logits, so all accept alike
+    (a sampled run needs `generator` seeded alike on every rank)."""
     b, t = prompt.shape
     if b != 1:
         raise ValueError(f"speculative decoding is batch=1 (got batch {b})")
@@ -547,11 +551,14 @@ def generate_speculative(params: Dict, draft_params: Dict, prompt, config: Llama
     max_len = t + max_new_tokens + k  # slack: the last block may overshoot
     dev = prompt.device
     sampled = temperature > 0
-    t_cache = init_kv_cache(config, 1, max_len, uniform=True, kv_dtype=kv_dtype, device=dev)
-    logits, t_cache = _prefill(params, prompt, t_cache, config)
+    params, par = _mesh_context(params, config, mesh, rules)
+    draft_params, d_par = _mesh_context(draft_params, draft_config, mesh, rules)
+    t_cache = init_kv_cache(config, 1, max_len, uniform=True, kv_dtype=kv_dtype, device=dev,
+                            mesh=mesh, rules=rules)
+    logits, t_cache = _prefill(params, prompt, t_cache, config, par=par)
     d_cache = init_kv_cache(draft_config, 1, max_len, uniform=True, kv_dtype=kv_dtype,
-                            device=dev)
-    _, d_cache = _prefill(draft_params, prompt, d_cache, draft_config)
+                            device=dev, mesh=mesh, rules=rules)
+    _, d_cache = _prefill(draft_params, prompt, d_cache, draft_config, par=d_par)
 
     def pick(lg):
         if sampled:
@@ -566,14 +573,15 @@ def generate_speculative(params: Dict, draft_params: Dict, prompt, config: Llama
         drafted, qs, tok = [], [], cur
         for _ in range(k):
             lg, d_cache = _decode_block_step(draft_params, tok[:, None], d_cache,
-                                             draft_config, check=False)
+                                             draft_config, check=False, par=d_par)
             tok = pick(lg[:, 0])
             drafted.append(tok)
             if sampled:
                 qs.append(torch.softmax(lg[0, 0].float() / temperature, dim=-1))
         drafted = torch.cat(drafted)  # [k]
         blk = torch.cat([cur, drafted])[None]  # [1, k+1]
-        blk_logits, t_cache = _decode_block_step(params, blk, t_cache, config, check=False)
+        blk_logits, t_cache = _decode_block_step(params, blk, t_cache, config, check=False,
+                                                 par=par)
         if sampled:
             p = torch.softmax(blk_logits[0].float() / temperature, dim=-1)  # [k+1, V]
             q = torch.stack(qs)  # [k, V]

@@ -58,7 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from kubedl_tpu_torch.api.validation import validate_pipeline_shapes
-from kubedl_tpu_torch.models.moe import moe_init, moe_mlp, moe_param_specs
+from kubedl_tpu_torch.models.moe import moe_init, moe_mlp, moe_mlp_decode, moe_param_specs
+from kubedl_tpu_torch.models.quant import is_quantized
 from kubedl_tpu_torch.models.quant import matmul as _mm
 from kubedl_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 from kubedl_tpu_torch.ops.ring_attention import ring_attention
@@ -66,7 +67,7 @@ from kubedl_tpu_torch.ops.ulysses import ulysses_attention
 from kubedl_tpu_torch.parallel import collectives, pipeline
 from kubedl_tpu_torch.parallel.mesh import (P, ShardingRules, axes_index, axes_size,
                                             axis_size, live_axes, local_view, mesh_shape,
-                                            seq_index, token_axes, token_index,
+                                            scale_dims, seq_index, token_axes, token_index,
                                             view_placements)
 from kubedl_tpu_torch.utils.device import resolve_device
 
@@ -513,7 +514,12 @@ def _mlp_block(x, layer, config: LlamaConfig, par: Optional["_Par"] = None,
     `lora`, `adapter_ids`: per-row serving adapters on w1/w3/w2 (`_proj`);
     MoE layers carry no dense projections for adapters to target."""
     h = rms_norm(x, layer["mlp_norm"], config.rms_eps, config.norm_offset)
-    if "moe" in layer:
+    if "moe" in layer and par is not None and par.decode:
+        y, aux = moe_mlp_decode(h, layer["moe"], top_k=config.expert_top_k,
+                                capacity_factor=config.expert_capacity_factor,
+                                mesh=par.mesh, rules=par.rules,
+                                dropless=config.moe_dropless, fused=config.moe_fused)
+    elif "moe" in layer:
         y, aux = moe_mlp(h, layer["moe"], top_k=config.expert_top_k,
                          capacity_factor=config.expert_capacity_factor,
                          mesh=par.mesh if par is not None else None,
@@ -580,11 +586,16 @@ class _Par:
     collectives.py): `view` gives a leaf's local compute tensor, `enter`
     and `psum` open and close a tensor-parallel region, and the token and
     context axes sum each rank's part of the loss. `seq` are the live
-    context axes, `ctx_index` of `n_ctx` this rank's sequence block."""
+    context axes, `ctx_index` of `n_ctx` this rank's sequence block.
+
+    `decode=True` (models/decode.py: every rank holds the whole batch, no
+    gradient flows): views are gathered through parallel/collectives.py
+    (`gathered_view`), and MoE layers take `moe_mlp_decode`."""
 
     def __init__(self, mesh, rules: ShardingRules, config: LlamaConfig,
-                 partial_axes: tuple = ()):
+                 partial_axes: tuple = (), decode: bool = False):
         self.mesh, self.rules = mesh, rules
+        self.decode = decode
         self.seq = live_axes(mesh, rules.axes("seq"))
         if len(self.seq) > 1:
             raise NotImplementedError(
@@ -616,8 +627,18 @@ class _Par:
         for name, n in (("d_ff", config.d_ff), ("vocab_size", config.vocab_size)):
             if n % self.n_tp:
                 raise ValueError(f"{name} {n} not divisible by the tensor axis {self.n_tp}")
+        n_e = axes_size(self.mesh, live_axes(self.mesh, self.rules.axes("expert")))
+        if config.n_experts and config.n_experts % n_e:
+            raise ValueError(f"{config.n_experts} experts not divisible by the expert "
+                             f"axis {n_e}")
 
     def view(self, p, *dims):
+        """The local tensor of leaf `p` laid out as the logical `dims`; an
+        int8 leaf's scale {"s"} as parallel/mesh.py `scale_dims`."""
+        if is_quantized(p):
+            return {"q": self.view(p["q"], *dims), "s": self.view(p["s"], *scale_dims(dims))}
+        if self.decode:
+            return collectives.gathered_view(p, self.mesh, self.rules.spec(*dims))
         layout = self._layouts.get(dims)
         if layout is None:
             layout = self._layouts[dims] = view_placements(self.mesh, self.rules, dims,

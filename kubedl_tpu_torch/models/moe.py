@@ -42,6 +42,11 @@ whole sequence (routing, slots and quotas are those of the JAX module's
 rows, which XLA gathers over context too), runs the route on it and keeps
 its own block of the output; the context peers' aux losses are one value,
 each peer's part of it 1 / the peers.
+
+Decode and serving under a mesh take neither sharded route (`moe_mlp_decode`):
+every rank holds the whole batch, routes it as one device does and computes
+its own experts' and `mlp` columns' part, one sum over the expert and tensor
+axes after.
 """
 from __future__ import annotations
 
@@ -500,6 +505,80 @@ def _emm(x, w, eq: str):
     return torch.einsum(eq, x, w)
 
 
+def _slot_ffn(hf, params: Dict, experts, slots, keeps, c: int, first: int = 0):
+    """The capacity route's expert FFN on one device's stacks: (out_pad
+    [e_loc * c + 1, d], its last row zero; flat [k, S], each entry's row in
+    it). The stacks hold experts [first, first + e_loc); entries dropped
+    past capacity or routed to other experts point at the zero row."""
+    e_loc = (params["w1"]["q"] if isinstance(params["w1"], dict) else params["w1"]).shape[0]
+    s, d = hf.shape
+    flat = torch.where(keeps, (experts.long() - first) * c + slots.long(),
+                       torch.full_like(experts, -1, dtype=torch.long))
+    flat = torch.where((flat >= 0) & (flat < e_loc * c), flat,
+                       torch.full_like(flat, e_loc * c))
+    # slots -> tokens by index: unfilled slots point at the zero row s; the
+    # extra slot e_loc * c takes the other entries' writes
+    token_of_slot = torch.full((e_loc * c + 1,), s, dtype=torch.long, device=hf.device)
+    arange_s = torch.arange(s, dtype=torch.long, device=hf.device)
+    for k in range(flat.shape[0]):
+        token_of_slot[flat[k]] = arange_s
+    hf_pad = torch.cat([hf, hf.new_zeros((1, d))], dim=0)
+    expert_in = hf_pad[token_of_slot[:e_loc * c]].reshape(e_loc, c, d)
+    gate = F.silu(_emm(expert_in, params["w1"], "ecd,edf->ecf").float()).to(hf.dtype)
+    up = _emm(expert_in, params["w3"], "ecd,edf->ecf")
+    out = _emm(gate * up, params["w2"], "ecf,efd->ecd")
+    return torch.cat([out.reshape(e_loc * c, d), out.new_zeros((1, d))], dim=0), flat
+
+
+def moe_mlp_decode(h, params: Dict, *, top_k: int = 2, capacity_factor: float = 1.25,
+                   mesh=None, rules: Optional[ShardingRules] = None,
+                   dropless: Optional[bool] = None,
+                   fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of a decode or serving forward under a mesh: (output
+    [b, t, d], aux). Every rank holds the whole batch (decode replicates it
+    over the token axes) and routes it with the whole router, so the
+    routing and dispatch integers are one device's on every rank; each rank
+    computes its own experts' (the live expert axes) and its own mlp columns'
+    (the live tensor axes) part, the k choices combined in f32, and one sum
+    over those axes completes it. This is the route of the JAX package's
+    decode, which runs the one-device MoE on the sharded tree: `dropless`
+    None or True takes the grouped products (`_gmm_ffn`: K5, then K6 on bf16
+    stacks or K8 on int8 ones), entries of another rank's experts being
+    `_dispatch_plan`'s sentinel; False the capacity slots of the whole batch.
+    With no live expert or tensor axis this is `moe_mlp` on one device."""
+    rules = rules or ShardingRules()
+    ex = live_axes(mesh, rules.axes("expert")) if mesh is not None else ()
+    cols = live_axes(mesh, rules.axes("mlp")) if mesh is not None else ()
+    if set(ex) & set(cols):
+        raise ValueError(f"expert axes {ex} and mlp axes {cols} overlap")
+    if not ex and not cols:
+        return moe_mlp(h, params, top_k=top_k, capacity_factor=capacity_factor,
+                       dropless=dropless, fused=fused)
+    b, t, d = h.shape
+    s = b * t
+    e = params["router"].shape[-1]
+    e_loc = e // axes_size(mesh, ex)
+    first = axes_index(mesh, ex) * e_loc  # this rank's first expert
+    hf = h.reshape(s, d)
+    gate_logits = hf.float() @ params["router"]
+    if dropless is None or dropless:
+        experts, _, weights, _, (me, ce) = _top_k_gating(gate_logits, top_k, s + 1,
+                                                         need_slots=False)
+        local = experts.reshape(top_k * s).long() - first
+        eid = torch.where((local >= 0) & (local < e_loc), local,
+                          torch.full_like(local, e_loc))  # the sentinel
+        src_rows = torch.arange(s, dtype=torch.long, device=h.device).repeat(top_k)
+        rows = _gmm_ffn(hf, src_rows, eid, params, e_loc,
+                        fused=True if fused is None else fused)
+    else:
+        c = expert_capacity(s, e, top_k, capacity_factor)
+        experts, slots, weights, keeps, (me, ce) = _top_k_gating(gate_logits, top_k, c)
+        out_pad, flat = _slot_ffn(hf, params, experts, slots, keeps, c, first)
+        rows = out_pad[flat.reshape(-1)]
+    y = collectives.psum(_combine(rows, weights, torch.float32), mesh, ex + cols)
+    return y.to(h.dtype).reshape(b, t, d), e * (me * ce).sum()
+
+
 def moe_mlp(h, params: Dict, *, top_k: int = 2, capacity_factor: float = 1.25,
             mesh=None, rules: Optional[ShardingRules] = None,
             dropless: Optional[bool] = None, fused: Optional[bool] = None,
@@ -557,23 +636,7 @@ def moe_mlp(h, params: Dict, *, top_k: int = 2, capacity_factor: float = 1.25,
         y = _dropless_mlp(hf, params, experts, gates, e, fused=fused)
         return y.reshape(b, t, d), e * (me * ce).sum()
     experts, slots, weights, keeps, (me, ce) = _top_k_gating(gate_logits, top_k, c)
-    aux = e * (me * ce).sum()
-    # tokens -> expert slots by index: dropped tokens and unfilled slots
-    # point at the zero row s; the extra slot e*c takes the dropped writes
-    flat = torch.where(keeps, experts.long() * c + slots.long(),
-                       torch.full_like(experts, e * c, dtype=torch.long))
-    token_of_slot = torch.full((e * c + 1,), s, dtype=torch.long, device=h.device)
-    arange_s = torch.arange(s, dtype=torch.long, device=h.device)
-    for k in range(flat.shape[0]):
-        token_of_slot[flat[k]] = arange_s
-    hf_pad = torch.cat([hf, hf.new_zeros((1, d))], dim=0)
-    expert_in = hf_pad[token_of_slot[:e * c]].reshape(e, c, d)
-    gate = F.silu(_emm(expert_in, params["w1"], "ecd,edf->ecf").float()).to(h.dtype)
-    up = _emm(expert_in, params["w3"], "ecd,edf->ecf")
-    out = _emm(gate * up, params["w2"], "ecf,efd->ecd")
     # expert slots -> tokens: k weighted gathers
-    out_pad = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))], dim=0)
-    y = torch.zeros((s, d), dtype=h.dtype, device=h.device)
-    for k in range(flat.shape[0]):
-        y = y + weights[k][:, None].to(h.dtype) * out_pad[flat[k]]
-    return y.reshape(b, t, d), aux
+    out_pad, flat = _slot_ffn(hf, params, experts, slots, keeps, c)
+    y = _combine(out_pad[flat.reshape(-1)], weights, h.dtype)
+    return y.reshape(b, t, d), e * (me * ce).sum()

@@ -15,6 +15,14 @@ compensate the scale's own rounding.
 Dense matrices multiply as (x @ q) * s (`matmul`); MoE expert stacks go to
 the grouped matmul kernels as int8 (models/moe.py). Training never sees a
 quantized tree.
+
+Under a mesh a tree is quantized whole and then sharded (`shard_tree` with
+`llama.param_specs`): `q` takes the weight's spec and `s` the spec without
+the contracted dim (parallel/mesh.py `scale_dims`), so a rank's scales
+are the whole matrix's for its output columns. Quantizing each shard would
+give a row-parallel weight (`wo`, `w2`) other scales, its amax running over
+a part of the input dim. A rank applies `s` after its local contraction and
+before the sum over the tensor axis: exact, `s` being constant per column.
 """
 from __future__ import annotations
 

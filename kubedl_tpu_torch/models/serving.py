@@ -37,9 +37,11 @@ are DTensors (`llama.param_specs`) and the engine runs on every rank of the
 group with the same submissions in the same order: its slots are
 replicated, only the tensor axis splits the work, the local views of the
 leaves are taken once here, and every rank samples the same tokens from
-the gathered logits with the same seeded generator. Under a mesh, ring
-caches, chunked prefill, prefixes, speculative serving and LoRA adapters
-are refused (NotImplementedError naming ROADMAP.md).
+the gathered logits with the same seeded generator. Every feature above
+runs there too: a ring, a registered prefix and the chunker's cache hold
+this rank's KV heads, and a draft takes its own local views of a tree
+sharded alike. LoRA adapters under a mesh are refused (NotImplementedError
+naming ROADMAP.md 12d), as is a mesh context axis above 1 (12f).
 """
 from __future__ import annotations
 
@@ -200,11 +202,6 @@ def _to_host(tensors):
     return tuple(t.cpu() for t in tensors)
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to kubedl_tpu_torch yet "
-                               f"(ROADMAP.md)")
-
-
 class ServingEngine:
     """Slot-based continuous batching for one model on one device (the
     device its params lie on), or on this rank's device of a `mesh`."""
@@ -238,10 +235,6 @@ class ServingEngine:
         if ring and not config.sliding_window:
             raise ValueError("ring=True requires config.sliding_window")
         self.ring = bool(ring)
-        if mesh is not None and self.ring:
-            raise _unported("a ring KV cache under a mesh (pass ring=False)")
-        if mesh is not None and draft_params is not None:
-            raise _unported("speculative serving under a mesh")
         self.params = params
         self.config = config
         self.kv_dtype = kv_dtype
@@ -326,6 +319,9 @@ class ServingEngine:
                 raise ValueError(f"spec_k must be >= 2, got {spec_k}")
             self.draft_params = draft_params
             self.draft_config = draft_config
+            # the draft's local views and collectives, on the target's mesh
+            self._draft_local, self._draft_par = decode._mesh_context(
+                draft_params, draft_config, mesh, rules)
             self.spec_k = int(spec_k)
             self.draft_cache = self._new_cache(slots, max_len, config=draft_config)
             self._spec_rounds = 0
@@ -336,10 +332,9 @@ class ServingEngine:
 
     def _new_cache(self, batch: int, max_len: int, ring: bool = False,
                    uniform: bool = False, config: Optional[LlamaConfig] = None) -> Dict:
-        cfg = config or self.config
-        return decode.init_kv_cache(cfg, batch, max_len, uniform=uniform,
+        return decode.init_kv_cache(config or self.config, batch, max_len, uniform=uniform,
                                     kv_dtype=self.kv_dtype, ring=ring, device=self.device,
-                                    mesh=None if config else self.mesh, rules=self.rules)
+                                    mesh=self.mesh, rules=self.rules)
 
     def _prefill_rows(self, params, config, padded: np.ndarray, lengths: np.ndarray,
                       par=None, adapters: Optional[np.ndarray] = None):
@@ -435,8 +430,8 @@ class ServingEngine:
         tok, drafted = cur, []
         for _ in range(k):
             lg, self.draft_cache = decode._decode_block_step(
-                self.draft_params, tok[:, None], self.draft_cache, self.draft_config,
-                check=False)
+                self._draft_local, tok[:, None], self.draft_cache, self.draft_config,
+                check=False, par=self._draft_par)
             tok = torch.where(active, lg[:, 0].argmax(dim=-1).to(torch.int32),
                               torch.zeros_like(tok))
             drafted.append(tok)
@@ -506,8 +501,8 @@ class ServingEngine:
         do not advance), so plain ticks keep the draft aligned."""
         old = self.draft_cache["lengths"]
         _, self.draft_cache = decode._decode_block_step(
-            self.draft_params, self.cur_tokens[:, None], self.draft_cache,
-            self.draft_config, check=False)
+            self._draft_local, self.cur_tokens[:, None], self.draft_cache,
+            self.draft_config, check=False, par=self._draft_par)
         self.draft_cache["lengths"] = torch.where(self.active, self.draft_cache["lengths"], old)
 
     def _spec_step(self, decoding: List[int], head: int) -> int:
@@ -554,7 +549,8 @@ class ServingEngine:
         adapters before opening traffic, not per request. Refused under a
         mesh (NotImplementedError) and on an int8 weight tree (ValueError)."""
         if self.mesh is not None:
-            raise _unported("LoRA adapters under a mesh")
+            raise NotImplementedError("LoRA adapters under a mesh are not ported to "
+                                      "kubedl_tpu_torch yet (ROADMAP.md 12d)")
         layers = adapters["layers"]
         base = self.params["layers"]
         if len(layers) != len(base):
@@ -626,8 +622,6 @@ class ServingEngine:
             # the suffix append runs block steps, which a ring cannot take
             raise ValueError("prefix caching is unsupported with ring "
                              "(sliding-window) caches")
-        if self.mesh is not None:
-            raise _unported("prefix caching under a mesh")
         if tokens.size == 0:
             raise ValueError("empty prefix")
         if tokens.size >= self.max_len:
@@ -710,8 +704,6 @@ class ServingEngine:
                             f"of prefill_chunk {self.prefill_chunk})")
             raise ValueError(f"prompt of {prompt.size} tokens exceeds the largest "
                              f"prompt bucket {self.prompt_buckets[-1]}{hint}")
-        if chunk_eligible and self.mesh is not None:
-            raise _unported("chunked prefill under a mesh")
         req = Request(self._next_id, prompt, max_new_tokens, eos_token,
                       prefix_id=prefix_id,
                       temperature=(self.temperature if temperature is None
@@ -916,8 +908,8 @@ class ServingEngine:
             t_pad = min(1 << (t - 1).bit_length(), self.max_len)
             padded = np.zeros((1, t_pad), np.int32)
             padded[0, :t] = prompt
-            _, d_rows = self._prefill_rows(self.draft_params, self.draft_config, padded,
-                                           np.array([t], np.int32))
+            _, d_rows = self._prefill_rows(self._draft_local, self.draft_config, padded,
+                                           np.array([t], np.int32), self._draft_par)
             self._splice(self.draft_cache, d_rows, 0, slot, t)
         self._claim_slot(slot, req, t)
         self._chunking = None
@@ -986,8 +978,8 @@ class ServingEngine:
         self._prefill_batches += 1
         d_rows = None
         if self._spec:
-            _, d_rows = self._prefill_rows(self.draft_params, self.draft_config, padded,
-                                           lengths)
+            _, d_rows = self._prefill_rows(self._draft_local, self.draft_config, padded,
+                                           lengths, self._draft_par)
         if any(r.needs_filter for r in reqs):
             mode = "filtered"
         elif any(r.temperature > 0 for r in reqs):

@@ -27,7 +27,10 @@ stages a CUDA tensor through the host on such a group (several processes
 sharing one card can only form a gloo group), counts the bytes it copies
 each way in `staged_bytes`, and the seconds from the host copy's arrival
 (the device's queued work done) to the result's return to the card in
-`staged_s`. NCCL groups take the tensor as it is.
+`staged_s`. NCCL groups take the tensor as it is. `gathered_view` takes a
+parameter's local view for inference through these collectives, never
+through DTensor's own redistribute: DTensor's Shard -> Replicate all-gather
+of a CUDA tensor over gloo dies (SIGSEGV).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-from kubedl_tpu_torch.parallel.mesh import axis_size, live_axes
+from kubedl_tpu_torch.parallel.mesh import axis_size, live_axes, placements
 
 
 # bytes copied between a card and the host for collectives on gloo groups
@@ -316,3 +319,32 @@ def broadcast_from(x: torch.Tensor, mesh, axis: str, index: int) -> torch.Tensor
     if mesh is None or axis_size(mesh, axis) == 1:
         return x
     return _Broadcast.apply(x, mesh.get_group(axis), index)
+
+
+def gathered_view(p, mesh, spec) -> torch.Tensor:
+    """The local tensor of the DTensor `p` laid out as `spec`, outside
+    autograd (decode and serving): each tensor dim that `p` shards and
+    `spec` replicates is gathered over its mesh axes by `all_gather`
+    (host-staged on a gloo group), and the dims `spec` shards as `p` does
+    stay as they are. A plain tensor passes through."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(p, DTensor):
+        return p
+    gather = {}  # tensor dim -> the mesh axes to gather it over, outermost first
+    for name, have, want in zip(mesh.mesh_dim_names, p.placements, placements(mesh, spec)):
+        if have == want:
+            continue
+        if not (isinstance(have, Shard) and isinstance(want, Replicate)):
+            raise ValueError(f"no gathered view from {tuple(p.placements)} to "
+                             f"{tuple(spec)}: only Shard -> Replicate is gathered")
+        gather.setdefault(have.dim, []).append(name)
+    x = p.to_local().detach()
+    for d, axes in gather.items():
+        kept = [n for n, pl in zip(mesh.mesh_dim_names, p.placements)
+                if isinstance(pl, Shard) and pl.dim == d and n not in axes]
+        if kept:
+            raise ValueError(f"dim {d} of {tuple(p.placements)}: gathering {axes} while "
+                             f"{kept} stays sharded is not a view")
+        x = all_gather(x.movedim(d, 0).contiguous(), mesh, axes).movedim(0, d).contiguous()
+    return x

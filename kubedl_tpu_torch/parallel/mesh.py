@@ -39,6 +39,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kubedl_tpu_torch.models.quant import is_quantized
+
 AXIS_ORDER = ("data", "fsdp", "stage", "tensor", "context", "expert")
 
 # Batch shards over data+fsdp (fsdp also shards params, ZeRO-3 style).
@@ -370,8 +372,20 @@ def _is_spec(x) -> bool:
     return isinstance(x, PartitionSpec)
 
 
+def scale_dims(dims) -> tuple:
+    """The layout of an int8 leaf's scale {"s"} (models/quant.py) from its
+    weight's dims or spec: the weight's without the contracted (input) dim,
+    the second to last: [in, out] -> [out], [E, in, out] -> [E, out]. The
+    leaf is quantized whole and then sharded, so a shard's scales are those
+    of the whole matrix's columns it holds."""
+    dims = tuple(dims)
+    return dims[:-2] + dims[-1:]
+
+
 def _map_specs(fn, tree, specs):
     if _is_spec(specs):
+        if is_quantized(tree):  # an int8 leaf: q as its weight, s as scale_dims
+            return {"q": fn(tree["q"], specs), "s": fn(tree["s"], P(*scale_dims(specs)))}
         return fn(tree, specs)
     if isinstance(specs, dict):
         if not isinstance(tree, dict) or set(tree) != set(specs):

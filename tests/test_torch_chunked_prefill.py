@@ -278,10 +278,22 @@ def test_chunked_prefill_under_a_mesh_is_refused(model):
     mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_ORDER,
                                  mesh=np.zeros([1] * len(tmesh.AXIS_ORDER)),
                                  get_local_rank=lambda axis: 0)
-    eng = ServingEngine(tp, tcfg, slots=1, max_len=64, prompt_buckets=[16],
-                        prefill_chunk=16, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="chunked prefill under a mesh.*ROADMAP.md"):
-        eng.submit(np.ones(40, np.int32), 2)
+    # chunked prefill under a mesh, once refused, runs (ROADMAP.md 12c; a
+    # tensor-2 gang holds it to JAX in tests/test_torch_tp_serving_features.py):
+    # on this one-device mesh it is the one-device engine, as is
+    # prefill_chunked
+    got = []
+    for kw in (dict(mesh=mesh), {}):
+        eng = ServingEngine(tp, tcfg, slots=2, max_len=64, prompt_buckets=[16],
+                            prefill_chunk=16, **kw)
+        got.append(_run(eng, [eng.submit(_prompt(40, 3), 3), eng.submit(_prompt(6, 4), 5)]))
+        assert eng.stats()["chunked_prefills"] == 1
+    assert got[0] == got[1]
+    toks = torch.from_numpy(_toks(2, 11, 5))
+    chunked = [tdecode.prefill_chunked(tp, toks, tdecode.init_kv_cache(
+        tcfg, 2, 16, uniform=True, device="cpu"), tcfg, chunk_size=4, **kw)[0]
+        for kw in (dict(mesh=mesh), {})]
+    assert torch.equal(chunked[0], chunked[1])
     # generate(with_logprobs=True) runs under a mesh (a tensor-2 gang holds
     # it to one device in tests/test_torch_post_training_gang.py); on this
     # one-device mesh it is the one-device call

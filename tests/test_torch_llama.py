@@ -107,24 +107,37 @@ def test_init_matches_jax_tree_and_statistics():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: ring KV caches and MoE layers in a
-    decode under a mesh (the MoE layers, int8 weight leaves, int8 KV caches
-    and one-device ring caches that this test once pinned are ported)."""
+    """What the port still refuses: a mesh context axis above 1 in decode
+    (ROADMAP.md 12f) and LoRA adapters in decode under a mesh (12d). The MoE layers and ring caches under a mesh that this
+    test once pinned as refused are ported (12b, 12c): on a one-device
+    stand-in mesh a MoE prefill and a ring cache equal the one-device
+    ones (as did the int8 weight leaves, int8 KV caches and one-device ring
+    caches that it pinned before)."""
     import types
 
     from kubedl_tpu_torch.models import decode
     from kubedl_tpu_torch.parallel.mesh import AXIS_ORDER
 
+    def stand_in(**sizes):  # get_local_rank: the refusal comes before any collective
+        return types.SimpleNamespace(
+            mesh_dim_names=AXIS_ORDER, mesh=np.zeros([sizes.get(a, 1) for a in AXIS_ORDER]),
+            get_local_rank=lambda axis: 0)
+
     moe = tllama.LlamaConfig.tiny(dtype=torch.float32, n_experts=2)
-    mesh = types.SimpleNamespace(  # stand-in: the refusal comes before any collective
-        mesh_dim_names=AXIS_ORDER, mesh=np.zeros([2 if a == "tensor" else 1 for a in AXIS_ORDER]),
-        get_local_rank=lambda axis: 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.prefill(tllama.init(moe, torch.Generator().manual_seed(0), device="cpu"),
-                       torch.ones((1, 4), dtype=torch.int32), {}, moe, mesh=mesh)
+    params = tllama.init(moe, torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.arange(1, 5, dtype=torch.int32)[None]
+    got = [decode.prefill(params, prompt, decode.init_kv_cache(moe, 1, 8, device="cpu"), moe,
+                          **kw)[0] for kw in (dict(mesh=stand_in()), {})]
+    assert torch.equal(got[0], got[1])
+    with pytest.raises(NotImplementedError, match="context axis.*ROADMAP.md 12f"):
+        decode.prefill(params, prompt, {}, moe, mesh=stand_in(context=2))
+    with pytest.raises(NotImplementedError, match="LoRA adapters under a mesh.*ROADMAP.md 12d"):
+        decode.prefill(params, prompt, {}, moe, mesh=stand_in(), lora={"layers": []},
+                       adapter_ids=torch.zeros((1,), dtype=torch.int32))
     windowed = tllama.LlamaConfig.tiny(dtype=torch.float32, sliding_window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.init_kv_cache(windowed, 1, 8, ring=True, device="cpu", mesh=mesh)
+    ring = decode.init_kv_cache(windowed, 1, 8, ring=True, device="cpu", mesh=stand_in())
+    assert ring["k"][0].shape == decode.init_kv_cache(windowed, 1, 8, ring=True,
+                                                      device="cpu")["k"][0].shape
     assert decode.init_kv_cache(windowed, 1, 8, ring=True, device="cpu")["k"][0].shape[2] == 4
     with pytest.raises(ValueError):
         tllama.LlamaConfig.config_for("llama-70b")

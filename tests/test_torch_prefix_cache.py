@@ -150,13 +150,22 @@ def test_prefix_registry_cap_and_unregister(model):
 
 
 def test_prefix_under_a_mesh_is_refused(model):
+    """Once refused, prefix caching under a mesh now runs (ROADMAP.md 12c; a
+    tensor-2 gang holds it to JAX in tests/test_torch_tp_serving_features.py):
+    on a one-device stand-in mesh, suffix requests give the one-device
+    engine's tokens."""
     _, _, tcfg, tp = model
     mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_ORDER,
                                  mesh=np.zeros([1] * len(tmesh.AXIS_ORDER)),
                                  get_local_rank=lambda axis: 0)
-    eng = ServingEngine(tp, tcfg, slots=1, max_len=64, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="prefix caching under a mesh.*ROADMAP.md"):
-        eng.register_prefix([1, 2, 3])
+    rng = np.random.default_rng(5)
+    prefix, suffixes = _prompt(13, rng), [_prompt(3, rng), _prompt(8, rng)]
+    got = []
+    for kw in (dict(mesh=mesh), {}):
+        eng = ServingEngine(tp, tcfg, slots=2, max_len=64, **kw)
+        pid = eng.register_prefix(prefix)
+        got.append(_run(eng, [eng.submit(s, 5, prefix_id=pid) for s in suffixes]))
+    assert got[0] == got[1]
 
 
 def _post(base, path, body):

@@ -182,12 +182,18 @@ def test_ring_engine_refusals_match_jax(model):
 
 
 def test_ring_under_a_mesh_is_refused(model):
+    """Once refused, a ring under a mesh now serves (ROADMAP.md 12c; a
+    tensor-2 gang holds it to JAX in tests/test_torch_tp_serving_features.py):
+    on a one-device stand-in mesh the ring engine is the one-device ring
+    engine, and the ring cache has the one-device shape."""
     _, _, tcfg, tp = model
     mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_ORDER,
                                  mesh=np.zeros([1] * len(tmesh.AXIS_ORDER)),
                                  get_local_rank=lambda axis: 0)
-    with pytest.raises(NotImplementedError, match="ring KV cache under a mesh.*ROADMAP.md"):
-        ServingEngine(tp, tcfg, slots=1, max_len=64, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdecode.init_kv_cache(tcfg, 1, 64, ring=True, device="cpu", mesh=mesh)
-    ServingEngine(tp, tcfg, slots=1, max_len=64, ring=False, mesh=mesh)  # a full cache serves
+    prompts = _prompts((5, 19), 11)
+    on_mesh = ServingEngine(tp, tcfg, slots=2, max_len=64, mesh=mesh)
+    assert on_mesh.ring and "ring" in on_mesh.cache
+    assert on_mesh.serve_all(prompts, 6) == \
+        ServingEngine(tp, tcfg, slots=2, max_len=64).serve_all(prompts, 6)
+    ring = tdecode.init_kv_cache(tcfg, 1, 64, ring=True, device="cpu", mesh=mesh)
+    assert ring["k"][0].shape == (1, tcfg.n_kv_heads, WINDOW, tcfg.head_dim)

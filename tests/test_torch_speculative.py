@@ -270,6 +270,12 @@ def test_spec_engine_refusals(models):
     mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXIS_ORDER,
                                  mesh=np.zeros([1] * len(tmesh.AXIS_ORDER)),
                                  get_local_rank=lambda axis: 0)
-    with pytest.raises(NotImplementedError, match="speculative serving under a mesh"):
-        ServingEngine(tp, tcfg, slots=2, max_len=64, draft_params=td, draft_config=tcfg,
-                      mesh=mesh)
+    # speculative serving under a mesh, once refused, runs (ROADMAP.md 12c; a
+    # tensor-2 gang holds it to JAX in tests/test_torch_tp_serving_features.py):
+    # on a one-device stand-in mesh it is the one-device engine
+    prompts = [_prompt(6, 1), _prompt(9, 2)]
+    on_mesh = ServingEngine(tp, tcfg, slots=2, max_len=64, draft_params=td, draft_config=tcfg,
+                            mesh=mesh)
+    one = ServingEngine(tp, tcfg, slots=2, max_len=64, draft_params=td, draft_config=tcfg)
+    assert on_mesh.serve_all(prompts, 8) == one.serve_all(prompts, 8)
+    assert on_mesh.stats()["spec_acceptance"] == one.stats()["spec_acceptance"]

@@ -34,7 +34,12 @@ A case with kind "decode" (prompt, optional lengths, new_tokens, max_len,
 kv_dtype, and temperature/seed for a sampled run beside the greedy one)
 runs `decode.generate` on the sharded tree; kind "serving" (prompts,
 slots, max_len, new_tokens, kv_dtype) runs a `ServingEngine` on it. Every
-rank runs the whole batch, and every rank's tokens come back.
+rank runs the whole batch, and every rank's tokens come back; with "int8"
+the tree is quantized whole before it is sharded, and each rank's local
+int8 views come back too; a decode's routing counts come back a routing.
+Kind "features" (runs) drives the serving features under the mesh: ring,
+chunked prefill, a registered prefix and a self-draft speculative engine,
+`prefill_chunked` and `generate_speculative` (`_features_case`).
 
 A case with kind "vit" (config: ViTConfig fields, params, images, labels,
 lr) runs one models/vit.py step of `make_train_step` with AdamW (decay
@@ -93,6 +98,7 @@ sequence blocks. This module imports no JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
 import socket
@@ -158,8 +164,111 @@ def _like(tree, leaves):
     return build(tree)
 
 
+def _views_of(local, par):
+    """Layer 0's matrices and the LM head as this rank computes on them
+    (numpy; an int8 leaf as {"q", "s"}), and the rank's tensor and expert
+    coordinates."""
+    from kubedl_tpu_torch.parallel.mesh import axes_index, live_axes
+    from kubedl_tpu_torch.utils.convert import params_to_numpy
+
+    layer = local["layers"][0]
+    picked = {n: layer[n] for n in ("wq", "wk", "wv", "wo", "w1", "w3", "w2") if n in layer}
+    if "moe" in layer:
+        picked.update({"moe." + n: w for n, w in layer["moe"].items()})
+    if "lm_head" in local:
+        picked["lm_head"] = local["lm_head"]
+    expert = live_axes(par.mesh, par.rules.axes("expert"))
+    return params_to_numpy(picked), {"tensor": par.tp_index,
+                                     "expert": axes_index(par.mesh, expert)}
+
+
 def _inference_case(case):
-    """Greedy (and sampled) tokens of every rank for a decode or serving case."""
+    """Greedy (and sampled) tokens of every rank for a decode or serving
+    case. `int8`: the tree is quantized whole (models/quant.py) and then
+    sharded, and the rank's local views come back ("views", "coords").
+    A MoE decode also returns the per-expert routing counts of every routing
+    of its greedy run ("routing", one [E] list a layer a forward) and the
+    sha256 of each routing's gate logits ("gates_sha256")."""
+    import torch
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import decode, llama, moe, quant
+    from kubedl_tpu_torch.models.serving import ServingEngine
+    from kubedl_tpu_torch.parallel.mesh import ShardingRules, build_mesh, shard_tree
+    from kubedl_tpu_torch.utils.convert import config_from_fields, params_from_numpy
+
+    rules = ShardingRules()
+    mesh = build_mesh(case["ici"])
+    cfg = config_from_fields(**case["config"])
+    params = params_from_numpy(case["params"])
+    if case.get("int8"):
+        params = quant.quantize_params(params)
+    params = shard_tree(params, mesh, llama.param_specs(cfg, rules))
+    out = {}
+    if case.get("int8"):
+        out["views"], out["coords"] = _views_of(*decode._mesh_context(params, cfg, mesh, rules))
+    routing, gates = [], []
+    real = moe._top_k_gating
+
+    def counted(gate_logits, top_k, *a, **kw):
+        got = real(gate_logits, top_k, *a, **kw)
+        routing.append(moe._counts(got[0].reshape(-1), gate_logits.shape[-1]).tolist())
+        gates.append(hashlib.sha256(gate_logits.detach().contiguous().numpy().tobytes())
+                     .hexdigest())
+        return got
+
+    if case["kind"] == "decode":
+        prompt = torch.from_numpy(case["prompt"])
+        lengths = case.get("lengths")
+        lengths = None if lengths is None else torch.from_numpy(lengths)
+
+        def run(**kw):
+            got = decode.generate(params, prompt, cfg, case["new_tokens"],
+                                  max_len=case["max_len"], lengths=lengths,
+                                  kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules,
+                                  with_logprobs=bool(case.get("logprobs")), **kw)
+            return [t.tolist() for t in got] if case.get("logprobs") else got.tolist()
+        moe._top_k_gating = counted
+        try:
+            out["greedy"] = run()
+        finally:
+            moe._top_k_gating = real
+        out["routing"], out["gates_sha256"] = routing, gates
+        if case.get("temperature"):
+            out["sampled"] = run(temperature=case["temperature"],
+                                 generator=torch.Generator().manual_seed(case["seed"]))
+    else:
+        eng = ServingEngine(params, cfg, slots=case["slots"], max_len=case["max_len"],
+                            kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules)
+        out["greedy"] = eng.serve_all(case["prompts"], case["new_tokens"])
+        stats = eng.stats()
+        out["kv_cache_bytes"] = stats["kv_cache_bytes"]
+        out["cache_dtype"] = str(eng.cache["k"][0].dtype)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+
+def _drive(eng, run):
+    """A features run's requests on an engine: an optional registered
+    prefix with suffix requests, then the plain prompts, stepped to drain."""
+    reqs = []
+    if run.get("prefix") is not None:
+        pid = eng.register_prefix(run["prefix"])
+        reqs += [eng.submit(sfx, run["new_tokens"], prefix_id=pid) for sfx in run["suffixes"]]
+    reqs += [eng.submit(p, run["new_tokens"]) for p in run["prompts"]]
+    while not all(r.done for r in reqs):
+        eng.step_block()
+    return [list(map(int, r.tokens)) for r in reqs]
+
+
+def _features_case(case):
+    """The serving features under a mesh: each of `runs` is an engine
+    ("engine": ServingEngine arguments, "self_draft": the tree drafts for
+    itself; prompts, optional prefix and suffixes, new_tokens),
+    `prefill_chunked` (prompt [b, t], chunk: the last logits, then greedy
+    decode steps) or `generate_speculative` (prompt [1, t], k, self-draft).
+    Every rank's results come back."""
     import torch
     import torch.distributed as dist
 
@@ -172,29 +281,35 @@ def _inference_case(case):
     mesh = build_mesh(case["ici"])
     cfg = config_from_fields(**case["config"])
     params = shard_tree(params_from_numpy(case["params"]), mesh, llama.param_specs(cfg, rules))
+    on = dict(mesh=mesh, rules=rules)
     out = {}
-    if case["kind"] == "decode":
-        prompt = torch.from_numpy(case["prompt"])
-        lengths = case.get("lengths")
-        lengths = None if lengths is None else torch.from_numpy(lengths)
-
-        def run(**kw):
-            got = decode.generate(params, prompt, cfg, case["new_tokens"],
-                                  max_len=case["max_len"], lengths=lengths,
-                                  kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules,
-                                  with_logprobs=bool(case.get("logprobs")), **kw)
-            return [t.tolist() for t in got] if case.get("logprobs") else got.tolist()
-        out["greedy"] = run()
-        if case.get("temperature"):
-            out["sampled"] = run(temperature=case["temperature"],
-                                 generator=torch.Generator().manual_seed(case["seed"]))
-    else:
-        eng = ServingEngine(params, cfg, slots=case["slots"], max_len=case["max_len"],
-                            kv_dtype=case["kv_dtype"], mesh=mesh, rules=rules)
-        out["greedy"] = eng.serve_all(case["prompts"], case["new_tokens"])
-        stats = eng.stats()
-        out["kv_cache_bytes"] = stats["kv_cache_bytes"]
-        out["cache_dtype"] = str(eng.cache["k"][0].dtype)
+    for name, run in case["runs"].items():
+        if run["what"] == "engine":
+            kw = dict(run["engine"])
+            if run.get("self_draft"):
+                kw.update(draft_params=params, draft_config=cfg)
+            eng = ServingEngine(params, cfg, **kw, **on)
+            got = {"tokens": _drive(eng, run), "stats": eng.stats(),
+                   "cache_heads": eng.cache["k"][0].shape[1],
+                   "cache_rows": eng.cache["k"][0].shape[2]}
+        elif run["what"] == "prefill_chunked":
+            prompt = torch.from_numpy(run["prompt"])
+            cache = decode.init_kv_cache(cfg, prompt.shape[0], run["max_len"], uniform=True,
+                                         device="cpu", **on)
+            logits, cache = decode.prefill_chunked(params, prompt, cache, cfg,
+                                                   chunk_size=run["chunk"], **on)
+            first = logits.numpy()
+            toks = [logits.argmax(-1).to(torch.int32)]
+            for _ in range(run["new_tokens"] - 1):
+                logits, cache = decode.decode_step(params, toks[-1], cache, cfg, **on)
+                toks.append(logits.argmax(-1).to(torch.int32))
+            got = {"logits": first, "tokens": torch.stack(toks, 1).tolist()}
+        else:
+            toks, stats = decode.generate_speculative(
+                params, params, torch.from_numpy(run["prompt"]), cfg, cfg, run["new_tokens"],
+                k=run["k"], return_stats=True, **on)
+            got = {"tokens": toks.tolist(), "stats": stats}
+        out[name] = got
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, out)
     return {"ranks": ranks, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
@@ -590,6 +705,8 @@ def _post_training_case(case):
 
 
 def _case(case):
+    if case.get("kind") == "features":
+        return _features_case(case)
     if case.get("kind") in ("dpo", "grpo", "seqlp", "learner"):
         return _post_training_case(case)
     if case.get("kind") == "reshard":
